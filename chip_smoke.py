@@ -3,20 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — BatchedEngine(werewolf, "cuda").rollout, the
-batched scripted-bot rollout with auto-reset, 1024 steps per call at 4096
-and 65,536 rooms of 8 seats — through the CUDA rollout kernel, which it
-builds from csrc/ first. Phases, one JSON line each:
+Drives the port's two main paths through the hand-written CUDA kernels,
+which it builds from csrc/ first:
 
-  env      torch/CUDA versions and the GPU's name and power limit
-  build    nvcc build of csrc/rollout.cu, seconds and ptxas report
-  compare  kernel vs the plain-torch rollout on the same CUDA inputs, all 15
-           GameState fields and the episode count, exact: werewolf 4096x8
-           (256 steps), two-truths 1024x4 and a generated game 1024x5 (128
-           steps), and werewolf at two block sizes
-  main     the main path at both sizes: env-steps/s of the kernel, and one
-           timed call of the plain version from the same start, whose
-           output must equal the kernel's first call exactly
+- the engine: BatchedEngine(werewolf, "cuda").rollout, the batched
+  scripted-bot rollout with auto-reset, 1024 steps per call at 4096 and
+  65,536 rooms of 8 seats, through the rollout kernel (K1);
+- the learner: game_engine_tpu_torch.train.run.main, PPO self-play of the
+  full-width attn net (docs/checkpoints/attn_werewolf_u120.npz) on 4096
+  werewolf rooms, through the policy-net kernels: the forward (K2) in the
+  unroll, the one-pass PPO loss-grad (K4) in the update, and the backward
+  (K3) in one more update with fused_loss=False.
+
+Phases, one JSON line each:
+
+  env             torch/CUDA versions and the GPU's name and power limit
+  build           nvcc builds of csrc/rollout.cu and csrc/policy_net.cu, in
+                  parallel: seconds and ptxas reports
+  compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
+                  15 GameState fields and the episode count, exact: werewolf
+                  4096x8 (256 steps), two-truths 1024x4 and a generated game
+                  1024x5 (128 steps), and werewolf at two block sizes
+  main            the engine path at both sizes: env-steps/s of the kernel,
+                  and one timed call of the plain version from the same
+                  start, whose output must equal the kernel's first call
+  compare_policy  K2, K3 and K4 vs their plain versions on observations of
+                  a werewolf trajectory collected on the card (4096 rooms),
+                  for the attn checkpoint and a deepsets net at hidden 256:
+                  K2 and K3 on 32,768 rows (seeded dl/dv for K3), K4 on a
+                  4-step slice (131,072 rows) against ppo_loss's loss over
+                  the plain K2 + autograd, and its loss and metrics also
+                  against ppo_loss + autograd through apply_net (whose
+                  gradients, which round cotangents to bf16, are reported).
+                  Tolerances of tests/test_fused_net.py, relative to the max
+                  |ref|: forward 2e-2, gradients 5e-2, loss 2e-2; metrics
+                  5e-2 absolute
+  train           the learner path: 3 updates of run.main at its defaults
+                  (4096 rooms, 6 players, horizon 32, 4 epochs) from the attn
+                  checkpoint; steps/s and the unroll/update split by CUDA
+                  events
+  train_k3        one more update with fused_loss=False (K2 + K3)
+  train_plain     one update of run.main with --no-fused (no kernel), for
+                  the end-to-end comparison
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (nonzero exit). Without a
@@ -33,8 +61,18 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "game_engine_tpu_torch/csrc/rollout.cu"
 REPLACES = "game_engine_tpu/core/pallas_rollout.py:658"
+POLICY_SOURCE = "game_engine_tpu_torch/csrc/policy_net.cu"
+POLICY_REPLACES = {"policy_forward": "game_engine_tpu/policies/fused.py:299",
+                   "policy_backward": "game_engine_tpu/policies/fused.py:468",
+                   "ppo_loss_grad": "game_engine_tpu/policies/fused.py:600"}
+CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
 STEPS = 1024
 SIZES = (4096, 65536)
+ROOMS = 4096          # learner: rooms of the collected trajectory and of training
+TOL_FWD, TOL_GRAD, TOL_LOSS, TOL_METRIC = 2e-2, 5e-2, 2e-2, 5e-2
+TRAIN_ARGV = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
+              "--players", "6", "--horizon", "32", "--epochs", "4", "--updates", "3",
+              "--eval-batch", "512", "--resume", CKPT]
 
 
 def emit(obj) -> None:
@@ -62,6 +100,252 @@ def timed_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def ptxas_report(lib) -> list:
+    from game_engine_tpu_torch import _build
+
+    return [ln.strip() for ln in _build.build_log(lib).splitlines()
+            if "registers" in ln or "stack frame" in ln]
+
+
+def mean_ms(fn, reps=3):
+    """(result, mean device milliseconds per call) over `reps` calls after
+    one warm-up call."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        out, ms = timed_ms(fn)
+        times.append(ms)
+    return out, statistics.mean(times)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|: the tests' measure of closeness."""
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-6))
+
+
+def abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(what: str, err: float, tol: float) -> None:
+    if not err < tol:  # also catches NaN
+        raise AssertionError(f"{what}: error {err} is not below {tol}")
+
+
+def collect_trajectory(lowered, params, cfg):
+    """A 4-step trajectory of the plain-policy unroll (no kernel) from 4096
+    fresh werewolf rooms of 6 players, with GAE advantages and returns."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    pcfg = P.PPOConfig(horizon=4, net=cfg)
+    state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 99, device="cuda")
+    state, traj = P.make_unroll(lowered, pcfg)(params, state,
+                                               torch.Generator(device="cuda").manual_seed(5))
+    with torch.no_grad():
+        _, last_v = N.apply_net(params, N.observe(lowered, state), cfg, lowered)
+    adv, ret = P.gae(traj, last_v, pcfg)
+    return traj, adv, ret
+
+
+def policy_compare(lowered, traj, adv, ret, name: str, params, cfg) -> dict:
+    """K2, K3 and K4 against their plain versions on the card; raises past
+    the tolerances. Returns {kernel: (max_abs_err, max_rel_err, ms, plain_ms)}."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.train import ppo as P
+
+    d = FZ.dims_for(lowered, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = traj.obs[0].reshape(-1, d.F).contiguous()  # one step: 4096 rooms x 8 seats
+    n = rows.shape[0]
+    out, line = {}, {"phase": "compare_policy", "arch": cfg.arch, "params": name,
+                     "hidden": cfg.hidden, "plan": FZ.kernel_plan(d), "rows_k2_k3": n}
+
+    (lk, vk), ms = mean_ms(lambda: FZ.kernel_forward(d, rows, params))
+    (lp, vp), plain_ms = mean_ms(lambda: FZ.fused_forward_plain(d, rows, params))
+    errs = (rel_err(lk, lp), rel_err(vk, vp))
+    line.update(k2_logits_rel_err=errs[0], k2_value_rel_err=errs[1], k2_ms=ms,
+                k2_plain_ms=plain_ms)
+    check(f"K2 {name} logits", errs[0], TOL_FWD)
+    check(f"K2 {name} value", errs[1], TOL_FWD)
+    out["policy_forward"] = (max(abs_err(lk, lp), abs_err(vk, vp)), max(errs), ms, plain_ms)
+
+    dl = torch.randn((n, d.A), generator=gen, device="cuda")
+    dv = torch.randn((n,), generator=gen, device="cuda")
+
+    def plain_grads():
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        lo, vo = FZ.fused_forward_plain(d, rows, leaves)
+        g = torch.autograd.grad((lo * dl).sum() + (vo * dv).sum(), list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    gk, ms = mean_ms(lambda: FZ.kernel_grads(d, rows, dl, dv, params))
+    gp, plain_ms = mean_ms(plain_grads)
+    errs = {k: rel_err(gk[k], gp[k]) for k in gp}
+    line.update(k3_rel_err=errs, k3_ms=ms, k3_plain_ms=plain_ms)
+    for k, e in errs.items():
+        check(f"K3 {name} d{k}", e, TOL_GRAD)
+    out["policy_backward"] = (max(abs_err(gk[k], gp[k]) for k in gp), max(errs.values()), ms,
+                              plain_ms)
+
+    # K4 on the whole 4-step slice; logp_old moved off the policy's own so
+    # that ratios fall on both sides of the clip band
+    logp_old = traj.logp + 0.3 * torch.randn(traj.logp.shape, generator=gen, device="cuda")
+    tr = traj._replace(logp=logp_old)
+    pcfg = P.PPOConfig(net=cfg)
+    rows4 = FZ._as_rows(d, tr.obs)
+
+    def kernel_loss_grads():
+        rowin = FZ._loss_rows(d, tr.legal, tr.actions, tr.logp, adv, ret, tr.mask, pcfg.vf_coef)
+        return FZ.kernel_loss_grads(d, rows4, rowin, params, pcfg.clip, pcfg.ent_coef)
+
+    def plain_loss_grads():  # K4's plain version: ppo_loss's loss over the plain K2
+        rowin = FZ._loss_rows(d, tr.legal, tr.actions, tr.logp, adv, ret, tr.mask, pcfg.vf_coef)
+        return FZ.loss_vg_plain(d, rows4, rowin, params, pcfg.clip, pcfg.ent_coef)
+
+    def ppo_loss_grads():  # ppo_loss + autograd through the plain apply_net
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        loss, metrics = P.ppo_loss(leaves, tr, adv, ret, pcfg, lowered)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), dict(zip(leaves, g))
+
+    def loss_and_metrics(stats):
+        pg, v, ent, ratio = (float(x) for x in stats)
+        return pg + v - pcfg.ent_coef * ent, {"pg_loss": pg, "v_loss": v / pcfg.vf_coef,
+                                              "entropy": ent, "ratio_mean": ratio}
+
+    (gk4, sk4), ms = mean_ms(kernel_loss_grads)
+    (gp4, sp4), plain_ms = mean_ms(plain_loss_grads)
+    ((lx, mx), gx), ppo_ms = mean_ms(ppo_loss_grads)
+    lk4, mk4 = loss_and_metrics(sk4)
+    lp4, mp4 = loss_and_metrics(sp4)
+    loss_err = max(abs(lk4 - ref) / (abs(ref) + 1e-6) for ref in (lp4, float(lx)))
+    metric_errs = {k: max(abs(mk4[k] - mp4[k]), abs(mk4[k] - float(mx[k]))) for k in mp4}
+    errs = {k: rel_err(gk4[k], gp4[k]) for k in gp4}
+    line.update(rows_k4=rows4.shape[0], k4_loss=lk4, k4_plain_loss=lp4,
+                ppo_loss=float(lx), k4_loss_rel_err=loss_err, k4_metrics=mk4,
+                k4_plain_metrics=mp4, ppo_loss_metrics={k: float(v) for k, v in mx.items()},
+                k4_metric_abs_err=metric_errs, k4_grad_rel_err=errs,
+                k4_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gk4[k], gx[k]) for k in gx},
+                plain_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gp4[k], gx[k]) for k in gx},
+                k4_ms=ms, k4_plain_ms=plain_ms, ppo_loss_autograd_ms=ppo_ms)
+    emit(line)
+    check(f"K4 {name} loss", loss_err, TOL_LOSS)
+    for k, e in metric_errs.items():
+        check(f"K4 {name} {k}", e, TOL_METRIC)
+    for k, e in errs.items():
+        check(f"K4 {name} d{k}", e, TOL_GRAD)
+    out["ppo_loss_grad"] = (max(abs_err(gk4[k], gp4[k]) for k in gp4), max(errs.values()), ms,
+                            plain_ms)
+    return out
+
+
+def policy_launches() -> dict:
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    return {"policy_forward": FZ.kernel_forward.launches,
+            "policy_backward": FZ.kernel_grads.launches,
+            "ppo_loss_grad": FZ.kernel_loss_grads.launches}
+
+
+def zero_launches() -> None:
+    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    for fn in (kernel_rollout, FZ.kernel_forward, FZ.kernel_grads, FZ.kernel_loss_grads):
+        fn.launches = 0
+
+
+def train_phase(lowered, gpu: str) -> dict:
+    """The learner's main path: run.main, then one update with
+    fused_loss=False. Returns the kernel launches of each."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+    from game_engine_tpu_torch.train import run as R
+
+    argv = [os.path.join(HERE, CKPT) if a == CKPT else a for a in TRAIN_ARGV]
+    start, _ = N.load_policy(os.path.join(HERE, CKPT), device="cuda")
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        params = R.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = policy_launches()
+    events = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    for ev in events:
+        emit({"phase": "train_event", **ev})
+    if not any(ev["event"] == "fused_net" and ev["mode"] == "auto" for ev in events):
+        raise AssertionError("run.main did not turn the policy-net kernels on")
+    train = [ev for ev in events if ev["event"] == "train"][-1]
+    for k in ("loss", "pg_loss", "v_loss", "entropy", "ratio_mean"):
+        if not np.isfinite(train[k]):
+            raise AssertionError(f"train metric {k} is {train[k]}")
+    moved = max(float((params[k].detach() - start[k]).abs().max()) for k in start)
+    if not moved > 0:
+        raise AssertionError("the params did not move")
+    if launches["policy_forward"] <= 0 or launches["ppo_loss_grad"] <= 0:
+        raise AssertionError(f"the train path skipped a kernel: {launches}")
+    emit({"phase": "train", "argv": argv, "seconds": seconds,
+          "steps_per_sec": train["steps_per_sec"], "unroll_ms": train["unroll_ms"],
+          "update_ms": train["update_ms"], "loss": train["loss"],
+          "max_param_change": moved, "launches": launches, "gpu": gpu})
+
+    # K3 on a train path: one train step with fused_loss=False
+    cfg = P.PPOConfig(horizon=32, epochs=1, fused_net=True, fused_loss=False,
+                      net=N.NetConfig(hidden=256, arch="attn"))
+    opt = P.make_optimizer(params, cfg)
+    state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 5, device="cuda")
+    before = {k: v.detach().clone() for k, v in params.items()}
+    zero_launches()
+    _, metrics = P.make_train_step(lowered, cfg)(
+        params, opt, state, torch.Generator(device="cuda").manual_seed(3))
+    k3 = policy_launches()
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("fused_loss=False update: loss is not finite")
+    if k3["policy_backward"] <= 0 or k3["policy_forward"] <= 0:
+        raise AssertionError(f"the fused_loss=False update skipped a kernel: {k3}")
+    moved = max(float((params[k].detach() - before[k]).abs().max()) for k in before)
+    emit({"phase": "train_k3", "loss": float(metrics["loss"]),
+          "unroll_ms": metrics["unroll_ms"], "update_ms": metrics["update_ms"],
+          "max_param_change": moved, "launches": k3, "gpu": gpu})
+    if not moved > 0:
+        raise AssertionError("the fused_loss=False update did not move the params")
+
+    # the same path on the plain net, for the end-to-end comparison
+    flags = {**dict(zip(argv[::2], argv[1::2])), "--updates": "1", "--eval-batch": "0"}
+    out = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(out):
+        R.main([x for kv in flags.items() for x in kv] + ["--no-fused"])
+    if any(policy_launches().values()):
+        raise AssertionError(f"--no-fused launched a kernel: {policy_launches()}")
+    train = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{") and '"train"' in ln][-1]
+    if not np.isfinite(train["loss"]):
+        raise AssertionError("plain update: loss is not finite")
+    emit({"phase": "train_plain", "steps_per_sec": train["steps_per_sec"],
+          "unroll_ms": train["unroll_ms"], "update_ms": train["update_ms"],
+          "loss": train["loss"], "gpu": gpu})
+    return {"policy_forward": launches["policy_forward"] + k3["policy_forward"],
+            "policy_backward": k3["policy_backward"],
+            "ppo_loss_grad": launches["ppo_loss_grad"]}
 
 
 def main() -> int:
@@ -98,10 +382,10 @@ def main() -> int:
           "device_count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
+    _build.build_cuda()  # one nvcc per source, all at once
     lib = _build.cuda_lib()
-    ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
-             if "registers" in ln or "stack frame" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
+          "policy_net_ptxas": ptxas_report(_build.policy_lib())})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
@@ -181,12 +465,37 @@ def main() -> int:
               "episodes_completed": episodes[B], "episodes_completed_ok": episodes[B] > 0,
               "first_call_max_abs_err_vs_plain": err, "gpu": gpu})
 
+    # -- the learner: K2-K4 vs plain at full width, then its main path -------
+    from game_engine_tpu_torch.policies import net as N
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    attn, attn_cfg = N.load_policy(os.path.join(HERE, CKPT), device="cuda")
+    ds_cfg = N.NetConfig(hidden=256, arch="deepsets")
+    deepsets = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(ww),
+                             N.action_space(ww), ds_cfg, ww, device="cuda")
+    traj, adv, ret = collect_trajectory(ww, attn, attn_cfg)
+    policy = {}
+    for name, params, cfg in (("attn_werewolf_u120", attn, attn_cfg),
+                              ("deepsets_init_seed0", deepsets, ds_cfg)):
+        for k, v in policy_compare(ww, traj, adv, ret, name, params, cfg).items():
+            if name.startswith("attn"):
+                policy[k] = v  # times at the shipped attn net
+            else:  # the larger error of the two nets
+                policy[k] = (max(policy[k][0], v[0]), max(policy[k][1], v[1])) + policy[k][2:]
+    del traj, adv, ret
+    torch.cuda.empty_cache()
+    launches = train_phase(ww, gpu)
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": main_launches, "max_abs_err": worst,
-        "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]]}]})
+        "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]]}] + [{
+        "name": k, "route": "cuda", "source": POLICY_SOURCE, "replaces": POLICY_REPLACES[k],
+        "launches": launches[k], "max_abs_err": policy[k][0], "max_rel_err": policy[k][1],
+        "ms": policy[k][2], "plain_ms": policy[k][3]} for k in POLICY_REPLACES]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,12 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA rollout kernel is compiled by nvcc for sm_90a into a shared
-library with a plain C interface; the host harness (the kernel's per-room
-body, compiled by g++) serves the CPU tests. Both land in build/kernels/ at
-the repository root, named by a hash of their sources, so an unchanged
-source is built once. A failed build raises with the compiler's output.
+The CUDA kernels (csrc/rollout.cu, csrc/policy_net.cu) are compiled by
+nvcc for sm_90a into shared libraries with a plain C interface; the host
+harnesses (the kernels' per-room and per-tile bodies, compiled by g++)
+serve the CPU tests. All land in build/kernels/ at the repository root,
+named by a hash of every source in csrc/ and the compiler command, so an
+unchanged tree is built once and an edit to any source or header rebuilds.
+A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -15,41 +17,79 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "build", "kernels")
-_HEADER = os.path.join(_CSRC, "room_step.cuh")
+_SOURCE_EXTS = (".cu", ".cuh", ".cpp", ".h", ".hpp")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
 # game, game_len, bools, nums, strs, pdict, odict, present, regs, scal, eps,
 # B, num_steps, auto_reset
-_ROLLOUT_ARGS = [_P, _I] + [_P] * 9 + [ctypes.c_int64, _I, _I]
+_ROLLOUT_ARGS = [_P, _I] + [_P] * 9 + [_I64, _I, _I]
+# meta, obs, nrows, prm, prmB, logits, value
+_PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
+# meta, obs, nrows, rowin, mode, clip_eps, ent_coef, prm, prmB, prmT, slabs,
+# max_blocks, out
+_PN_GRAD_ARGS = [_P, _P, _I64, _P, _I, _F, _F, _P, _P, _P, _P, _I, _P]
 
 
-def _compile(src: str, stem: str, cmd_prefix: list) -> str:
-    """Compile `src` (+ the shared header) into BUILD_DIR once per source
-    hash; returns the library path."""
-    digest = hashlib.sha256()
-    for path in (src, _HEADER):
-        with open(path, "rb") as f:
-            digest.update(f.read())
+def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
+    """BUILD_DIR/<stem>_<hash>.so, the hash taken over every source file in
+    `csrc` (default: the package's csrc/), `src`'s name and the command."""
+    csrc = csrc or _CSRC
+    digest = hashlib.sha256(os.path.basename(src).encode())
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith(_SOURCE_EXTS):
+            digest.update(name.encode())
+            with open(os.path.join(csrc, name), "rb") as f:
+                digest.update(f.read())
     digest.update(" ".join(cmd_prefix).encode())
+    return os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def _compile_all(jobs: list) -> list:
+    """Compile each (src, stem, cmd_prefix) not yet built, all compilers
+    running at once; returns the library paths in order."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = cmd_prefix + ["-I", _CSRC, src, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{proc.stderr}")
-    # keep the compiler's report (nvcc: -Xptxas -v registers/spills)
-    with open(so[:-3] + ".log", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, so)
-    return so
+    paths, running = [], []
+    for src, stem, cmd_prefix in jobs:
+        so = lib_path(src, stem, cmd_prefix)
+        paths.append(so)
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = cmd_prefix + ["-I", _CSRC, src, "-o", tmp]
+        err = tempfile.TemporaryFile(mode="w+")
+        running.append((so, tmp, cmd, err,
+                        subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err, text=True)))
+    failures = []
+    for so, tmp, cmd, err, proc in running:
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = -1
+        err.seek(0)
+        log = err.read()
+        err.close()
+        if rc != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            failures.append(f"kernel build failed: {' '.join(cmd)}\n{log}")
+            continue
+        # keep the compiler's report (nvcc: -Xptxas -v registers/spills)
+        with open(so[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
 
 
 def _nvcc_path() -> str:
@@ -63,14 +103,29 @@ def _nvcc_path() -> str:
     return found
 
 
+def _nvcc_cmd() -> list:
+    return [_nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_GXX_CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
+
+
+def _cuda_jobs() -> list:
+    return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
+            (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd())]
+
+
+def build_cuda() -> list:
+    """Build every CUDA library at once (one nvcc per source, in parallel);
+    returns their paths. cuda_lib() and policy_lib() then load them."""
+    return _compile_all(_cuda_jobs())
+
+
 @functools.lru_cache(maxsize=None)
 def cuda_lib() -> ctypes.CDLL:
     """csrc/rollout.cu built with nvcc for sm_90a, loaded."""
-    so = _compile(os.path.join(_CSRC, "rollout.cu"), "librollout", [
-        _nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    ])
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[:1])[0])
     lib.ge_rollout.restype = _I
     lib.ge_rollout.argtypes = _ROLLOUT_ARGS + [_I, _P]  # threads, stream
     lib.ge_limits.restype = None
@@ -83,14 +138,44 @@ def cuda_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def host_lib() -> ctypes.CDLL:
     """csrc/rollout_host.cpp (the kernel's per-room body) built with g++."""
-    so = _compile(os.path.join(_CSRC, "rollout_host.cpp"), "librollout_host", [
-        "g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-    ])
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "rollout_host.cpp"),
+                                     "librollout_host", _GXX_CMD)])[0])
     lib.ge_rollout_host.restype = _I
     lib.ge_rollout_host.argtypes = _ROLLOUT_ARGS
     lib.ge_limits.restype = None
     lib.ge_limits.argtypes = [_P]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def policy_lib() -> ctypes.CDLL:
+    """csrc/policy_net.cu (kernels K2-K4 of the policy net) built with nvcc
+    for sm_90a, loaded."""
+    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[1:])[0])
+    lib.pn_forward.restype = _I
+    lib.pn_forward.argtypes = _PN_FWD_ARGS + [_P]  # stream
+    lib.pn_grad.restype = _I
+    lib.pn_grad.argtypes = _PN_GRAD_ARGS + [_P]  # stream
+    lib.pn_plan.restype = _I
+    lib.pn_plan.argtypes = [_P, _I, _P]
+    lib.pn_meta_ints.restype = _I
+    lib.pn_meta_ints.argtypes = []
+    lib.pn_error_string.restype = ctypes.c_char_p
+    lib.pn_error_string.argtypes = [_I]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def policy_host_lib() -> ctypes.CDLL:
+    """csrc/policy_net_host.cpp (the policy kernels' tile code) built with g++."""
+    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "policy_net_host.cpp"),
+                                     "libpolicy_net_host", _GXX_CMD)])[0])
+    lib.pn_forward_host.restype = _I
+    lib.pn_forward_host.argtypes = _PN_FWD_ARGS + [_I]  # rows per tile
+    lib.pn_grad_host.restype = _I
+    lib.pn_grad_host.argtypes = _PN_GRAD_ARGS + [_I]  # rows per tile
+    lib.pn_meta_ints.restype = _I
+    lib.pn_meta_ints.argtypes = []
     return lib
 
 

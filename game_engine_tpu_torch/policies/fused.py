@@ -1,0 +1,488 @@
+"""Host side of the policy-net kernels K2-K4 (csrc/policy_net.cu).
+
+Counterpart of game_engine_tpu/policies/fused.py for the deepsets/attn net:
+
+  make_apply    (params, obs) -> (logits, value), a torch.autograd.Function
+                whose forward launches K2 (pn_forward_kernel, which replaces
+                fused.py:299) and whose backward launches K3 (pn_grad_kernel
+                mode 0, fused.py:468). obs gets no gradient.
+  make_loss_vg  (params, obs, legal, actions, logp_old, adv, ret, mask) ->
+                ((loss, metrics), grads) through K4 (pn_grad_kernel mode 1,
+                fused.py:600): forward, PPO cotangents and gradient in one
+                pass over the rows. The steps before the kernel stay plain
+                torch (fused.py:646-680): the masked advantage normalisation,
+                the one-hot actions and the wrow/vrow row weights. The kernel
+                masks the ragged edge of the rows itself, so no row padding.
+
+Each kernel has its plain-torch version here: ``fused_forward_plain``
+follows _fwd_body's cast points (K2), autograd through it is K3's, and
+``loss_vg_plain`` is K4's. A wrapper given CUDA tensors launches its kernel
+or raises; CPU tensors take the plain version; ``host_forward`` and
+``host_grads`` run the kernels' own tile code built with g++ on CPU tensors.
+Each kernel wrapper counts its launches in ``<wrapper>.launches``;
+``kernel_plan`` reports the tile size and resources the kernels run with.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch import _build
+from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.policies.net import bf, gelu
+
+_F32 = torch.float32
+MAX_LAYERS = 8  # policy_net.cuh
+N_STATS = 4
+# policy_net.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
+_SLOT = {"w_phi0": 0, "b_phi0": 1, "w_phi1": 2, "b_phi1": 3, "ln_s": 4, "ln_b": 5,
+         "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12}
+_N_SLOTS = 13 + 2 * MAX_LAYERS
+
+
+@dataclasses.dataclass(frozen=True)
+class Dims:
+    """Static shape config for one (lowered game, net config) pair."""
+
+    P: int          # seats
+    F0: int         # per-target feature width
+    NP: int         # phase count (one-hot width in globals)
+    hp: int         # encoder width
+    hidden: int     # trunk width
+    layers: int     # trunk depth
+    n_opt: int      # option-head width
+    A: int          # unified action width = max(P, n_opt)
+    has_attn: bool
+
+    @property
+    def G(self) -> int:  # viewer one-hot + phase one-hot + alive fraction
+        return self.P + self.NP + 1
+
+    @property
+    def F(self) -> int:
+        return self.P * self.F0 + self.G
+
+    @property
+    def trunk_in(self) -> int:
+        return 2 * self.hp + self.NP + 1
+
+
+def dims_for(lowered: Lowered, cfg: N.NetConfig) -> Dims:
+    n_opt = max(1, int(lowered.choice_max.max()))
+    return Dims(P=lowered.P, F0=N._per_player_dim(lowered), NP=lowered.NP,
+                hp=max(32, cfg.hidden // 2), hidden=cfg.hidden, layers=cfg.layers,
+                n_opt=n_opt, A=max(lowered.P, n_opt), has_attn=cfg.arch == "attn")
+
+
+def supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
+    """The kernels cover deepsets/attn with one attention head and 1 to
+    MAX_LAYERS trunk layers."""
+    return (cfg.arch in ("deepsets", "attn") and cfg.attn_heads == 1
+            and 1 <= cfg.layers <= MAX_LAYERS)
+
+
+# ---------------------------------------------------------------------------
+# parameter marshalling: dict -> flat buffers in a fixed order
+# ---------------------------------------------------------------------------
+
+def _param_names(d: Dims) -> list[str]:
+    names = ["w_phi0", "b_phi0", "w_phi1", "b_phi1"]
+    if d.has_attn:
+        names += ["ln_s", "ln_b", "w_qkv", "w_ao"]
+    names += ["w_ptr"]
+    for i in range(d.layers):
+        names += [f"w{i}", f"b{i}"]
+    names += ["w_pi", "b_pi", "w_v", "b_v"]
+    return names
+
+
+def _param_shapes(d: Dims) -> dict[str, tuple]:
+    hp, H = d.hp, d.hidden
+    shapes = {"w_phi0": (d.F0, hp), "b_phi0": (hp,), "w_phi1": (hp, hp), "b_phi1": (hp,),
+              "ln_s": (hp,), "ln_b": (hp,), "w_qkv": (hp, 3 * hp), "w_ao": (hp, hp),
+              "w_ptr": (H, hp), "w_pi": (H, d.n_opt), "b_pi": (d.n_opt,),
+              "w_v": (H, 1), "b_v": (1,)}
+    for i in range(d.layers):
+        shapes[f"w{i}"] = (d.trunk_in if i == 0 else H, H)
+        shapes[f"b{i}"] = (H,)
+    return {n: shapes[n] for n in _param_names(d)}
+
+
+def _slot(name: str) -> int:
+    if name in _SLOT:
+        return _SLOT[name]
+    i = int(name[1:])
+    return 13 + 2 * i + (name[0] == "b")
+
+
+def _meta(d: Dims) -> np.ndarray:
+    """policy_net.cuh's Net as int32: the dims, then each parameter's float
+    offset in the flat buffers (in _param_names order)."""
+    off = np.zeros(_N_SLOTS, np.int32)
+    at = 0
+    for name, shape in _param_shapes(d).items():
+        off[_slot(name)] = at
+        at += math.prod(shape)
+    return np.concatenate([np.array(
+        [d.P, d.F0, d.NP, d.hp, d.hidden, d.layers, d.n_opt, d.A, int(d.has_attn), at],
+        np.int32), off])
+
+
+def _pack_params(params: dict, d: Dims, device) -> tuple:
+    """-> (prm f32, prmB bf16-rounded f32, prmT with every weight transposed,
+    meta int32 numpy) for the kernels; raises on a missing or misshapen
+    param or one on another device."""
+    flat, flat_t = [], []
+    for name, shape in _param_shapes(d).items():
+        p = params[name]
+        if tuple(p.shape) != shape:
+            raise ValueError(f"param {name} has shape {tuple(p.shape)}, expected {shape}")
+        if p.device != device:
+            raise ValueError(f"param {name} is on {p.device}, the rows on {device}")
+        p = p.detach().to(_F32)
+        flat.append(p.reshape(-1))
+        flat_t.append((p.t() if p.dim() == 2 else p).reshape(-1))
+    prm = torch.cat(flat).contiguous()
+    return prm, bf(prm).contiguous(), torch.cat(flat_t).contiguous(), _meta(d)
+
+
+def kernel_plan(d: Dims) -> dict:
+    """How the kernels run on the current CUDA device: rows per tile, shared
+    bytes per block and registers per thread of the forward (K2) and the
+    gradient kernel (K3/K4)."""
+    lib = _build.policy_lib()
+    meta = _meta(d)
+    if len(meta) != lib.pn_meta_ints():
+        raise RuntimeError("policy_net.cuh's Net layout differs from fused.py's")
+    out = {}
+    for bwd, name in ((0, "forward"), (1, "gradient")):
+        got = np.zeros(3, np.int32)
+        _raise_on(lib.pn_plan(meta.ctypes.data, bwd, got.ctypes.data), lib, "plan")
+        out[name] = {"rows_per_tile": int(got[0]), "shared_bytes": int(got[1]),
+                     "registers": int(got[2])}
+    return out
+
+
+def _unpack(flat: torch.Tensor, d: Dims) -> dict[str, torch.Tensor]:
+    out, at = {}, 0
+    for name, shape in _param_shapes(d).items():
+        n = math.prod(shape)
+        out[name] = flat[at:at + n].reshape(shape)
+        at += n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _bfs(x):
+    """Round to bf16 in the forward; the gradient passes through in f32.
+    The kernels' backward (_grad_body) carries f32 cotangents through every
+    cast point, where autograd through bf() would round them to bf16: near
+    a trained optimum, where a gradient is a small sum of large terms that
+    cancel, that rounding alone moves some gradients by 20-100%."""
+    return x + (bf(x) - x).detach()
+
+
+def _bdot(x, w):
+    return _bfs(x) @ _bfs(w)
+
+
+def fused_forward_plain(d: Dims, rows: torch.Tensor, params: dict):
+    """The plain version of K2: rows (n, F) bf16 -> (logits (n, A), value (n,))
+    with _fwd_body's cast points. Differentiable in params: K3's plain
+    version is autograd through it, with f32 cotangents (see _bfs)."""
+    P, F0, hp = d.P, d.F0, d.hp
+    x = rows.to(_F32)
+    n = x.shape[0]
+    room = x[:, :P * F0].reshape(n, P, F0)
+    z0 = _bdot(room, params["w_phi0"]) + params["b_phi0"]
+    e = gelu(_bdot(gelu(z0), params["w_phi1"]) + params["b_phi1"])
+    eb = _bfs(e)
+    if d.has_attn:
+        mu = eb.mean(-1, keepdim=True)
+        var = (eb - mu).square().mean(-1, keepdim=True)
+        hn = (eb - mu) * torch.rsqrt(var + 1e-5)
+        hb = _bfs(hn * params["ln_s"] + params["ln_b"])
+        qkv = _bdot(hb, params["w_qkv"])
+        q, k, w = qkv[..., :hp], qkv[..., hp:2 * hp], qkv[..., 2 * hp:]
+        att = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / math.sqrt(hp)), dim=-1)
+        o = _bfs(att) @ w
+        phi = _bfs(e + _bdot(o, params["w_ao"]))
+    else:
+        phi = eb
+    viewer = x[:, P * F0:P * F0 + P]
+    t = torch.cat([phi.sum(1) * (1.0 / P), (viewer[:, :, None] * phi).sum(1),
+                   x[:, P * F0 + P:]], dim=-1)
+    for i in range(d.layers):
+        t = gelu(_bdot(t, params[f"w{i}"]) + params[f"b{i}"])
+    opt = _bdot(t, params["w_pi"]) + params["b_pi"]
+    g = _bfs(_bdot(t, params["w_ptr"]))
+    scores = _bfs(phi * g[:, None, :]).sum(-1)  # (n, P)
+    logits = F.pad(opt, (0, d.A - d.n_opt)) + F.pad(scores, (0, d.A - P))
+    value = (_bdot(t, params["w_v"]) + params["b_v"])[:, 0]
+    return logits, value
+
+
+def loss_vg_plain(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
+                  clip_eps: float, ent_coef: float):
+    """The plain version of K4: the PPO loss over fused_forward_plain from
+    the pre-kernel rows (see _loss_rows), and its parameter gradient by
+    autograd -> (grads, stats [pg_loss, vf * v_loss, entropy, ratio_mean])."""
+    A = d.A
+    with torch.enable_grad():
+        leaves = {k: params[k].detach().to(_F32).requires_grad_(True)
+                  for k in _param_names(d)}
+        logits, value = fused_forward_plain(d, rows, leaves)
+        legal, aoh = rowin[:, :A], rowin[:, A:2 * A]
+        logp_old, advn, ret, wrow, vrow = rowin[:, 2 * A:].unbind(-1)
+        logits = torch.where(legal > 0, logits, torch.full_like(logits, -1e9))
+        logp_all = torch.log_softmax(logits, dim=-1)
+        ratio = torch.exp((logp_all * aoh).sum(-1) - logp_old)
+        pg = -torch.minimum(ratio * advn, ratio.clamp(1 - clip_eps, 1 + clip_eps) * advn)
+        ent = -(logp_all.exp() * logp_all).sum(-1)
+        stats = torch.stack([(pg * wrow).sum(), (0.5 * (value - ret) ** 2 * vrow).sum(),
+                             (ent * wrow).sum(), (ratio * wrow).sum()])
+        loss = stats[0] + stats[1] - ent_coef * stats[2]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return dict(zip(leaves, grads)), stats.detach()
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_rows(d: Dims, rows: torch.Tensor, device_type: str) -> None:
+    if rows.device.type != device_type:
+        raise ValueError(f"expected {device_type} rows, got {rows.device}")
+    if rows.dtype != torch.bfloat16 or rows.dim() != 2 or rows.shape[1] != d.F \
+            or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous bf16 (n, {d.F}); got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+
+
+def _check_f32(t: torch.Tensor, shape: tuple, device, name: str) -> None:
+    if t.dtype != _F32 or tuple(t.shape) != shape or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous f32 {shape} on {device}; got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.pn_error_string(err).decode()}")
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
+    """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32."""
+    _check_rows(d, rows, "cuda")
+    dev = rows.device
+    prm, prm_b, _, meta = _pack_params(params, d, dev)
+    n = rows.shape[0]
+    logits = torch.empty((n, d.A), dtype=_F32, device=dev)
+    value = torch.empty((n,), dtype=_F32, device=dev)
+    lib = _build.policy_lib()
+    err = lib.pn_forward(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
+                         prm_b.data_ptr(), logits.data_ptr(), value.data_ptr(), _stream(dev))
+    _raise_on(err, lib, "K2 (policy forward)")
+    kernel_forward.launches += 1
+    return logits, value
+
+
+kernel_forward.launches = 0
+
+
+def _grad_launch(d: Dims, rows, rowin, mode: int, clip_eps: float, ent_coef: float,
+                 params: dict):
+    dev = rows.device
+    prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
+    ng = prm.numel() + N_STATS
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    slabs = torch.empty((blocks * ng,), dtype=_F32, device=dev)
+    out = torch.empty((ng,), dtype=_F32, device=dev)
+    lib = _build.policy_lib()
+    err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
+                      mode, clip_eps, ent_coef, prm.data_ptr(), prm_b.data_ptr(),
+                      prm_t.data_ptr(), slabs.data_ptr(), blocks, out.data_ptr(), _stream(dev))
+    _raise_on(err, lib, "K3 (policy backward)" if mode == 0 else "K4 (PPO loss-grad)")
+    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
+
+
+def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor,
+                 params: dict) -> dict:
+    """K3: the parameter gradient of sum(dl * logits) + sum(dv * value) over
+    CUDA rows, recomputing the forward."""
+    _check_rows(d, rows, "cuda")
+    n = rows.shape[0]
+    rowin = torch.cat([dl.to(_F32).reshape(n, d.A), dv.to(_F32).reshape(n, 1)], 1).contiguous()
+    _check_f32(rowin, (n, d.A + 1), rows.device, "dl | dv")
+    grads, _ = _grad_launch(d, rows, rowin, 0, 0.0, 0.0, params)
+    kernel_grads.launches += 1
+    return grads
+
+
+kernel_grads.launches = 0
+
+
+def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
+                      clip_eps: float, ent_coef: float):
+    """K4 on CUDA rows and the pre-kernel rowin (see _loss_rows) ->
+    (grads, stats [pg_loss, vf * v_loss, entropy, ratio_mean])."""
+    _check_rows(d, rows, "cuda")
+    _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
+    out = _grad_launch(d, rows, rowin, 1, clip_eps, ent_coef, params)
+    kernel_loss_grads.launches += 1
+    return out
+
+
+kernel_loss_grads.launches = 0
+
+
+def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int = 3):
+    """K2's tile code built with g++, on CPU rows -> (logits, value)."""
+    _check_rows(d, rows, "cpu")
+    prm, prm_b, _, meta = _pack_params(params, d, rows.device)
+    n = rows.shape[0]
+    logits = torch.empty((n, d.A), dtype=_F32)
+    value = torch.empty((n,), dtype=_F32)
+    lib = _build.policy_host_lib()
+    err = lib.pn_forward_host(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
+                              prm_b.data_ptr(), logits.data_ptr(), value.data_ptr(),
+                              rows_per_tile)
+    if err != 0:
+        raise RuntimeError(f"host forward failed ({err})")
+    return logits, value
+
+
+def host_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, mode: int, params: dict,
+               clip_eps: float = 0.0, ent_coef: float = 0.0, blocks: int = 3,
+               rows_per_tile: int = 2):
+    """K3 (mode 0, rowin = dl | dv) or K4 (mode 1) tile code and slab
+    reduction built with g++, on CPU rows -> (grads, stats)."""
+    _check_rows(d, rows, "cpu")
+    prm, prm_b, prm_t, meta = _pack_params(params, d, rows.device)
+    ng = prm.numel() + N_STATS
+    slabs = torch.empty((blocks * ng,), dtype=_F32)
+    out = torch.empty((ng,), dtype=_F32)
+    rowin = rowin.to(_F32).contiguous()
+    lib = _build.policy_host_lib()
+    err = lib.pn_grad_host(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
+                           mode, clip_eps, ent_coef, prm.data_ptr(), prm_b.data_ptr(),
+                           prm_t.data_ptr(), slabs.data_ptr(), blocks, out.data_ptr(),
+                           rows_per_tile)
+    if err != 0:
+        raise RuntimeError(f"host gradient failed ({err})")
+    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
+
+
+# ---------------------------------------------------------------------------
+# public entries
+# ---------------------------------------------------------------------------
+
+class _FusedNet(torch.autograd.Function):
+    """K2 forward, K3 backward; gradients flow to the params only."""
+
+    @staticmethod
+    def forward(ctx, d, rows, *plist):
+        params = dict(zip(_param_names(d), plist))
+        ctx.d = d
+        ctx.save_for_backward(rows, *plist)
+        return kernel_forward(d, rows, params)
+
+    @staticmethod
+    def backward(ctx, dl, dv):
+        rows, *plist = ctx.saved_tensors
+        names = _param_names(ctx.d)
+        grads = kernel_grads(ctx.d, rows, dl.contiguous(), dv.contiguous(),
+                             dict(zip(names, plist)))
+        d_rows = torch.zeros_like(rows) if ctx.needs_input_grad[1] else None
+        return (None, d_rows, *[grads[n].to(p.dtype) for n, p in zip(names, plist)])
+
+
+def _as_rows(d: Dims, obs: torch.Tensor) -> torch.Tensor:
+    if obs.shape[-1] != d.F:
+        raise ValueError(f"obs width {obs.shape[-1]} != {d.F}")
+    return obs.reshape(-1, d.F).to(torch.bfloat16).contiguous()
+
+
+def make_apply(lowered: Lowered, cfg: N.NetConfig):
+    """(params, obs (..., F)) -> (logits (..., A), value (...)), a drop-in for
+    net.apply_net on the deepsets/attn archs: K2 forward / K3 backward on
+    CUDA tensors, the plain version on CPU tensors."""
+    if not supports(lowered, cfg):
+        raise ValueError("fused kernels cover deepsets/attn with 1 head")
+    d = dims_for(lowered, cfg)
+    names = _param_names(d)
+
+    def apply(params, obs):
+        lead = obs.shape[:-1]
+        rows = _as_rows(d, obs)
+        if rows.is_cuda:
+            logits, value = _FusedNet.apply(d, rows, *[params[n] for n in names])
+        elif rows.device.type == "cpu":
+            logits, value = fused_forward_plain(d, rows, params)
+        else:
+            raise ValueError(f"unsupported device {rows.device}")
+        return logits.reshape(lead + (d.A,)), value.reshape(lead)
+
+    return apply
+
+
+def _loss_rows(d: Dims, legal, actions, logp_old, adv, ret, mask, vf_coef: float):
+    """The pre-kernel steps (fused.py:646-676) -> rowin (n, 2A + 5) f32 =
+    legal | one-hot action | logp_old, normalised advantage, ret,
+    wrow = mask / msum, vrow = vf_coef / n."""
+    n = mask.numel()
+    A = d.A
+    m = mask.to(_F32).reshape(n, 1)
+    msum = m.sum().clamp_min(1.0)
+    advf = adv.to(_F32).reshape(n, 1)
+    mean = (advf * m).sum() / msum
+    std = torch.sqrt((m * (advf - mean) ** 2).sum() / msum) + 1e-8
+    a_idx = (actions.reshape(n).long() - 1).clamp(0, A - 1)
+    aoh = F.one_hot(a_idx, A).to(_F32)
+    return torch.cat([legal.reshape(n, A).to(_F32), aoh,
+                      logp_old.to(_F32).reshape(n, 1), (advf - mean) / std,
+                      ret.to(_F32).reshape(n, 1), m / msum,
+                      torch.full((n, 1), vf_coef / n, dtype=_F32, device=m.device)],
+                     dim=1).contiguous()
+
+
+def make_loss_vg(lowered: Lowered, cfg: N.NetConfig, clip_eps: float, vf_coef: float,
+                 ent_coef: float):
+    """(params, obs, legal, actions, logp_old, adv, ret, mask) ->
+    ((loss, metrics), grads): the fused train path's replacement for
+    value_and_grad(ppo_loss), one K4 pass on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not supports(lowered, cfg):
+        raise ValueError("fused kernels cover deepsets/attn with 1 head")
+    d = dims_for(lowered, cfg)
+
+    def loss_vg(params, obs, legal, actions, logp_old, adv, ret, mask):
+        rows = _as_rows(d, obs)
+        rowin = _loss_rows(d, legal, actions, logp_old, adv, ret, mask, vf_coef)
+        if rows.is_cuda:
+            grads, stats = kernel_loss_grads(d, rows, rowin, params, clip_eps, ent_coef)
+        elif rows.device.type == "cpu":
+            grads, stats = loss_vg_plain(d, rows, rowin, params, clip_eps, ent_coef)
+        else:
+            raise ValueError(f"unsupported device {rows.device}")
+        pg_loss, v_loss, entropy, ratio_mean = stats.unbind()
+        loss = pg_loss + v_loss - ent_coef * entropy
+        metrics = {"pg_loss": pg_loss, "v_loss": v_loss / vf_coef,
+                   "entropy": entropy, "ratio_mean": ratio_mean}
+        return (loss, metrics), grads
+
+    return loss_vg

@@ -1,0 +1,499 @@
+"""Learned bot policy: per-player actor-critic heads over room observations.
+
+Counterpart of game_engine_tpu/policies/net.py with the same observation
+layout, parameter names and shapes, and bf16 cast points:
+
+  observe            (B, P, F) bf16, masked hidden-role view by default
+  apply_net          mlp / deepsets / attn; bf16 operands, f32 accumulation,
+                     tanh gelu
+  legal_action_mask  (B, P, A) bool
+  sample_actions     Gumbel-max over the legal-masked logits
+
+A product of bf16 operands is computed as f32 on the bf16-rounded values:
+each product of two bf16 numbers is exact in f32 and the sum stays f32,
+which is what ``_bf16_dot`` (bf16 operands, f32 accumulation) computes;
+``torch.matmul`` on bf16 tensors would round its output to bf16.
+
+``load_policy`` reads the JAX package's checkpoints (npz + .tree.json)
+with numpy alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch.core.state import GameState, tables
+from game_engine_tpu_torch.core.step import _alive
+
+_PRIVATE_RE = re.compile(r"\bprivate\b|\bhidden\b|\bsecret\b", re.IGNORECASE)
+_REVEAL_RE = re.compile(r"reveal", re.IGNORECASE)
+
+VIS_PUBLIC, VIS_SELF, VIS_TEAM = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# numpy-level helpers (copied: the JAX module imports jax at its top)
+# ---------------------------------------------------------------------------
+
+def field_visibility(lowered: Lowered) -> dict[str, int]:
+    """Per-field observation visibility, derived from the DSL itself.
+
+    Fields whose declaration description says private/hidden/secret are
+    SELF-only. The team field (and role) is TEAM when an audience group
+    selects by team. Action bookkeeping is SELF when its phase selects its
+    actors by non-public fields. Everything else is PUBLIC."""
+    from game_engine_tpu.gamespec.expr import collect_atoms
+
+    decl = lowered.game.spec.declaration
+    team_grouped = any(
+        re.search(r"\bteam\b", g.selection_criteria) for g in decl.audience_groups
+    )
+    out: dict[str, int] = {}
+    for f in decl.fields:
+        if _PRIVATE_RE.search(f.description) or _PRIVATE_RE.search(f.name):
+            out[f.name] = VIS_SELF
+        else:
+            out[f.name] = VIS_PUBLIC
+    base_vis = dict(out)
+    if team_grouped:
+        for name in ("team", "role"):
+            if name in base_vis:
+                base_vis[name] = VIS_TEAM
+
+    for cp in lowered.game.phases:
+        try:
+            atoms = list(collect_atoms(cp.target_pred))
+        except Exception:  # noqa: BLE001 — unknown pred shape: be private
+            atoms = None
+        if atoms is not None and all(
+                base_vis.get(a.field, VIS_PUBLIC) == VIS_PUBLIC
+                for a in atoms):
+            continue  # selected by public info only: writes stay public
+        rp = cp.program.record
+        for name in rp.set_bool_true + rp.set_bool_false:
+            out[name] = VIS_SELF
+        for name in (rp.write_choice_num, rp.mark_odict):
+            if name:
+                out[name] = VIS_SELF
+        if rp.write_pdict:
+            out[rp.write_pdict[0]] = VIS_SELF
+    if team_grouped:
+        for name in ("team", "role"):
+            if name in out:
+                out[name] = VIS_TEAM
+    return out
+
+
+def _phase_public_acting(lowered: Lowered) -> np.ndarray:
+    """(NP,) bool — whether WHO-has-acted in each phase is public info
+    (the phase selects actors by public fields only)."""
+    from game_engine_tpu.gamespec.expr import collect_atoms
+
+    vis = field_visibility(lowered)
+    out = np.zeros((lowered.NP,), dtype=bool)
+    for cp in lowered.game.phases:
+        try:
+            atoms = list(collect_atoms(cp.target_pred))
+        except Exception:  # noqa: BLE001
+            atoms = None
+        out[cp.index] = atoms is not None and all(
+            vis.get(a.field, VIS_PUBLIC) == VIS_PUBLIC for a in atoms)
+    return out
+
+
+def minority_team_code(lowered: Lowered):
+    """String code of the coordinating (minority/'evil') team, or None."""
+    for m in lowered.game_overs:
+        if m.mode == "team" and m.team_codes:
+            return int(m.team_codes[0])
+    return None
+
+
+def _obs_fields(lowered: Lowered):
+    """Declared fields that enter the observation ('name' is cosmetic)."""
+    return [f for f in lowered.game.spec.declaration.fields if f.name != "name"]
+
+
+def _per_player_dim(lowered: Lowered) -> int:
+    lay = lowered.game.layout
+    d = 2  # acted + alive
+    for f in _obs_fields(lowered):
+        s = lay.slot(f.name)
+        if s.bank in ("bool", "num"):
+            d += 1
+        elif s.bank == "str":
+            d += max(2, len(s.vocab))
+    return d
+
+
+def obs_dim(lowered: Lowered) -> int:
+    P = lowered.P
+    # full-room view + viewer one-hot + phase + count
+    return P * _per_player_dim(lowered) + P + lowered.NP + 1
+
+
+def action_space(lowered: Lowered) -> int:
+    """Unified discrete choice space: 1..A (0 reserved for no-op)."""
+    return max(lowered.P, int(lowered.choice_max.max()) if lowered.choice_max.size else 0)
+
+
+# ---------------------------------------------------------------------------
+# observation
+# ---------------------------------------------------------------------------
+
+def _phase_table(lowered: Lowered, name: str, fn, device) -> torch.Tensor:
+    """A per-phase numpy table as a tensor, cached with the step's tables."""
+    tabs = tables(lowered, device)
+    if name not in tabs:
+        tabs[name] = torch.as_tensor(fn(lowered), device=device)
+    return tabs[name]
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """(..., n) one-hot; out-of-range indices give all zeros (as jax.nn.one_hot)."""
+    return (idx[..., None].long() == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def observe(lowered: Lowered, state: GameState, masked: bool = True) -> torch.Tensor:
+    """(B, P, F) bfloat16 — each viewer sees the room through the game's
+    information rules (masked=True), or the full room (masked=False)."""
+    B, P = state.present.shape
+    dev = state.present.device
+    lay = lowered.game.layout
+    vis = field_visibility(lowered)
+    team_slot = lay.get("team")
+    if masked and team_slot is not None and team_slot.bank == "str":
+        team = state.strs[..., team_slot.index]
+        same_team = (team[:, :, None] == team[:, None, :]) & (team[:, :, None] != 0)
+        # only the coordinating (minority) team sees its teammates
+        code = minority_team_code(lowered)
+        if code is not None:
+            same_team = same_team & (team[:, :, None] == code)
+    else:
+        same_team = torch.zeros((B, P, P), dtype=torch.bool, device=dev)
+    is_self = torch.eye(P, dtype=torch.bool, device=dev)[None].expand(B, P, P)
+
+    # P15: a seat whose reveal flag is set has its role/team made public
+    revealed = None
+    if masked:
+        for f in lowered.game.spec.declaration.fields:
+            if _REVEAL_RE.search(f.name):
+                rs = lay.get(f.name)
+                if rs is not None and rs.bank == "bool":
+                    revealed = state.bools[..., rs.index]  # (B, P) targets
+                    break
+
+    def mask_for(field: str) -> Optional[torch.Tensor]:
+        """(B, viewer P, target P) — may the viewer see this field? None: all."""
+        if not masked:
+            return None
+        v = vis.get(field, VIS_PUBLIC)
+        if v == VIS_SELF:
+            m = is_self
+        elif v == VIS_TEAM:
+            m = is_self | same_team
+        else:
+            return None
+        if revealed is not None and field in ("role", "team"):
+            m = m | revealed[:, None, :]
+        return m
+
+    dt = torch.bfloat16
+    blocks = []
+    for f in _obs_fields(lowered):
+        s = lay.slot(f.name)
+        if s.bank == "bool":
+            feat = state.bools[..., s.index, None].to(dt)
+        elif s.bank == "num":
+            feat = state.nums[..., s.index, None].to(dt) / torch.tensor(P, dtype=dt)
+        elif s.bank == "str":
+            feat = _one_hot(state.strs[..., s.index], max(2, len(s.vocab)), dt)
+        else:
+            continue  # dict banks enter via their recorded scalar effects
+        m = mask_for(f.name)
+        full = feat[:, None, :, :].expand(B, P, P, feat.shape[-1])
+        blocks.append(full if m is None else torch.where(m[..., None], full, 0))
+    alive = _alive(lowered, state)
+    acted = state.acted
+    if masked:
+        # who-acted is public only in publicly-targeted phases
+        pub = _phase_table(lowered, "phase_public_acting", _phase_public_acting,
+                           dev)[state.phase.long()]
+        acted_vt = acted[:, None, :] & (pub[:, None, None] | is_self)
+        blocks.append(acted_vt.to(dt)[..., None])
+    else:
+        blocks.append(acted.to(dt)[:, None, :, None].expand(B, P, P, 1))
+    blocks.append(alive.to(dt)[:, None, :, None].expand(B, P, P, 1))
+    room = torch.cat(blocks, dim=-1).reshape(B, P, -1)  # (B, V, T*F0)
+
+    viewer = torch.eye(P, dtype=dt, device=dev)[None].expand(B, P, P)
+    phase_oh = _one_hot(state.phase, lowered.NP, dt)[:, None, :].expand(B, P, lowered.NP)
+    n_alive = (alive.sum(1, dtype=torch.int32).to(dt) / torch.tensor(P, dtype=dt))
+    n_alive = n_alive[:, None, None].expand(B, P, 1)
+    return torch.cat([room, viewer, phase_oh, n_alive], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the net
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    hidden: int = 256
+    layers: int = 2
+    # 'mlp': flat trunk over the whole room observation; 'deepsets': a
+    # shared per-seat encoder phi pooled over targets, with a pointer head
+    # scoring each seat; 'attn': deepsets + one residual self-attention
+    # block over the seat axis before pooling
+    arch: str = "mlp"
+    attn_heads: int = 1
+
+
+def bf(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 operands, f32 accumulation: the rounded values multiplied in f32."""
+    return bf(x) @ bf(w)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh gelu, as jax.nn.gelu (approximate=True)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def init_params(generator: torch.Generator, in_dim: int, n_actions: int,
+                cfg: NetConfig, lowered: Lowered | None = None,
+                device="cpu") -> dict[str, torch.Tensor]:
+    """Plain-dict f32 params with the JAX package's names and shapes
+    (normal / sqrt(fan_in) weights, zero biases), drawn from `generator`."""
+    params: dict[str, torch.Tensor] = {}
+
+    def lin(i, o):
+        w = torch.randn((i, o), generator=generator, dtype=torch.float32)
+        return (w / np.sqrt(i)).to(device)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=device)
+
+    if cfg.arch in ("deepsets", "attn"):
+        if lowered is None:
+            raise ValueError("deepsets/attn init needs the lowered game")
+        F0, NP = _per_player_dim(lowered), lowered.NP
+        hp = max(32, cfg.hidden // 2)
+        params["w_phi0"] = lin(F0, hp)
+        params["b_phi0"] = zeros(hp)
+        params["w_phi1"] = lin(hp, hp)
+        params["b_phi1"] = zeros(hp)
+        params["w_ptr"] = lin(cfg.hidden, hp)
+        if cfg.arch == "attn":
+            if hp % cfg.attn_heads != 0:
+                raise ValueError(
+                    f"attn arch needs max(32, hidden//2)={hp} divisible by "
+                    f"attn_heads={cfg.attn_heads}")
+            params["w_qkv"] = lin(hp, 3 * hp)
+            params["w_ao"] = lin(hp, hp)
+            params["ln_s"] = torch.ones((hp,), dtype=torch.float32, device=device)
+            params["ln_b"] = zeros(hp)
+        dims = [2 * hp + NP + 1] + [cfg.hidden] * cfg.layers
+        n_actions = max(1, int(lowered.choice_max.max()))  # option head only
+    else:
+        dims = [in_dim] + [cfg.hidden] * cfg.layers
+    for i in range(cfg.layers):
+        params[f"w{i}"] = lin(dims[i], dims[i + 1])
+        params[f"b{i}"] = zeros(dims[i + 1])
+    params["w_pi"] = lin(cfg.hidden, n_actions)
+    params["b_pi"] = zeros(n_actions)
+    params["w_v"] = lin(cfg.hidden, 1)
+    params["b_v"] = zeros(1)
+    return params
+
+
+def _trunk_and_heads(params, x, n_targets: int, ptr=None):
+    """x bf16-valued f32 (..., in) -> (logits, value); ptr (..., P, hp)
+    bf16-valued seat embeddings for the pointer head."""
+    i = 0
+    while f"w{i}" in params:
+        x = bf(gelu(_bf16_dot(x, params[f"w{i}"]) + params[f"b{i}"]))
+        i += 1
+    logits = _bf16_dot(x, params["w_pi"]) + params["b_pi"]
+    if ptr is not None:
+        # pointer scores for the first P actions: the product rounds to bf16
+        # (the JAX net multiplies in bf16), the sum is f32
+        g = bf(_bf16_dot(x, params["w_ptr"]))
+        scores = bf(ptr * g[..., None, :]).sum(-1)  # (..., P)
+        a = max(n_targets, logits.shape[-1])
+        logits = (F.pad(logits, (0, a - logits.shape[-1]))
+                  + F.pad(scores, (0, a - scores.shape[-1])))
+    value = (_bf16_dot(x, params["w_v"]) + params["b_v"])[..., 0]
+    return logits, value
+
+
+def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
+              lowered: Lowered | None = None):
+    """obs (..., F) -> (logits (..., A) f32, value (...,) f32)."""
+    x = bf(obs.float())
+    if cfg.arch not in ("deepsets", "attn"):
+        return _trunk_and_heads(params, x, obs.shape[-1])
+    if lowered is None:
+        raise ValueError("deepsets/attn apply needs the lowered game")
+    P, F0 = lowered.P, _per_player_dim(lowered)
+    lead = x.shape[:-1]
+    room = x[..., : P * F0].reshape(lead + (P, F0))  # (..., target, F0)
+    viewer_oh = x[..., P * F0: P * F0 + P]
+    globals_ = x[..., P * F0 + P:]  # phase one-hot + n_alive
+    phi = gelu(_bf16_dot(room, params["w_phi0"]) + params["b_phi0"])
+    phi = bf(gelu(_bf16_dot(phi, params["w_phi1"]) + params["b_phi1"]))  # (..., P, hp)
+    if cfg.arch == "attn":
+        hp = phi.shape[-1]
+        nh = cfg.attn_heads
+        hd = hp // nh
+        m = phi.mean(-1, keepdim=True)
+        v = (phi - m).square().mean(-1, keepdim=True)
+        h = bf((phi - m) * torch.rsqrt(v + 1e-5) * params["ln_s"] + params["ln_b"])
+        qkv = _bf16_dot(h, params["w_qkv"]).reshape(lead + (P, 3, nh, hd))
+        q, k, w = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        att = torch.einsum("...qhd,...khd->...hqk", q, k) / np.sqrt(hd)
+        att = bf(torch.softmax(att, dim=-1))
+        o = torch.einsum("...hqk,...khd->...qhd", att, w).reshape(lead + (P, hp))
+        phi = bf(phi + _bf16_dot(o, params["w_ao"]))
+    pooled = phi.mean(-2)
+    self_phi = (phi * viewer_oh[..., None]).sum(-2)
+    trunk_in = bf(torch.cat([pooled, self_phi, globals_], dim=-1))
+    return _trunk_and_heads(params, trunk_in, P, ptr=phi)
+
+
+# ---------------------------------------------------------------------------
+# actions
+# ---------------------------------------------------------------------------
+
+def legal_action_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """(B, P, A) bool — which choices the engine would accept (P2)."""
+    from game_engine_tpu.gamespec.mechanics import ChoiceKind
+
+    B, P = state.present.shape
+    dev = state.present.device
+    A = action_space(lowered)
+    tabs = tables(lowered, dev)
+    phl = state.phase.long()
+    kind = tabs["choice_kind"][phl][:, None, None]  # (B, 1, 1)
+    kmax = tabs["choice_max"][phl][:, None, None]
+    n_present = state.present.sum(1, dtype=torch.int32)[:, None, None]
+    cidx = torch.arange(1, A + 1, dtype=torch.int32, device=dev)[None, None, :]
+    alive_pad = F.pad(_alive(lowered, state), (0, max(0, A - P)))[:, None, :]
+    target_ok = (cidx <= P) & alive_pad
+    hi = torch.where(kmax > 0, kmax, n_present)
+    option_ok = cidx <= hi
+    submit_ok = cidx == 1
+    mask = torch.where(
+        kind == ChoiceKind.TARGET.value,
+        target_ok,
+        torch.where(kind == ChoiceKind.OPTION.value, option_ok, submit_ok),
+    )
+    return mask.expand(B, P, A)
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(U)), U uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
+                   obs=None, apply_fn=None, gumbel=None,
+                   generator: torch.Generator | None = None):
+    """Sample per-player choices: argmax(masked logits + Gumbel noise), which
+    is how jax.random.categorical draws.
+
+    Returns (actions (B,P) 1-based int32, logp (B,P), value (B,P),
+    legal-action mask (B,P,A)). ``gumbel`` supplies the noise (e.g. JAX's
+    own draws in a test); otherwise it is drawn from ``generator``.
+    ``apply_fn`` overrides the net forward (e.g. the fused kernel)."""
+    if obs is None:
+        obs = observe(lowered, state)
+    if apply_fn is None:
+        logits, value = apply_net(params, obs, cfg, lowered)
+    else:
+        logits, value = apply_fn(params, obs)
+    mask = legal_action_mask(lowered, state)
+    logits = torch.where(mask, logits, torch.tensor(-1e9, dtype=logits.dtype,
+                                                    device=logits.device))
+    if gumbel is None:
+        if generator is None:
+            raise ValueError("sample_actions needs gumbel noise or a generator")
+        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+    a = torch.argmax(logits + gumbel, dim=-1)  # (B, P) in [0, A)
+    logp = torch.log_softmax(logits, dim=-1).gather(-1, a[..., None])[..., 0]
+    return (a + 1).to(torch.int32), logp, value, mask
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> dict[str, torch.Tensor]:
+    """name -> f32 tensor on `device`."""
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in arrays.items()}
+
+
+def infer_net_config(params: dict[str, Any]) -> NetConfig:
+    """The NetConfig from parameter shapes (as policies/serve.py infers it):
+    attn carries w_qkv, deepsets w_phi0 without it, the flat MLP neither."""
+    if "w_qkv" in params:
+        arch = "attn"
+    elif "w_phi0" in params:
+        arch = "deepsets"
+    else:
+        arch = "mlp"
+    hidden = int(params["w0"].shape[1])
+    layers = 0
+    while f"w{layers}" in params:
+        layers += 1
+    return NetConfig(hidden=hidden, layers=layers, arch=arch, attn_heads=1)
+
+
+def load_policy(path: str, device="cpu") -> tuple[dict[str, torch.Tensor], NetConfig]:
+    """Load a save_tree checkpoint (npz + .tree.json) with numpy alone.
+    Leaf i is the i-th key of the sorted params dict, as the treedef
+    string lists it; the attn head count rides in the sidecar's meta."""
+    stem = path[:-4] if path.endswith(".npz") else path
+    with open(stem + ".tree.json", encoding="utf-8") as f:
+        meta = json.load(f)
+    with np.load(stem + ".npz") as npz:
+        leaves = [npz[k] for k in
+                  sorted(npz.files, key=lambda s: int(s.rsplit("_", 1)[1]))]
+    keys = re.findall(r"'([^']+)': \*", meta["treedef"])
+    if len(keys) != len(leaves):
+        raise ValueError(f"checkpoint {path}: {len(leaves)} leaves vs {len(keys)} keys")
+    params = params_from_numpy(dict(zip(keys, leaves)), device)
+    cfg = infer_net_config(params)
+    heads = int((meta.get("meta") or {}).get("attn_heads", 0))
+    if heads:
+        cfg = dataclasses.replace(cfg, attn_heads=heads)
+    return params, cfg
+
+
+def save_policy(path: str, params: dict[str, torch.Tensor], meta: dict | None = None) -> None:
+    """Write params in the JAX package's save_tree layout: leaf_i arrays in
+    sorted-key order in an npz, and the treedef string in .tree.json, so
+    either package's loader reads it."""
+    stem = path[:-4] if path.endswith(".npz") else path
+    keys = sorted(params)
+    np.savez_compressed(stem + ".npz", **{
+        f"leaf_{i}": params[k].detach().cpu().numpy() for i, k in enumerate(keys)})
+    treedef = "PyTreeDef({" + ", ".join(f"'{k}': *" for k in keys) + "})"
+    with open(stem + ".tree.json", "w", encoding="utf-8") as f:
+        json.dump({"treedef": treedef, "n": len(keys), **({"meta": meta} if meta else {})}, f)
+

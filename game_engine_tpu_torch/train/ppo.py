@@ -1,0 +1,334 @@
+"""PPO self-play over batched rooms.
+
+Counterpart of game_engine_tpu/train/ppo.py. Zero-sum terminal rewards:
+in team games every player whose team wins gets +1, losers -1, paid on the
+episode-end step; in score games the winning player gets +1. Only players
+whose action was relevant this step contribute to the policy loss;
+everyone contributes to the value loss.
+
+A train step unrolls T env steps with the learned policy (a Python loop
+over the port's plain engine step, as the JAX unroll uses the XLA step),
+computes GAE, then runs `epochs` full-batch clipped-PPO updates with
+torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
+deepsets/attn net runs through the policy-net kernels (policies/fused.py):
+K2 in the unroll and the bootstrap value, K4 in each update (or K2 + K3
+with ``fused_loss=False``).
+
+Randomness comes from an explicit torch.Generator; it does not reproduce
+jax.random's draws (sample_actions takes given noise for that).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from game_engine_tpu.gamespec.tables import LGameOver, Lowered
+from game_engine_tpu_torch.core.engine import init_state_like
+from game_engine_tpu_torch.core.state import GameState, tables
+from game_engine_tpu_torch.core.step import PredEval, make_step
+from game_engine_tpu_torch.policies import net as N
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    horizon: int = 32
+    epochs: int = 4  # PPO epochs over each rollout
+    gamma: float = 0.99
+    lam: float = 0.95
+    clip: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 3e-4
+    # timesteps recomputed per checkpointed chunk in the plain deepsets/attn
+    # loss (the set-encoder activations are too big to hold for the whole
+    # horizon at thousands of rooms)
+    loss_chunk: int = 1
+    # route the deepsets/attn net through the policy-net kernels
+    fused_net: bool = False
+    # with fused_net: one K4 pass per update instead of K2 forward + K3
+    # backward through ppo_loss
+    fused_loss: bool = True
+    net: N.NetConfig = dataclasses.field(default_factory=N.NetConfig)
+
+
+def _game_over_mech(lowered: Lowered) -> LGameOver | None:
+    return lowered.game_overs[0] if lowered.game_overs else None
+
+
+def make_apply_fn(lowered: Lowered, cfg: PPOConfig):
+    """(params, obs) -> (logits, value): the fused kernels when enabled and
+    supported, else the plain apply_net."""
+    if cfg.fused_net:
+        from game_engine_tpu_torch.policies import fused as FZ
+
+        if FZ.supports(lowered, cfg.net):
+            return FZ.make_apply(lowered, cfg.net)
+    return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered)
+
+
+def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
+    """(B, P) float32 rewards paid on the step an episode ends."""
+    go = _game_over_mech(lowered)
+    B, P = state.present.shape
+    dev = state.present.device
+    if go is None:
+        return torch.zeros((B, P), dtype=torch.float32, device=dev)
+    if go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
+        team = state.strs[..., go.team_str_slot].to(torch.int32)
+        codes = torch.as_tensor(np.asarray(go.team_codes, np.int32), device=dev)
+        win_code = codes[(state.winner - 1).clamp(0, len(go.team_codes) - 1).long()]
+        r = torch.where(team == win_code[:, None], 1.0, -1.0)
+    elif go.mode == "score":
+        pidx = torch.arange(1, P + 1, dtype=torch.int32, device=dev)[None, :]
+        # zero-sum per room: losers split -1 across the room's actual seats
+        n = state.present.sum(1).to(torch.float32)[:, None]
+        r = torch.where(pidx == state.winner[:, None], 1.0, -1.0 / (n - 1).clamp_min(1))
+    else:
+        r = torch.zeros((B, P), dtype=torch.float32, device=dev)
+    return torch.where(ended[:, None] & state.present, r, 0.0).to(torch.float32)
+
+
+def actor_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """(B, P) — players whose decision this step is policy-relevant."""
+    pe = PredEval(lowered, state)
+    target = torch.zeros_like(state.present)
+    by_pred: dict[int, list[int]] = {}
+    for i, pi in enumerate(lowered.phase_target_pred):
+        by_pred.setdefault(int(pi), []).append(i)
+    for pi, phase_idxs in by_pred.items():
+        hit = torch.zeros_like(state.done)
+        for i in phase_idxs:
+            hit = hit | (state.phase == i)
+        target = torch.where(hit[:, None], pe.pred(pi), target)
+    is_action = tables(lowered, state.present.device)["phase_is_action"][
+        state.phase.long()][:, None] != 0
+    return target & state.present & is_action & ~state.acted & ~state.done[:, None]
+
+
+class Rollout(NamedTuple):
+    obs: torch.Tensor  # (T, B, P, F) bf16
+    actions: torch.Tensor  # (T, B, P) 1-based
+    logp: torch.Tensor  # (T, B, P)
+    value: torch.Tensor  # (T, B, P)
+    reward: torch.Tensor  # (T, B, P)
+    done: torch.Tensor  # (T, B) episode ended at this step
+    mask: torch.Tensor  # (T, B, P) actor mask
+    legal: torch.Tensor  # (T, B, P, A) legal-action mask used at sampling
+
+
+def reset_done(lowered: Lowered, state: GameState) -> GameState:
+    """Rooms that are done restart (init_state_like); the rest stay."""
+    fresh = init_state_like(lowered, state)
+    d = state.done
+    return GameState(*(torch.where(d.reshape((-1,) + (1,) * (old.dim() - 1)), f, old)
+                       for f, old in zip(fresh, state)))
+
+
+def make_unroll(lowered: Lowered, cfg: PPOConfig):
+    step = make_step(lowered)
+    apply_fn = make_apply_fn(lowered, cfg) if cfg.fused_net else None
+
+    @torch.no_grad()
+    def unroll(params, state: GameState, generator: torch.Generator):
+        steps = []
+        for _ in range(cfg.horizon):
+            obs = N.observe(lowered, state)
+            a, logp, v, legal = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
+                                                 apply_fn=apply_fn, generator=generator)
+            mask = actor_mask(lowered, state)
+            actions = torch.where(mask, a, 0)
+            nxt = step(state, actions)
+            ended = nxt.done & ~state.done
+            reward = terminal_rewards(lowered, nxt, ended)
+            state = reset_done(lowered, nxt)
+            steps.append(Rollout(obs, actions, logp, v, reward, ended, mask, legal))
+        return state, Rollout(*(torch.stack(xs) for xs in zip(*steps)))
+
+    return unroll
+
+
+def gae(traj: Rollout, last_value: torch.Tensor, cfg: PPOConfig):
+    """(T, B, P) advantages + returns; bootstrap cut at episode ends."""
+    adv_next = torch.zeros_like(last_value)
+    v_next = last_value
+    advs = []
+    for t in range(traj.value.shape[0] - 1, -1, -1):
+        v, r = traj.value[t], traj.reward[t]
+        nonterm = 1.0 - traj.done[t][:, None].to(torch.float32)
+        delta = r + cfg.gamma * v_next * nonterm - v
+        adv_next = delta + cfg.gamma * cfg.lam * nonterm * adv_next
+        v_next = v
+        advs.append(adv_next)
+    advs = torch.stack(advs[::-1])
+    return advs, advs + traj.value
+
+
+def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
+             lowered: Lowered | None = None):
+    """Clipped-PPO loss -> (total, metrics)."""
+    if cfg.fused_net and cfg.net.arch in ("deepsets", "attn"):
+        # the kernels hold no activations: the whole trajectory in one call
+        logits, value = make_apply_fn(lowered, cfg)(params, traj.obs)
+    elif cfg.net.arch in ("deepsets", "attn"):
+        # recompute in chunks of timesteps with checkpointing, so the
+        # backward holds one chunk's set-encoder activations at a time
+        T = traj.obs.shape[0]
+        C = max(1, min(cfg.loss_chunk, T))
+        while T % C:  # largest divisor of T not above the requested chunk
+            C -= 1
+        outs = [checkpoint(lambda o: N.apply_net(params, o, cfg.net, lowered),
+                           traj.obs[t:t + C], use_reentrant=False)
+                for t in range(0, T, C)]
+        logits = torch.cat([o[0] for o in outs])
+        value = torch.cat([o[1] for o in outs])
+    else:
+        logits, value = N.apply_net(params, traj.obs, cfg.net, lowered)
+    # the same legal-action masking as at sampling time
+    logits = torch.where(traj.legal, logits, torch.full_like(logits, -1e9))
+    logp_all = torch.log_softmax(logits, dim=-1)
+    a_idx = (traj.actions.long() - 1).clamp(0, logits.shape[-1] - 1)
+    logp = logp_all.gather(-1, a_idx[..., None])[..., 0]
+    ratio = torch.exp(logp - traj.logp)
+
+    m = traj.mask.to(torch.float32)
+    msum = m.sum().clamp_min(1.0)
+    mean = (adv * m).sum() / msum
+    adv_n = (adv - mean) / (torch.sqrt((m * (adv - mean) ** 2).sum() / msum) + 1e-8)
+    pg = -torch.minimum(ratio * adv_n, ratio.clamp(1 - cfg.clip, 1 + cfg.clip) * adv_n)
+    pg_loss = (pg * m).sum() / msum
+    v_loss = 0.5 * ((value - ret) ** 2).mean()
+    ent = -(logp_all.exp() * logp_all).sum(-1)
+    ent_loss = -(ent * m).sum() / msum
+    total = pg_loss + cfg.vf_coef * v_loss + cfg.ent_coef * ent_loss
+    return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": -ent_loss,
+                   "ratio_mean": (ratio * m).sum() / msum}
+
+
+def team_masks(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """(B, P) — the 'protagonist' side for cross-play eval: the minority
+    team, speakers for speaker games, or seat 1 in free-for-all score games."""
+    go = next(iter(lowered.game_overs), None)
+    if go is not None and go.mode == "team" and go.team_codes:
+        return state.strs[..., go.team_str_slot].to(torch.int32) == go.team_codes[0]
+    if lowered.game.layout.get("is_speaker") is not None:
+        return state.bools[..., lowered.game.layout.bool_index("is_speaker")]
+    P = state.present.shape[1]
+    seat1 = torch.arange(P, device=state.present.device)[None, :] == 0
+    return seat1.expand(state.present.shape) & state.present
+
+
+def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig):
+    """((loss, metrics), grads) through K4 (one pass over the rows), or None
+    when the config does not qualify."""
+    if not (cfg.fused_net and cfg.fused_loss and cfg.net.arch in ("deepsets", "attn")):
+        return None
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    if not FZ.supports(lowered, cfg.net):
+        return None
+    mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef)
+
+    def loss_vg(params, traj, adv, ret):
+        return mono(params, traj.obs, traj.legal, traj.actions, traj.logp, adv, ret,
+                    traj.mask)
+
+    return loss_vg
+
+
+class _Clock:
+    """Milliseconds between marks: CUDA events on a GPU, the host clock on
+    the CPU."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def spans_ms(self) -> list:
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def make_update(lowered: Lowered, cfg: PPOConfig):
+    """update(params, opt, traj, adv, ret) -> (loss, metrics): one Adam
+    step of `params` in place on the PPO loss of a trajectory, through K4
+    (fused_loss), K2 + K3 (fused_net alone) or autograd over apply_net."""
+    loss_vg = make_loss_vg_fn(lowered, cfg)
+
+    def update(params, opt: torch.optim.Optimizer, traj: Rollout, adv, ret):
+        names = list(params)
+        if loss_vg is not None:
+            (loss, metrics), grads = loss_vg(params, traj, adv, ret)
+            grads = [grads[k] for k in names]
+        else:
+            loss, metrics = ppo_loss(params, traj, adv, ret, cfg, lowered)
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+        for k, g in zip(names, grads):
+            params[k].grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss, metrics
+
+    return update
+
+
+def make_train_step(lowered: Lowered, cfg: PPOConfig):
+    """train_step(params, opt, state, generator) -> (state, metrics): one
+    unroll, GAE and cfg.epochs Adam updates of `params` in place. metrics
+    holds the loss terms as tensors and unroll_ms / update_ms as floats."""
+    unroll = make_unroll(lowered, cfg)
+    apply_fn = make_apply_fn(lowered, cfg)
+    update = make_update(lowered, cfg)
+
+    def train_step(params, opt: torch.optim.Optimizer, state: GameState,
+                   generator: torch.Generator):
+        clock = _Clock(state.present.device)
+        clock.mark()
+        state, traj = unroll(params, state, generator)
+        with torch.no_grad():
+            _, last_v = apply_fn(params, N.observe(lowered, state))
+        adv, ret = gae(traj, last_v, cfg)
+        clock.mark()
+        loss = torch.zeros((), device=state.present.device)  # epochs=0: rollout only
+        metrics = {}
+        for _ in range(cfg.epochs):
+            loss, metrics = update(params, opt, traj, adv, ret)
+        clock.mark()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["reward_per_step"] = traj.reward.sum(-1).mean()
+        metrics["episodes"] = traj.done.sum()
+        metrics["unroll_ms"], metrics["update_ms"] = clock.spans_ms()
+        return state, metrics
+
+    return train_step
+
+
+def init_training(lowered: Lowered, cfg: PPOConfig, generator: torch.Generator,
+                  device="cpu"):
+    """-> (params, optimizer): fresh params (leaf tensors that require
+    grad) and torch.optim.Adam(lr) over them."""
+    params = N.init_params(generator, N.obs_dim(lowered), N.action_space(lowered),
+                           cfg.net, lowered, device=device)
+    return params, make_optimizer(params, cfg)
+
+
+def make_optimizer(params: dict, cfg: PPOConfig) -> torch.optim.Optimizer:
+    for p in params.values():
+        p.requires_grad_(True)
+    return torch.optim.Adam(list(params.values()), lr=cfg.lr)

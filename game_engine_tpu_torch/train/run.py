@@ -1,0 +1,162 @@
+"""PPO self-play training runner of the PyTorch port.
+
+Usage:
+    python -m game_engine_tpu_torch.train.run --arch attn --device cuda \
+        --batch 4096 --updates 200 --eval-every 25
+
+Counterpart of game_engine_tpu/train/run.py (without --league): self-play
+PPO over batched rooms with cross-play evaluation against the scripted
+policy in both directions, printing the same JSON event lines. On CUDA the
+deepsets/attn net runs through the policy-net kernels unless --no-fused.
+--resume takes a checkpoint of the JAX package's layout (npz +
+.tree.json, e.g. docs/checkpoints/*.npz); --checkpoint writes one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from game_engine_tpu.gamespec.compile import compile_game
+from game_engine_tpu.gamespec.parser import load_builtin
+from game_engine_tpu.gamespec.tables import Lowered, lower
+from game_engine_tpu_torch.core.engine import scripted_actions
+from game_engine_tpu_torch.core.state import init_state
+from game_engine_tpu_torch.core.step import make_step
+from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.train.ppo import (PPOConfig, actor_mask, init_training,
+                                             make_optimizer, make_train_step,
+                                             reset_done, team_masks)
+
+
+def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int = 256):
+    """Cross-play: learned policy (plain apply_net) for one side, scripted
+    for the other. Returns fn(params, state, generator) -> (wins_side,
+    done_count) as host ints."""
+    step = make_step(lowered)
+
+    @torch.no_grad()
+    def run(params, state, generator):
+        wins = dones = 0
+        for _ in range(n_steps):
+            la, _, _, _ = N.sample_actions(lowered, params, state, cfg.net,
+                                           generator=generator)
+            sa = scripted_actions(lowered, state)
+            side = team_masks(lowered, state)
+            use_learned = side if learned_side else ~side
+            am = actor_mask(lowered, state)
+            actions = torch.where(am & use_learned, la, torch.where(am, sa, 0))
+            nxt = step(state, actions)
+            ended = nxt.done & ~state.done
+            wins = wins + (ended & (nxt.winner == 1)).sum()  # minority team / side 1
+            dones = dones + ended.sum()
+            state = reset_done(lowered, nxt)
+        return int(wins), int(dones)
+
+    return run
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device available (use --device cpu)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported --device {name}")
+    return dev
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--game", default="werewolf")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--players", type=int, default=6)
+    ap.add_argument("--updates", type=int, default=100)
+    ap.add_argument("--horizon", type=int, default=32)
+    ap.add_argument("--epochs", type=int, default=4, help="PPO epochs per rollout")
+    ap.add_argument("--hidden", type=int, default=256)
+    ap.add_argument("--arch", default="mlp", choices=["mlp", "deepsets", "attn"])
+    ap.add_argument("--loss-chunk", type=int, default=1,
+                    help="timesteps per checkpointed chunk in the plain "
+                         "deepsets/attn loss recompute (memory vs launches)")
+    ap.add_argument("--fused", dest="fused", action="store_true", default=None,
+                    help="use the policy-net kernels (deepsets/attn; see "
+                         "policies/fused.py). Default on CUDA with supported shapes")
+    ap.add_argument("--no-fused", dest="fused", action="store_false",
+                    help="force the plain policy net")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--eval-every", type=int, default=25)
+    ap.add_argument("--eval-batch", type=int, default=1024)
+    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--resume", default="", help="checkpoint path to resume params from")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = _device(args.device)
+    lowered = lower(compile_game(load_builtin(args.game)))
+    net_cfg = N.NetConfig(hidden=args.hidden, arch=args.arch)
+    fused = args.fused
+    if fused is None:
+        from game_engine_tpu_torch.policies import fused as FZ
+
+        fused = device.type == "cuda" and FZ.supports(lowered, net_cfg)
+        if fused:
+            print(json.dumps({"event": "fused_net", "mode": "auto",
+                              "disable_with": "--no-fused"}), flush=True)
+    cfg = PPOConfig(horizon=args.horizon, epochs=args.epochs, lr=args.lr,
+                    loss_chunk=args.loss_chunk, fused_net=fused, net=net_cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    init_gen = torch.Generator().manual_seed(args.seed)
+    params, opt = init_training(lowered, cfg, init_gen, device=device)
+    if args.resume:
+        loaded, _ = N.load_policy(args.resume, device=device)
+        for k, p in params.items():
+            if k not in loaded or loaded[k].shape != p.shape:
+                raise ValueError(f"--resume {args.resume}: param {k} missing or "
+                                 f"shaped {tuple(loaded[k].shape) if k in loaded else None}, "
+                                 f"expected {tuple(p.shape)}")
+        params = {k: loaded[k] for k in params}
+        opt = make_optimizer(params, cfg)
+        print(json.dumps({"event": "resume", "from": args.resume}), flush=True)
+    train_step = make_train_step(lowered, cfg)
+    state = init_state(lowered, args.batch, args.players,
+                       np.arange(args.batch, dtype=np.uint32), device=device)
+    evals = {
+        "learned_as_minority": make_eval(lowered, cfg, learned_side=True),
+        "learned_as_majority": make_eval(lowered, cfg, learned_side=False),
+    }
+
+    def run_evals():
+        if args.eval_batch <= 0:
+            return {}
+        out = {}
+        for name, ev in evals.items():
+            es = init_state(lowered, args.eval_batch, args.players,
+                            np.arange(args.eval_batch, dtype=np.uint32) + 777, device=device)
+            wins, dones = ev(params, es, torch.Generator(device=device).manual_seed(123))
+            out[name] = {"minority_win_rate": round(wins / max(dones, 1), 4), "episodes": dones}
+        return out
+
+    print(json.dumps({"event": "eval", "update": 0, **run_evals()}), flush=True)
+    t0 = time.time()
+    for u in range(1, args.updates + 1):
+        state, metrics = train_step(params, opt, state, gen)
+        if u % 10 == 0 or u == args.updates:
+            m = {k: round(float(v), 4) for k, v in metrics.items()}
+            m.update(event="train", update=u,
+                     steps_per_sec=round(u * args.horizon * args.batch / (time.time() - t0), 1))
+            print(json.dumps(m), flush=True)
+        if u % args.eval_every == 0 or u == args.updates:
+            print(json.dumps({"event": "eval", "update": u, **run_evals()}), flush=True)
+            if args.checkpoint:
+                N.save_policy(f"{args.checkpoint}_u{u}", params,
+                              meta={"attn_heads": cfg.net.attn_heads})
+    return params
+
+
+if __name__ == "__main__":
+    main()

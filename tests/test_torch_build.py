@@ -1,0 +1,57 @@
+"""Kernel builds (game_engine_tpu_torch/_build.py): a library is named
+by a hash of every source in csrc/, so an edit to any header alone builds a
+new library instead of loading a stale one; a failed build raises with the
+compiler's output. Builds only g++ host harnesses, in a temporary copy of
+csrc/."""
+
+import os
+import shutil
+
+import pytest
+
+from game_engine_tpu_torch import _build
+
+
+@pytest.fixture()
+def csrc(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, src)
+    monkeypatch.setattr(_build, "_CSRC", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    return src
+
+
+@pytest.mark.parametrize("header,src", [
+    ("policy_net.cuh", "policy_net.cu"),
+    ("policy_net.cuh", "policy_net_host.cpp"),
+    ("room_step.cuh", "rollout.cu"),
+    ("room_step.cuh", "rollout_host.cpp"),
+])
+def test_header_edit_renames_the_library(csrc, header, src):
+    cmd = ["nvcc", "-O3"]
+    path = str(csrc / src)
+    before = _build.lib_path(path, "lib", cmd)
+    assert _build.lib_path(path, "lib", cmd) == before
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    after = _build.lib_path(path, "lib", cmd)
+    assert after != before
+    assert _build.lib_path(path, "lib", cmd + ["-G"]) != after  # the command counts too
+
+
+def test_header_edit_rebuilds_the_host_harness(csrc):
+    job = (str(csrc / "policy_net_host.cpp"), "libpolicy_net_host", _build._GXX_CMD)
+    (first,) = _build._compile_all([job])
+    assert os.path.exists(first)
+    assert _build._compile_all([job]) == [first]  # unchanged: built once
+    with open(csrc / "policy_net.cuh", "a") as f:
+        f.write("\n// edited\n")
+    (second,) = _build._compile_all([job])
+    assert second != first and os.path.exists(second)
+
+
+def test_failed_build_raises_with_compiler_output(csrc):
+    (csrc / "broken.cpp").write_text("int f() { return not_declared; }\n")
+    with pytest.raises(RuntimeError, match="not_declared"):
+        _build._compile_all([(str(csrc / "broken.cpp"), "libbroken", _build._GXX_CMD)])
+    assert not [n for n in os.listdir(_build.BUILD_DIR) if n.startswith("libbroken")]

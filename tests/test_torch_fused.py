@@ -1,0 +1,247 @@
+"""The policy-net kernels' host side (game_engine_tpu_torch/policies/fused.py)
+against the JAX package's Pallas kernels K2-K4 in interpret mode, on
+observations of a werewolf scripted rollout at hidden 64:
+
+  fused_forward_plain (K2's plain version)  vs FZ.make_apply forward, 2e-2
+  autograd through it (K3's)                vs jax.vjp through FZ.make_apply, 5e-2
+  make_loss_vg on CPU (K4's)                vs FZ.make_loss_vg and
+                                               jax.value_and_grad(ppo_loss):
+                                               loss 2e-2, metrics 5e-2 abs,
+                                               grads 5e-2
+
+Tolerances are those of tests/test_fused_net.py, relative to the max |ref|:
+bf16 rounding points differ between XLA, the Pallas kernels and torch.
+The CUDA kernels' own tile code (csrc/policy_net.cuh, built with g++ into
+the host harness) is held against the plain versions at the same
+tolerances, over ragged tiles and several gradient slabs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from game_engine_tpu.gamespec.compile import compile_game
+from game_engine_tpu.gamespec.parser import load_builtin
+from game_engine_tpu.gamespec.tables import lower
+from game_engine_tpu.policies import fused as JFZ
+from game_engine_tpu.policies import net as JN
+from game_engine_tpu.train import ppo as JP
+from game_engine_tpu_torch import _build
+from game_engine_tpu_torch.policies import fused as FZ
+from game_engine_tpu_torch.policies import net as N
+from tests.test_torch_net import jax_params, jax_states, port_cfg, port_params, rel_err, to_np
+from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
+
+CLIP, VF, ENT = 0.2, 0.5, 0.01
+
+
+@pytest.fixture(scope="module")
+def ww():
+    return lower(compile_game(load_builtin("werewolf")))
+
+
+def make_traj(ww):
+    """A (T=3, B=6, P) slice of a JAX scripted rollout with PPO inputs made
+    from a seeded numpy generator: legal masks and actor masks from the JAX
+    package, actions drawn among the legal ones, noise for logp_old (see
+    logp_old), advantages, returns and the dl/dv cotangents."""
+    states = jax_states(ww, B=6, n=6, steps=30, every=10, seed=3)[1:]
+    rng = np.random.default_rng(7)
+    obs = np.stack([to_np(JN.observe(ww, s)) for s in states])          # (T, B, P, F)
+    legal = np.stack([np.asarray(JN.legal_action_mask(ww, s)) for s in states])
+    mask = np.stack([np.asarray(JP.actor_mask(ww, s)) for s in states])
+    T, B, P, A = legal.shape
+    u = rng.random((T, B, P, A)) * legal
+    actions = (u.argmax(-1) + 1).astype(np.int32)
+    return {"obs": obs, "legal": legal, "mask": mask, "actions": actions,
+            "logp_noise": rng.normal(0.0, 0.3, (T, B, P)).astype(np.float32),
+            "adv": rng.normal(size=(T, B, P)).astype(np.float32),
+            "ret": rng.normal(size=(T, B, P)).astype(np.float32),
+            "dl": rng.normal(size=(T * B * P, A)).astype(np.float32),
+            "dv": rng.normal(size=(T * B * P,)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def traj(ww):
+    return make_traj(ww)
+
+
+def rows_of(traj, d):
+    return torch.as_tensor(traj["obs"].reshape(-1, d.F)).bfloat16().contiguous()
+
+
+def grads_close(got: dict, want: dict, tol=5e-2):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        assert g.shape == w.shape, k
+        assert rel_err(g, w) < tol, (k, rel_err(g, w))
+
+
+def plain_vjp(d, rows, params, dl, dv):
+    leaves = {k: params[k].clone().requires_grad_(True) for k in FZ._param_names(d)}
+    lo, vo = FZ.fused_forward_plain(d, rows, leaves)
+    g = torch.autograd.grad((lo * dl).sum() + (vo * dv).sum(), list(leaves.values()))
+    return dict(zip(leaves, g))
+
+
+def logp_old(traj, jp, jcfg, ww):
+    """The policy's log-prob of each taken action, plus seeded noise."""
+    logits, _ = JN.apply_net(jp, jnp.asarray(traj["obs"], jnp.bfloat16), jcfg, ww)
+    logits = jnp.where(traj["legal"], logits, -1e9)
+    lp = jax.nn.log_softmax(logits, -1)
+    lp = np.take_along_axis(np.asarray(lp), traj["actions"][..., None] - 1, -1)[..., 0]
+    return (lp + traj["logp_noise"]).astype(np.float32)
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+def test_forward_plain_matches_jax_kernel(ww, traj, arch):
+    jcfg, jp = jax_params(ww, arch)
+    cfg = port_cfg(jcfg)
+    d = FZ.dims_for(ww, cfg)
+    assert d.F == JFZ.dims_for(ww, jcfg).F and d.A == JFZ.dims_for(ww, jcfg).A
+    l0, v0 = JFZ.make_apply(ww, jcfg)(jp, jnp.asarray(traj["obs"], jnp.bfloat16))
+    params = port_params(jp)
+    l1, v1 = FZ.fused_forward_plain(d, rows_of(traj, d), params)
+    assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
+    assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
+    # make_apply on CPU tensors takes the plain version, any leading dims
+    l2, v2 = FZ.make_apply(ww, cfg)(params, torch.as_tensor(traj["obs"]).bfloat16())
+    assert tuple(l2.shape) == l0.shape and tuple(v2.shape) == v0.shape
+    assert torch.equal(l2.reshape(-1, d.A), l1) and torch.equal(v2.reshape(-1), v1)
+
+
+def test_backward_plain_matches_jax_kernel(ww, traj):
+    """K3's plain version (autograd through fused_forward_plain) against
+    the custom VJP of the Pallas pair, for seeded dl/dv cotangents."""
+    jcfg, jp = jax_params(ww, "attn")
+    d = FZ.dims_for(ww, port_cfg(jcfg))
+    obs = jnp.asarray(traj["obs"], jnp.bfloat16)
+    apply = JFZ.make_apply(ww, jcfg)
+    lead = obs.shape[:-1]
+    _, vjp = jax.vjp(lambda p: apply(p, obs), jp)
+    (want,) = vjp((jnp.asarray(traj["dl"]).reshape(lead + (d.A,)),
+                   jnp.asarray(traj["dv"]).reshape(lead)))
+    got = plain_vjp(d, rows_of(traj, d), port_params(jp), torch.as_tensor(traj["dl"]),
+                    torch.as_tensor(traj["dv"]))
+    grads_close(got, {k: np.asarray(v) for k, v in want.items()})
+
+
+def test_loss_vg_plain_matches_jax(ww, traj):
+    """K4's plain version against the one-pass Pallas loss-grad and
+    jax.value_and_grad(ppo_loss) on the same trajectory, at the freshly
+    initialised params test_fused_net.py uses. (With perturbed biases the
+    XLA path, which carries the pointer head's cotangent in bf16, departs
+    from the JAX package's own kernel by 5.4% on w_ptr.)"""
+    jcfg = JN.NetConfig(hidden=64, arch="attn")
+    jp = JN.init_params(jax.random.PRNGKey(0), JN.obs_dim(ww), JN.action_space(ww), jcfg, ww)
+    cfg = port_cfg(jcfg)
+    lp_old = logp_old(traj, jp, jcfg, ww)
+    j_in = (jnp.asarray(traj["obs"], jnp.bfloat16), jnp.asarray(traj["legal"]),
+            jnp.asarray(traj["actions"]), jnp.asarray(lp_old), jnp.asarray(traj["adv"]),
+            jnp.asarray(traj["ret"]), jnp.asarray(traj["mask"]))
+    (l_k, m_k), g_k = JFZ.make_loss_vg(ww, jcfg, CLIP, VF, ENT)(jp, *j_in)
+    jcfg_ppo = JP.PPOConfig(clip=CLIP, vf_coef=VF, ent_coef=ENT, net=jcfg)
+    jtraj = JP.Rollout(obs=j_in[0], actions=j_in[2], logp=j_in[3], value=None,
+                       reward=None, done=None, mask=j_in[6], legal=j_in[1])
+    (l_x, m_x), g_x = jax.value_and_grad(
+        lambda p: JP.ppo_loss(p, jtraj, j_in[4], j_in[5], jcfg_ppo, ww), has_aux=True)(jp)
+
+    t_in = (torch.as_tensor(traj["obs"]).bfloat16(), torch.as_tensor(traj["legal"]),
+            torch.as_tensor(traj["actions"]), torch.as_tensor(lp_old),
+            torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
+            torch.as_tensor(traj["mask"]))
+    (loss, metrics), grads = FZ.make_loss_vg(ww, cfg, CLIP, VF, ENT)(port_params(jp), *t_in)
+    ratios = np.exp(-traj["logp_noise"])  # at the current params
+    assert (ratios > 1 + CLIP).any() and (ratios < 1 - CLIP).any()
+    for l_ref, m_ref, g_ref in ((l_k, m_k, g_k), (l_x, m_x, g_x)):
+        assert abs(float(loss) - float(l_ref)) / (abs(float(l_ref)) + 1e-6) < 2e-2
+        for k in ("pg_loss", "v_loss", "entropy", "ratio_mean"):
+            assert abs(float(metrics[k]) - float(m_ref[k])) < 5e-2, k
+        grads_close(grads, {k: np.asarray(v) for k, v in g_ref.items()})
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+def test_kernel_tile_code_matches_plain(ww, traj, arch):
+    """csrc/policy_net.cuh built with g++: K2's forward over ragged tiles,
+    K3's gradient and K4's loss-grad summed over three slabs, against the
+    plain versions."""
+    jcfg, jp = jax_params(ww, arch)
+    d = FZ.dims_for(ww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    assert len(FZ._meta(d)) == _build.policy_host_lib().pn_meta_ints()
+    l0, v0 = FZ.fused_forward_plain(d, rows, params)
+    for rpt in (1, 5):
+        l1, v1 = FZ.host_forward(d, rows, params, rows_per_tile=rpt)
+        assert rel_err(l1.numpy(), l0.numpy()) < 2e-2
+        assert rel_err(v1.numpy(), v0.numpy()) < 2e-2
+
+    dl, dv = torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])
+    want = plain_vjp(d, rows, params, dl, dv)
+    got, _ = FZ.host_grads(d, rows, torch.cat([dl, dv[:, None]], 1), 0, params,
+                           blocks=3, rows_per_tile=2)
+    grads_close({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()})
+
+    rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
+                          torch.as_tensor(traj["logp_noise"]) - 2.0,
+                          torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
+                          torch.as_tensor(traj["mask"]), VF)
+    g_ref, s_ref = FZ.loss_vg_plain(d, rows, rowin, params, CLIP, ENT)
+    g_k, s_k = FZ.host_grads(d, rows, rowin, 1, params, CLIP, ENT, blocks=3, rows_per_tile=3)
+    grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()})
+    np.testing.assert_allclose(s_k.numpy(), s_ref.numpy(), rtol=0, atol=5e-2)
+    # the slab sum is in a fixed order: the same grid gives the same bits
+    g_again, _ = FZ.host_grads(d, rows, rowin, 1, params, CLIP, ENT, blocks=3, rows_per_tile=3)
+    assert all(torch.equal(g_k[k], g_again[k]) for k in g_k)
+
+
+def test_loss_rows_pre_kernel_steps(ww, traj):
+    """rowin = legal | one-hot action | logp_old, normalised advantage,
+    ret, mask / msum, vf / n, as fused.py:646-676 computes them."""
+    d = FZ.dims_for(ww, N.NetConfig(hidden=64, arch="attn"))
+    n, A = traj["mask"].size, d.A
+    rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
+                          torch.as_tensor(traj["logp_noise"]), torch.as_tensor(traj["adv"]),
+                          torch.as_tensor(traj["ret"]), torch.as_tensor(traj["mask"]), VF)
+    assert tuple(rowin.shape) == (n, 2 * A + 5) and rowin.dtype == torch.float32
+    m = traj["mask"].reshape(n).astype(np.float64)
+    adv = traj["adv"].reshape(n).astype(np.float64)
+    mean = (adv * m).sum() / m.sum()
+    std = np.sqrt((m * (adv - mean) ** 2).sum() / m.sum()) + 1e-8
+    r = rowin.numpy().astype(np.float64)
+    np.testing.assert_array_equal(r[:, :A], traj["legal"].reshape(n, A))
+    np.testing.assert_array_equal(r[:, A:2 * A].argmax(1) + 1, traj["actions"].reshape(n))
+    np.testing.assert_array_equal(r[:, A:2 * A].sum(1), np.ones(n))
+    np.testing.assert_allclose(r[:, 2 * A + 1], (adv - mean) / std, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r[:, 2 * A + 3], m / m.sum(), rtol=1e-6)
+    np.testing.assert_allclose(r[:, 2 * A + 4], VF / n, rtol=1e-6)
+
+
+def test_kernel_wrappers_refuse_cpu_rows_and_count_launches(ww, traj):
+    """A kernel wrapper launches on CUDA tensors only; the CPU entries take
+    the plain versions and launch nothing."""
+    jcfg, jp = jax_params(ww, "attn")
+    cfg = port_cfg(jcfg)
+    d = FZ.dims_for(ww, cfg)
+    rows, params = rows_of(traj, d), port_params(jp)
+    before = (FZ.kernel_forward.launches, FZ.kernel_grads.launches,
+              FZ.kernel_loss_grads.launches)
+    with pytest.raises(ValueError, match="cuda"):
+        FZ.kernel_forward(d, rows, params)
+    with pytest.raises(ValueError, match="cuda"):
+        FZ.kernel_grads(d, rows, torch.zeros(rows.shape[0], d.A), torch.zeros(rows.shape[0]),
+                        params)
+    with pytest.raises(ValueError, match="bf16"):
+        FZ.host_forward(d, rows.float(), params)
+    with pytest.raises(ValueError, match="w_qkv"):
+        FZ._pack_params({**params, "w_qkv": params["w_qkv"][:, :5]}, d, rows.device)
+    FZ.make_apply(ww, cfg)(params, torch.as_tensor(traj["obs"]))
+    after = (FZ.kernel_forward.launches, FZ.kernel_grads.launches,
+             FZ.kernel_loss_grads.launches)
+    assert after == before
+    with pytest.raises(ValueError):
+        FZ.make_apply(ww, N.NetConfig(hidden=64, arch="mlp"))
+    assert not FZ.supports(ww, N.NetConfig(arch="attn", attn_heads=4))
+    assert FZ.supports(ww, N.NetConfig(arch="deepsets"))

@@ -1,0 +1,221 @@
+"""The PyTorch port's PPO learner (game_engine_tpu_torch/train/) against the
+JAX package's train/ppo.py on the CPU:
+
+  actor_mask, terminal_rewards, team_masks   exact, on states of JAX
+                                             scripted rollouts (team,
+                                             speaker/score and survivor games)
+  gae                                        within 1e-6
+  ppo_loss + autograd                        vs jax.value_and_grad(ppo_loss):
+                                             loss 2e-2, metrics 5e-2 abs,
+                                             grads 5e-2 of the max |grad|
+  one Adam update                            param deltas within 5e-2 of
+                                             optax.adam's, of the max |delta|
+
+and train.run.main end to end on the CPU (attn and deepsets), with its
+checkpoint written and resumed."""
+
+import contextlib
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
+from game_engine_tpu.core.state import init_state as jax_init_state
+from game_engine_tpu.gamespec.compile import compile_game
+from game_engine_tpu.gamespec.parser import load_builtin
+from game_engine_tpu.gamespec.tables import lower
+from game_engine_tpu.policies import net as JN
+from game_engine_tpu.train import ppo as JP
+from game_engine_tpu_torch.core.state import state_from_numpy
+from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.train import ppo as P
+from game_engine_tpu_torch.train import run as R
+from tests.test_torch_fused import logp_old, make_traj
+from tests.test_torch_net import CKPT, port_cfg, port_params, rel_err
+from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
+
+ARCHS = ("mlp", "deepsets", "attn")
+
+
+@pytest.fixture(scope="module")
+def ww():
+    return lower(compile_game(load_builtin("werewolf")))
+
+
+@pytest.mark.parametrize("game", ["werewolf", "two-truths-and-a-lie", "last-stand"])
+def test_masks_and_rewards_exact(game):
+    lw = lower(compile_game(load_builtin(game)))
+    B, n = 8, min(lw.P, 6)
+    eng = JaxBatchedEngine(lw)
+    st = jax_init_state(lw, B, n, np.arange(B, dtype=np.uint32) + 21)
+    ended_seen = 0
+    for _ in range(60):
+        tst = state_from_numpy(st)
+        np.testing.assert_array_equal(P.actor_mask(lw, tst).numpy(),
+                                      np.asarray(JP.actor_mask(lw, st)))
+        np.testing.assert_array_equal(P.team_masks(lw, tst).numpy(),
+                                      np.asarray(JP.team_masks(lw, st)))
+        nxt = eng.step(st, eng.bot_actions(st))
+        ended = nxt.done & ~st.done
+        got = P.terminal_rewards(lw, state_from_numpy(nxt), torch.as_tensor(np.asarray(ended)))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(JP.terminal_rewards(lw, nxt, ended)))
+        ended_seen += int(np.asarray(ended).sum())
+        st = nxt
+    assert ended_seen > 0, "no episode ended: rewards were only checked at zero"
+
+
+def test_gae_matches_jax():
+    rng = np.random.default_rng(3)
+    T, B, Pn = 7, 5, 4
+    value = rng.normal(size=(T, B, Pn)).astype(np.float32)
+    reward = (rng.random((T, B, Pn)) < 0.2) * rng.choice([-1.0, 1.0], (T, B, Pn))
+    done = rng.random((T, B)) < 0.25
+    last = rng.normal(size=(B, Pn)).astype(np.float32)
+    cfg = P.PPOConfig()
+    jt = JP.Rollout(None, None, None, jnp.asarray(value), jnp.asarray(reward, jnp.float32),
+                    jnp.asarray(done), None, None)
+    ja, jr = JP.gae(jt, jnp.asarray(last), JP.PPOConfig())
+    tt = P.Rollout(None, None, None, torch.as_tensor(value),
+                   torch.as_tensor(reward.astype(np.float32)), torch.as_tensor(done), None, None)
+    ta, tr = P.gae(tt, torch.as_tensor(last), cfg)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
+
+
+def _rollouts(ww, jcfg, jp):
+    """The same trajectory as a JAX and a port Rollout, with adv and ret."""
+    tr = make_traj(ww)
+    lp = logp_old(tr, jp, jcfg, ww)
+    obs = jnp.asarray(tr["obs"], jnp.bfloat16)
+    jt = JP.Rollout(obs=obs, actions=jnp.asarray(tr["actions"]), logp=jnp.asarray(lp),
+                    value=None, reward=None, done=None, mask=jnp.asarray(tr["mask"]),
+                    legal=jnp.asarray(tr["legal"]))
+    tt = P.Rollout(obs=torch.as_tensor(tr["obs"]).bfloat16(),
+                   actions=torch.as_tensor(tr["actions"]), logp=torch.as_tensor(lp),
+                   value=None, reward=None, done=None, mask=torch.as_tensor(tr["mask"]),
+                   legal=torch.as_tensor(tr["legal"]))
+    j_ar = (jnp.asarray(tr["adv"]), jnp.asarray(tr["ret"]))
+    t_ar = (torch.as_tensor(tr["adv"]), torch.as_tensor(tr["ret"]))
+    return jt, j_ar, tt, t_ar
+
+
+def _setup(ww, arch):
+    jcfg = JN.NetConfig(hidden=64, arch=arch)
+    jp = JN.init_params(jax.random.PRNGKey(0), JN.obs_dim(ww), JN.action_space(ww), jcfg, ww)
+    return jcfg, jp, P.PPOConfig(net=port_cfg(jcfg), loss_chunk=2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ppo_loss_matches_jax_value_and_grad(ww, arch):
+    jcfg, jp, cfg = _setup(ww, arch)
+    jt, (jadv, jret), tt, (tadv, tret) = _rollouts(ww, jcfg, jp)
+    (l_x, m_x), g_x = jax.value_and_grad(
+        lambda p: JP.ppo_loss(p, jt, jadv, jret, JP.PPOConfig(net=jcfg), ww), has_aux=True)(jp)
+    params = {k: v.requires_grad_(True) for k, v in port_params(jp).items()}
+    loss, metrics = P.ppo_loss(params, tt, tadv, tret, cfg, ww)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert abs(float(loss.detach()) - float(l_x)) / (abs(float(l_x)) + 1e-6) < 2e-2
+    for k in ("pg_loss", "v_loss", "entropy", "ratio_mean"):
+        assert abs(float(metrics[k].detach()) - float(m_x[k])) < 5e-2, k
+    for k, g in zip(params, grads):
+        assert rel_err(g.numpy(), np.asarray(g_x[k])) < 5e-2, (k, rel_err(g.numpy(), g_x[k]))
+
+
+def test_adam_update_matches_optax(ww):
+    """make_update (ppo_loss, autograd, torch.optim.Adam) against
+    value_and_grad + optax.adam, one step from the same params and
+    trajectory. Adam's first step is lr * g / (|g| + eps), full size
+    whatever |g|, so a weight whose gradient lies within the gradient
+    tolerance (5e-2 of the max) of 0 may step either way: those are left
+    out. Given JAX's own gradients, torch's Adam steps as optax's does, to
+    1e-3 of a step (the float32 rounding of the params)."""
+    jcfg, jp, cfg = _setup(ww, "attn")
+    jt, (jadv, jret), tt, (tadv, tret) = _rollouts(ww, jcfg, jp)
+    tx = optax.adam(cfg.lr)
+    g_x = jax.grad(lambda p: JP.ppo_loss(p, jt, jadv, jret, JP.PPOConfig(net=jcfg), ww)[0])(jp)
+    upd, _ = tx.update(g_x, tx.init(jp), jp)
+    want = {k: np.asarray(optax.apply_updates(jp, upd)[k]) - np.asarray(jp[k]) for k in jp}
+
+    params = port_params(jp)
+    before = {k: v.clone() for k, v in params.items()}
+    opt = P.make_optimizer(params, cfg)
+    loss, _ = P.make_update(ww, cfg)(params, opt, tt, tadv, tret)
+    assert np.isfinite(float(loss))
+    for k in jp:
+        got = (params[k].detach() - before[k]).numpy()
+        g = np.abs(np.asarray(g_x[k]))
+        keep = g >= 5e-2 * g.max()
+        assert rel_err(got[keep], want[k][keep]) < 5e-2, (k, rel_err(got[keep], want[k][keep]))
+
+    same = port_params(jp)
+    opt = P.make_optimizer(same, cfg)
+    for k, p in same.items():
+        p.grad = torch.as_tensor(np.asarray(g_x[k]))
+    opt.step()
+    for k in jp:
+        got = (same[k].detach() - before[k]).numpy()
+        np.testing.assert_allclose(got, want[k], rtol=0, atol=1e-3 * cfg.lr)
+
+
+def run_main(argv):
+    """train.run.main's params and its JSON event lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        params = R.main(argv)
+    return params, [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+def test_train_run_main_on_cpu(ww, arch):
+    argv = ["--device", "cpu", "--arch", arch, "--hidden", "64", "--batch", "8", "--horizon",
+            "4", "--epochs", "1", "--updates", "2", "--eval-batch", "8"]
+    params, events = run_main(argv)
+    cfg = N.NetConfig(hidden=64, arch=arch)
+    init = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(ww), N.action_space(ww),
+                         cfg, ww)
+    assert any(float((params[k].detach() - init[k]).abs().max()) > 0 for k in init)
+    train = [e for e in events if e["event"] == "train"]
+    assert len(train) == 1 and train[0]["update"] == 2
+    for k in ("loss", "pg_loss", "v_loss", "entropy", "ratio_mean", "steps_per_sec",
+              "unroll_ms", "update_ms"):
+        assert np.isfinite(train[0][k]), k
+    evals = [e for e in events if e["event"] == "eval"]
+    assert [e["update"] for e in evals] == [0, 2]
+    assert {"learned_as_minority", "learned_as_majority"} <= set(evals[-1])
+    assert not any(e["event"] == "fused_net" for e in events)  # auto: off on the CPU
+
+
+def test_train_run_checkpoint_and_resume(ww, tmp_path):
+    ck = str(tmp_path / "ck")
+    argv = ["--device", "cpu", "--arch", "attn", "--hidden", "64", "--batch", "4", "--horizon",
+            "2", "--epochs", "1", "--updates", "1", "--eval-batch", "0"]
+    params, _ = run_main(argv + ["--checkpoint", ck, "--eval-every", "1"])
+    saved, cfg = N.load_policy(ck + "_u1.npz")
+    assert cfg == N.NetConfig(hidden=64, arch="attn")
+    assert all(torch.equal(saved[k], params[k].detach()) for k in params)
+    back, events = run_main(argv[:-4] + ["--updates", "0", "--eval-batch", "0",
+                                         "--resume", ck + "_u1.npz"])
+    assert {"event": "resume", "from": ck + "_u1.npz"} in events
+    assert all(torch.equal(back[k].detach(), params[k].detach()) for k in params)
+    # the shipped full-width checkpoint resumes at its own width
+    full, _ = run_main(["--device", "cpu", "--arch", "attn", "--hidden", "256", "--batch",
+                        "2", "--updates", "0", "--eval-batch", "0", "--resume", CKPT])
+    shipped, _ = N.load_policy(CKPT)
+    assert all(torch.equal(full[k].detach(), shipped[k]) for k in shipped)
+    with pytest.raises(ValueError, match="--resume"):
+        run_main(["--device", "cpu", "--arch", "attn", "--hidden", "64", "--updates", "0",
+                  "--eval-batch", "0", "--resume", CKPT])
+
+
+def test_train_run_device_cuda_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        R.main(["--device", "cuda", "--updates", "0", "--eval-batch", "0"])

@@ -1,6 +1,8 @@
-"""The PyTorch port's plain step against the oracle (every catalog game) and
-against the JAX step (bank equality each step), plus the int32 overflow
-program of test_int32_semantics.py. All comparisons are exact."""
+"""The PyTorch port's plain step against the oracle (every catalog game, and
+the generated mechanic and mix DSLs of test_new_mechanics.py and
+test_mix2.py) and against the JAX step (bank equality each step), plus the
+int32 overflow program of test_int32_semantics.py. All comparisons are
+exact."""
 
 import numpy as np
 import pytest
@@ -8,6 +10,8 @@ import torch
 
 from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
 from game_engine_tpu.core.state import init_state as jax_init_state
+from game_engine_tpu.dslgen.generate import Blueprint, generate, generate_from_description
+from game_engine_tpu.dslgen.validate import errors, validate_doc
 from game_engine_tpu.gamespec.compile import compile_game
 from game_engine_tpu.gamespec.parser import load_builtin
 from game_engine_tpu.gamespec.tables import lower
@@ -19,6 +23,7 @@ from game_engine_tpu_torch.core.step import make_step
 from tests.test_int32_semantics import EXPECT, INT32_MIN, _wrap_lowered
 from tests.test_parity import assert_state_matches
 from tests.test_torch_state import assert_same_state, catalog_games, lowered_game
+from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
 
 
 def run_oracle_parity(lowered, n_players, seed, max_steps):
@@ -48,6 +53,52 @@ def test_every_catalog_game_oracle_parity(game):
     n = min(max(spec.declaration.min_players or 4, 4), lowered.P)
     room = run_oracle_parity(lowered, n, seed=17, max_steps=600)
     assert room.done, f"{game}: no finish in 600 steps"
+
+
+# the generated DSLs, built as tests/test_new_mechanics.py (archetypes) and
+# tests/test_mix2.py (descriptions, and a blueprint with an extra) build them
+MIX_DESCRIPTIONS = {
+    "story-pot": (
+        "Storytellers tell three statements and the table guesses which one is "
+        "the lie; at each round start every player collects 1 coin from the "
+        "story pot and raids a rival purse. Guess true, speak well, and the "
+        "richest storyteller wins."),
+    "gilded-court": (
+        "Courtiers claim the Duke, Captain or Inquisitor roles and challenge "
+        "each other's bluffs; at each showdown the court treasury pays out "
+        "coins and holds a sealed-bid auction for gilded lots until the house "
+        "closes. Outlast the court or collect the most lots."),
+    "scrap-rally": (
+        "Racers pick a speed each sprint and collide when they overtake on the "
+        "same line; every movement pays a sponsorship coin, and racers raid a "
+        "rival pit before the next lap. Reach the finish line or get rich "
+        "trying."),
+}
+BLUEPRINTS = {
+    "t-bluff": Blueprint(name="t-bluff", description="a bluff game", archetype="bluff"),
+    "t-market": Blueprint(name="t-market", description="a market game", archetype="market"),
+    "t-minority": Blueprint(name="t-minority", description="odd one out",
+                            archetype="minority"),
+    "court-raid": Blueprint(name="court-raid", description="d", archetype="bluff",
+                            extras=("market",)),
+}
+
+
+def generated_lowered(name):
+    doc = (generate(BLUEPRINTS[name]) if name in BLUEPRINTS
+           else generate_from_description(name, MIX_DESCRIPTIONS[name]))
+    issues, spec = validate_doc(doc, name=name)
+    assert spec is not None and not errors(issues), [str(i) for i in issues]
+    return lower(compile_game(spec))
+
+
+@pytest.mark.parametrize("name,n,seed", [
+    ("t-bluff", 5, 1), ("t-market", 6, 2), ("t-minority", 4, 1), ("story-pot", 5, 1),
+    ("gilded-court", 6, 2), ("scrap-rally", 4, 0), ("court-raid", 5, 2)])
+def test_generated_dsl_oracle_parity(name, n, seed):
+    lowered = generated_lowered(name)
+    room = run_oracle_parity(lowered, min(n, lowered.P), seed=seed, max_steps=900)
+    assert room.done, f"{name}: no finish in 900 steps"
 
 
 @pytest.mark.parametrize("name,n", [("werewolf", 6), ("two-truths-and-a-lie", 4)])
