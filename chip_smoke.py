@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k4-profile]
 
 Drives the port's two main paths through the hand-written CUDA kernels,
 which it builds from csrc/ first:
@@ -12,17 +12,17 @@ which it builds from csrc/ first:
 - the learner: game_engine_tpu_torch.train.run.main, PPO self-play of the
   full-width attn net (docs/checkpoints/attn_werewolf_u120.npz) on 4096
   werewolf rooms, through the policy-net kernels: the forward (K2) in the
-  unroll, the one-pass PPO loss-grad (K4) in the update, and the backward
-  (K3) in one more update with fused_loss=False.
+  unroll, the one-pass PPO loss-grad (K4, tensor-core products) in the
+  update, and the backward (K3) in one more update with fused_loss=False.
 
 Phases, one JSON line each:
 
   env             torch/CUDA versions and the GPU's name and power limit
-  build           nvcc builds of csrc/rollout.cu and csrc/policy_net.cu, in
-                  parallel: seconds and ptxas reports
+  build           nvcc builds of csrc/rollout.cu, policy_net.cu and
+                  lossgrad.cu, in parallel: seconds and ptxas reports
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
-                  4096x8 (256 steps), two-truths 1024x4 and a generated game
+                  4096x8 (256 steps), two-truths 1024x4 and harbor-lots
                   1024x5 (128 steps), and werewolf at two block sizes
   main            the engine path at both sizes: env-steps/s of the kernel,
                   and one timed call of the plain version from the same
@@ -30,14 +30,18 @@ Phases, one JSON line each:
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256:
-                  K2 and K3 on 32,768 rows (seeded dl/dv for K3), K4 on a
-                  4-step slice (131,072 rows) against ppo_loss's loss over
-                  the plain K2 + autograd, and its loss and metrics also
-                  against ppo_loss + autograd through apply_net (whose
-                  gradients, which round cotangents to bf16, are reported).
-                  Tolerances of tests/test_fused_net.py, relative to the max
-                  |ref|: forward 2e-2, gradients 5e-2, loss 2e-2; metrics
-                  5e-2 absolute
+                  K2 and K3 on 32,768 rows (seeded dl/dv for K3), K4 timed
+                  on a 4-step slice (131,072 rows) against ppo_loss's loss
+                  over the plain K2 + autograd, and its loss and metrics
+                  also against ppo_loss + autograd through apply_net (whose
+                  gradients, which round cotangents to bf16, are reported);
+                  then K4 once at the train path's own shape, all 32 steps
+                  (1,048,576 rows, 32 chunks) in one call, against the plain
+                  version summed over 131,072-row slices. Tolerances of
+                  tests/test_fused_net.py, relative to the max |ref|:
+                  forward 2e-2, gradients 5e-2, loss 2e-2; metrics 5e-2
+                  absolute. With --k4-profile, also K4's device time by
+                  stage (torch.profiler) over one call at 131,072 rows
   train           the learner path: 3 updates of run.main at its defaults
                   (4096 rooms, 6 players, horizon 32, 4 epochs) from the attn
                   checkpoint; steps/s and the unroll/update split by CUDA
@@ -46,10 +50,13 @@ Phases, one JSON line each:
   train_plain     one update of run.main with --no-fused (no kernel), for
                   the end-to-end comparison
 
-Then a {"kernels": [...]} line, the nvidia-smi line, and the last line
+Then a {"kernels": [...]} line (each kernel's launches on the main paths,
+its error, time, plain version's time and bound: the larger of its bf16
+operations over 989 TFLOP/s and its bytes over 3.35 TB/s), the nvidia-smi
+line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (nonzero exit). Without a
 CUDA device, or outside a checkout of the repository, it exits 2 and prints
-no result. Imports nothing of JAX.
+no result. Imports nothing of JAX and nothing of the JAX package.
 """
 
 import json
@@ -61,7 +68,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "game_engine_tpu_torch/csrc/rollout.cu"
 REPLACES = "game_engine_tpu/core/pallas_rollout.py:658"
-POLICY_SOURCE = "game_engine_tpu_torch/csrc/policy_net.cu"
+POLICY_SOURCE = {"policy_forward": "game_engine_tpu_torch/csrc/policy_net.cu",
+                 "policy_backward": "game_engine_tpu_torch/csrc/policy_net.cu",
+                 "ppo_loss_grad": "game_engine_tpu_torch/csrc/lossgrad.cu"}
 POLICY_REPLACES = {"policy_forward": "game_engine_tpu/policies/fused.py:299",
                    "policy_backward": "game_engine_tpu/policies/fused.py:468",
                    "ppo_loss_grad": "game_engine_tpu/policies/fused.py:600"}
@@ -69,9 +78,12 @@ CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
 STEPS = 1024
 SIZES = (4096, 65536)
 ROOMS = 4096          # learner: rooms of the collected trajectory and of training
+HORIZON = 32          # and its steps: one epoch of the train path
 TOL_FWD, TOL_GRAD, TOL_LOSS, TOL_METRIC = 2e-2, 5e-2, 2e-2, 5e-2
+# published peaks of one H100 SXM (dense): bf16 tensor cores, HBM bandwidth
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
 TRAIN_ARGV = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
-              "--players", "6", "--horizon", "32", "--epochs", "4", "--updates", "3",
+              "--players", "6", "--horizon", str(HORIZON), "--epochs", "4", "--updates", "3",
               "--eval-batch", "512", "--resume", CKPT]
 
 
@@ -129,14 +141,41 @@ def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def policy_macs(d) -> tuple:
+    """(forward, backward) multiply-adds a row of the policy net at dims d:
+    every product of _fwd_body, and of _grad_body with no gradient for obs."""
+    P, F0, hp, H, L, no, T = d.P, d.F0, d.hp, d.hidden, d.layers, d.n_opt, d.trunk_in
+    a = 1 if d.has_attn else 0
+    heads = H * (hp + no + 1)
+    trunk = T * H + (L - 1) * H * H
+    enc = P * hp * hp + a * (P * hp * 3 * hp + P * hp * hp)  # w_phi1, w_qkv, w_ao
+    fwd = P * F0 * hp + enc + a * 2 * P * P * hp + trunk + heads + P * hp
+    bwd = (P * F0 * hp + enc + trunk + heads) + (enc + trunk + heads) \
+        + a * 4 * P * P * hp + 2 * P * hp
+    return fwd, bwd
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of the bf16 operations over the tensor-core peak and the bytes over the
+    memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check(what: str, err: float, tol: float) -> None:
     if not err < tol:  # also catches NaN
         raise AssertionError(f"{what}: error {err} is not below {tol}")
 
 
 def collect_trajectory(lowered, params, cfg):
-    """A 4-step trajectory of the plain-policy unroll (no kernel) from 4096
-    fresh werewolf rooms of 6 players, with GAE advantages and returns."""
+    """A HORIZON-step trajectory of the plain-policy unroll (no kernel) from
+    4096 fresh werewolf rooms of 6 players, with GAE advantages and returns:
+    the shape of one epoch of the train path."""
     import numpy as np
     import torch
 
@@ -144,7 +183,7 @@ def collect_trajectory(lowered, params, cfg):
     from game_engine_tpu_torch.policies import net as N
     from game_engine_tpu_torch.train import ppo as P
 
-    pcfg = P.PPOConfig(horizon=4, net=cfg)
+    pcfg = P.PPOConfig(horizon=HORIZON, net=cfg)
     state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 99, device="cuda")
     state, traj = P.make_unroll(lowered, pcfg)(params, state,
                                                torch.Generator(device="cuda").manual_seed(5))
@@ -154,9 +193,11 @@ def collect_trajectory(lowered, params, cfg):
     return traj, adv, ret
 
 
-def policy_compare(lowered, traj, adv, ret, name: str, params, cfg) -> dict:
+def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
+                   k4_profile: bool = False) -> dict:
     """K2, K3 and K4 against their plain versions on the card; raises past
-    the tolerances. Returns {kernel: (max_abs_err, max_rel_err, ms, plain_ms)}."""
+    the tolerances. Returns {kernel: {"max_abs_err", "max_rel_err", "ms",
+    "plain_ms", "bound": (bound_ms, bound_by), and K4's "epoch_*" check}}."""
     import torch
 
     from game_engine_tpu_torch.policies import fused as FZ
@@ -176,7 +217,12 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg) -> dict:
                 k2_plain_ms=plain_ms)
     check(f"K2 {name} logits", errs[0], TOL_FWD)
     check(f"K2 {name} value", errs[1], TOL_FWD)
-    out["policy_forward"] = (max(abs_err(lk, lp), abs_err(vk, vp)), max(errs), ms, plain_ms)
+    fwd_mac, bwd_mac = policy_macs(d)
+    prm_bytes = 4 * sum(v.numel() for v in params.values())
+    b2 = bound(2 * fwd_mac * n, nbytes(rows, lk, vk) + prm_bytes)
+    out["policy_forward"] = {"max_abs_err": max(abs_err(lk, lp), abs_err(vk, vp)),
+                             "max_rel_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                             "bound": b2}
 
     dl = torch.randn((n, d.A), generator=gen, device="cuda")
     dv = torch.randn((n,), generator=gen, device="cuda")
@@ -193,13 +239,18 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg) -> dict:
     line.update(k3_rel_err=errs, k3_ms=ms, k3_plain_ms=plain_ms)
     for k, e in errs.items():
         check(f"K3 {name} d{k}", e, TOL_GRAD)
-    out["policy_backward"] = (max(abs_err(gk[k], gp[k]) for k in gp), max(errs.values()), ms,
-                              plain_ms)
+    b3 = bound(2 * (fwd_mac + bwd_mac) * n, nbytes(rows, dl, dv) + 2 * prm_bytes)
+    out["policy_backward"] = {"max_abs_err": max(abs_err(gk[k], gp[k]) for k in gp),
+                              "max_rel_err": max(errs.values()), "ms": ms,
+                              "plain_ms": plain_ms, "bound": b3}
 
-    # K4 on the whole 4-step slice; logp_old moved off the policy's own so
-    # that ratios fall on both sides of the clip band
+    # K4 timed on the trajectory's first 4 steps; logp_old moved off the
+    # policy's own so that ratios fall on both sides of the clip band
     logp_old = traj.logp + 0.3 * torch.randn(traj.logp.shape, generator=gen, device="cuda")
-    tr = traj._replace(logp=logp_old)
+    epoch = traj._replace(logp=logp_old)
+    adv_e, ret_e = adv, ret
+    tr = P.Rollout(*(x[:4] for x in epoch))
+    adv, ret = adv_e[:4], ret_e[:4]
     pcfg = P.PPOConfig(net=cfg)
     rows4 = FZ._as_rows(d, tr.obs)
 
@@ -230,22 +281,83 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg) -> dict:
     loss_err = max(abs(lk4 - ref) / (abs(ref) + 1e-6) for ref in (lp4, float(lx)))
     metric_errs = {k: max(abs(mk4[k] - mp4[k]), abs(mk4[k] - float(mx[k]))) for k in mp4}
     errs = {k: rel_err(gk4[k], gp4[k]) for k in gp4}
+    rowin = FZ._loss_rows(d, tr.legal, tr.actions, tr.logp, adv, ret, tr.mask, pcfg.vf_coef)
+    b4 = bound(2 * (fwd_mac + bwd_mac) * rows4.shape[0], nbytes(rows4, rowin) + 2 * prm_bytes)
     line.update(rows_k4=rows4.shape[0], k4_loss=lk4, k4_plain_loss=lp4,
                 ppo_loss=float(lx), k4_loss_rel_err=loss_err, k4_metrics=mk4,
                 k4_plain_metrics=mp4, ppo_loss_metrics={k: float(v) for k, v in mx.items()},
                 k4_metric_abs_err=metric_errs, k4_grad_rel_err=errs,
                 k4_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gk4[k], gx[k]) for k in gx},
                 plain_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gp4[k], gx[k]) for k in gx},
-                k4_ms=ms, k4_plain_ms=plain_ms, ppo_loss_autograd_ms=ppo_ms)
+                k4_ms=ms, k4_plain_ms=plain_ms, ppo_loss_autograd_ms=ppo_ms,
+                bounds_ms={"k2": b2[0], "k3": b3[0], "k4": b4[0]})
+    if k4_profile:
+        line["k4_profile"] = profile_k4(d, rows4, rowin, params, pcfg.clip, pcfg.ent_coef)
+    k4_abs = max(abs_err(gk4[k], gp4[k]) for k in gp4)
+    del gk4, gp4, gx
+
+    # K4 at the train path's own shape: the whole epoch's rows in one call
+    # (32 chunks, each adding into the same row-split slabs), against the
+    # plain version summed in f64 over slices of the timed size. rowin's
+    # row weights already hold the epoch's normalisation, so the slices'
+    # sums add up to the whole.
+    rows_e = FZ._as_rows(d, epoch.obs)
+    rowin_e = FZ._loss_rows(d, epoch.legal, epoch.actions, epoch.logp, adv_e, ret_e, epoch.mask,
+                            pcfg.vf_coef)
+    (ge, se), epoch_ms = timed_ms(lambda: FZ.kernel_loss_grads(
+        d, rows_e, rowin_e, params, pcfg.clip, pcfg.ent_coef))
+    n4, n_e = rows4.shape[0], rows_e.shape[0]
+    gpe = {k: torch.zeros(v.shape, dtype=torch.float64, device="cuda") for k, v in ge.items()}
+    spe = torch.zeros(FZ.N_STATS, dtype=torch.float64, device="cuda")
+    for at in range(0, n_e, n4):
+        g, st = FZ.loss_vg_plain(d, rows_e[at:at + n4], rowin_e[at:at + n4], params,
+                                 pcfg.clip, pcfg.ent_coef)
+        for k in gpe:
+            gpe[k] += g[k]
+        spe += st
+    lke, mke = loss_and_metrics(se)
+    lpe, mpe = loss_and_metrics(spe)
+    epoch_loss_err = abs(lke - lpe) / (abs(lpe) + 1e-6)
+    epoch_metric_errs = {k: abs(mke[k] - mpe[k]) for k in mpe}
+    epoch_errs = {k: rel_err(ge[k], gpe[k]) for k in gpe}
+    line.update(rows_k4_epoch=n_e, k4_epoch_ms=epoch_ms, k4_epoch_loss=lke,
+                k4_epoch_plain_loss=lpe, k4_epoch_loss_rel_err=epoch_loss_err,
+                k4_epoch_metric_abs_err=epoch_metric_errs, k4_epoch_grad_rel_err=epoch_errs)
     emit(line)
-    check(f"K4 {name} loss", loss_err, TOL_LOSS)
-    for k, e in metric_errs.items():
-        check(f"K4 {name} {k}", e, TOL_METRIC)
-    for k, e in errs.items():
-        check(f"K4 {name} d{k}", e, TOL_GRAD)
-    out["ppo_loss_grad"] = (max(abs_err(gk4[k], gp4[k]) for k in gp4), max(errs.values()), ms,
-                            plain_ms)
+    for tag, l_err, m_errs, g_errs in (("", loss_err, metric_errs, errs),
+                                       (" epoch", epoch_loss_err, epoch_metric_errs,
+                                        epoch_errs)):
+        check(f"K4{tag} {name} loss", l_err, TOL_LOSS)
+        for k, e in m_errs.items():
+            check(f"K4{tag} {name} {k}", e, TOL_METRIC)
+        for k, e in g_errs.items():
+            check(f"K4{tag} {name} d{k}", e, TOL_GRAD)
+    out["ppo_loss_grad"] = {
+        "max_abs_err": max(k4_abs, max(abs_err(ge[k], gpe[k]) for k in gpe)),
+        "max_rel_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, "bound": b4,
+        "epoch_rows": n_e, "epoch_max_rel_err": max(epoch_errs.values()),
+        "epoch_loss_rel_err": epoch_loss_err, "epoch_ms": epoch_ms}
     return out
+
+
+def profile_k4(d, rows, rowin, params, clip, ent_coef, top=12) -> list:
+    """Device milliseconds by kernel name over one K4 call (torch.profiler):
+    [(name, ms, launches)], largest first. Each elementwise stage is its own
+    each_kernel<lg::Stage> instantiation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FZ.kernel_loss_grads(d, rows, rowin, params, clip, ent_coef)
+        torch.cuda.synchronize()
+    rows_ = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0:
+            rows_.append((ev.key[:80], us / 1e3, ev.count))
+    return sorted(rows_, key=lambda r: -r[1])[:top]
 
 
 def policy_launches() -> dict:
@@ -348,9 +460,13 @@ def train_phase(lowered, gpu: str) -> dict:
             "ppo_loss_grad": launches["ppo_loss_grad"]}
 
 
-def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "game_engine_tpu_torch")) or \
-            not os.path.isdir(os.path.join(HERE, "game_engine_tpu")):
+def main(argv=()) -> int:
+    argv = list(argv)
+    k4_profile = argv == ["--k4-profile"]
+    if argv and not k4_profile:
+        print(f"chip_smoke.py: unknown arguments {argv} (only --k4-profile)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "game_engine_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
               "(game_engine_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
@@ -366,15 +482,14 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from game_engine_tpu.dslgen.generate import generate_from_description
-    from game_engine_tpu.gamespec.compile import GameConfig, compile_game
-    from game_engine_tpu.gamespec.parser import load_builtin, parse_game_spec
-    from game_engine_tpu.gamespec.tables import lower
     from game_engine_tpu_torch import _build
     from game_engine_tpu_torch.bench import gpu_line
     from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
     from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.gamespec.compile import GameConfig, compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
 
     gpu = gpu_line()
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -385,12 +500,12 @@ def main() -> int:
     _build.build_cuda()  # one nvcc per source, all at once
     lib = _build.cuda_lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
-          "policy_net_ptxas": ptxas_report(_build.policy_lib())})
+          "policy_net_ptxas": ptxas_report(_build.policy_lib()),
+          "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib())})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
-    doc = generate_from_description("assassins", "hidden-role night elimination game")
-    gen = lower(compile_game(parse_game_spec(doc, name="assassins")))
+    hl = lower(compile_game(load_builtin("harbor-lots")))  # 5 to 8 seats
 
     # -- kernel vs plain, bit-exact on the card ------------------------------
     worst = 0
@@ -398,7 +513,7 @@ def main() -> int:
     for name, lw, B, n, steps, threads in (
             ("werewolf", ww, 4096, 8, 256, 128),
             ("two-truths-and-a-lie", tt, 1024, 4, 128, 128),
-            ("assassins", gen, 1024, 5, 128, 128),
+            ("harbor-lots", hl, 1024, 5, 128, 128),
             ("werewolf", ww, 4096, 8, 256, 64),
             ("werewolf", ww, 4096, 8, 256, 256)):
         start = init_state(lw, B, n, np.arange(B, dtype=np.uint32), device="cuda")
@@ -457,6 +572,9 @@ def main() -> int:
         if episodes[B] <= 0:
             raise AssertionError(f"no episode completed at {B} rooms")
         kernel_ms[B] = statistics.median(times[B])
+        if B == SIZES[0]:
+            # loose: K1 interprets integer programs; only the state's bytes count
+            k1_bound = bound(0, 2 * nbytes(*starts[B]))
         emit({"phase": "main", "game": "werewolf", "rooms": B, "seats": 8, "steps": STEPS,
               "kernel_ms_per_call": times[B], "kernel_ms_median": kernel_ms[B],
               "env_steps_per_s": B * STEPS / (kernel_ms[B] / 1e3),
@@ -478,24 +596,29 @@ def main() -> int:
     policy = {}
     for name, params, cfg in (("attn_werewolf_u120", attn, attn_cfg),
                               ("deepsets_init_seed0", deepsets, ds_cfg)):
-        for k, v in policy_compare(ww, traj, adv, ret, name, params, cfg).items():
+        for k, v in policy_compare(ww, traj, adv, ret, name, params, cfg, k4_profile).items():
             if name.startswith("attn"):
                 policy[k] = v  # times at the shipped attn net
             else:  # the larger error of the two nets
-                policy[k] = (max(policy[k][0], v[0]), max(policy[k][1], v[1])) + policy[k][2:]
+                policy[k].update({e: max(policy[k][e], v[e]) for e in v if "err" in e})
     del traj, adv, ret
     torch.cuda.empty_cache()
     launches = train_phase(ww, gpu)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
+    if loaded:
+        raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": main_launches, "max_abs_err": worst,
-        "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]]}] + [{
-        "name": k, "route": "cuda", "source": POLICY_SOURCE, "replaces": POLICY_REPLACES[k],
-        "launches": launches[k], "max_abs_err": policy[k][0], "max_rel_err": policy[k][1],
-        "ms": policy[k][2], "plain_ms": policy[k][3]} for k in POLICY_REPLACES]})
+        "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1], "library_ms": None}] + [{
+        "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
+        "launches": launches[k], "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],
+        "bound_ms": policy[k]["bound"][0], "bound_by": policy[k]["bound"][1],
+        "library_ms": None, **{e: v for e, v in policy[k].items()
+                               if e not in ("ms", "plain_ms", "bound")}}
+        for k in POLICY_REPLACES]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -503,4 +626,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,6 +1,6 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA kernels (csrc/rollout.cu, csrc/policy_net.cu) are compiled by
+The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu) are compiled by
 nvcc for sm_90a into shared libraries with a plain C interface; the host
 harnesses (the kernels' per-room and per-tile bodies, compiled by g++)
 serve the CPU tests. All land in build/kernels/ at the repository root,
@@ -33,9 +33,10 @@ _F = ctypes.c_float
 _ROLLOUT_ARGS = [_P, _I] + [_P] * 9 + [_I64, _I, _I]
 # meta, obs, nrows, prm, prmB, logits, value
 _PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
-# meta, obs, nrows, rowin, mode, clip_eps, ent_coef, prm, prmB, prmT, slabs,
-# max_blocks, out
-_PN_GRAD_ARGS = [_P, _P, _I64, _P, _I, _F, _F, _P, _P, _P, _P, _I, _P]
+# meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
+_PN_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _P, _I, _P]
+# meta, obs, nrows, rowin, clip_eps, ent_coef, prm, scratch, chunk, nsplit, out
+_LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _I64, _I, _P]
 
 
 def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
@@ -113,12 +114,14 @@ _GXX_CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
 
 def _cuda_jobs() -> list:
     return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
-            (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd())]
+            (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd()),
+            (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd())]
 
 
 def build_cuda() -> list:
     """Build every CUDA library at once (one nvcc per source, in parallel);
-    returns their paths. cuda_lib() and policy_lib() then load them."""
+    returns their paths. cuda_lib(), policy_lib() and lossgrad_lib() then
+    load them."""
     return _compile_all(_cuda_jobs())
 
 
@@ -149,9 +152,9 @@ def host_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def policy_lib() -> ctypes.CDLL:
-    """csrc/policy_net.cu (kernels K2-K4 of the policy net) built with nvcc
+    """csrc/policy_net.cu (kernels K2 and K3 of the policy net) built with nvcc
     for sm_90a, loaded."""
-    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[1:])[0])
+    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[1:2])[0])
     lib.pn_forward.restype = _I
     lib.pn_forward.argtypes = _PN_FWD_ARGS + [_P]  # stream
     lib.pn_grad.restype = _I
@@ -162,6 +165,37 @@ def policy_lib() -> ctypes.CDLL:
     lib.pn_meta_ints.argtypes = []
     lib.pn_error_string.restype = ctypes.c_char_p
     lib.pn_error_string.argtypes = [_I]
+    return lib
+
+
+def _lossgrad_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.lg_scratch_bytes.restype = _I64
+    lib.lg_scratch_bytes.argtypes = [_P, _I64, _I]
+    lib.lg_meta_ints.restype = _I
+    lib.lg_meta_ints.argtypes = []
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def lossgrad_lib() -> ctypes.CDLL:
+    """csrc/lossgrad.cu (K4, the PPO loss-grad on the tensor cores) built
+    with nvcc for sm_90a, loaded."""
+    lib = _lossgrad_common(ctypes.CDLL(_compile_all(_cuda_jobs()[2:])[0]))
+    lib.lg_lossgrad.restype = _I
+    lib.lg_lossgrad.argtypes = _LG_ARGS + [_P]  # stream
+    lib.lg_error_string.restype = ctypes.c_char_p
+    lib.lg_error_string.argtypes = [_I]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def lossgrad_host_lib() -> ctypes.CDLL:
+    """csrc/lossgrad_host.cpp (K4's pipeline with plain-loop products)
+    built with g++."""
+    lib = _lossgrad_common(ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "lossgrad_host.cpp"),
+                                                      "liblossgrad_host", _GXX_CMD)])[0]))
+    lib.lg_lossgrad_host.restype = _I
+    lib.lg_lossgrad_host.argtypes = _LG_ARGS
     return lib
 
 

@@ -35,9 +35,9 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"error": "no CUDA device: this benchmark runs on the GPU only"}),
               file=sys.stderr)
         return 2
-    from game_engine_tpu.gamespec.compile import compile_game
-    from game_engine_tpu.gamespec.parser import load_builtin
-    from game_engine_tpu.gamespec.tables import lower
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
     from game_engine_tpu_torch.core.engine import BatchedEngine
 
     batch = int(argv[0]) if len(argv) > 0 else 4096

@@ -22,7 +22,7 @@ The ops protocol (step._EffectOps implements it):
 
 from __future__ import annotations
 
-from game_engine_tpu.gamespec import effects as FX
+from game_engine_tpu_torch.gamespec import effects as FX
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 _FULL_RANGE = (_I32_MIN, _I32_MAX)

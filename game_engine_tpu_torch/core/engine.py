@@ -12,8 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from game_engine_tpu.gamespec.mechanics import ChoiceKind
-from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
+from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.core.state import M32, GameState, init_state, tables
 from game_engine_tpu_torch.core.step import (
     GOLDEN,
@@ -122,12 +123,9 @@ def rollout(lowered: Lowered, state: GameState, num_steps: int,
 class BatchedEngine:
     """Convenience wrapper bound to one game and one device."""
 
-    def __init__(self, lowered: Lowered, device="cpu"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BatchedEngine(device='cuda'): no CUDA device available")
+    def __init__(self, lowered: Lowered, device=D.DEFAULT):
         self.lowered = lowered
-        self.device = device
+        self.device = D.resolve(device)
         self.step_fn = make_step(lowered)
 
     def init(self, batch: int, n_players, seeds) -> GameState:

@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from game_engine_tpu.gamespec import tables as T
-from game_engine_tpu.gamespec.tables import Lowered
-from game_engine_tpu.native.pack import pack
+from game_engine_tpu_torch.gamespec import tables as T
+from game_engine_tpu_torch.gamespec.tables import Lowered
+from game_engine_tpu_torch.native.pack import pack
 from game_engine_tpu_torch import _build
 from game_engine_tpu_torch.core.state import _DTYPES, M32, GameState, tables
 

@@ -12,7 +12,8 @@ from typing import Any, Mapping, NamedTuple, Union
 import numpy as np
 import torch
 
-from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.gamespec.tables import Lowered
 
 M32 = 0xFFFFFFFF
 
@@ -92,13 +93,14 @@ def init_state(
     batch: int,
     n_players: Union[int, np.ndarray, torch.Tensor],
     seeds: Union[int, np.ndarray, torch.Tensor],
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = D.DEFAULT,
 ) -> GameState:
     """Fresh rooms at the start phase with template-default fields, after
-    the start phase's on-enter mechanics."""
+    the start phase's on-enter mechanics, on `device` (the card unless the
+    caller asks for the CPU)."""
     from game_engine_tpu_torch.core.step import apply_on_enter
 
-    device = torch.device(device)
+    device = D.resolve(device)
     P = lowered.P
     tabs = tables(lowered, device)
     n = _batched(n_players, batch, torch.int32, device)
@@ -131,10 +133,11 @@ def init_state(
 
 
 def state_from_numpy(arrays: Union[Mapping[str, Any], Any],
-                     device: Union[str, torch.device] = "cpu") -> GameState:
+                     device: Union[str, torch.device] = D.DEFAULT) -> GameState:
     """A GameState from numpy-convertible fields: a mapping by field name, or
     any object with the 15 fields as attributes (e.g. the JAX package's
     GameState). uint32 seeds become int64."""
+    device = D.resolve(device)
     get = arrays.__getitem__ if isinstance(arrays, Mapping) else (
         lambda name: getattr(arrays, name))
     fields = {}

@@ -19,10 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from game_engine_tpu.gamespec import effects as FX
-from game_engine_tpu.gamespec import tables as T
-from game_engine_tpu.gamespec.mechanics import ChoiceKind
-from game_engine_tpu.gamespec.tables import (
+from game_engine_tpu_torch.gamespec import effects as FX
+from game_engine_tpu_torch.gamespec import tables as T
+from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
+from game_engine_tpu_torch.gamespec.tables import (
     AB_BOOL,
     AB_CONST,
     AB_NUM,

@@ -1,33 +1,30 @@
-// policy_net.cu — the deepsets/attn policy net on Hopper: three hand-written
-// kernels and their launchers, built by nvcc for sm_90a into a plain-C
+// policy_net.cu — the deepsets/attn policy net on Hopper: the forward and
+// backward kernels K2 and K3 and their launchers, built by nvcc for sm_90a into a plain-C
 // shared library (game_engine_tpu_torch/_build.py) and bound with ctypes
 // (game_engine_tpu_torch/policies/fused.py).
 //
 //   pn_forward_kernel  replaces K2, game_engine_tpu/policies/fused.py:299
 //                      (_run_fwd / _fwd_kernel): logits and value of every
 //                      row, one tile of R rows per block.
-//   pn_grad_kernel     mode 0 replaces K3, fused.py:468 (_run_bwd /
-//                      _bwd_kernel): recompute the forward, back-propagate the
-//                      given dl, dv into every parameter gradient.
-//                      mode 1 replaces K4, fused.py:600 (_run_lossgrad /
-//                      _lossgrad_kernel): forward, the clipped-PPO + value +
-//                      entropy cotangents, the gradient and 4 loss sums in one
-//                      pass over the rows.
-//   pn_reduce_kernel   the second pass of K3/K4: sums the blocks' gradient
-//                      slabs in block order.
+//   pn_grad_kernel     replaces K3, fused.py:468 (_run_bwd / _bwd_kernel):
+//                      recompute the forward, back-propagate the given dl, dv
+//                      into every parameter gradient.
+//   pn_reduce_kernel   the second pass of K3: sums the blocks' gradient slabs
+//                      in block order.
+// K4, the PPO loss-grad (fused.py:600), is lossgrad.cu.
 //
 // The TPU kernels accumulate the gradient across grid steps in VMEM
 // (fused.py:432-441), which works because the TPU grid runs in order.
-// Hopper's blocks run in parallel, so K3/K4 run a persistent grid of at most
+// Hopper's blocks run in parallel, so K3 runs a persistent grid of at most
 // one block per SM; each block walks its row tiles (tile = blockIdx.x,
 // + gridDim.x, ...) and adds into its own f32 slab of the gradient in global
-// memory (the wrapper allocates grid x (params + 4) floats), and
+// memory (the wrapper allocates grid x params floats), and
 // pn_reduce_kernel adds the slabs in a fixed order. No atomics: the result
 // is deterministic.
 //
 // What bounds them: every product runs on the CUDA cores in f32 on
 // bf16-rounded operands, reading weights from L2 once per 8 seat-rows
-// (policy_net.cuh mm), and each tile of K3/K4 reads and writes its block's
+// (policy_net.cuh mm), and each tile of K3 reads and writes its block's
 // whole ~1 MB slab once. A tile's intermediates stay in shared memory; rows
 // per tile R are the most that fit (up to 16). wgmma/TMA tiling is later work.
 
@@ -59,8 +56,7 @@ pn_forward_kernel(pn::Net n, int R, const uint16_t* __restrict__ obs, int64_t nr
 
 __global__ void __launch_bounds__(THREADS)
 pn_grad_kernel(pn::Net n, int R, const uint16_t* __restrict__ obs, int64_t nrows,
-               const float* __restrict__ rowin, int mode, float clip_eps,
-               float ent_coef, const float* __restrict__ prm,
+               const float* __restrict__ rowin, const float* __restrict__ prm,
                const float* __restrict__ prmB, const float* __restrict__ prmT,
                float* __restrict__ slabs, int ng) {
   extern __shared__ __align__(16) float sm[];
@@ -73,8 +69,7 @@ pn_grad_kernel(pn::Net n, int R, const uint16_t* __restrict__ obs, int64_t nrows
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int64_t row0 = tile * R;
     const int nr = (int)(nrows - row0 < R ? nrows - row0 : R);
-    pn::grad_rows(n, l, c, obs, row0, nr, rowin, mode, clip_eps, ent_coef, prm,
-                  prmB, prmT, slab);
+    pn::grad_rows(n, l, c, obs, row0, nr, rowin, prm, prmB, prmT, slab);
   }
 }
 
@@ -165,26 +160,24 @@ int pn_forward(const int32_t* meta, const uint16_t* obs, int64_t nrows,
   return (int)cudaGetLastError();
 }
 
-// K3 (mode 0, rowin = dl | dv, (nrows, A + 1)) and K4 (mode 1, rowin =
-// legal | one-hot action | logp_old, advn, ret, wrow, vrow, (nrows, 2A + 5)):
-// out (n_params + 4) = the parameter gradient summed over all rows, then the
-// 4 loss sums (K4). slabs holds max_blocks x (n_params + 4) floats.
+// K3: out (n_params) = the parameter gradient of sum(dl * logits) +
+// sum(dv * value) over all rows, rowin = dl | dv (nrows, A + 1). slabs holds
+// max_blocks x n_params floats.
 int pn_grad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
-            int mode, float clip_eps, float ent_coef, const float* prm,
-            const float* prmB, const float* prmT, float* slabs, int max_blocks,
-            float* out, void* stream) {
+            const float* prm, const float* prmB, const float* prmT, float* slabs,
+            int max_blocks, float* out, void* stream) {
   const pn::Net n = pn::net_from_meta(meta);
   int R = 0;
   size_t smem = 0;
   if (int e = plan(n, true, &R, &smem)) return e;
   if (int e = allow_smem(pn_grad_kernel, smem)) return e;
-  const int ng = n.n_params + pn::N_STATS;
+  const int ng = n.n_params;
   const int64_t ntiles = (nrows + R - 1) / R;
   const int grid = (int)(ntiles < max_blocks ? ntiles : max_blocks);
   cudaStream_t st = (cudaStream_t)stream;
   if (grid > 0) {
-    pn_grad_kernel<<<grid, THREADS, smem, st>>>(n, R, obs, nrows, rowin, mode, clip_eps,
-                                                ent_coef, prm, prmB, prmT, slabs, ng);
+    pn_grad_kernel<<<grid, THREADS, smem, st>>>(n, R, obs, nrows, rowin, prm, prmB, prmT,
+                                                slabs, ng);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -1,9 +1,10 @@
 // policy_net.cuh — one tile of rows of the deepsets/attn policy net: the
-// forward, the PPO loss cotangents and the parameter gradient, written for
-// one CUDA block (or, in the host harness, one loop iteration).
+// forward and the parameter gradient of given cotangents, written for one
+// CUDA block (or, in the host harness, one loop iteration). K4, the PPO
+// loss-grad, is lossgrad.cuh; it shares Net, the rounding and gelu here.
 //
-// Counterpart of game_engine_tpu/policies/fused.py: _fwd_body (:154),
-// _grad_body (:329) and the loss rows of _lossgrad_kernel (:508). The cast
+// Counterpart of game_engine_tpu/policies/fused.py: _fwd_body (:154) and
+// _grad_body (:329). The cast
 // points are _fwd_body's: every product takes bf16-rounded operands and
 // accumulates in f32; e is rounded to bf16 before the LayerNorm (eps 1e-5);
 // the attention weights are rounded before mixing; the residual phi is
@@ -18,7 +19,7 @@
 // On the host the same loops run with one "thread" and no barrier.
 //
 // Parameter gradients: each block owns a private f32 slab of the whole
-// gradient (+ N_STATS loss sums) and adds each tile's contribution into it;
+// gradient and adds each tile's contribution into it;
 // an item owns a fixed set of slab elements, so there are no atomics and no
 // races. A second kernel sums the slabs in block order: the result is
 // deterministic for a given grid.
@@ -47,7 +48,7 @@ namespace pn {
 
 constexpr int MAX_LAYERS = 8;
 constexpr int RC = 8;       // seat-rows per work item of a product
-constexpr int N_STATS = 4;  // sum pg*w, sum 0.5 (v-ret)^2 vrow, sum ent*w, sum ratio*w
+constexpr int N_STATS = 4;  // K4's sums: pg*w, 0.5 (v-ret)^2 vrow, ent*w, ratio*w
 
 // parameter slots; the trunk's layer i is W_TRUNK + 2i (weight), + 1 (bias)
 enum { W_PHI0, B_PHI0, W_PHI1, B_PHI1, LN_S, LN_B, W_QKV, W_AO, W_PTR,
@@ -85,7 +86,7 @@ struct Lay {
   // row-level (R rows)
   int rest, xs, zs, gb, logits, value;
   // backward
-  int dl, dv, stat, dphi, dx, dz, dg, t1, dA, dqkv, m12;
+  int dl, dv, dphi, dx, dz, dg, t1, dA, dqkv, m12;
   int total;
 };
 
@@ -122,7 +123,6 @@ PN_HD Lay layout(const Net& n, int R, bool bwd) {
   const int b = bwd ? 1 : 0;
   l.dl = take(at, b * R * n.A);
   l.dv = take(at, b * R);
-  l.stat = take(at, b * R * N_STATS);
   l.dphi = take(at, b * S * hp);
   l.dx = take(at, b * R * (n.T() > n.H ? n.T() : n.H));
   l.dz = take(at, b * R * n.H);
@@ -408,75 +408,6 @@ PN_HD void fwd_tile(const Net& n, const Lay& l, const Ctx& c,
 }
 
 // ---------------------------------------------------------------------------
-// PPO loss rows (_lossgrad_kernel :521-550): cotangents dl, dv and the
-// per-row stats. rowin (rows, 2A + 5) = legal | one-hot action | logp_old,
-// advn, ret, wrow, vrow.
-// ---------------------------------------------------------------------------
-PN_HD void loss_tile(const Net& n, const Lay& l, const Ctx& c,
-                     const float* __restrict__ rowin, int64_t row0, int nr,
-                     float clip_eps, float ent_coef) {
-  float* sm = c.sm;
-  const int A = n.A, RD = 2 * A + 5;
-  for (int r = c.tid; r < nr; r += c.nthr) {
-    const float* in = rowin + (row0 + r) * RD;
-    const float* legal = in;
-    const float* aoh = in + A;
-    const float logp_old = in[2 * A], adv = in[2 * A + 1], ret = in[2 * A + 2];
-    const float wrow = in[2 * A + 3], vrow = in[2 * A + 4];
-    const float* lg = sm + l.logits + r * A;
-    float mx = -INFINITY;
-    for (int a = 0; a < A; ++a) {
-      const float lm = legal[a] > 0.0f ? lg[a] : -1e9f;
-      mx = lm > mx ? lm : mx;
-    }
-    float sumex = 0.0f;
-    for (int a = 0; a < A; ++a) sumex += expf((legal[a] > 0.0f ? lg[a] : -1e9f) - mx);
-    const float lse = mx + logf(sumex);
-    float logp = 0.0f, ent = 0.0f;
-    for (int a = 0; a < A; ++a) {
-      const float lm = legal[a] > 0.0f ? lg[a] : -1e9f;
-      const float lp = lm - lse;
-      const float p = expf(lm - mx) / sumex;
-      logp += lp * aoh[a];
-      ent -= p * lp;
-    }
-    const float ratio = expf(logp - logp_old);
-    const float u1 = ratio * adv;
-    const float lo = 1.0f - clip_eps, hi = 1.0f + clip_eps;
-    const float u2 = (ratio < lo ? lo : (ratio > hi ? hi : ratio)) * adv;
-    const float pg = -(u1 < u2 ? u1 : u2);
-    // d pg / d logp with lax.min's tie rule (fused.py:535-540)
-    const bool inband = ratio >= lo && ratio <= hi;
-    const bool flows = (u1 <= u2) || inband;
-    const float dpg = -adv * ratio * (flows ? 1.0f : 0.0f);
-    float* dl = sm + l.dl + r * A;
-    for (int a = 0; a < A; ++a) {
-      const float lm = legal[a] > 0.0f ? lg[a] : -1e9f;
-      const float lp = lm - lse;
-      const float p = expf(lm - mx) / sumex;
-      dl[a] = wrow * (dpg * (aoh[a] - p) + ent_coef * p * (lp + ent)) * legal[a];
-    }
-    const float dvv = sm[l.value + r] - ret;
-    sm[l.dv + r] = vrow * dvv;
-    float* st = sm + l.stat + r * N_STATS;
-    st[0] = pg * wrow;
-    st[1] = 0.5f * dvv * dvv * vrow;
-    st[2] = ent * wrow;
-    st[3] = ratio * wrow;
-  }
-  PN_SYNC();
-}
-
-// the tile's stat sums, in row order, into the slab's tail
-PN_HD void acc_stats(const Net& n, const Lay& l, const Ctx& c, int nr, float* slab) {
-  for (int j = c.tid; j < N_STATS; j += c.nthr) {
-    float s = 0.0f;
-    for (int r = 0; r < nr; ++r) s += c.sm[l.stat + r * N_STATS + j];
-    slab[n.n_params + j] += s;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // parameter gradient (_grad_body) of the tile from dl (R, A), dv (R) in
 // shared memory, added into slab. prmT holds every weight transposed (the
 // same offsets), so a product with W^T reads rows of it.
@@ -628,33 +559,26 @@ PN_HD void grad_tile(const Net& n, const Lay& l, const Ctx& c, int nr,
 }
 
 // ---------------------------------------------------------------------------
-// one tile of a gradient kernel: forward, then the cotangents — given
-// (mode 0, K3: rowin (rows, A + 1) = dl | dv) or computed from the PPO loss
-// (mode 1, K4: rowin as in loss_tile) — then the gradient into slab
+// one tile of K3: the forward, the given cotangents rowin (rows, A + 1) =
+// dl | dv, then the gradient into slab
 // ---------------------------------------------------------------------------
 PN_HD void grad_rows(const Net& n, const Lay& l, const Ctx& c,
                      const uint16_t* __restrict__ obs, int64_t row0, int nr,
-                     const float* __restrict__ rowin, int mode, float clip_eps,
-                     float ent_coef, const float* __restrict__ prm,
+                     const float* __restrict__ rowin, const float* __restrict__ prm,
                      const float* __restrict__ prmB, const float* __restrict__ prmT,
                      float* slab) {
   fwd_tile(n, l, c, obs, row0, nr, prm, prmB);
-  if (mode == 0) {
-    const int A = n.A;
-    for (int it = c.tid; it < nr * (A + 1); it += c.nthr) {
-      const int r = it / (A + 1), a = it % (A + 1);
-      const float v = rowin[(row0 + r) * (A + 1) + a];
-      if (a < A) {
-        c.sm[l.dl + r * A + a] = v;
-      } else {
-        c.sm[l.dv + r] = v;
-      }
+  const int A = n.A;
+  for (int it = c.tid; it < nr * (A + 1); it += c.nthr) {
+    const int r = it / (A + 1), a = it % (A + 1);
+    const float v = rowin[(row0 + r) * (A + 1) + a];
+    if (a < A) {
+      c.sm[l.dl + r * A + a] = v;
+    } else {
+      c.sm[l.dv + r] = v;
     }
-    PN_SYNC();
-  } else {
-    loss_tile(n, l, c, rowin, row0, nr, clip_eps, ent_coef);
-    acc_stats(n, l, c, nr, slab);
   }
+  PN_SYNC();
   grad_tile(n, l, c, nr, prm, prmT, slab);
 }
 

@@ -32,15 +32,14 @@ int pn_forward_host(const int32_t* meta, const uint16_t* obs, int64_t nrows,
 }
 
 int pn_grad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows,
-                 const float* rowin, int mode, float clip_eps, float ent_coef,
-                 const float* prm, const float* prmB, const float* prmT, float* slabs,
-                 int max_blocks, float* out, int R) {
+                 const float* rowin, const float* prm, const float* prmB, const float* prmT,
+                 float* slabs, int max_blocks, float* out, int R) {
   const pn::Net n = pn::net_from_meta(meta);
   if (R < 1 || max_blocks < 1 || n.L < 1 || n.L > pn::MAX_LAYERS) return 1;
   const pn::Lay l = pn::layout(n, R, true);
   std::vector<float> sm(l.total);
   const pn::Ctx c{0, 1, sm.data()};
-  const int ng = n.n_params + pn::N_STATS;
+  const int ng = n.n_params;
   const int64_t ntiles = (nrows + R - 1) / R;
   const int grid = (int)(ntiles < max_blocks ? ntiles : max_blocks);
   for (int b = 0; b < grid; ++b) {
@@ -49,8 +48,7 @@ int pn_grad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows,
     for (int64_t tile = b; tile < ntiles; tile += grid) {
       const int64_t row0 = tile * R;
       const int nr = (int)(nrows - row0 < R ? nrows - row0 : R);
-      pn::grad_rows(n, l, c, obs, row0, nr, rowin, mode, clip_eps, ent_coef, prm, prmB,
-                    prmT, slab);
+      pn::grad_rows(n, l, c, obs, row0, nr, rowin, prm, prmB, prmT, slab);
     }
   }
   for (int j = 0; j < ng; ++j) {

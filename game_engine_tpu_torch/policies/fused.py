@@ -4,21 +4,24 @@ Counterpart of game_engine_tpu/policies/fused.py for the deepsets/attn net:
 
   make_apply    (params, obs) -> (logits, value), a torch.autograd.Function
                 whose forward launches K2 (pn_forward_kernel, which replaces
-                fused.py:299) and whose backward launches K3 (pn_grad_kernel
-                mode 0, fused.py:468). obs gets no gradient.
+                fused.py:299) and whose backward launches K3 (pn_grad_kernel,
+                fused.py:468). obs gets no gradient.
   make_loss_vg  (params, obs, legal, actions, logp_old, adv, ret, mask) ->
-                ((loss, metrics), grads) through K4 (pn_grad_kernel mode 1,
-                fused.py:600): forward, PPO cotangents and gradient in one
-                pass over the rows. The steps before the kernel stay plain
-                torch (fused.py:646-680): the masked advantage normalisation,
-                the one-hot actions and the wrow/vrow row weights. The kernel
-                masks the ragged edge of the rows itself, so no row padding.
+                ((loss, metrics), grads) through K4 (csrc/lossgrad.cu, which
+                replaces fused.py:600): forward, PPO cotangents and gradient
+                in one call, as a pipeline of tensor-core products and
+                elementwise stages over chunks of CHUNK_ROWS rows. The steps
+                before the kernel stay plain torch (fused.py:646-680): the
+                masked advantage normalisation, the one-hot actions and the
+                wrow/vrow row weights. The kernels mask the ragged edges
+                themselves, so no row padding.
 
 Each kernel has its plain-torch version here: ``fused_forward_plain``
 follows _fwd_body's cast points (K2), autograd through it is K3's, and
 ``loss_vg_plain`` is K4's. A wrapper given CUDA tensors launches its kernel
-or raises; CPU tensors take the plain version; ``host_forward`` and
-``host_grads`` run the kernels' own tile code built with g++ on CPU tensors.
+or raises; CPU tensors take the plain version; ``host_forward``,
+``host_grads`` and ``host_loss_grads`` run the kernels' own code built with
+g++ on CPU tensors (K4's with plain-loop products).
 Each kernel wrapper counts its launches in ``<wrapper>.launches``;
 ``kernel_plan`` reports the tile size and resources the kernels run with.
 """
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch import _build
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies.net import bf, gelu
@@ -40,6 +43,8 @@ from game_engine_tpu_torch.policies.net import bf, gelu
 _F32 = torch.float32
 MAX_LAYERS = 8  # policy_net.cuh
 N_STATS = 4
+CHUNK_ROWS = 32768  # K4's rows per chunk: about 2.6 GB of scratch at the attn net's width
+NSPLIT = 32         # K4's row ranges per weight-gradient product (one slab each)
 # policy_net.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
 _SLOT = {"w_phi0": 0, "b_phi0": 1, "w_phi1": 2, "b_phi1": 3, "ln_s": 4, "ln_b": 5,
          "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12}
@@ -155,7 +160,7 @@ def _pack_params(params: dict, d: Dims, device) -> tuple:
 def kernel_plan(d: Dims) -> dict:
     """How the kernels run on the current CUDA device: rows per tile, shared
     bytes per block and registers per thread of the forward (K2) and the
-    gradient kernel (K3/K4)."""
+    gradient kernel (K3); K4's chunk, splits and scratch bytes per chunk."""
     lib = _build.policy_lib()
     meta = _meta(d)
     if len(meta) != lib.pn_meta_ints():
@@ -166,6 +171,9 @@ def kernel_plan(d: Dims) -> dict:
         _raise_on(lib.pn_plan(meta.ctypes.data, bwd, got.ctypes.data), lib, "plan")
         out[name] = {"rows_per_tile": int(got[0]), "shared_bytes": int(got[1]),
                      "registers": int(got[2])}
+    out["loss_grad"] = {"chunk_rows": CHUNK_ROWS, "nsplit": NSPLIT,
+                        "scratch_bytes": int(_build.lossgrad_lib().lg_scratch_bytes(
+                            meta.ctypes.data, CHUNK_ROWS, NSPLIT))}
     return out
 
 
@@ -304,22 +312,6 @@ def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
 kernel_forward.launches = 0
 
 
-def _grad_launch(d: Dims, rows, rowin, mode: int, clip_eps: float, ent_coef: float,
-                 params: dict):
-    dev = rows.device
-    prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
-    ng = prm.numel() + N_STATS
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    slabs = torch.empty((blocks * ng,), dtype=_F32, device=dev)
-    out = torch.empty((ng,), dtype=_F32, device=dev)
-    lib = _build.policy_lib()
-    err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
-                      mode, clip_eps, ent_coef, prm.data_ptr(), prm_b.data_ptr(),
-                      prm_t.data_ptr(), slabs.data_ptr(), blocks, out.data_ptr(), _stream(dev))
-    _raise_on(err, lib, "K3 (policy backward)" if mode == 0 else "K4 (PPO loss-grad)")
-    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
-
-
 def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor,
                  params: dict) -> dict:
     """K3: the parameter gradient of sum(dl * logits) + sum(dv * value) over
@@ -328,12 +320,59 @@ def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor
     n = rows.shape[0]
     rowin = torch.cat([dl.to(_F32).reshape(n, d.A), dv.to(_F32).reshape(n, 1)], 1).contiguous()
     _check_f32(rowin, (n, d.A + 1), rows.device, "dl | dv")
-    grads, _ = _grad_launch(d, rows, rowin, 0, 0.0, 0.0, params)
+    dev = rows.device
+    prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    slabs = torch.empty((blocks * prm.numel(),), dtype=_F32, device=dev)
+    out = torch.empty((prm.numel(),), dtype=_F32, device=dev)
+    lib = _build.policy_lib()
+    err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(), prm.data_ptr(),
+                      prm_b.data_ptr(), prm_t.data_ptr(), slabs.data_ptr(), blocks,
+                      out.data_ptr(), _stream(dev))
+    _raise_on(err, lib, "K3 (policy backward)")
     kernel_grads.launches += 1
-    return grads
+    return _unpack(out, d)
 
 
 kernel_grads.launches = 0
+
+
+def lossgrad_supports(d: Dims) -> bool:
+    """K4's pipeline (csrc/lossgrad.cuh lg::supported, which checks the same
+    before a launch): encoder and trunk widths multiples of 32, at most 32
+    seats and 64 actions. Narrower than K2/K3: zero padding of hp would
+    change the LayerNorm and the attention scale, so it is not padded."""
+    return d.hp % 32 == 0 and d.hidden % 32 == 0 and d.P <= 32 and d.A <= 64
+
+
+def loss_supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
+    """Whether K4 covers the net: the one routing decision for the fused
+    loss. Nets K2/K3 cover but K4 does not train through K2 + K3."""
+    return supports(lowered, cfg) and lossgrad_supports(dims_for(lowered, cfg))
+
+
+def _lossgrad_launch(d: Dims, rows, rowin, params, clip_eps, ent_coef, chunk_rows, nsplit,
+                     lib, host: bool):
+    if not lossgrad_supports(d):
+        raise ValueError(f"K4 needs hp and hidden multiples of 32, P <= 32, A <= 64: {d}")
+    dev = rows.device
+    prm, _, _, meta = _pack_params(params, d, dev)
+    n = rows.shape[0]
+    chunk = max(1, min(n, chunk_rows))
+    scratch = torch.empty((int(lib.lg_scratch_bytes(meta.ctypes.data, chunk, nsplit)),),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((prm.numel() + N_STATS,), dtype=_F32, device=dev)
+    args = (meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(), clip_eps, ent_coef,
+            prm.data_ptr(), scratch.data_ptr(), chunk, nsplit, out.data_ptr())
+    if host:
+        if lib.lg_lossgrad_host(*args) != 0:
+            raise RuntimeError("host loss-grad failed")
+    else:
+        err = lib.lg_lossgrad(*args, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"K4 (PPO loss-grad) launch failed: "
+                               f"{lib.lg_error_string(err).decode()}")
+    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
 
 
 def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
@@ -342,7 +381,8 @@ def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: 
     (grads, stats [pg_loss, vf * v_loss, entropy, ratio_mean])."""
     _check_rows(d, rows, "cuda")
     _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
-    out = _grad_launch(d, rows, rowin, 1, clip_eps, ent_coef, params)
+    out = _lossgrad_launch(d, rows, rowin, params, clip_eps, ent_coef, CHUNK_ROWS, NSPLIT,
+                           _build.lossgrad_lib(), host=False)
     kernel_loss_grads.launches += 1
     return out
 
@@ -366,25 +406,34 @@ def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int =
     return logits, value
 
 
-def host_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, mode: int, params: dict,
-               clip_eps: float = 0.0, ent_coef: float = 0.0, blocks: int = 3,
-               rows_per_tile: int = 2):
-    """K3 (mode 0, rowin = dl | dv) or K4 (mode 1) tile code and slab
-    reduction built with g++, on CPU rows -> (grads, stats)."""
+def host_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
+               blocks: int = 3, rows_per_tile: int = 2) -> dict:
+    """K3's tile code and slab reduction built with g++, on CPU rows and
+    rowin = dl | dv -> grads."""
     _check_rows(d, rows, "cpu")
     prm, prm_b, prm_t, meta = _pack_params(params, d, rows.device)
-    ng = prm.numel() + N_STATS
-    slabs = torch.empty((blocks * ng,), dtype=_F32)
-    out = torch.empty((ng,), dtype=_F32)
+    slabs = torch.empty((blocks * prm.numel(),), dtype=_F32)
+    out = torch.empty((prm.numel(),), dtype=_F32)
     rowin = rowin.to(_F32).contiguous()
     lib = _build.policy_host_lib()
     err = lib.pn_grad_host(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
-                           mode, clip_eps, ent_coef, prm.data_ptr(), prm_b.data_ptr(),
-                           prm_t.data_ptr(), slabs.data_ptr(), blocks, out.data_ptr(),
-                           rows_per_tile)
+                           prm.data_ptr(), prm_b.data_ptr(), prm_t.data_ptr(),
+                           slabs.data_ptr(), blocks, out.data_ptr(), rows_per_tile)
     if err != 0:
         raise RuntimeError(f"host gradient failed ({err})")
-    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
+    return _unpack(out, d)
+
+
+def host_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
+                    clip_eps: float, ent_coef: float, chunk_rows: int = CHUNK_ROWS,
+                    nsplit: int = 3):
+    """K4's pipeline built with g++ (csrc/lossgrad_host.cpp: the CUDA
+    version's stages, layout, chunks and slab order, plain-loop products),
+    on CPU rows -> (grads, stats)."""
+    _check_rows(d, rows, "cpu")
+    _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
+    return _lossgrad_launch(d, rows, rowin, params, clip_eps, ent_coef, chunk_rows, nsplit,
+                            _build.lossgrad_host_lib(), host=True)
 
 
 # ---------------------------------------------------------------------------
@@ -465,9 +514,12 @@ def make_loss_vg(lowered: Lowered, cfg: N.NetConfig, clip_eps: float, vf_coef: f
     """(params, obs, legal, actions, logp_old, adv, ret, mask) ->
     ((loss, metrics), grads): the fused train path's replacement for
     value_and_grad(ppo_loss), one K4 pass on CUDA tensors, the plain
-    version on CPU tensors."""
-    if not supports(lowered, cfg):
-        raise ValueError("fused kernels cover deepsets/attn with 1 head")
+    version on CPU tensors. Raises for a net K4 does not cover (see
+    loss_supports)."""
+    if not loss_supports(lowered, cfg):
+        raise ValueError(f"K4 covers deepsets/attn with 1 head, encoder and trunk widths "
+                         f"multiples of 32, at most 32 seats and 64 actions; not {cfg} "
+                         f"(train it with fused_loss=False: K2 + K3)")
     d = dims_for(lowered, cfg)
 
     def loss_vg(params, obs, legal, actions, logp_old, adv, ret, mask):

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from game_engine_tpu.gamespec.tables import Lowered
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.core.step import _alive
 
@@ -50,7 +51,7 @@ def field_visibility(lowered: Lowered) -> dict[str, int]:
     SELF-only. The team field (and role) is TEAM when an audience group
     selects by team. Action bookkeeping is SELF when its phase selects its
     actors by non-public fields. Everything else is PUBLIC."""
-    from game_engine_tpu.gamespec.expr import collect_atoms
+    from game_engine_tpu_torch.gamespec.expr import collect_atoms
 
     decl = lowered.game.spec.declaration
     team_grouped = any(
@@ -95,7 +96,7 @@ def field_visibility(lowered: Lowered) -> dict[str, int]:
 def _phase_public_acting(lowered: Lowered) -> np.ndarray:
     """(NP,) bool — whether WHO-has-acted in each phase is public info
     (the phase selects actors by public fields only)."""
-    from game_engine_tpu.gamespec.expr import collect_atoms
+    from game_engine_tpu_torch.gamespec.expr import collect_atoms
 
     vis = field_visibility(lowered)
     out = np.zeros((lowered.NP,), dtype=bool)
@@ -274,9 +275,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def init_params(generator: torch.Generator, in_dim: int, n_actions: int,
                 cfg: NetConfig, lowered: Lowered | None = None,
-                device="cpu") -> dict[str, torch.Tensor]:
+                device=D.DEFAULT) -> dict[str, torch.Tensor]:
     """Plain-dict f32 params with the JAX package's names and shapes
-    (normal / sqrt(fan_in) weights, zero biases), drawn from `generator`."""
+    (normal / sqrt(fan_in) weights, zero biases), drawn from `generator`
+    (a CPU generator), on `device`."""
+    device = D.resolve(device)
     params: dict[str, torch.Tensor] = {}
 
     def lin(i, o):
@@ -379,7 +382,7 @@ def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
 
 def legal_action_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
     """(B, P, A) bool — which choices the engine would accept (P2)."""
-    from game_engine_tpu.gamespec.mechanics import ChoiceKind
+    from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
 
     B, P = state.present.shape
     dev = state.present.device
@@ -442,8 +445,10 @@ def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
 # checkpoints
 # ---------------------------------------------------------------------------
 
-def params_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> dict[str, torch.Tensor]:
+def params_from_numpy(arrays: dict[str, np.ndarray],
+                      device=D.DEFAULT) -> dict[str, torch.Tensor]:
     """name -> f32 tensor on `device`."""
+    device = D.resolve(device)
     return {k: torch.as_tensor(np.array(v, np.float32), device=device)
             for k, v in arrays.items()}
 
@@ -464,7 +469,7 @@ def infer_net_config(params: dict[str, Any]) -> NetConfig:
     return NetConfig(hidden=hidden, layers=layers, arch=arch, attn_heads=1)
 
 
-def load_policy(path: str, device="cpu") -> tuple[dict[str, torch.Tensor], NetConfig]:
+def load_policy(path: str, device=D.DEFAULT) -> tuple[dict[str, torch.Tensor], NetConfig]:
     """Load a save_tree checkpoint (npz + .tree.json) with numpy alone.
     Leaf i is the i-th key of the sorted params dict, as the treedef
     string lists it; the attn head count rides in the sidecar's meta."""

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from game_engine_tpu.gamespec.tables import LGameOver, Lowered
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
 from game_engine_tpu_torch.core.engine import init_state_like
 from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.core.step import PredEval, make_step
@@ -52,7 +53,7 @@ class PPOConfig:
     # route the deepsets/attn net through the policy-net kernels
     fused_net: bool = False
     # with fused_net: one K4 pass per update instead of K2 forward + K3
-    # backward through ppo_loss
+    # backward through ppo_loss, where K4 covers the net (fused.loss_supports)
     fused_loss: bool = True
     net: N.NetConfig = dataclasses.field(default_factory=N.NetConfig)
 
@@ -225,12 +226,14 @@ def team_masks(lowered: Lowered, state: GameState) -> torch.Tensor:
 
 def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig):
     """((loss, metrics), grads) through K4 (one pass over the rows), or None
-    when the config does not qualify."""
-    if not (cfg.fused_net and cfg.fused_loss and cfg.net.arch in ("deepsets", "attn")):
+    when the config does not ask for it or K4 does not cover the net; the
+    update then runs ppo_loss through make_apply_fn (K2 + K3 with
+    fused_net)."""
+    if not (cfg.fused_net and cfg.fused_loss):
         return None
     from game_engine_tpu_torch.policies import fused as FZ
 
-    if not FZ.supports(lowered, cfg.net):
+    if not FZ.loss_supports(lowered, cfg.net):
         return None
     mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef)
 
@@ -320,7 +323,7 @@ def make_train_step(lowered: Lowered, cfg: PPOConfig):
 
 
 def init_training(lowered: Lowered, cfg: PPOConfig, generator: torch.Generator,
-                  device="cpu"):
+                  device=D.DEFAULT):
     """-> (params, optimizer): fresh params (leaf tensors that require
     grad) and torch.optim.Adam(lr) over them."""
     params = N.init_params(generator, N.obs_dim(lowered), N.action_space(lowered),

@@ -21,9 +21,10 @@ import time
 import numpy as np
 import torch
 
-from game_engine_tpu.gamespec.compile import compile_game
-from game_engine_tpu.gamespec.parser import load_builtin
-from game_engine_tpu.gamespec.tables import Lowered, lower
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.gamespec.compile import compile_game
+from game_engine_tpu_torch.gamespec.parser import load_builtin
+from game_engine_tpu_torch.gamespec.tables import Lowered, lower
 from game_engine_tpu_torch.core.engine import scripted_actions
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.core.step import make_step
@@ -60,19 +61,10 @@ def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int
     return run
 
 
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device available (use --device cpu)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported --device {name}")
-    return dev
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--game", default="werewolf")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--device", default=D.DEFAULT, help="cuda (default) or cpu")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--players", type=int, default=6)
     ap.add_argument("--updates", type=int, default=100)
@@ -96,17 +88,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    device = _device(args.device)
+    device = D.resolve(args.device)
     lowered = lower(compile_game(load_builtin(args.game)))
     net_cfg = N.NetConfig(hidden=args.hidden, arch=args.arch)
     fused = args.fused
-    if fused is None:
+    if fused is not False:
         from game_engine_tpu_torch.policies import fused as FZ
 
-        fused = device.type == "cuda" and FZ.supports(lowered, net_cfg)
-        if fused:
-            print(json.dumps({"event": "fused_net", "mode": "auto",
-                              "disable_with": "--no-fused"}), flush=True)
+        mode = "forced" if fused else "auto"
+        fused = fused or (device.type == "cuda" and FZ.supports(lowered, net_cfg))
+        if fused and FZ.supports(lowered, net_cfg):
+            print(json.dumps({"event": "fused_net", "mode": mode, "disable_with": "--no-fused",
+                              "loss": "k4" if FZ.loss_supports(lowered, net_cfg) else "k2_k3"}),
+                  flush=True)
     cfg = PPOConfig(horizon=args.horizon, epochs=args.epochs, lr=args.lr,
                     loss_chunk=args.loss_chunk, fused_net=fused, net=net_cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -26,6 +26,9 @@ def csrc(tmp_path, monkeypatch):
     ("policy_net.cuh", "policy_net_host.cpp"),
     ("room_step.cuh", "rollout.cu"),
     ("room_step.cuh", "rollout_host.cpp"),
+    ("lossgrad.cuh", "lossgrad.cu"),
+    ("lossgrad.cuh", "lossgrad_host.cpp"),
+    ("policy_net.cuh", "lossgrad.cu"),
 ])
 def test_header_edit_renames_the_library(csrc, header, src):
     cmd = ["nvcc", "-O3"]

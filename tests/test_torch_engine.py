@@ -15,32 +15,27 @@ import yaml
 
 from game_engine_tpu.core.engine import make_rollout as jax_make_rollout
 from game_engine_tpu.core.state import init_state as jax_init_state
-from game_engine_tpu.dslgen.validate import errors, validate_doc
-from game_engine_tpu.gamespec.compile import compile_game
 from game_engine_tpu.gamespec.parser import games_dir
-from game_engine_tpu.gamespec.tables import lower
 from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout, rollout
 from game_engine_tpu_torch.core.state import init_state
-from tests.test_torch_state import assert_same_state, lowered_game
+from tests.test_torch_state import Pair, assert_same_state, builtin_pair, doc_pair, lowered_game
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def born_done_game():
+def born_done_game() -> Pair:
     """potlatch whose start phase declares `over` in 4-seat rooms: those
     rooms are born done, and every auto-reset re-creates them done."""
     doc = yaml.safe_load(open(os.path.join(games_dir(), "potlatch.yaml")))
     doc["phases"][0]["mechanics"] = [{"effects": ["over 2 where nplayers == 4"]}]
-    issues, spec = validate_doc(doc, name="born-done")
-    assert spec is not None and not errors(issues), [str(i) for i in issues]
-    return lower(compile_game(spec))
+    return doc_pair(doc, "born-done")
 
 
-def assert_rollout_matches_jax(lw, B, n, steps):
+def assert_rollout_matches_jax(pair: Pair, B, n, steps):
     seeds = np.arange(B, dtype=np.uint32)
-    ref, ref_eps = jax.jit(jax_make_rollout(lw, steps, auto_reset=True))(
-        jax_init_state(lw, B, n, seeds))
-    got, eps = make_rollout(lw, steps)(init_state(lw, B, n, seeds))
+    ref, ref_eps = jax.jit(jax_make_rollout(pair.jax, steps, auto_reset=True))(
+        jax_init_state(pair.jax, B, n, seeds))
+    got, eps = make_rollout(pair.port, steps)(init_state(pair.port, B, n, seeds, device="cpu"))
     assert int(eps) == int(ref_eps), f"episodes {int(eps)} != {int(ref_eps)}"
     assert_same_state(ref, got)
     return int(eps)
@@ -61,31 +56,31 @@ def test_generated_game_rollout_matches_jax():
 
 
 def test_declared_over_rollout_matches_jax():
-    from game_engine_tpu.gamespec.parser import load_builtin
-
-    potlatch = lower(compile_game(load_builtin("potlatch")))
+    potlatch = builtin_pair("potlatch")
     assert assert_rollout_matches_jax(potlatch, 8, 4, 60) > 0
 
 
 def test_born_done_rooms_are_not_counted():
-    lw = born_done_game()
+    pair = born_done_game()
+    lw = pair.port
     B, steps = 8, 60
     n = np.array([4, 5, 4, 6, 5, 4, 6, 5], np.int32)
     seeds = np.arange(B, dtype=np.uint32)
-    start = init_state(lw, B, torch.as_tensor(n), seeds)
+    start = init_state(lw, B, torch.as_tensor(n), seeds, device="cpu")
     assert start.done.tolist() == (n == 4).tolist()
-    ref, ref_eps = jax.jit(jax_make_rollout(lw, steps))(jax_init_state(lw, B, n, seeds))
+    ref, ref_eps = jax.jit(jax_make_rollout(pair.jax, steps))(
+        jax_init_state(pair.jax, B, n, seeds))
     got, eps = make_rollout(lw, steps)(start)
     assert_same_state(ref, got)
     assert int(eps) == int(ref_eps) > 0
     # the born-done rooms completed nothing: one room per size class alone
-    lone, lone_eps = make_rollout(lw, steps)(init_state(lw, 1, 4, 0))
+    lone, lone_eps = make_rollout(lw, steps)(init_state(lw, 1, 4, 0, device="cpu"))
     assert int(lone_eps) == 0 and bool(lone.done[0])
 
 
 def test_rollout_dispatch_and_engine_api():
-    lw = lowered_game("werewolf")
-    eng = BatchedEngine(lw)
+    lw = lowered_game("werewolf").port
+    eng = BatchedEngine(lw, device="cpu")
     st = eng.init(4, 6, np.arange(4, dtype=np.uint32))
     a, ea = eng.rollout(st, 25)
     b, eb = rollout(lw, st, 25)
@@ -102,8 +97,8 @@ def test_rollout_dispatch_and_engine_api():
 
 
 def test_rollout_refuses_unsupported_devices(monkeypatch):
-    lw = lowered_game("werewolf")
-    st = init_state(lw, 2, 6, 0)
+    lw = lowered_game("werewolf").port
+    st = init_state(lw, 2, 6, 0, device="cpu")
     meta = type(st)(*(t.to("meta") for t in st))
     with pytest.raises(ValueError, match="unsupported device"):
         rollout(lw, meta, 3)

@@ -11,9 +11,12 @@ observations of a werewolf scripted rollout at hidden 64:
 
 Tolerances are those of tests/test_fused_net.py, relative to the max |ref|:
 bf16 rounding points differ between XLA, the Pallas kernels and torch.
-The CUDA kernels' own tile code (csrc/policy_net.cuh, built with g++ into
-the host harness) is held against the plain versions at the same
-tolerances, over ragged tiles and several gradient slabs.
+The CUDA kernels' own code, built with g++ into host harnesses, is held
+against the plain versions at the same tolerances: K2's and K3's tile code
+(csrc/policy_net.cuh) over ragged tiles and several gradient slabs, and
+K4's pipeline (csrc/lossgrad.cuh, the stages, buffer layout, chunks and
+slab order of the tensor-core version, with plain-loop products) over
+ragged chunks and several row splits.
 """
 
 import jax
@@ -22,9 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from game_engine_tpu.gamespec.compile import compile_game
-from game_engine_tpu.gamespec.parser import load_builtin
-from game_engine_tpu.gamespec.tables import lower
 from game_engine_tpu.policies import fused as JFZ
 from game_engine_tpu.policies import net as JN
 from game_engine_tpu.train import ppo as JP
@@ -32,14 +32,27 @@ from game_engine_tpu_torch import _build
 from game_engine_tpu_torch.policies import fused as FZ
 from game_engine_tpu_torch.policies import net as N
 from tests.test_torch_net import jax_params, jax_states, port_cfg, port_params, rel_err, to_np
+from tests.test_torch_state import builtin_pair
 from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
 
 CLIP, VF, ENT = 0.2, 0.5, 0.01
 
 
 @pytest.fixture(scope="module")
-def ww():
-    return lower(compile_game(load_builtin("werewolf")))
+def ww_pair():
+    return builtin_pair("werewolf")
+
+
+@pytest.fixture(scope="module")
+def ww(ww_pair):
+    """werewolf lowered by the JAX package, for the JAX functions."""
+    return ww_pair.jax
+
+
+@pytest.fixture(scope="module")
+def pww(ww_pair):
+    """werewolf lowered by the port, for the port's functions."""
+    return ww_pair.port
 
 
 def make_traj(ww):
@@ -97,10 +110,10 @@ def logp_old(traj, jp, jcfg, ww):
 
 
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
-def test_forward_plain_matches_jax_kernel(ww, traj, arch):
+def test_forward_plain_matches_jax_kernel(ww, pww, traj, arch):
     jcfg, jp = jax_params(ww, arch)
     cfg = port_cfg(jcfg)
-    d = FZ.dims_for(ww, cfg)
+    d = FZ.dims_for(pww, cfg)
     assert d.F == JFZ.dims_for(ww, jcfg).F and d.A == JFZ.dims_for(ww, jcfg).A
     l0, v0 = JFZ.make_apply(ww, jcfg)(jp, jnp.asarray(traj["obs"], jnp.bfloat16))
     params = port_params(jp)
@@ -108,16 +121,16 @@ def test_forward_plain_matches_jax_kernel(ww, traj, arch):
     assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
     assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
     # make_apply on CPU tensors takes the plain version, any leading dims
-    l2, v2 = FZ.make_apply(ww, cfg)(params, torch.as_tensor(traj["obs"]).bfloat16())
+    l2, v2 = FZ.make_apply(pww, cfg)(params, torch.as_tensor(traj["obs"]).bfloat16())
     assert tuple(l2.shape) == l0.shape and tuple(v2.shape) == v0.shape
     assert torch.equal(l2.reshape(-1, d.A), l1) and torch.equal(v2.reshape(-1), v1)
 
 
-def test_backward_plain_matches_jax_kernel(ww, traj):
+def test_backward_plain_matches_jax_kernel(ww, pww, traj):
     """K3's plain version (autograd through fused_forward_plain) against
     the custom VJP of the Pallas pair, for seeded dl/dv cotangents."""
     jcfg, jp = jax_params(ww, "attn")
-    d = FZ.dims_for(ww, port_cfg(jcfg))
+    d = FZ.dims_for(pww, port_cfg(jcfg))
     obs = jnp.asarray(traj["obs"], jnp.bfloat16)
     apply = JFZ.make_apply(ww, jcfg)
     lead = obs.shape[:-1]
@@ -129,7 +142,7 @@ def test_backward_plain_matches_jax_kernel(ww, traj):
     grads_close(got, {k: np.asarray(v) for k, v in want.items()})
 
 
-def test_loss_vg_plain_matches_jax(ww, traj):
+def test_loss_vg_plain_matches_jax(ww, pww, traj):
     """K4's plain version against the one-pass Pallas loss-grad and
     jax.value_and_grad(ppo_loss) on the same trajectory, at the freshly
     initialised params test_fused_net.py uses. (With perturbed biases the
@@ -153,7 +166,7 @@ def test_loss_vg_plain_matches_jax(ww, traj):
             torch.as_tensor(traj["actions"]), torch.as_tensor(lp_old),
             torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
             torch.as_tensor(traj["mask"]))
-    (loss, metrics), grads = FZ.make_loss_vg(ww, cfg, CLIP, VF, ENT)(port_params(jp), *t_in)
+    (loss, metrics), grads = FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)(port_params(jp), *t_in)
     ratios = np.exp(-traj["logp_noise"])  # at the current params
     assert (ratios > 1 + CLIP).any() and (ratios < 1 - CLIP).any()
     for l_ref, m_ref, g_ref in ((l_k, m_k, g_k), (l_x, m_x, g_x)):
@@ -164,12 +177,12 @@ def test_loss_vg_plain_matches_jax(ww, traj):
 
 
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
-def test_kernel_tile_code_matches_plain(ww, traj, arch):
-    """csrc/policy_net.cuh built with g++: K2's forward over ragged tiles,
-    K3's gradient and K4's loss-grad summed over three slabs, against the
-    plain versions."""
+def test_kernel_tile_code_matches_plain(ww, pww, traj, arch):
+    """The kernels' code built with g++: K2's forward over ragged tiles,
+    K3's gradient summed over three slabs, and K4's pipeline over ragged
+    chunks and three row splits, against the plain versions."""
     jcfg, jp = jax_params(ww, arch)
-    d = FZ.dims_for(ww, port_cfg(jcfg))
+    d = FZ.dims_for(pww, port_cfg(jcfg))
     rows, params = rows_of(traj, d), port_params(jp)
     assert len(FZ._meta(d)) == _build.policy_host_lib().pn_meta_ints()
     l0, v0 = FZ.fused_forward_plain(d, rows, params)
@@ -180,8 +193,8 @@ def test_kernel_tile_code_matches_plain(ww, traj, arch):
 
     dl, dv = torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])
     want = plain_vjp(d, rows, params, dl, dv)
-    got, _ = FZ.host_grads(d, rows, torch.cat([dl, dv[:, None]], 1), 0, params,
-                           blocks=3, rows_per_tile=2)
+    got = FZ.host_grads(d, rows, torch.cat([dl, dv[:, None]], 1), params,
+                        blocks=3, rows_per_tile=2)
     grads_close({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()})
 
     rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
@@ -189,18 +202,19 @@ def test_kernel_tile_code_matches_plain(ww, traj, arch):
                           torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
                           torch.as_tensor(traj["mask"]), VF)
     g_ref, s_ref = FZ.loss_vg_plain(d, rows, rowin, params, CLIP, ENT)
-    g_k, s_k = FZ.host_grads(d, rows, rowin, 1, params, CLIP, ENT, blocks=3, rows_per_tile=3)
+    g_k, s_k = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=50, nsplit=3)
     grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()})
     np.testing.assert_allclose(s_k.numpy(), s_ref.numpy(), rtol=0, atol=5e-2)
-    # the slab sum is in a fixed order: the same grid gives the same bits
-    g_again, _ = FZ.host_grads(d, rows, rowin, 1, params, CLIP, ENT, blocks=3, rows_per_tile=3)
+    # the slab sums are in a fixed order: the same chunking gives the same bits
+    g_again, _ = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=50,
+                                    nsplit=3)
     assert all(torch.equal(g_k[k], g_again[k]) for k in g_k)
 
 
-def test_loss_rows_pre_kernel_steps(ww, traj):
+def test_loss_rows_pre_kernel_steps(ww, pww, traj):
     """rowin = legal | one-hot action | logp_old, normalised advantage,
     ret, mask / msum, vf / n, as fused.py:646-676 computes them."""
-    d = FZ.dims_for(ww, N.NetConfig(hidden=64, arch="attn"))
+    d = FZ.dims_for(pww, N.NetConfig(hidden=64, arch="attn"))
     n, A = traj["mask"].size, d.A
     rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
                           torch.as_tensor(traj["logp_noise"]), torch.as_tensor(traj["adv"]),
@@ -219,12 +233,12 @@ def test_loss_rows_pre_kernel_steps(ww, traj):
     np.testing.assert_allclose(r[:, 2 * A + 4], VF / n, rtol=1e-6)
 
 
-def test_kernel_wrappers_refuse_cpu_rows_and_count_launches(ww, traj):
+def test_kernel_wrappers_refuse_cpu_rows_and_count_launches(ww, pww, traj):
     """A kernel wrapper launches on CUDA tensors only; the CPU entries take
     the plain versions and launch nothing."""
     jcfg, jp = jax_params(ww, "attn")
     cfg = port_cfg(jcfg)
-    d = FZ.dims_for(ww, cfg)
+    d = FZ.dims_for(pww, cfg)
     rows, params = rows_of(traj, d), port_params(jp)
     before = (FZ.kernel_forward.launches, FZ.kernel_grads.launches,
               FZ.kernel_loss_grads.launches)
@@ -237,11 +251,94 @@ def test_kernel_wrappers_refuse_cpu_rows_and_count_launches(ww, traj):
         FZ.host_forward(d, rows.float(), params)
     with pytest.raises(ValueError, match="w_qkv"):
         FZ._pack_params({**params, "w_qkv": params["w_qkv"][:, :5]}, d, rows.device)
-    FZ.make_apply(ww, cfg)(params, torch.as_tensor(traj["obs"]))
+    FZ.make_apply(pww, cfg)(params, torch.as_tensor(traj["obs"]))
     after = (FZ.kernel_forward.launches, FZ.kernel_grads.launches,
              FZ.kernel_loss_grads.launches)
     assert after == before
     with pytest.raises(ValueError):
-        FZ.make_apply(ww, N.NetConfig(hidden=64, arch="mlp"))
-    assert not FZ.supports(ww, N.NetConfig(arch="attn", attn_heads=4))
-    assert FZ.supports(ww, N.NetConfig(arch="deepsets"))
+        FZ.make_apply(pww, N.NetConfig(hidden=64, arch="mlp"))
+    assert not FZ.supports(pww, N.NetConfig(arch="attn", attn_heads=4))
+    assert FZ.supports(pww, N.NetConfig(arch="deepsets"))
+
+
+def loss_rowin(traj, d, logp_shift=-2.0):
+    return FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
+                         torch.as_tensor(traj["logp_noise"]) + logp_shift,
+                         torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
+                         torch.as_tensor(traj["mask"]), VF)
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+@pytest.mark.parametrize("chunk_rows,nsplit", [(10 ** 6, 1), (7, 5), (64, 2)])
+def test_k4_pipeline_matches_plain(ww, pww, traj, arch, chunk_rows, nsplit):
+    """K4's stages (csrc/lossgrad.cuh) through the host harness against
+    loss_vg_plain, for one chunk, ragged chunks smaller than a product tile
+    and several row splits. The products take the same bf16 operands as the
+    plain version's, and the cotangents enter them split into hi + lo, so
+    the gradients agree far inside the 5e-2 bar (1e-3 here)."""
+    jcfg, jp = jax_params(ww, arch)
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    rowin = loss_rowin(traj, d)
+    g_ref, s_ref = FZ.loss_vg_plain(d, rows, rowin, params, CLIP, ENT)
+    g_k, s_k = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=chunk_rows,
+                                  nsplit=nsplit)
+    grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()},
+                tol=1e-3)
+    np.testing.assert_allclose(s_k.numpy(), s_ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_k4_pipeline_ratios_on_both_sides_of_the_clip(ww, pww, traj):
+    """At logp_old = the policy's own log-probs + noise the ratios fall
+    inside and outside the clip band, so both branches of lax.min's tie
+    rule reach the gradient; still within 1e-3 of the plain version."""
+    jcfg, jp = jax_params(ww, "attn")
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    logits, _ = FZ.fused_forward_plain(d, rows, params)
+    legal = torch.as_tensor(traj["legal"]).reshape(-1, d.A)
+    lp = torch.log_softmax(torch.where(legal, logits, torch.full_like(logits, -1e9)), -1)
+    own = lp.gather(1, torch.as_tensor(traj["actions"]).reshape(-1, 1).long() - 1)[:, 0]
+    rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
+                          own.reshape(traj["logp_noise"].shape)
+                          + torch.as_tensor(traj["logp_noise"]),
+                          torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
+                          torch.as_tensor(traj["mask"]), VF)
+    ratio = torch.exp(-torch.as_tensor(traj["logp_noise"]))
+    assert bool((ratio > 1 + CLIP).any()) and bool((ratio < 1 - CLIP).any())
+    g_ref, s_ref = FZ.loss_vg_plain(d, rows, rowin, params, CLIP, ENT)
+    g_k, s_k = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=33, nsplit=4)
+    grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()},
+                tol=1e-3)
+    np.testing.assert_allclose(s_k.numpy(), s_ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
+    cfg = N.NetConfig(hidden=48, arch="attn")  # hp = 32, hidden not a multiple of 32
+    d = FZ.dims_for(pww, cfg)
+    assert not FZ.lossgrad_supports(d)
+    params = N.init_params(torch.Generator().manual_seed(0), d.F, d.A, cfg, pww, device="cpu")
+    with pytest.raises(ValueError, match="K4 needs"):
+        FZ.host_loss_grads(d, rows_of(traj, d), loss_rowin(traj, d), params, CLIP, ENT)
+    assert FZ.supports(pww, cfg) and not FZ.loss_supports(pww, cfg)
+    with pytest.raises(ValueError, match="K4 covers"):  # refused when built, not when run
+        FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
+    assert FZ.lossgrad_supports(FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn")))
+    assert FZ.loss_supports(pww, N.NetConfig(hidden=256, arch="attn"))
+
+
+def test_k4_scratch_at_the_main_path_width(pww):
+    """K4's scratch per chunk at the attn net's width (hidden 256, hp 128):
+    about 79 KB a row, so CHUNK_ROWS rows take under 3 GB beside training."""
+    d = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn"))
+    lib = _build.lossgrad_host_lib()
+    assert lib.lg_meta_ints() == len(FZ._meta(d))
+    meta = FZ._meta(d)
+    one = lib.lg_scratch_bytes(meta.ctypes.data, 1024, FZ.NSPLIT)
+    two = lib.lg_scratch_bytes(meta.ctypes.data, 2048, FZ.NSPLIT)
+    per_row = (two - one) / 1024
+    assert 75_000 <= per_row <= 82_000, per_row
+    assert lib.lg_scratch_bytes(meta.ctypes.data, FZ.CHUNK_ROWS, FZ.NSPLIT) < 3 * 2 ** 30
+    ds = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="deepsets"))
+    small = _build.lossgrad_host_lib().lg_scratch_bytes(FZ._meta(ds).ctypes.data, 1024, 1)
+    assert small < one  # no attention buffers without attention

@@ -16,12 +16,10 @@ import torch
 
 from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
 from game_engine_tpu.core.state import init_state as jax_init_state
-from game_engine_tpu.gamespec.compile import compile_game
-from game_engine_tpu.gamespec.parser import load_builtin
-from game_engine_tpu.gamespec.tables import lower
 from game_engine_tpu.policies import net as JN
 from game_engine_tpu_torch.core.state import state_from_numpy
 from game_engine_tpu_torch.policies import net as N
+from tests.test_torch_state import builtin_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "docs", "checkpoints", "attn_werewolf_u120.npz")
@@ -29,7 +27,13 @@ ARCHS = ("mlp", "deepsets", "attn")
 
 
 def lowered_game(name):
-    return lower(compile_game(load_builtin(name)))
+    """The JAX package's and the port's Lowered of a catalog game."""
+    return builtin_pair(name)
+
+
+def host_state(jst):
+    """A JAX GameState as the port's, on the CPU."""
+    return state_from_numpy(jst, device="cpu")
 
 
 def jax_states(lw, B=6, n=6, steps=40, every=5, seed=11):
@@ -63,7 +67,7 @@ def jax_params(lw, arch, hidden=64, seed=0):
 
 
 def port_params(p):
-    return N.params_from_numpy({k: np.asarray(v) for k, v in p.items()})
+    return N.params_from_numpy({k: np.asarray(v) for k, v in p.items()}, device="cpu")
 
 
 def port_cfg(cfg):
@@ -88,8 +92,20 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def ww():
+def ww_pair():
     return lowered_game("werewolf")
+
+
+@pytest.fixture(scope="module")
+def ww(ww_pair):
+    """werewolf lowered by the JAX package, for the JAX functions."""
+    return ww_pair.jax
+
+
+@pytest.fixture(scope="module")
+def pww(ww_pair):
+    """werewolf lowered by the port, for the port's functions."""
+    return ww_pair.port
 
 
 @pytest.fixture(scope="module")
@@ -98,47 +114,48 @@ def ww_states(ww):
 
 
 @pytest.mark.parametrize("masked", [True, False])
-def test_observe_exact(ww, ww_states, masked):
+def test_observe_exact(ww, pww, ww_states, masked):
     for jst in ww_states:
         want = to_np(JN.observe(ww, jst, masked=masked))
-        got = N.observe(ww, state_from_numpy(jst), masked=masked)
+        got = N.observe(pww, host_state(jst), masked=masked)
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("game", ["two-truths-and-a-lie", "cult-of-the-depths", "gold-rush", "masquerade-gala"])
 def test_observe_and_legal_mask_exact_other_games(game):
-    lw = lowered_game(game)
+    pair = lowered_game(game)
+    lw = pair.jax
     n = min(lw.P, 6)
     for jst in jax_states(lw, B=4, n=n, steps=20, every=10, seed=5):
-        st = state_from_numpy(jst)
-        np.testing.assert_array_equal(N.observe(lw, st).float().numpy(),
+        st = host_state(jst)
+        np.testing.assert_array_equal(N.observe(pair.port, st).float().numpy(),
                                       to_np(JN.observe(lw, jst)))
-        np.testing.assert_array_equal(N.legal_action_mask(lw, st).numpy(),
+        np.testing.assert_array_equal(N.legal_action_mask(pair.port, st).numpy(),
                                       np.asarray(JN.legal_action_mask(lw, jst)))
 
 
-def test_dims_match_jax(ww):
-    assert N.obs_dim(ww) == JN.obs_dim(ww)
-    assert N.action_space(ww) == JN.action_space(ww)
-    assert N._per_player_dim(ww) == JN._per_player_dim(ww)
-    assert N.field_visibility(ww) == JN.field_visibility(ww)
-    np.testing.assert_array_equal(N._phase_public_acting(ww), JN._phase_public_acting(ww))
-    assert N.minority_team_code(ww) == JN.minority_team_code(ww)
+def test_dims_match_jax(ww, pww):
+    assert N.obs_dim(pww) == JN.obs_dim(ww)
+    assert N.action_space(pww) == JN.action_space(ww)
+    assert N._per_player_dim(pww) == JN._per_player_dim(ww)
+    assert N.field_visibility(pww) == JN.field_visibility(ww)
+    np.testing.assert_array_equal(N._phase_public_acting(pww), JN._phase_public_acting(ww))
+    assert N.minority_team_code(pww) == JN.minority_team_code(ww)
 
 
-def test_legal_action_mask_exact(ww, ww_states):
+def test_legal_action_mask_exact(ww, pww, ww_states):
     for jst in ww_states:
         np.testing.assert_array_equal(
-            N.legal_action_mask(ww, state_from_numpy(jst)).numpy(),
+            N.legal_action_mask(pww, host_state(jst)).numpy(),
             np.asarray(JN.legal_action_mask(ww, jst)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_init_params_shapes_match_jax(ww, arch):
+def test_init_params_shapes_match_jax(ww, pww, arch):
     cfg, jp = jax_params(ww, arch)
-    tp = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(ww), N.action_space(ww),
-                       port_cfg(cfg), ww)
+    tp = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(pww), N.action_space(pww),
+                       port_cfg(cfg), pww, device="cpu")
     assert sorted(tp) == sorted(jp)
     for k in jp:
         assert tuple(tp[k].shape) == tuple(jp[k].shape), k
@@ -146,19 +163,19 @@ def test_init_params_shapes_match_jax(ww, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_apply_net_close_to_jax(ww, ww_states, arch):
+def test_apply_net_close_to_jax(ww, pww, ww_states, arch):
     cfg, jp = jax_params(ww, arch)
     tp = port_params(jp)
     for jst in ww_states[::2]:
         obs = JN.observe(ww, jst)
         l0, v0 = JN.apply_net(jp, obs, cfg, ww)
-        l1, v1 = N.apply_net(tp, torch.as_tensor(to_np(obs)).bfloat16(), port_cfg(cfg), ww)
+        l1, v1 = N.apply_net(tp, torch.as_tensor(to_np(obs)).bfloat16(), port_cfg(cfg), pww)
         assert tuple(l1.shape) == l0.shape and tuple(v1.shape) == v0.shape
         assert rel_err(l1.numpy(), to_np(l0)) < 2e-2
         assert rel_err(v1.numpy(), to_np(v0)) < 2e-2
 
 
-def test_sample_actions_exact_given_jax_gumbel(ww, ww_states):
+def test_sample_actions_exact_given_jax_gumbel(ww, pww, ww_states):
     """jax.random.categorical(key, l) == argmax(l + gumbel(key, l.shape)):
     feeding JAX's noise gives JAX's actions wherever the top two perturbed
     logits are more than 1e-3 apart."""
@@ -173,7 +190,7 @@ def test_sample_actions_exact_given_jax_gumbel(ww, ww_states):
         noise = jax.random.gumbel(key, logits.shape)
         pert = np.sort(to_np(logits + noise), axis=-1)
         clear = (pert[..., -1] - pert[..., -2]) > 1e-3
-        a, logp, v, mask = N.sample_actions(ww, tp, state_from_numpy(jst), port_cfg(cfg),
+        a, logp, v, mask = N.sample_actions(pww, tp, host_state(jst), port_cfg(cfg),
                                             gumbel=torch.as_tensor(to_np(noise)))
         assert a.dtype == torch.int32
         np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
@@ -185,26 +202,26 @@ def test_sample_actions_exact_given_jax_gumbel(ww, ww_states):
     assert checked > 100
 
 
-def test_sample_actions_from_generator(ww, ww_states):
+def test_sample_actions_from_generator(ww, pww, ww_states):
     cfg, jp = jax_params(ww, "deepsets")
-    st = state_from_numpy(ww_states[3])
-    a1 = N.sample_actions(ww, port_params(jp), st, port_cfg(cfg),
+    st = host_state(ww_states[3])
+    a1 = N.sample_actions(pww, port_params(jp), st, port_cfg(cfg),
                           generator=torch.Generator().manual_seed(4))[0]
-    a2 = N.sample_actions(ww, port_params(jp), st, port_cfg(cfg),
+    a2 = N.sample_actions(pww, port_params(jp), st, port_cfg(cfg),
                           generator=torch.Generator().manual_seed(4))[0]
     assert torch.equal(a1, a2)
-    legal = N.legal_action_mask(ww, st)
+    legal = N.legal_action_mask(pww, st)
     assert bool(legal.gather(-1, (a1.long() - 1)[..., None]).all())
     with pytest.raises(ValueError):
-        N.sample_actions(ww, port_params(jp), st, port_cfg(cfg))
+        N.sample_actions(pww, port_params(jp), st, port_cfg(cfg))
 
 
-def test_load_policy_matches_jax_apply_net(ww, ww_states):
+def test_load_policy_matches_jax_apply_net(ww, pww, ww_states):
     """The shipped attn checkpoint through the port's numpy-only loader vs
     JAX apply_net on utils.checkpoint.load_tree's params, at full width."""
     from game_engine_tpu.utils.checkpoint import load_tree
 
-    params, cfg = N.load_policy(CKPT)
+    params, cfg = N.load_policy(CKPT, device="cpu")
     assert cfg == N.NetConfig(hidden=256, layers=2, arch="attn", attn_heads=1)
     assert len(params) == 17 and tuple(params["w0"].shape) == (275, 256)
     assert tuple(params["w_phi0"].shape) == (17, 128)
@@ -216,7 +233,7 @@ def test_load_policy_matches_jax_apply_net(ww, ww_states):
     for jst in ww_states[::3]:
         obs = JN.observe(ww, jst)
         l0, v0 = JN.apply_net(jp, obs, jcfg, ww)
-        l1, v1 = N.apply_net(params, torch.as_tensor(to_np(obs)).bfloat16(), cfg, ww)
+        l1, v1 = N.apply_net(params, torch.as_tensor(to_np(obs)).bfloat16(), cfg, pww)
         assert rel_err(l1.numpy(), to_np(l0)) < 2e-2
         assert rel_err(v1.numpy(), to_np(v0)) < 2e-2
 
@@ -228,7 +245,7 @@ def test_save_policy_reads_back_in_both_packages(ww, tmp_path):
     tp = port_params(jp)
     path = str(tmp_path / "ckpt_u1")
     N.save_policy(path, tp, meta={"attn_heads": 1})
-    back, bcfg = N.load_policy(path + ".npz")
+    back, bcfg = N.load_policy(path + ".npz", device="cpu")
     jback, jcfg = jax_load_policy(path + ".npz")
     assert bcfg == port_cfg(cfg) and jcfg == cfg
     for k in tp:

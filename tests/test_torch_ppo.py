@@ -27,43 +27,53 @@ import torch
 
 from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
 from game_engine_tpu.core.state import init_state as jax_init_state
-from game_engine_tpu.gamespec.compile import compile_game
-from game_engine_tpu.gamespec.parser import load_builtin
-from game_engine_tpu.gamespec.tables import lower
 from game_engine_tpu.policies import net as JN
 from game_engine_tpu.train import ppo as JP
-from game_engine_tpu_torch.core.state import state_from_numpy
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
 from tests.test_torch_fused import logp_old, make_traj
-from tests.test_torch_net import CKPT, port_cfg, port_params, rel_err
+from tests.test_torch_net import CKPT, host_state, port_cfg, port_params, rel_err
+from tests.test_torch_state import builtin_pair
 from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("mlp", "deepsets", "attn")
 
 
 @pytest.fixture(scope="module")
-def ww():
-    return lower(compile_game(load_builtin("werewolf")))
+def ww_pair():
+    return builtin_pair("werewolf")
+
+
+@pytest.fixture(scope="module")
+def ww(ww_pair):
+    """werewolf lowered by the JAX package, for the JAX functions."""
+    return ww_pair.jax
+
+
+@pytest.fixture(scope="module")
+def pww(ww_pair):
+    """werewolf lowered by the port, for the port's functions."""
+    return ww_pair.port
 
 
 @pytest.mark.parametrize("game", ["werewolf", "two-truths-and-a-lie", "last-stand"])
 def test_masks_and_rewards_exact(game):
-    lw = lower(compile_game(load_builtin(game)))
+    pair = builtin_pair(game)
+    lw, plw = pair.jax, pair.port
     B, n = 8, min(lw.P, 6)
     eng = JaxBatchedEngine(lw)
     st = jax_init_state(lw, B, n, np.arange(B, dtype=np.uint32) + 21)
     ended_seen = 0
     for _ in range(60):
-        tst = state_from_numpy(st)
-        np.testing.assert_array_equal(P.actor_mask(lw, tst).numpy(),
+        tst = host_state(st)
+        np.testing.assert_array_equal(P.actor_mask(plw, tst).numpy(),
                                       np.asarray(JP.actor_mask(lw, st)))
-        np.testing.assert_array_equal(P.team_masks(lw, tst).numpy(),
+        np.testing.assert_array_equal(P.team_masks(plw, tst).numpy(),
                                       np.asarray(JP.team_masks(lw, st)))
         nxt = eng.step(st, eng.bot_actions(st))
         ended = nxt.done & ~st.done
-        got = P.terminal_rewards(lw, state_from_numpy(nxt), torch.as_tensor(np.asarray(ended)))
+        got = P.terminal_rewards(plw, host_state(nxt), torch.as_tensor(np.asarray(ended)))
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(JP.terminal_rewards(lw, nxt, ended)))
@@ -114,13 +124,13 @@ def _setup(ww, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_ppo_loss_matches_jax_value_and_grad(ww, arch):
+def test_ppo_loss_matches_jax_value_and_grad(ww, pww, arch):
     jcfg, jp, cfg = _setup(ww, arch)
     jt, (jadv, jret), tt, (tadv, tret) = _rollouts(ww, jcfg, jp)
     (l_x, m_x), g_x = jax.value_and_grad(
         lambda p: JP.ppo_loss(p, jt, jadv, jret, JP.PPOConfig(net=jcfg), ww), has_aux=True)(jp)
     params = {k: v.requires_grad_(True) for k, v in port_params(jp).items()}
-    loss, metrics = P.ppo_loss(params, tt, tadv, tret, cfg, ww)
+    loss, metrics = P.ppo_loss(params, tt, tadv, tret, cfg, pww)
     grads = torch.autograd.grad(loss, list(params.values()))
     assert abs(float(loss.detach()) - float(l_x)) / (abs(float(l_x)) + 1e-6) < 2e-2
     for k in ("pg_loss", "v_loss", "entropy", "ratio_mean"):
@@ -129,7 +139,7 @@ def test_ppo_loss_matches_jax_value_and_grad(ww, arch):
         assert rel_err(g.numpy(), np.asarray(g_x[k])) < 5e-2, (k, rel_err(g.numpy(), g_x[k]))
 
 
-def test_adam_update_matches_optax(ww):
+def test_adam_update_matches_optax(ww, pww):
     """make_update (ppo_loss, autograd, torch.optim.Adam) against
     value_and_grad + optax.adam, one step from the same params and
     trajectory. Adam's first step is lr * g / (|g| + eps), full size
@@ -147,7 +157,7 @@ def test_adam_update_matches_optax(ww):
     params = port_params(jp)
     before = {k: v.clone() for k, v in params.items()}
     opt = P.make_optimizer(params, cfg)
-    loss, _ = P.make_update(ww, cfg)(params, opt, tt, tadv, tret)
+    loss, _ = P.make_update(pww, cfg)(params, opt, tt, tadv, tret)
     assert np.isfinite(float(loss))
     for k in jp:
         got = (params[k].detach() - before[k]).numpy()
@@ -174,13 +184,13 @@ def run_main(argv):
 
 
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
-def test_train_run_main_on_cpu(ww, arch):
+def test_train_run_main_on_cpu(pww, arch):
     argv = ["--device", "cpu", "--arch", arch, "--hidden", "64", "--batch", "8", "--horizon",
             "4", "--epochs", "1", "--updates", "2", "--eval-batch", "8"]
     params, events = run_main(argv)
     cfg = N.NetConfig(hidden=64, arch=arch)
-    init = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(ww), N.action_space(ww),
-                         cfg, ww)
+    init = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(pww), N.action_space(pww),
+                         cfg, pww, device="cpu")
     assert any(float((params[k].detach() - init[k]).abs().max()) > 0 for k in init)
     train = [e for e in events if e["event"] == "train"]
     assert len(train) == 1 and train[0]["update"] == 2
@@ -193,12 +203,31 @@ def test_train_run_main_on_cpu(ww, arch):
     assert not any(e["event"] == "fused_net" for e in events)  # auto: off on the CPU
 
 
-def test_train_run_checkpoint_and_resume(ww, tmp_path):
+@pytest.mark.parametrize("hidden,loss", [(48, "k2_k3"), (96, "k2_k3"), (64, "k4")])
+def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, loss):
+    """The fused train path at widths K4 does not cover (hidden 48: trunk
+    not a multiple of 32; hidden 96: hp 48) trains through K2 + K3 instead
+    of failing in its first update; run.main says which loss it runs."""
+    cfg = P.PPOConfig(horizon=2, epochs=1, fused_net=True,
+                      net=N.NetConfig(hidden=hidden, arch="attn"))
+    assert (P.make_loss_vg_fn(pww, cfg) is not None) == (loss == "k4")
+    argv = ["--device", "cpu", "--arch", "attn", "--hidden", str(hidden), "--batch", "4",
+            "--horizon", "2", "--epochs", "1", "--updates", "1", "--eval-batch", "0", "--fused"]
+    params, events = run_main(argv)
+    assert [e for e in events if e["event"] == "fused_net"] == [
+        {"event": "fused_net", "mode": "forced", "disable_with": "--no-fused", "loss": loss}]
+    init = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(pww), N.action_space(pww),
+                         cfg.net, pww, device="cpu")
+    assert any(float((params[k].detach() - init[k]).abs().max()) > 0 for k in init)
+    assert np.isfinite([e for e in events if e["event"] == "train"][0]["loss"])
+
+
+def test_train_run_checkpoint_and_resume(tmp_path):
     ck = str(tmp_path / "ck")
     argv = ["--device", "cpu", "--arch", "attn", "--hidden", "64", "--batch", "4", "--horizon",
             "2", "--epochs", "1", "--updates", "1", "--eval-batch", "0"]
     params, _ = run_main(argv + ["--checkpoint", ck, "--eval-every", "1"])
-    saved, cfg = N.load_policy(ck + "_u1.npz")
+    saved, cfg = N.load_policy(ck + "_u1.npz", device="cpu")
     assert cfg == N.NetConfig(hidden=64, arch="attn")
     assert all(torch.equal(saved[k], params[k].detach()) for k in params)
     back, events = run_main(argv[:-4] + ["--updates", "0", "--eval-batch", "0",
@@ -208,7 +237,7 @@ def test_train_run_checkpoint_and_resume(ww, tmp_path):
     # the shipped full-width checkpoint resumes at its own width
     full, _ = run_main(["--device", "cpu", "--arch", "attn", "--hidden", "256", "--batch",
                         "2", "--updates", "0", "--eval-batch", "0", "--resume", CKPT])
-    shipped, _ = N.load_policy(CKPT)
+    shipped, _ = N.load_policy(CKPT, device="cpu")
     assert all(torch.equal(full[k].detach(), shipped[k]) for k in shipped)
     with pytest.raises(ValueError, match="--resume"):
         run_main(["--device", "cpu", "--arch", "attn", "--hidden", "64", "--updates", "0",

@@ -1,0 +1,121 @@
+"""The port stands on its own and runs on the card by default.
+
+- Importing every module of game_engine_tpu_torch, and running
+  chip_smoke.py up to its CUDA check, loads neither jax nor any module of
+  the JAX package (game_engine_tpu.*). Checked in a fresh interpreter.
+- Every entry point defaults to device "cuda" and, without a card, raises
+  instead of falling back to the CPU. These tests never touch a card: they
+  read the signatures and hide the card where one is present.
+"""
+
+import inspect
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.core import engine as E
+from game_engine_tpu_torch.core import state as S
+from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.train import ppo as P
+from game_engine_tpu_torch.train import run as R
+from tests.test_torch_state import builtin_pair
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_NO_JAX = """
+import importlib, pkgutil, sys
+import game_engine_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+{extra}
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "game_engine_tpu."))
+             or m == "game_engine_tpu")
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+
+
+def test_importing_the_whole_port_loads_no_jax_package():
+    proc = _run(_NO_JAX.format(extra=""))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def test_chip_smoke_up_to_its_cuda_check_loads_no_jax_package():
+    extra = ("import chip_smoke\n"
+             "assert not __import__('torch').cuda.is_available()\n"
+             "rc = chip_smoke.main()\n"
+             "assert rc == 2, rc\n")
+    proc = _run(_NO_JAX.format(extra=extra))
+    assert proc.returncode == 0, proc.stderr
+    assert "no CUDA device" in proc.stderr
+
+
+ENTRY_POINTS = [
+    (S.init_state, "device"), (S.state_from_numpy, "device"),
+    (E.BatchedEngine.__init__, "device"), (N.init_params, "device"),
+    (N.params_from_numpy, "device"), (N.load_policy, "device"),
+    (P.init_training, "device"),
+]
+
+
+@pytest.mark.parametrize("fn,arg", ENTRY_POINTS, ids=[f.__qualname__ for f, _ in ENTRY_POINTS])
+def test_entry_point_defaults_to_the_card(fn, arg):
+    assert inspect.signature(fn).parameters[arg].default == "cuda" == D.DEFAULT
+
+
+def test_train_run_device_flag_defaults_to_the_card(monkeypatch):
+    seen = {}
+
+    def resolve(device):
+        seen["device"] = device
+        raise RuntimeError("stop here")
+
+    monkeypatch.setattr(D, "resolve", resolve)
+    with pytest.raises(RuntimeError, match="stop here"):
+        R.main(["--updates", "0", "--eval-batch", "0"])
+    assert seen == {"device": "cuda"}
+
+
+@pytest.fixture()
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    pw = builtin_pair("werewolf").port
+    cfg = N.NetConfig(hidden=64, arch="attn")
+    gen = torch.Generator().manual_seed(0)
+    calls = [
+        lambda: S.init_state(pw, 2, 6, 0),
+        lambda: S.state_from_numpy(S.state_to_numpy(S.init_state(pw, 2, 6, 0, device="cpu"))),
+        lambda: E.BatchedEngine(pw),
+        lambda: N.init_params(gen, N.obs_dim(pw), N.action_space(pw), cfg, pw),
+        lambda: N.params_from_numpy({"w": np.zeros(3, np.float32)}),
+        lambda: N.load_policy(os.path.join(REPO, "docs", "checkpoints",
+                                           "attn_werewolf_u120.npz")),
+        lambda: P.init_training(pw, P.PPOConfig(net=cfg), gen),
+        lambda: R.main(["--updates", "0", "--eval-batch", "0"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_resolve_refuses_other_devices():
+    assert D.resolve("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        D.resolve("meta")

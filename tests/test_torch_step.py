@@ -4,35 +4,38 @@ test_mix2.py) and against the JAX step (bank equality each step), plus the
 int32 overflow program of test_int32_semantics.py. All comparisons are
 exact."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
 from game_engine_tpu.core.state import init_state as jax_init_state
 from game_engine_tpu.dslgen.generate import Blueprint, generate, generate_from_description
-from game_engine_tpu.dslgen.validate import errors, validate_doc
-from game_engine_tpu.gamespec.compile import compile_game
-from game_engine_tpu.gamespec.parser import load_builtin
-from game_engine_tpu.gamespec.tables import lower
+from game_engine_tpu.gamespec.parser import games_dir
 from game_engine_tpu.oracle.interp import OracleRoom
 from game_engine_tpu.policies.scripted import oracle_policy
 from game_engine_tpu_torch.core.engine import BatchedEngine, scripted_actions
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.core.step import make_step
-from tests.test_int32_semantics import EXPECT, INT32_MIN, _wrap_lowered
+from tests.test_int32_semantics import EXPECT, INT32_MIN, WRAP_PROGRAM, _wrap_lowered
 from tests.test_parity import assert_state_matches
-from tests.test_torch_state import assert_same_state, catalog_games, lowered_game
+from tests.test_torch_state import (Pair, assert_same_state, builtin_pair, catalog_games,
+                                    doc_pair, lowered_game)
 from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
 
 
-def run_oracle_parity(lowered, n_players, seed, max_steps):
-    """One room through the torch step and the oracle, compared every step;
-    returns the oracle room."""
-    room = OracleRoom(lowered.game, n_players=n_players, seed=seed)
+def run_oracle_parity(pair: Pair, n_players, seed, max_steps):
+    """One room through the torch step (on the port's Lowered) and the
+    oracle (on the JAX package's), compared every step; returns the oracle
+    room."""
+    lowered = pair.port
+    room = OracleRoom(pair.jax.game, n_players=n_players, seed=seed)
     step = make_step(lowered)
-    state = init_state(lowered, 1, n_players, seed)
-    assert_state_matches(lowered, room, state, 0, -1)
+    state = init_state(lowered, 1, n_players, seed, device="cpu")
+    assert_state_matches(pair.jax, room, state, 0, -1)
     for t in range(max_steps):
         oa = oracle_policy(room, t, seed)
         ea = scripted_actions(lowered, state)
@@ -40,7 +43,7 @@ def run_oracle_parity(lowered, n_players, seed, max_steps):
             assert int(ea[0, pid - 1]) == cv, f"policy mismatch t={t} p{pid}"
         room.step(oa)
         state = step(state, ea)
-        assert_state_matches(lowered, room, state, 0, t)
+        assert_state_matches(pair.jax, room, state, 0, t)
         if room.done:
             break
     return room
@@ -48,10 +51,10 @@ def run_oracle_parity(lowered, n_players, seed, max_steps):
 
 @pytest.mark.parametrize("game", catalog_games())
 def test_every_catalog_game_oracle_parity(game):
-    spec = load_builtin(game)
-    lowered = lower(compile_game(spec))
-    n = min(max(spec.declaration.min_players or 4, 4), lowered.P)
-    room = run_oracle_parity(lowered, n, seed=17, max_steps=600)
+    pair = builtin_pair(game)
+    spec = pair.jax.game.spec
+    n = min(max(spec.declaration.min_players or 4, 4), pair.jax.P)
+    room = run_oracle_parity(pair, n, seed=17, max_steps=600)
     assert room.done, f"{game}: no finish in 600 steps"
 
 
@@ -84,35 +87,36 @@ BLUEPRINTS = {
 }
 
 
-def generated_lowered(name):
-    doc = (generate(BLUEPRINTS[name]) if name in BLUEPRINTS
-           else generate_from_description(name, MIX_DESCRIPTIONS[name]))
-    issues, spec = validate_doc(doc, name=name)
-    assert spec is not None and not errors(issues), [str(i) for i in issues]
-    return lower(compile_game(spec))
+def generated_doc(name):
+    return (generate(BLUEPRINTS[name]) if name in BLUEPRINTS
+            else generate_from_description(name, MIX_DESCRIPTIONS[name]))
+
+
+def generated_lowered(name) -> Pair:
+    return doc_pair(generated_doc(name), name)
 
 
 @pytest.mark.parametrize("name,n,seed", [
     ("t-bluff", 5, 1), ("t-market", 6, 2), ("t-minority", 4, 1), ("story-pot", 5, 1),
     ("gilded-court", 6, 2), ("scrap-rally", 4, 0), ("court-raid", 5, 2)])
 def test_generated_dsl_oracle_parity(name, n, seed):
-    lowered = generated_lowered(name)
-    room = run_oracle_parity(lowered, min(n, lowered.P), seed=seed, max_steps=900)
+    pair = generated_lowered(name)
+    room = run_oracle_parity(pair, min(n, pair.jax.P), seed=seed, max_steps=900)
     assert room.done, f"{name}: no finish in 900 steps"
 
 
 @pytest.mark.parametrize("name,n", [("werewolf", 6), ("two-truths-and-a-lie", 4)])
 def test_step_matches_jax_each_step(name, n):
-    lw = lowered_game(name)
+    pair = lowered_game(name)
     B = 8
     seeds = np.arange(B, dtype=np.uint32) + 3
-    jeng = JaxBatchedEngine(lw)
-    jst = jax_init_state(lw, B, n, seeds)
-    st = init_state(lw, B, n, seeds)
-    step = make_step(lw)
+    jeng = JaxBatchedEngine(pair.jax)
+    jst = jax_init_state(pair.jax, B, n, seeds)
+    st = init_state(pair.port, B, n, seeds, device="cpu")
+    step = make_step(pair.port)
     for t in range(100):
         ja = jeng.bot_actions(jst)
-        ta = scripted_actions(lw, st)
+        ta = scripted_actions(pair.port, st)
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja), err_msg=f"actions t={t}")
         jst = jeng.step(jst, ja)
         st = step(st, ta)
@@ -120,11 +124,30 @@ def test_step_matches_jax_each_step(name, n):
     assert bool(st.done.any()), "no room finished: the comparison missed terminal steps"
 
 
+def wrap_doc() -> dict:
+    """tests/test_int32_semantics.py's gift-circle with the wrapping int32
+    program (its _wrap_lowered), as a document."""
+    doc = yaml.safe_load(open(os.path.join(games_dir(), "gift-circle.yaml")))
+    doc["phases"][2]["mechanics"] = [{"effects": list(WRAP_PROGRAM)}]
+    doc["phases"][2]["name"] = "Resolution"
+    doc["phases"][2]["description"] = "Effects apply."
+    doc["phases"][1]["next_phase"]["name"] = "Resolution"
+    return doc
+
+
+def wrap_pair() -> Pair:
+    pair = doc_pair(wrap_doc(), "wrap-test")
+    # the same game test_int32_semantics.py builds
+    assert pair.jax.game.spec == _wrap_lowered().game.spec
+    return pair
+
+
 def test_overflow_program_oracle_parity():
     """Wrapping int32 sub/mul/add and INT32_MIN max/argmax keys (P20)."""
-    lowered = _wrap_lowered()
+    pair = wrap_pair()
+    lowered = pair.jax
     room = OracleRoom(lowered.game, n_players=4, seed=3)
-    eng = BatchedEngine(lowered)
+    eng = BatchedEngine(pair.port, device="cpu")
     state = eng.init(1, 4, 3)
     saw_program = False
     for t in range(24):
@@ -143,8 +166,8 @@ def test_overflow_program_oracle_parity():
 
 
 def test_step_does_not_mutate_its_input():
-    lw = lowered_game("werewolf")
-    st = init_state(lw, 4, 6, np.arange(4))
+    lw = lowered_game("werewolf").port
+    st = init_state(lw, 4, 6, np.arange(4), device="cpu")
     before = [t.clone() for t in st]
     step = make_step(lw)
     for _ in range(30):
