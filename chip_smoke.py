@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time.
 
-    python3 chip_smoke.py [--k4-profile]
+    python3 chip_smoke.py [--profile]
 
 Drives the port's two main paths through the hand-written CUDA kernels,
 which it builds from csrc/ first:
@@ -11,15 +11,17 @@ which it builds from csrc/ first:
   65,536 rooms of 8 seats, through the rollout kernel (K1);
 - the learner: game_engine_tpu_torch.train.run.main, PPO self-play of the
   full-width attn net (docs/checkpoints/attn_werewolf_u120.npz) on 4096
-  werewolf rooms, through the policy-net kernels: the forward (K2) in the
-  unroll, the one-pass PPO loss-grad (K4, tensor-core products) in the
-  update, and the backward (K3) in one more update with fused_loss=False.
+  werewolf rooms, through the policy-net kernels, all three pipelines of
+  tensor-core products (csrc/lossgrad.cu): the forward (K2) in the unroll,
+  the one-pass PPO loss-grad (K4) in the update, and the backward (K3) in
+  one more update with fused_loss=False.
 
 Phases, one JSON line each:
 
   env             torch/CUDA versions and the GPU's name and power limit
   build           nvcc builds of csrc/rollout.cu, policy_net.cu and
-                  lossgrad.cu, in parallel: seconds and ptxas reports
+                  lossgrad.cu, in parallel (one nvcc each, started
+                  together): seconds and ptxas reports
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
                   4096x8 (256 steps), two-truths 1024x4 and harbor-lots
@@ -29,31 +31,41 @@ Phases, one JSON line each:
                   start, whose output must equal the kernel's first call
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
-                  for the attn checkpoint and a deepsets net at hidden 256:
-                  K2 and K3 on 32,768 rows (seeded dl/dv for K3), K4 timed
-                  on a 4-step slice (131,072 rows) against ppo_loss's loss
-                  over the plain K2 + autograd, and its loss and metrics
-                  also against ppo_loss + autograd through apply_net (whose
-                  gradients, which round cotangents to bf16, are reported);
-                  then K4 once at the train path's own shape, all 32 steps
-                  (1,048,576 rows, 32 chunks) in one call, against the plain
-                  version summed over 131,072-row slices. Tolerances of
-                  tests/test_fused_net.py, relative to the max |ref|:
-                  forward 2e-2, gradients 5e-2, loss 2e-2; metrics 5e-2
-                  absolute. With --k4-profile, also K4's device time by
-                  stage (torch.profiler) over one call at 131,072 rows
+                  for the attn checkpoint and a deepsets net at hidden 256
+                  (the tensor-core route): K2 (fused_forward_plain) and K3
+                  (autograd through it, seeded dl/dv) on 32,768 rows, K4
+                  timed on a 4-step slice (131,072 rows) against ppo_loss's
+                  loss over the plain K2 + autograd, and its loss and
+                  metrics also against ppo_loss + autograd through apply_net
+                  (whose gradients, which round cotangents to bf16, are
+                  reported); then K4 once at the train path's own shape, all
+                  32 steps (1,048,576 rows, 32 chunks) in one call, against
+                  the plain version summed over 131,072-row slices.
+                  Tolerances of tests/test_fused_net.py, relative to the max
+                  |ref|: forward 2e-2, gradients 5e-2, loss 2e-2; metrics
+                  5e-2 absolute. With --profile, also the device time by
+                  stage (torch.profiler) of one K2 and one K3 call at 32,768
+                  rows and one K4 call at 131,072, and K2's time by rows
+                  per chunk
+  compare_narrow  the CUDA-core K2 and K3 (csrc/policy_net.cu), the route of
+                  the widths the pipeline does not cover, once on the same
+                  32,768 rows for an attn net at hidden 48, same tolerances
+  packed_weights  the packed-weight cache across an optimizer step: K2
+                  before and after one K4 update of the attn checkpoint must
+                  differ, each must match plain on the parameters of that
+                  moment, and repeated calls in between must pack nothing
   train           the learner path: 3 updates of run.main at its defaults
                   (4096 rooms, 6 players, horizon 32, 4 epochs) from the attn
                   checkpoint; steps/s and the unroll/update split by CUDA
-                  events
+                  events; 33 tensor-core K2 and 4 K4 launches an update
   train_k3        one more update with fused_loss=False (K2 + K3)
   train_plain     one update of run.main with --no-fused (no kernel), for
                   the end-to-end comparison
 
 Then a {"kernels": [...]} line (each kernel's launches on the main paths,
-its error, time, plain version's time and bound: the larger of its bf16
-operations over 989 TFLOP/s and its bytes over 3.35 TB/s), the nvidia-smi
-line, and the last line
+which of its routes ran there, its error, time, plain version's time and
+bound: the larger of its bf16 operations over 989 TFLOP/s and its bytes
+over 3.35 TB/s), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (nonzero exit). Without a
 CUDA device, or outside a checkout of the repository, it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
@@ -68,9 +80,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "game_engine_tpu_torch/csrc/rollout.cu"
 REPLACES = "game_engine_tpu/core/pallas_rollout.py:658"
-POLICY_SOURCE = {"policy_forward": "game_engine_tpu_torch/csrc/policy_net.cu",
-                 "policy_backward": "game_engine_tpu_torch/csrc/policy_net.cu",
+POLICY_SOURCE = {"policy_forward": "game_engine_tpu_torch/csrc/lossgrad.cu",
+                 "policy_backward": "game_engine_tpu_torch/csrc/lossgrad.cu",
                  "ppo_loss_grad": "game_engine_tpu_torch/csrc/lossgrad.cu"}
+NARROW_SOURCE = "game_engine_tpu_torch/csrc/policy_net.cu"  # K2/K3 at uncovered widths
+K2_PER_UPDATE = 33   # the unroll's 32 steps and the bootstrap value
 POLICY_REPLACES = {"policy_forward": "game_engine_tpu/policies/fused.py:299",
                    "policy_backward": "game_engine_tpu/policies/fused.py:468",
                    "ppo_loss_grad": "game_engine_tpu/policies/fused.py:600"}
@@ -193,25 +207,23 @@ def collect_trajectory(lowered, params, cfg):
     return traj, adv, ret
 
 
-def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
-                   k4_profile: bool = False) -> dict:
-    """K2, K3 and K4 against their plain versions on the card; raises past
-    the tolerances. Returns {kernel: {"max_abs_err", "max_rel_err", "ms",
-    "plain_ms", "bound": (bound_ms, bound_by), and K4's "epoch_*" check}}."""
+def compare_k2_k3(d, rows, params, name: str, route: str, reps: int = 3) -> tuple:
+    """K2 and K3 (seeded dl, dv) on `rows` against their plain versions;
+    raises past the tolerances or when another route than `route` ran.
+    -> (fields of the phase's line, {kernel: {"max_abs_err", "max_rel_err",
+    "ms", "plain_ms", "bound": (bound_ms, bound_by)}})."""
     import torch
 
     from game_engine_tpu_torch.policies import fused as FZ
-    from game_engine_tpu_torch.train import ppo as P
 
-    d = FZ.dims_for(lowered, cfg)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    rows = traj.obs[0].reshape(-1, d.F).contiguous()  # one step: 4096 rooms x 8 seats
     n = rows.shape[0]
-    out, line = {}, {"phase": "compare_policy", "arch": cfg.arch, "params": name,
-                     "hidden": cfg.hidden, "plan": FZ.kernel_plan(d), "rows_k2_k3": n}
+    out, line = {}, {}
+    ran = {k: dict(fn.by_route) for k, fn in (("k2", FZ.kernel_forward),
+                                              ("k3", FZ.kernel_grads))}
 
-    (lk, vk), ms = mean_ms(lambda: FZ.kernel_forward(d, rows, params))
-    (lp, vp), plain_ms = mean_ms(lambda: FZ.fused_forward_plain(d, rows, params))
+    (lk, vk), ms = mean_ms(lambda: FZ.kernel_forward(d, rows, params), reps)
+    (lp, vp), plain_ms = mean_ms(lambda: FZ.fused_forward_plain(d, rows, params), reps)
     errs = (rel_err(lk, lp), rel_err(vk, vp))
     line.update(k2_logits_rel_err=errs[0], k2_value_rel_err=errs[1], k2_ms=ms,
                 k2_plain_ms=plain_ms)
@@ -233,8 +245,8 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
         g = torch.autograd.grad((lo * dl).sum() + (vo * dv).sum(), list(leaves.values()))
         return dict(zip(leaves, g))
 
-    gk, ms = mean_ms(lambda: FZ.kernel_grads(d, rows, dl, dv, params))
-    gp, plain_ms = mean_ms(plain_grads)
+    gk, ms = mean_ms(lambda: FZ.kernel_grads(d, rows, dl, dv, params), reps)
+    gp, plain_ms = mean_ms(plain_grads, reps)
     errs = {k: rel_err(gk[k], gp[k]) for k in gp}
     line.update(k3_rel_err=errs, k3_ms=ms, k3_plain_ms=plain_ms)
     for k, e in errs.items():
@@ -243,6 +255,34 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
     out["policy_backward"] = {"max_abs_err": max(abs_err(gk[k], gp[k]) for k in gp),
                               "max_rel_err": max(errs.values()), "ms": ms,
                               "plain_ms": plain_ms, "bound": b3}
+    for k, fn in (("k2", FZ.kernel_forward), ("k3", FZ.kernel_grads)):
+        got = {r: fn.by_route[r] - ran[k][r] for r in fn.by_route}
+        if got != {r: (reps + 1 if r == route else 0) for r in got}:
+            raise AssertionError(f"{k} {name}: expected {reps + 1} {route} launches, got {got}")
+    line.update(route=route, bounds_ms={"k2": b2[0], "k3": b3[0]})
+    return line, out
+
+
+def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
+                   profiled: bool = False) -> dict:
+    """K2, K3 and K4 (the tensor-core route) against their plain versions on
+    the card; raises past the tolerances. Returns {kernel: {"max_abs_err",
+    "max_rel_err", "ms", "plain_ms", "bound": (bound_ms, bound_by), and
+    K4's "epoch_*" check}}."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.train import ppo as P
+
+    d = FZ.dims_for(lowered, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = traj.obs[0].reshape(-1, d.F).contiguous()  # one step: 4096 rooms x 8 seats
+    line = {"phase": "compare_policy", "arch": cfg.arch, "params": name,
+            "hidden": cfg.hidden, "plan": FZ.kernel_plan(d), "rows_k2_k3": rows.shape[0]}
+    fields, out = compare_k2_k3(d, rows, params, name, "tensor_core")
+    line.update(fields)
+    fwd_mac, bwd_mac = policy_macs(d)
+    prm_bytes = 4 * sum(v.numel() for v in params.values())
 
     # K4 timed on the trajectory's first 4 steps; logp_old moved off the
     # policy's own so that ratios fall on both sides of the clip band
@@ -290,9 +330,16 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
                 k4_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gk4[k], gx[k]) for k in gx},
                 plain_grad_rel_err_vs_ppo_loss_autograd={k: rel_err(gp4[k], gx[k]) for k in gx},
                 k4_ms=ms, k4_plain_ms=plain_ms, ppo_loss_autograd_ms=ppo_ms,
-                bounds_ms={"k2": b2[0], "k3": b3[0], "k4": b4[0]})
-    if k4_profile:
-        line["k4_profile"] = profile_k4(d, rows4, rowin, params, pcfg.clip, pcfg.ent_coef)
+                bounds_ms={**line["bounds_ms"], "k4": b4[0]})
+    if profiled:
+        dl, dv = torch.zeros((rows.shape[0], d.A), device="cuda"), torch.ones(
+            (rows.shape[0],), device="cuda")
+        line["profile"] = {
+            "k2": profile(lambda: FZ.kernel_forward(d, rows, params)),
+            "k3": profile(lambda: FZ.kernel_grads(d, rows, dl, dv, params)),
+            "k4": profile(lambda: FZ.kernel_loss_grads(d, rows4, rowin, params, pcfg.clip,
+                                                       pcfg.ent_coef))}
+        line["k2_ms_by_chunk_rows"] = k2_chunk_sweep(d, rows, params)
     k4_abs = max(abs_err(gk4[k], gp4[k]) for k in gp4)
     del gk4, gp4, gx
 
@@ -340,17 +387,16 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
     return out
 
 
-def profile_k4(d, rows, rowin, params, clip, ent_coef, top=12) -> list:
-    """Device milliseconds by kernel name over one K4 call (torch.profiler):
-    [(name, ms, launches)], largest first. Each elementwise stage is its own
-    each_kernel<lg::Stage> instantiation."""
+def profile(call, top=14) -> list:
+    """Device milliseconds by kernel name over one call of a kernel wrapper
+    (torch.profiler): [(name, ms, launches)], largest first. Each
+    elementwise stage is its own each_kernel<lg::Stage> instantiation."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    from game_engine_tpu_torch.policies import fused as FZ
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        FZ.kernel_loss_grads(d, rows, rowin, params, clip, ent_coef)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
         torch.cuda.synchronize()
     rows_ = []
     for ev in prof.key_averages():
@@ -360,20 +406,118 @@ def profile_k4(d, rows, rowin, params, clip, ent_coef, top=12) -> list:
     return sorted(rows_, key=lambda r: -r[1])[:top]
 
 
-def policy_launches() -> dict:
+def k2_chunk_sweep(d, rows, params) -> dict:
+    """K2's device milliseconds and host milliseconds to enqueue a call, by
+    rows per chunk: why fused.FWD_CHUNK_ROWS is what it is."""
+    import torch
+
     from game_engine_tpu_torch.policies import fused as FZ
 
-    return {"policy_forward": FZ.kernel_forward.launches,
-            "policy_backward": FZ.kernel_grads.launches,
-            "ppo_loss_grad": FZ.kernel_loss_grads.launches}
+    out, kept = {}, FZ.FWD_CHUNK_ROWS
+    try:
+        for chunk in (1024, 4096, 8192, 16384, 32768):
+            FZ.FWD_CHUNK_ROWS = chunk
+            _, ms = mean_ms(lambda: FZ.kernel_forward(d, rows, params), 5)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                FZ.kernel_forward(d, rows, params)
+            host_ms = (time.perf_counter() - t0) / 10 * 1e3
+            torch.cuda.synchronize()
+            out[chunk] = {"ms": ms, "host_enqueue_ms": host_ms}
+    finally:
+        FZ.FWD_CHUNK_ROWS = kept
+    return out
+
+
+def compare_narrow(lowered, traj) -> dict:
+    """The CUDA-core K2 and K3, the route of the widths the pipeline does
+    not cover, once on the card: an attn net at hidden 48 on the
+    trajectory's first step."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+
+    cfg = N.NetConfig(hidden=48, arch="attn")
+    d = FZ.dims_for(lowered, cfg)
+    if FZ.pipeline_supports(d):
+        raise AssertionError("hidden 48 should be outside the pipeline's coverage")
+    params = N.init_params(torch.Generator().manual_seed(2), N.obs_dim(lowered),
+                           N.action_space(lowered), cfg, lowered, device="cuda")
+    rows = traj.obs[0].reshape(-1, d.F).contiguous()
+    fields, out = compare_k2_k3(d, rows, params, "attn_hidden48_seed2", "cuda_core", reps=1)
+    emit({"phase": "compare_narrow", "arch": cfg.arch, "hidden": cfg.hidden,
+          "rows": rows.shape[0], "plan": FZ.kernel_plan(d), "source": NARROW_SOURCE, **fields})
+    return out
+
+
+def packed_weights_check(lowered, traj, adv, ret, params, cfg) -> None:
+    """The packed-weight cache across an optimizer step: K2 before and after
+    one K4 update (Adam, in place) of a copy of `params`, each against the
+    plain version on the parameters of that moment."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.train import ppo as P
+
+    d = FZ.dims_for(lowered, cfg)
+    rows = traj.obs[0].reshape(-1, d.F).contiguous()
+    params = {k: v.detach().clone() for k, v in params.items()}
+    pcfg = P.PPOConfig(fused_net=True, net=cfg)
+    opt = P.make_optimizer(params, pcfg)
+    tr = P.Rollout(*(x[:4] for x in traj))
+
+    def k2_checked(tag):
+        lk, vk = FZ.kernel_forward(d, rows, params)
+        lp, vp = FZ.fused_forward_plain(d, rows, {k: v.detach() for k, v in params.items()})
+        errs = (rel_err(lk, lp), rel_err(vk, vp))
+        check(f"K2 {tag} the update, logits", errs[0], TOL_FWD)
+        check(f"K2 {tag} the update, value", errs[1], TOL_FWD)
+        return lk, vk, max(errs)
+
+    packs = FZ._packed.packs
+    l0, v0, e0 = k2_checked("before")
+    FZ.kernel_forward(d, rows, params)
+    packs_before = FZ._packed.packs - packs
+    P.make_update(lowered, pcfg)(params, opt, tr, adv[:4], ret[:4])
+    l1, v1, e1 = k2_checked("after")
+    FZ.kernel_forward(d, rows, params)
+    packs_all = FZ._packed.packs - packs
+    moved = max(abs_err(l1, l0), abs_err(v1, v0))
+    emit({"phase": "packed_weights", "rel_err_before": e0, "rel_err_after": e1,
+          "output_moved_by": moved, "packs_before_update": packs_before,
+          "packs_in_all": packs_all})
+    if not moved > 0:
+        raise AssertionError("K2 after an optimizer step returned the old parameters' output")
+    # one packing before the step (two K2 calls and the update's K4), one after (two K2 calls)
+    if (packs_before, packs_all) != (1, 2):
+        raise AssertionError(f"expected 1 packing before the update and 2 in all, got "
+                             f"{packs_before} and {packs_all}")
+
+
+def policy_wrappers() -> dict:
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    return {"policy_forward": FZ.kernel_forward, "policy_backward": FZ.kernel_grads,
+            "ppo_loss_grad": FZ.kernel_loss_grads}
+
+
+def policy_launches() -> dict:
+    return {k: fn.launches for k, fn in policy_wrappers().items()}
+
+
+def tensor_core_launches() -> dict:
+    """The launches that went the tensor-core route (csrc/lossgrad.cu)."""
+    return {k: fn.by_route["tensor_core"] for k, fn in policy_wrappers().items()}
 
 
 def zero_launches() -> None:
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
-    from game_engine_tpu_torch.policies import fused as FZ
 
-    for fn in (kernel_rollout, FZ.kernel_forward, FZ.kernel_grads, FZ.kernel_loss_grads):
+    kernel_rollout.launches = 0
+    for fn in policy_wrappers().values():
         fn.launches = 0
+        fn.by_route = dict.fromkeys(fn.by_route, 0)
 
 
 def train_phase(lowered, gpu: str) -> dict:
@@ -412,8 +556,15 @@ def train_phase(lowered, gpu: str) -> dict:
     moved = max(float((params[k].detach() - start[k]).abs().max()) for k in start)
     if not moved > 0:
         raise AssertionError("the params did not move")
-    if launches["policy_forward"] <= 0 or launches["ppo_loss_grad"] <= 0:
-        raise AssertionError(f"the train path skipped a kernel: {launches}")
+    updates = int(dict(zip(argv[::2], argv[1::2]))["--updates"])
+    want = {"policy_forward": K2_PER_UPDATE * updates, "policy_backward": 0,
+            "ppo_loss_grad": 4 * updates}  # K2: 32 steps + the bootstrap; K4: one per epoch
+    if launches != want or tensor_core_launches() != want:
+        raise AssertionError(f"the train path launched {launches} ({tensor_core_launches()} on "
+                             f"the tensor cores), expected {want} on the tensor cores")
+    if not any(ev["event"] == "fused_net" and ev["forward"] == "tensor_core"
+               and ev["loss"] == "k4" for ev in events):
+        raise AssertionError("run.main did not announce the tensor-core forward and K4")
     emit({"phase": "train", "argv": argv, "seconds": seconds,
           "steps_per_sec": train["steps_per_sec"], "unroll_ms": train["unroll_ms"],
           "update_ms": train["update_ms"], "loss": train["loss"],
@@ -431,8 +582,11 @@ def train_phase(lowered, gpu: str) -> dict:
     k3 = policy_launches()
     if not np.isfinite(float(metrics["loss"])):
         raise AssertionError("fused_loss=False update: loss is not finite")
-    if k3["policy_backward"] <= 0 or k3["policy_forward"] <= 0:
-        raise AssertionError(f"the fused_loss=False update skipped a kernel: {k3}")
+    # K2: the unroll, the bootstrap and ppo_loss's forward; K3: its backward
+    want = {"policy_forward": K2_PER_UPDATE + 1, "policy_backward": 1, "ppo_loss_grad": 0}
+    if k3 != want or tensor_core_launches() != want:
+        raise AssertionError(f"the fused_loss=False update launched {k3} "
+                             f"({tensor_core_launches()} on the tensor cores), expected {want}")
     moved = max(float((params[k].detach() - before[k]).abs().max()) for k in before)
     emit({"phase": "train_k3", "loss": float(metrics["loss"]),
           "unroll_ms": metrics["unroll_ms"], "update_ms": metrics["update_ms"],
@@ -462,9 +616,9 @@ def train_phase(lowered, gpu: str) -> dict:
 
 def main(argv=()) -> int:
     argv = list(argv)
-    k4_profile = argv == ["--k4-profile"]
-    if argv and not k4_profile:
-        print(f"chip_smoke.py: unknown arguments {argv} (only --k4-profile)", file=sys.stderr)
+    profiled = argv == ["--profile"]
+    if argv and not profiled:
+        print(f"chip_smoke.py: unknown arguments {argv} (only --profile)", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "game_engine_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -596,11 +750,13 @@ def main(argv=()) -> int:
     policy = {}
     for name, params, cfg in (("attn_werewolf_u120", attn, attn_cfg),
                               ("deepsets_init_seed0", deepsets, ds_cfg)):
-        for k, v in policy_compare(ww, traj, adv, ret, name, params, cfg, k4_profile).items():
+        for k, v in policy_compare(ww, traj, adv, ret, name, params, cfg, profiled).items():
             if name.startswith("attn"):
                 policy[k] = v  # times at the shipped attn net
             else:  # the larger error of the two nets
                 policy[k].update({e: max(policy[k][e], v[e]) for e in v if "err" in e})
+    narrow = compare_narrow(ww, traj)
+    packed_weights_check(ww, traj, adv, ret, attn, attn_cfg)
     del traj, adv, ret
     torch.cuda.empty_cache()
     launches = train_phase(ww, gpu)
@@ -616,8 +772,12 @@ def main(argv=()) -> int:
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
         "launches": launches[k], "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],
         "bound_ms": policy[k]["bound"][0], "bound_by": policy[k]["bound"][1],
-        "library_ms": None, **{e: v for e, v in policy[k].items()
-                               if e not in ("ms", "plain_ms", "bound")}}
+        "library_ms": None, "ran": "tensor_core",
+        **{e: v for e, v in policy[k].items() if e not in ("ms", "plain_ms", "bound")},
+        **({"narrow_route": {"ran": "cuda_core", "source": NARROW_SOURCE, "hidden": 48,
+                             "launches_on_main_path": 0,
+                             **{e: v for e, v in narrow[k].items() if e != "bound"}}}
+           if k in narrow else {})}
         for k in POLICY_REPLACES]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

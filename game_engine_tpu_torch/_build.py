@@ -35,8 +35,14 @@ _ROLLOUT_ARGS = [_P, _I] + [_P] * 9 + [_I64, _I, _I]
 _PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
 # meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
 _PN_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _P, _I, _P]
-# meta, obs, nrows, rowin, clip_eps, ent_coef, prm, scratch, chunk, nsplit, out
-_LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _I64, _I, _P]
+# meta, prm, weights
+_LG_PACK_ARGS = [_P, _P, _P]
+# meta, obs, nrows, prm, weights, scratch, chunk, logits, value
+_LG_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P]
+# meta, obs, nrows, rowin, prm, weights, scratch, chunk, nsplit, out
+_LG_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _I, _P]
+# meta, obs, nrows, rowin, clip_eps, ent_coef, prm, weights, scratch, chunk, nsplit, out
+_LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _P, _I64, _I, _P]
 
 
 def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
@@ -152,8 +158,8 @@ def host_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def policy_lib() -> ctypes.CDLL:
-    """csrc/policy_net.cu (kernels K2 and K3 of the policy net) built with nvcc
-    for sm_90a, loaded."""
+    """csrc/policy_net.cu (the CUDA-core K2 and K3, for the widths the
+    pipeline does not cover) built with nvcc for sm_90a, loaded."""
     lib = ctypes.CDLL(_compile_all(_cuda_jobs()[1:2])[0])
     lib.pn_forward.restype = _I
     lib.pn_forward.argtypes = _PN_FWD_ARGS + [_P]  # stream
@@ -168,21 +174,28 @@ def policy_lib() -> ctypes.CDLL:
     return lib
 
 
-def _lossgrad_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _lossgrad_common(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
+    """The entries of the pipeline library: lg_pack, lg_forward (K2), lg_grad
+    (K3) and lg_lossgrad (K4), named with `suffix` and taking `tail` last."""
     lib.lg_scratch_bytes.restype = _I64
-    lib.lg_scratch_bytes.argtypes = [_P, _I64, _I]
+    lib.lg_scratch_bytes.argtypes = [_P, _I64, _I, _I]  # meta, chunk, nsplit, fwd_only
+    lib.lg_weights_bytes.restype = _I64
+    lib.lg_weights_bytes.argtypes = [_P]
     lib.lg_meta_ints.restype = _I
     lib.lg_meta_ints.argtypes = []
+    for name, args in (("lg_pack", _LG_PACK_ARGS), ("lg_forward", _LG_FWD_ARGS),
+                       ("lg_grad", _LG_GRAD_ARGS), ("lg_lossgrad", _LG_ARGS)):
+        fn = getattr(lib, name + suffix)
+        fn.restype = _I
+        fn.argtypes = args + tail
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def lossgrad_lib() -> ctypes.CDLL:
-    """csrc/lossgrad.cu (K4, the PPO loss-grad on the tensor cores) built
+    """csrc/lossgrad.cu (the tensor-core pipelines of K2, K3 and K4) built
     with nvcc for sm_90a, loaded."""
-    lib = _lossgrad_common(ctypes.CDLL(_compile_all(_cuda_jobs()[2:])[0]))
-    lib.lg_lossgrad.restype = _I
-    lib.lg_lossgrad.argtypes = _LG_ARGS + [_P]  # stream
+    lib = _lossgrad_common(ctypes.CDLL(_compile_all(_cuda_jobs()[2:])[0]), "", [_P])  # stream
     lib.lg_error_string.restype = ctypes.c_char_p
     lib.lg_error_string.argtypes = [_I]
     return lib
@@ -190,13 +203,11 @@ def lossgrad_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def lossgrad_host_lib() -> ctypes.CDLL:
-    """csrc/lossgrad_host.cpp (K4's pipeline with plain-loop products)
+    """csrc/lossgrad_host.cpp (the pipelines with plain-loop products)
     built with g++."""
-    lib = _lossgrad_common(ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "lossgrad_host.cpp"),
-                                                      "liblossgrad_host", _GXX_CMD)])[0]))
-    lib.lg_lossgrad_host.restype = _I
-    lib.lg_lossgrad_host.argtypes = _LG_ARGS
-    return lib
+    return _lossgrad_common(ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "lossgrad_host.cpp"),
+                                                       "liblossgrad_host", _GXX_CMD)])[0]),
+                            "_host", [])
 
 
 @functools.lru_cache(maxsize=None)

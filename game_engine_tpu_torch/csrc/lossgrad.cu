@@ -1,11 +1,13 @@
-// lossgrad.cu — K4 on Hopper: the one-pass PPO loss-grad of the
-// deepsets/attn policy net, replacing game_engine_tpu/policies/fused.py:600
-// (_run_lossgrad / _lossgrad_kernel). Built by nvcc for sm_90a into a
-// plain-C shared library (game_engine_tpu_torch/_build.py), bound with
-// ctypes (policies/fused.py kernel_loss_grads).
+// lossgrad.cu — the deepsets/attn policy net on Hopper's tensor cores: the
+// forward (K2, lg_forward, replacing game_engine_tpu/policies/fused.py:299
+// _run_fwd), the parameter gradient of given cotangents (K3, lg_grad, :468
+// _run_bwd) and the one-pass PPO loss-grad (K4, lg_lossgrad, :600
+// _run_lossgrad). Built by nvcc for sm_90a into a plain-C shared library
+// (game_engine_tpu_torch/_build.py), bound with ctypes (policies/fused.py
+// kernel_forward, kernel_grads, kernel_loss_grads).
 //
-// The stages and their order are lossgrad.cuh's (lg::run); this file is
-// the device backend that runs them:
+// The stages and their order are lossgrad.cuh's (lg::run_forward,
+// lg::run_grad); this file is the device backend that runs them:
 //   gemm_kernel   C = sum_p A_p B with a fused epilogue (bias + gelu, the
 //                 attention residual, gelu' of a cotangent split into
 //                 hi/lo): bf16 mma.sync.m16n8k16, f32 accumulation, 128 x 64
@@ -21,9 +23,10 @@
 //                 per-room stages (lossgrad.cuh).
 //   reduce_kernel the slabs summed in split order.
 // No atomics anywhere: the result is deterministic for a given chunk and
-// nsplit. Bound: operations (about 5.1 MFLOP a row at the attn net's
-// width, two bf16 products for each backward product); the scratch
-// traffic between stages (~79 KB a row written and read back) is the next
+// nsplit. Bound: operations (about 1.7 MFLOP a row forward and 5.1 with
+// the backward at the attn net's width, two bf16 products for each
+// backward product); the scratch traffic between stages (~28 KB a row
+// forward, ~79 KB with the backward, written and read back) is the next
 // limit. wgmma/TMA and fusing stages to cut that traffic are later work.
 
 #include <cuda_runtime.h>
@@ -418,8 +421,15 @@ extern "C" {
 
 int lg_meta_ints() { return pn::META_INTS; }
 
-int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit) {
-  return lg::layout(pn::net_from_meta(meta), chunk, nsplit).total;
+// bytes of the packed-weight buffer of lg_pack
+int64_t lg_weights_bytes(const int32_t* meta) {
+  return lg::layout(pn::net_from_meta(meta), 1, 1, true).w_end;
+}
+
+// bytes of the scratch of a call with `chunk` rows per chunk: of lg_forward
+// (fwd_only, nsplit ignored) or of lg_grad / lg_lossgrad
+int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit, int fwd_only) {
+  return lg::layout(pn::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
 }
 
 const char* lg_error_string(int code) {
@@ -427,21 +437,59 @@ const char* lg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+static int prepare(const pn::Net& n, int64_t chunk, int nsplit) {
+  if (!lg::supported(n) || chunk < 1 || nsplit < 1) return ERR_UNSUPPORTED;
+  return (int)cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)sizeof(GemmSmem));
+}
+
+// The weights of prm (n_params f32) as bf16, forward and transposed, into
+// `weights` (lg_weights_bytes(meta) bytes): what the three entries below
+// read, valid while the parameters are unchanged. Each entry returns 0 once
+// every stage is launched on `stream`, else the first error.
+int lg_pack(const int32_t* meta, const float* prm, void* weights, void* stream) {
+  const pn::Net n = pn::net_from_meta(meta);
+  if (!lg::supported(n)) return ERR_UNSUPPORTED;
+  DevBE be{(cudaStream_t)stream};
+  return lg::pack_weights(be, n, lg::layout(n, 1, 1, true), prm, (char*)weights);
+}
+
+// K2: logits (nrows, A) and value (nrows,) f32 of obs (nrows, F) bf16.
+// scratch holds lg_scratch_bytes(meta, chunk, 1, 1) bytes.
+int lg_forward(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* prm,
+               const void* weights, void* scratch, int64_t chunk, float* logits, float* value,
+               void* stream) {
+  const pn::Net n = pn::net_from_meta(meta);
+  LG_TRY(prepare(n, chunk, 1));
+  DevBE be{(cudaStream_t)stream};
+  return lg::run_forward(be, n, lg::layout(n, chunk, 1, true), (const char*)weights,
+                         (char*)scratch, obs, nrows, prm, logits, value);
+}
+
+// K3: out (n_params + 4) = the parameter gradient of sum(dl * logits) +
+// sum(dv * value) over obs (nrows, F) bf16, rowin (nrows, A + 1) = dl | dv,
+// then four zeros. scratch holds lg_scratch_bytes(meta, chunk, nsplit, 0).
+int lg_grad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
+            const float* prm, const void* weights, void* scratch, int64_t chunk, int nsplit,
+            float* out, void* stream) {
+  const pn::Net n = pn::net_from_meta(meta);
+  LG_TRY(prepare(n, chunk, nsplit));
+  DevBE be{(cudaStream_t)stream};
+  return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
+                      (char*)scratch, obs, nrows, rowin, false, 0.0f, 0.0f, prm, out);
+}
+
 // K4: out (n_params + 4) = the gradient of the PPO loss over obs (nrows, F)
 // bf16 and rowin (nrows, 2A + 5) f32, summed over all rows, then the four
-// loss sums. scratch holds lg_scratch_bytes(meta, chunk, nsplit) bytes.
-// Returns 0 once every stage is launched on `stream`, else the first error.
+// loss sums. scratch holds lg_scratch_bytes(meta, chunk, nsplit, 0) bytes.
 int lg_lossgrad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
-                float clip_eps, float ent_coef, const float* prm, void* scratch, int64_t chunk,
-                int nsplit, float* out, void* stream) {
+                float clip_eps, float ent_coef, const float* prm, const void* weights,
+                void* scratch, int64_t chunk, int nsplit, float* out, void* stream) {
   const pn::Net n = pn::net_from_meta(meta);
-  if (!lg::supported(n) || chunk < 1 || nsplit < 1) return ERR_UNSUPPORTED;
-  cudaError_t e = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)sizeof(GemmSmem));
-  if (e != cudaSuccess) return (int)e;
-  const lg::Lay g = lg::layout(n, chunk, nsplit);
+  LG_TRY(prepare(n, chunk, nsplit));
   DevBE be{(cudaStream_t)stream};
-  return lg::run(be, n, g, (char*)scratch, obs, nrows, rowin, clip_eps, ent_coef, prm, out);
+  return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
+                      (char*)scratch, obs, nrows, rowin, true, clip_eps, ent_coef, prm, out);
 }
 
 }  // extern "C"

@@ -1,15 +1,20 @@
-// lossgrad.cuh — K4, the one-pass PPO loss-grad of the deepsets/attn policy
-// net, as a pipeline of stages over a chunk of rows. Shared by the CUDA
+// lossgrad.cuh — the deepsets/attn policy net as a pipeline of stages over a
+// chunk of rows: the forward (K2), the parameter gradient of given
+// cotangents (K3) and the one-pass PPO loss-grad (K4). Shared by the CUDA
 // kernels (lossgrad.cu, tensor-core products) and the g++ host harness
 // (lossgrad_host.cpp, plain loops), which run the same stages in the same
 // order on the same buffer layout; only the products and the column sums
 // add in another order.
 //
-// Counterpart of game_engine_tpu/policies/fused.py:600 (_run_lossgrad,
-// _lossgrad_kernel :508, _fwd_body :154, _grad_body :329). For every row:
-// the forward with _fwd_body's cast points, the legal-masked log-softmax,
-// the clipped-PPO + value + entropy cotangents with lax.min's tie rule, the
-// parameter gradient summed over all rows, and the four loss sums.
+// Counterparts in game_engine_tpu/policies/fused.py: _run_fwd :299
+// (run_forward here), _run_bwd :468 (run_grad with the caller's dl | dv) and
+// _run_lossgrad :600 (run_grad with the PPO rows); bodies _fwd_body :154,
+// _grad_body :329, _lossgrad_kernel :508. For every row: the forward with
+// _fwd_body's cast points; for K4 the legal-masked log-softmax, the
+// clipped-PPO + value + entropy cotangents with lax.min's tie rule and the
+// four loss sums; for K3 and K4 the parameter gradient summed over all rows.
+// All three run the same forward stages (forward_chunk), so they cannot
+// drift apart.
 //
 // Design (what bounds the work: the products, ~5.1 MFLOP a row at the attn
 // net's width, against ~0.4 KB of input a row):
@@ -30,7 +35,11 @@
 // - The intermediates a backward stage needs are written to a scratch
 //   buffer in device memory (f32 where _fwd_body keeps f32, bf16 where it
 //   rounds); about 79 KB a row at the attn net's width, so the wrapper
-//   sizes the chunk to the scratch it can spare.
+//   sizes the chunk to the scratch it can spare. The forward alone keeps
+//   only what its own later stages read: about 28 KB a row.
+// - The weights are packed to bf16 (forward and transposed) into a buffer
+//   of their own by pack_weights; the caller keeps it while the parameters
+//   are unchanged, so the 33 forwards of a train step pack once.
 // - The small per-room products of the attention (8 x 8 scores, the mixing
 //   and their backward) have no bf16-rounded operand and stay in f32 on the
 //   CUDA cores, one thread per seat-row.
@@ -97,8 +106,11 @@ PN_HD void split_store(float x, uint16_t* hi, uint16_t* lo, int64_t i) {
 }
 
 // ---------------------------------------------------------------------------
-// scratch layout: packed bf16 weights, the gradient slabs, then the buffers
-// of one chunk of rows. Byte offsets from the scratch base.
+// layout: the packed bf16 weights (byte offsets from the weight buffer's
+// base), and the scratch: the gradient slabs, then the buffers of one chunk
+// of rows (byte offsets from the scratch base). A forward-only layout gives
+// no room to what only a backward reads or writes: those offsets are then
+// not to be used.
 // ---------------------------------------------------------------------------
 struct Lay {
   int64_t chunk;          // rows per chunk
@@ -107,13 +119,13 @@ struct Lay {
   // packed weights: forward (K x N) and transposed (N x K), bf16
   int64_t w0, w1, w1t, wqkv, wqkvt, wao, waot, wh, wht;
   int64_t wt[pn::MAX_LAYERS], wtt[pn::MAX_LAYERS];
-  int64_t w_end;
+  int64_t w_end;          // bytes of the weight buffer
   int64_t slabs;          // nsplit x ng f32
   // chunk buffers
   int64_t x0, z0, p0, z1, e, hn, mu, inv, m12, dl, hb, qkv, att, dS, ob, phib, tb, zt, xb, heads,
       dHh, dHl, stats, dphi, dphh, dphl, dzh[2], dzl[2], dt, d_o, dqh, dql, dh, dz1h,
       dz1l, dz0h, dz0l;
-  int64_t total;
+  int64_t total;          // bytes of the scratch
 };
 
 PN_HD int64_t take(int64_t& at, int64_t bytes) {
@@ -122,11 +134,12 @@ PN_HD int64_t take(int64_t& at, int64_t bytes) {
   return o;
 }
 
-PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit) {
+PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   Lay g;
   const int hp = n.hp, H = n.H, P = n.P;
   const int64_t R = chunk, S = (int64_t)P * chunk;
   const int64_t a = n.attn ? 1 : 0;
+  const int64_t b = fwd_only ? 0 : 1;  // buffers of the backward
   const int64_t B2 = 2, F4 = 4;  // bytes of bf16, f32
   g.chunk = chunk;
   g.nsplit = nsplit;
@@ -151,46 +164,47 @@ PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit) {
     g.wtt[i] = take(at, on * B2 * kin * H);
   }
   g.w_end = at;
-  g.slabs = take(at, F4 * nsplit * g.ng);
+  at = 0;
+  g.slabs = take(at, b * F4 * nsplit * g.ng);
   g.x0 = take(at, B2 * S * g.F0p);
-  g.z0 = take(at, F4 * S * hp);
+  g.z0 = take(at, b * F4 * S * hp);
   g.p0 = take(at, B2 * S * hp);
-  g.z1 = take(at, F4 * S * hp);
+  g.z1 = take(at, b * F4 * S * hp);
   g.e = take(at, a * F4 * S * hp);
-  g.hn = take(at, a * F4 * S * hp);
+  g.hn = take(at, b * a * F4 * S * hp);
   g.mu = take(at, a * F4 * S);
   g.inv = take(at, a * F4 * S);
-  g.m12 = take(at, a * F4 * S * 2);
-  g.dl = take(at, F4 * R * n.A);
+  g.m12 = take(at, b * a * F4 * S * 2);
+  g.dl = take(at, b * F4 * R * n.A);
   g.hb = take(at, a * B2 * S * hp);
   g.qkv = take(at, a * F4 * S * 3 * hp);
   g.att = take(at, a * F4 * S * P);
-  g.dS = take(at, a * F4 * S * P);
+  g.dS = take(at, b * a * F4 * S * P);
   g.ob = take(at, a * B2 * S * hp);
   g.phib = take(at, B2 * S * hp);
   g.tb = take(at, B2 * R * g.Tp);
-  g.zt = take(at, F4 * n.L * R * H);
+  g.zt = take(at, b * F4 * n.L * R * H);
   g.xb = take(at, B2 * n.L * R * H);
   g.heads = take(at, F4 * R * g.Nh);
-  g.dHh = take(at, B2 * R * g.Nh);
-  g.dHl = take(at, B2 * R * g.Nh);
-  g.stats = take(at, F4 * R * pn::N_STATS);
-  g.dphi = take(at, F4 * S * hp);
-  g.dphh = take(at, a * B2 * S * hp);
-  g.dphl = take(at, a * B2 * S * hp);
+  g.dHh = take(at, b * B2 * R * g.Nh);
+  g.dHl = take(at, b * B2 * R * g.Nh);
+  g.stats = take(at, b * F4 * R * pn::N_STATS);
+  g.dphi = take(at, b * F4 * S * hp);
+  g.dphh = take(at, b * a * B2 * S * hp);
+  g.dphl = take(at, b * a * B2 * S * hp);
   for (int i = 0; i < 2; ++i) {
-    g.dzh[i] = take(at, B2 * R * H);
-    g.dzl[i] = take(at, B2 * R * H);
+    g.dzh[i] = take(at, b * B2 * R * H);
+    g.dzl[i] = take(at, b * B2 * R * H);
   }
-  g.dt = take(at, F4 * R * g.Tp);
-  g.d_o = take(at, a * F4 * S * hp);
-  g.dqh = take(at, a * B2 * S * 3 * hp);
-  g.dql = take(at, a * B2 * S * 3 * hp);
+  g.dt = take(at, b * F4 * R * g.Tp);
+  g.d_o = take(at, b * a * F4 * S * hp);
+  g.dqh = take(at, b * a * B2 * S * 3 * hp);
+  g.dql = take(at, b * a * B2 * S * 3 * hp);
   g.dh = g.qkv;  // qkv is dead once the attention backward has run
-  g.dz1h = take(at, B2 * S * hp);
-  g.dz1l = take(at, B2 * S * hp);
-  g.dz0h = take(at, B2 * S * hp);
-  g.dz0l = take(at, B2 * S * hp);
+  g.dz1h = take(at, b * B2 * S * hp);
+  g.dz1l = take(at, b * B2 * S * hp);
+  g.dz0h = take(at, b * B2 * S * hp);
+  g.dz0l = take(at, b * B2 * S * hp);
   g.total = at;
   return g;
 }
@@ -442,7 +456,8 @@ struct LnStats {
   }
 };
 
-// second half, item = one element (s, k): hn and hb = bf16(hn ln_s + ln_b)
+// second half, item = one element (s, k): hn (if set: only the backward
+// reads it) and hb = bf16(hn ln_s + ln_b)
 struct LnApply {
   Net n;
   const float* prm;
@@ -455,7 +470,7 @@ struct LnApply {
     const int64_t s = i / n.hp;
     const int k = (int)(i % n.hp);
     const float h = (bfr(e[i]) - mu[s]) * inv[s];
-    hn[i] = h;
+    if (hn) hn[i] = h;
     hb[i] = bf16_bits(h * prm[n.off[pn::LN_S] + k] + prm[n.off[pn::LN_B] + k]);
   }
 };
@@ -542,15 +557,89 @@ struct Pool {
   }
 };
 
+// The outputs of a row from its head products hd = [xb W_ptr | xb W_pi |
+// xb W_v] (biases not yet added) and its seats' phi (P x hp, bf16):
+// logit a = opt_a + b_pi[a] (a < n_opt) + the pointer score of seat a
+// (a < P), sum_k bf16(phi_a[k] g[k]) with g = bf16(xb W_ptr), added in k
+// order; value = v + b_v. K2's output stage and K4's loss both call these.
+PN_HD float head_logit(const Net& n, const float* prm, const float* hd, const uint16_t* ph,
+                       int a) {
+  const int hp = n.hp;
+  float v = a < n.n_opt ? hd[hp + a] + prm[n.off[pn::B_PI] + a] : 0.0f;
+  if (a < n.P) {
+    float d = 0.0f;
+    for (int k = 0; k < hp; k += 4) {
+      float g[4];
+      ld4(hd + k, g);
+      for (int j = 0; j < 4; ++j)
+        d += bfr(bf16_bits_to_float(ph[a * hp + k + j]) * bfr(g[j]));
+    }
+    v += d;
+  }
+  return v;
+}
+
+PN_HD float head_value(const Net& n, const float* prm, const float* hd) {
+  return hd[n.hp + n.n_opt] + prm[n.off[pn::B_V]];
+}
+
+// the head cotangent dH = [dg | d_opt | dv | 0] of row r past the pointer
+// head, as hi/lo: d_opt = the logits' cotangent dl, dv the value's.
+// LossHead does the pointer head's columns.
+PN_HD void head_cot(const Net& n, int Nh, const float* dl, float dv, uint16_t* dHh,
+                    uint16_t* dHl, int64_t r) {
+  const int hp = n.hp, no = n.n_opt;
+  const int64_t h0 = r * Nh;
+  for (int a = 0; a < no; ++a) split_store(dl[a], dHh, dHl, h0 + hp + a);
+  split_store(dv, dHh, dHl, h0 + hp + no);
+  for (int c = hp + no + 1; c < Nh; ++c) {
+    dHh[h0 + c] = 0;
+    dHl[h0 + c] = 0;
+  }
+}
+
+// K2's last stage, item = (r, a): logits (rows, A) and value (rows,) of
+// the chunk, unmasked, into the caller's tensors
+struct HeadOut {
+  Net n;
+  const float* prm;
+  const float* heads;
+  const uint16_t* phib;
+  int Nh;
+  float* logits;  // the chunk's first row
+  float* value;
+  PN_HD void operator()(int64_t it) const {
+    const int64_t r = it / n.A;
+    const int a = (int)(it % n.A);
+    const float* hd = heads + r * Nh;
+    logits[it] = head_logit(n, prm, hd, phib + r * n.P * n.hp, a);
+    if (a == 0) value[r] = head_value(n, prm, hd);
+  }
+};
+
+// K3's cotangents of row r from the caller's rowin (rows, A + 1) = dl | dv:
+// dl into the chunk's buffer and dH past the pointer head
+struct GradIn {
+  Net n;
+  const float* rowin;  // the chunk's first row
+  int Nh;
+  float* dlo;  // (rows, A)
+  uint16_t* dHh;
+  uint16_t* dHl;
+  PN_HD void operator()(int64_t r) const {
+    const int A = n.A;
+    const float* in = rowin + r * (A + 1);
+    float* dl = dlo + r * A;
+    for (int a = 0; a < A; ++a) dl[a] = in[a];
+    head_cot(n, Nh, dl, in[A], dHh, dHl, r);
+  }
+};
+
 // The PPO loss of row r (_lossgrad_kernel :521-550) from the head
-// products heads = [xb W_ptr | xb W_pi | xb W_v] (biases not yet added):
-// logits = opt + b_pi (padded) + pointer scores sum_k bf16(phi_i[k] g[k])
-// with g = bf16(xb W_ptr), value = v + b_v. Writes the row's four stats,
-// the head cotangent dH = [dg | d_opt | dv | 0] as hi/lo, and the pointer
-// head's cotangent of phi, dphi[i][k] = dl_i g[k]. rowin (rows, 2A + 5) =
-// legal | one-hot action | logp_old, advn, ret, wrow, vrow. This row part
-// writes dl (the logits' cotangent), the stats and dH past the pointer
-// head; LossHead does the pointer head's columns.
+// products (head_logit, head_value). Writes the row's four stats, the
+// logits' cotangent dl and the head cotangent past the pointer head
+// (head_cot). rowin (rows, 2A + 5) = legal | one-hot action | logp_old,
+// advn, ret, wrow, vrow.
 struct Loss {
   Net n;
   const float* prm;
@@ -564,28 +653,17 @@ struct Loss {
   uint16_t* dHh;
   uint16_t* dHl;
   PN_HD void operator()(int64_t r) const {
-    const int A = n.A, P = n.P, hp = n.hp, no = n.n_opt, RD = 2 * A + 5;
+    const int A = n.A, RD = 2 * A + 5;
     const float* hd = heads + r * Nh;
-    const uint16_t* ph = phib + r * P * hp;
+    const uint16_t* ph = phib + r * n.P * n.hp;
     const float* in = rowin + r * RD;
     const float* legal = in;
     const float* aoh = in + A;
     const float logp_old = in[2 * A], adv = in[2 * A + 1], ret = in[2 * A + 2];
     const float wrow = in[2 * A + 3], vrow = in[2 * A + 4];
     float lg[MAX_A];
-    for (int a = 0; a < A; ++a) lg[a] = 0.0f;
-    for (int a = 0; a < no; ++a) lg[a] = hd[hp + a] + prm[n.off[pn::B_PI] + a];
-    for (int i = 0; i < P; ++i) {
-      float d = 0.0f;
-      for (int k = 0; k < hp; k += 4) {
-        float g[4];
-        ld4(hd + k, g);
-        for (int j = 0; j < 4; ++j)
-          d += bfr(bf16_bits_to_float(ph[i * hp + k + j]) * bfr(g[j]));
-      }
-      lg[i] += d;
-    }
-    const float value = hd[hp + no] + prm[n.off[pn::B_V]];
+    for (int a = 0; a < A; ++a) lg[a] = head_logit(n, prm, hd, ph, a);
+    const float value = head_value(n, prm, hd);
     float mx = -INFINITY;
     for (int a = 0; a < A; ++a) {
       lg[a] = legal[a] > 0.0f ? lg[a] : -1e9f;
@@ -622,14 +700,7 @@ struct Loss {
     st[1] = 0.5f * dvv * dvv * vrow;
     st[2] = ent * wrow;
     st[3] = ratio * wrow;
-    // the option and value linears' cotangents
-    const int64_t h0 = r * Nh;
-    for (int a = 0; a < no; ++a) split_store(dl[a], dHh, dHl, h0 + hp + a);
-    split_store(vrow * dvv, dHh, dHl, h0 + hp + no);
-    for (int c = hp + no + 1; c < Nh; ++c) {
-      dHh[h0 + c] = 0;
-      dHl[h0 + c] = 0;
-    }
+    head_cot(n, Nh, dl, vrow * dvv, dHh, dHl, r);
   }
 };
 
@@ -803,7 +874,7 @@ struct LnBwdApply {
 };
 
 // ---------------------------------------------------------------------------
-// the pipeline, for a backend BE that runs each stage: BE::each(f, count)
+// the pipelines, for a backend BE that runs each stage: BE::each(f, count)
 // calls f(i) for i < count, BE::gemm / wgrad / colsum run a product or a
 // column sum, BE::memset(ptr, bytes) zeroes, BE::reduce(slabs, nsplit, ng,
 // out) sums the slabs in split order. Each returns 0 or an error code.
@@ -851,18 +922,14 @@ inline Target whole(int Kr, int N, int w_off, int b_off) {
     if (e_ != 0) return e_;   \
   } while (0)
 
+// the packed weights: bf16, forward and transposed, zero-padded, into the
+// weight buffer at wbase (g.w_end bytes). Valid until a parameter changes.
 template <class BE>
-int run(BE& be, const Net& n, const Lay& g, char* base, const uint16_t* obs, int64_t nrows,
-        const float* rowin, float clip_eps, float ent_coef, const float* prm, float* out) {
-  const int P = n.P, hp = n.hp, H = n.H, L = n.L, T = n.T(), no = n.n_opt;
-  const int Tp = g.Tp, Nh = g.Nh, RD = 2 * n.A + 5;
+int pack_weights(BE& be, const Net& n, const Lay& g, const float* prm, char* wbase) {
+  const int hp = n.hp, H = n.H, T = n.T(), no = n.n_opt, Nh = g.Nh;
   const int* off = n.off;
-  auto W = [&](int64_t o) { return (uint16_t*)(base + o); };
-  float* slabs = (float*)(base + g.slabs);
-
-  // the weights, bf16, forward and transposed, zero-padded
-  LG_TRY(be.memset(base, g.w_end));
-  LG_TRY(be.memset(slabs, (int64_t)sizeof(float) * g.nsplit * g.ng));
+  auto W = [&](int64_t o) { return (uint16_t*)(wbase + o); };
+  LG_TRY(be.memset(wbase, g.w_end));
   auto pack = [&](int slot, int K, int N, int col0, uint16_t* dst, int ldd, uint16_t* dstT,
                   int ldt) {
     return be.each(PackW{prm, off[slot], K, N, col0, ldd, ldt, dst, dstT}, (int64_t)K * N);
@@ -873,11 +940,83 @@ int run(BE& be, const Net& n, const Lay& g, char* base, const uint16_t* obs, int
     LG_TRY(pack(pn::W_QKV, hp, 3 * hp, 0, W(g.wqkv), 3 * hp, W(g.wqkvt), hp));
     LG_TRY(pack(pn::W_AO, hp, hp, 0, W(g.wao), hp, W(g.waot), hp));
   }
-  for (int i = 0; i < L; ++i)
-    LG_TRY(pack(pn::W_TRUNK + 2 * i, i ? H : T, H, 0, W(g.wt[i]), H, W(g.wtt[i]), i ? H : Tp));
+  for (int i = 0; i < n.L; ++i)
+    LG_TRY(pack(pn::W_TRUNK + 2 * i, i ? H : T, H, 0, W(g.wt[i]), H, W(g.wtt[i]),
+                i ? H : g.Tp));
   LG_TRY(pack(pn::W_PTR, H, hp, 0, W(g.wh), Nh, W(g.wht), H));
   LG_TRY(pack(pn::W_PI, H, no, hp, W(g.wh), Nh, W(g.wht), H));
-  LG_TRY(pack(pn::W_V, H, 1, hp + no, W(g.wh), Nh, W(g.wht), H));
+  return pack(pn::W_V, H, 1, hp + no, W(g.wh), Nh, W(g.wht), H);
+}
+
+// the forward of R rows (obs oc) into the chunk's buffers: seat encoder,
+// attention, pool, trunk, heads. keep: also what only the backward reads
+// (the pre-activations z0, z1, zt and the LayerNorm's hn).
+template <class BE>
+int forward_chunk(BE& be, const Net& n, const Lay& g, const Bufs& b, const char* wbase,
+                  const uint16_t* oc, int64_t R, const float* prm, bool keep) {
+  const int P = n.P, hp = n.hp, H = n.H, L = n.L, Tp = g.Tp, Nh = g.Nh;
+  const int* off = n.off;
+  const int64_t S = R * P;
+  auto W = [&](int64_t o) { return (const uint16_t*)(wbase + o); };
+  auto xb = [&](int i) { return b.xb + (int64_t)i * g.chunk * H; };
+  LG_TRY(be.each(Prep{n, oc, b.x0, g.F0p}, S));
+  LG_TRY(be.gemm(fwd_gemm(b.x0, g.F0p, W(g.w0), hp, S, hp, g.F0p,
+                          epi_act(hp, prm + off[pn::B_PHI0], keep ? b.z0 : nullptr, nullptr,
+                                  b.p0))));
+  LG_TRY(be.gemm(fwd_gemm(b.p0, hp, W(g.w1), hp, S, hp, hp,
+                          epi_act(hp, prm + off[pn::B_PHI1], keep ? b.z1 : nullptr,
+                                  n.attn ? b.e : nullptr, n.attn ? nullptr : b.phib))));
+  if (n.attn) {
+    LG_TRY(be.each(LnStats{n, b.e, b.mu, b.inv}, S));
+    LG_TRY(be.each(LnApply{n, prm, b.e, b.mu, b.inv, keep ? b.hn : nullptr, b.hb}, S * hp));
+    LG_TRY(be.gemm(fwd_gemm(b.hb, hp, W(g.wqkv), 3 * hp, S, 3 * hp, hp,
+                            epi_f32(3 * hp, b.qkv))));
+    LG_TRY(be.each(AttnScore{n, b.qkv, b.att}, S * P));
+    LG_TRY(be.each(AttnSoftmax{n, b.att}, S));
+    LG_TRY(be.each(AttnMix{n, b.qkv, b.att, b.ob}, R * hp));
+    LG_TRY(be.gemm(fwd_gemm(b.ob, hp, W(g.wao), hp, S, hp, hp, epi_phi(hp, b.e, b.phib))));
+  }
+  LG_TRY(be.each(Pool{n, oc, b.phib, b.tb, Tp}, R * Tp));
+  for (int i = 0; i < L; ++i) {
+    const int kin = i ? H : Tp;
+    float* zt = keep ? b.zt + (int64_t)i * g.chunk * H : nullptr;
+    LG_TRY(be.gemm(fwd_gemm(i ? xb(i - 1) : b.tb, kin, W(g.wt[i]), H, R, H, kin,
+                            epi_act(H, prm + off[pn::W_TRUNK + 2 * i + 1], zt, nullptr,
+                                    xb(i)))));
+  }
+  return be.gemm(fwd_gemm(xb(L - 1), H, W(g.wh), Nh, R, Nh, H, epi_f32(Nh, b.heads)));
+}
+
+// K2: logits (nrows, A) and value (nrows,) of obs (nrows, F), chunk by
+// chunk through a forward-only layout g at scratch `base`
+template <class BE>
+int run_forward(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
+                const uint16_t* obs, int64_t nrows, const float* prm, float* logits,
+                float* value) {
+  const Bufs b = bufs(g, base);
+  for (int64_t r0 = 0; r0 < nrows; r0 += g.chunk) {
+    const int64_t R = nrows - r0 < g.chunk ? nrows - r0 : g.chunk;
+    LG_TRY(forward_chunk(be, n, g, b, wbase, obs + r0 * n.F(), R, prm, false));
+    LG_TRY(be.each(HeadOut{n, prm, b.heads, b.phib, g.Nh, logits + r0 * n.A, value + r0},
+                   R * n.A));
+  }
+  return 0;
+}
+
+// K3 and K4: out (n_params + 4) = the parameter gradient summed over all
+// rows, then the four loss sums. ppo: rowin (nrows, 2A + 5) holds the PPO
+// rows and the cotangents come from the loss (K4); else rowin (nrows,
+// A + 1) = dl | dv holds the caller's cotangents and the sums are zero (K3).
+template <class BE>
+int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
+             const uint16_t* obs, int64_t nrows, const float* rowin, bool ppo, float clip_eps,
+             float ent_coef, const float* prm, float* out) {
+  const int P = n.P, hp = n.hp, H = n.H, L = n.L, T = n.T(), no = n.n_opt;
+  const int Tp = g.Tp, Nh = g.Nh, RD = ppo ? 2 * n.A + 5 : n.A + 1;
+  const int* off = n.off;
+  auto W = [&](int64_t o) { return (const uint16_t*)(wbase + o); };
+  float* slabs = (float*)(base + g.slabs);
+  LG_TRY(be.memset(slabs, (int64_t)sizeof(float) * g.nsplit * g.ng));
 
   Target head{};
   head.Kr = H;
@@ -906,38 +1045,19 @@ int run(BE& be, const Net& n, const Lay& g, char* base, const uint16_t* obs, int
     const uint16_t* oc = obs + r0 * n.F();
     const float* rc = rowin + r0 * RD;
 
-    // forward: seat encoder, attention, pool, trunk, heads
-    LG_TRY(be.each(Prep{n, oc, b.x0, g.F0p}, S));
-    LG_TRY(be.gemm(fwd_gemm(b.x0, g.F0p, W(g.w0), hp, S, hp, g.F0p,
-                            epi_act(hp, prm + off[pn::B_PHI0], b.z0, nullptr, b.p0))));
-    LG_TRY(be.gemm(fwd_gemm(b.p0, hp, W(g.w1), hp, S, hp, hp,
-                            epi_act(hp, prm + off[pn::B_PHI1], b.z1, n.attn ? b.e : nullptr,
-                                    n.attn ? nullptr : b.phib))));
-    if (n.attn) {
-      LG_TRY(be.each(LnStats{n, b.e, b.mu, b.inv}, S));
-      LG_TRY(be.each(LnApply{n, prm, b.e, b.mu, b.inv, b.hn, b.hb}, S * hp));
-      LG_TRY(be.gemm(fwd_gemm(b.hb, hp, W(g.wqkv), 3 * hp, S, 3 * hp, hp,
-                              epi_f32(3 * hp, b.qkv))));
-      LG_TRY(be.each(AttnScore{n, b.qkv, b.att}, S * P));
-      LG_TRY(be.each(AttnSoftmax{n, b.att}, S));
-      LG_TRY(be.each(AttnMix{n, b.qkv, b.att, b.ob}, R * hp));
-      LG_TRY(be.gemm(fwd_gemm(b.ob, hp, W(g.wao), hp, S, hp, hp, epi_phi(hp, b.e, b.phib))));
-    }
-    LG_TRY(be.each(Pool{n, oc, b.phib, b.tb, Tp}, R * Tp));
-    for (int i = 0; i < L; ++i) {
-      const int kin = i ? H : Tp;
-      LG_TRY(be.gemm(fwd_gemm(i ? xb(i - 1) : b.tb, kin, W(g.wt[i]), H, R, H, kin,
-                              epi_act(H, prm + off[pn::W_TRUNK + 2 * i + 1], zt(i), nullptr,
-                                      xb(i)))));
-    }
-    LG_TRY(be.gemm(fwd_gemm(xb(L - 1), H, W(g.wh), Nh, R, Nh, H, epi_f32(Nh, b.heads))));
+    LG_TRY(forward_chunk(be, n, g, b, wbase, oc, R, prm, true));
 
-    // the loss, its cotangents and the four sums
-    LG_TRY(be.each(Loss{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef, Nh, b.stats, b.dl,
-                        b.dHh, b.dHl}, R));
+    // the cotangents of the logits and the value: from the loss (with its
+    // four sums) or from the caller
+    if (ppo) {
+      LG_TRY(be.each(Loss{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef, Nh, b.stats, b.dl,
+                          b.dHh, b.dHl}, R));
+      LG_TRY(be.colsum(Colsum{b.stats, nullptr, pn::N_STATS, pn::N_STATS, R, -1, n.n_params,
+                              slabs, g.ng, g.nsplit}));
+    } else {
+      LG_TRY(be.each(GradIn{n, rc, Nh, b.dl, b.dHh, b.dHl}, R));
+    }
     LG_TRY(be.each(LossHead{n, b.heads, b.phib, b.dl, Nh, b.dHh, b.dHl, b.dphi}, R * hp));
-    LG_TRY(be.colsum(Colsum{b.stats, nullptr, pn::N_STATS, pn::N_STATS, R, -1, n.n_params,
-                            slabs, g.ng, g.nsplit}));
 
     // backward: heads, trunk (last layer first)
     LG_TRY(wgrad(xb(L - 1), H, b.dHh, b.dHl, Nh, R, head));

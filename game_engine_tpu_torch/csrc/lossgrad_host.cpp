@@ -1,8 +1,9 @@
-// lossgrad_host.cpp — K4's pipeline (lossgrad.cuh) on the host, built with
-// g++: the same stages, buffer layout, chunking and slab order as the CUDA
-// kernels in lossgrad.cu, with each tensor-core product replaced by a plain
-// loop over the same bf16 operands (f32 sums). The CPU tests hold it
-// against the plain PyTorch version of K4 (policies/fused.py loss_vg_plain).
+// lossgrad_host.cpp — the pipelines of K2, K3 and K4 (lossgrad.cuh) on the
+// host, built with g++: the same stages, buffer layouts, chunking and slab
+// order as the CUDA kernels in lossgrad.cu, with each tensor-core product
+// replaced by a plain loop over the same bf16 operands (f32 sums). The CPU
+// tests hold them against the plain PyTorch versions (policies/fused.py
+// fused_forward_plain, autograd through it, loss_vg_plain).
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC lossgrad_host.cpp -o liblossgrad_host.so
 
@@ -104,20 +105,51 @@ extern "C" {
 
 int lg_meta_ints() { return pn::META_INTS; }
 
-// scratch bytes of a call with `chunk` rows per chunk and nsplit row
-// ranges per weight gradient (the same layout as the CUDA version)
-int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit) {
-  return lg::layout(pn::net_from_meta(meta), chunk, nsplit).total;
+// the sizes and the entries of lossgrad.cu, on host memory (the same
+// layouts); each entry returns 0, or 1 for a net or chunking it refuses
+int64_t lg_weights_bytes(const int32_t* meta) {
+  return lg::layout(pn::net_from_meta(meta), 1, 1, true).w_end;
+}
+
+int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit, int fwd_only) {
+  return lg::layout(pn::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
+}
+
+int lg_pack_host(const int32_t* meta, const float* prm, void* weights) {
+  const pn::Net n = pn::net_from_meta(meta);
+  if (!lg::supported(n)) return 1;
+  HostBE be;
+  return lg::pack_weights(be, n, lg::layout(n, 1, 1, true), prm, (char*)weights);
+}
+
+int lg_forward_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* prm,
+                    const void* weights, void* scratch, int64_t chunk, float* logits,
+                    float* value) {
+  const pn::Net n = pn::net_from_meta(meta);
+  if (!lg::supported(n) || chunk < 1) return 1;
+  HostBE be;
+  return lg::run_forward(be, n, lg::layout(n, chunk, 1, true), (const char*)weights,
+                         (char*)scratch, obs, nrows, prm, logits, value);
+}
+
+int lg_grad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
+                 const float* prm, const void* weights, void* scratch, int64_t chunk,
+                 int nsplit, float* out) {
+  const pn::Net n = pn::net_from_meta(meta);
+  if (!lg::supported(n) || chunk < 1 || nsplit < 1) return 1;
+  HostBE be;
+  return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
+                      (char*)scratch, obs, nrows, rowin, false, 0.0f, 0.0f, prm, out);
 }
 
 int lg_lossgrad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
-                     float clip_eps, float ent_coef, const float* prm, void* scratch,
-                     int64_t chunk, int nsplit, float* out) {
+                     float clip_eps, float ent_coef, const float* prm, const void* weights,
+                     void* scratch, int64_t chunk, int nsplit, float* out) {
   const pn::Net n = pn::net_from_meta(meta);
   if (!lg::supported(n) || chunk < 1 || nsplit < 1) return 1;
-  const lg::Lay g = lg::layout(n, chunk, nsplit);
   HostBE be;
-  return lg::run(be, n, g, (char*)scratch, obs, nrows, rowin, clip_eps, ent_coef, prm, out);
+  return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
+                      (char*)scratch, obs, nrows, rowin, true, clip_eps, ent_coef, prm, out);
 }
 
 }  // extern "C"

@@ -1,6 +1,9 @@
-// policy_net.cu — the deepsets/attn policy net on Hopper: the forward and
-// backward kernels K2 and K3 and their launchers, built by nvcc for sm_90a into a plain-C
-// shared library (game_engine_tpu_torch/_build.py) and bound with ctypes
+// policy_net.cu — the deepsets/attn policy net on Hopper's CUDA cores: the
+// forward and backward kernels K2 and K3 for the widths the tensor-core
+// pipelines of lossgrad.cu do not cover (encoder or trunk width not a
+// multiple of 32; policies/fused.py route_of), and their launchers, built
+// by nvcc for sm_90a into a plain-C shared library
+// (game_engine_tpu_torch/_build.py) and bound with ctypes
 // (game_engine_tpu_torch/policies/fused.py).
 //
 //   pn_forward_kernel  replaces K2, game_engine_tpu/policies/fused.py:299
@@ -11,7 +14,8 @@
 //                      into every parameter gradient.
 //   pn_reduce_kernel   the second pass of K3: sums the blocks' gradient slabs
 //                      in block order.
-// K4, the PPO loss-grad (fused.py:600), is lossgrad.cu.
+// K4, the PPO loss-grad (fused.py:600), and K2 and K3 at the covered
+// widths (every shipped net) are lossgrad.cu.
 //
 // The TPU kernels accumulate the gradient across grid steps in VMEM
 // (fused.py:432-441), which works because the TPU grid runs in order.

@@ -1,7 +1,9 @@
 // policy_net.cuh — one tile of rows of the deepsets/attn policy net: the
 // forward and the parameter gradient of given cotangents, written for one
-// CUDA block (or, in the host harness, one loop iteration). K4, the PPO
-// loss-grad, is lossgrad.cuh; it shares Net, the rounding and gelu here.
+// CUDA block (or, in the host harness, one loop iteration): the CUDA-core
+// route, for the widths the tensor-core pipelines do not cover. Those
+// pipelines (K2, K3 and K4, the PPO loss-grad) are lossgrad.cuh; they share
+// Net, the rounding and gelu here.
 //
 // Counterpart of game_engine_tpu/policies/fused.py: _fwd_body (:154) and
 // _grad_body (:329). The cast

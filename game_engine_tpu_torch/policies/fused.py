@@ -1,35 +1,48 @@
-"""Host side of the policy-net kernels K2-K4 (csrc/policy_net.cu).
+"""Host side of the policy-net kernels K2-K4.
 
 Counterpart of game_engine_tpu/policies/fused.py for the deepsets/attn net:
 
   make_apply    (params, obs) -> (logits, value), a torch.autograd.Function
-                whose forward launches K2 (pn_forward_kernel, which replaces
-                fused.py:299) and whose backward launches K3 (pn_grad_kernel,
-                fused.py:468). obs gets no gradient.
+                whose forward launches K2 (which replaces fused.py:299) and
+                whose backward launches K3 (fused.py:468). obs gets no
+                gradient. CUDA tensors launch the kernels, CPU tensors take
+                the plain version.
   make_loss_vg  (params, obs, legal, actions, logp_old, adv, ret, mask) ->
-                ((loss, metrics), grads) through K4 (csrc/lossgrad.cu, which
-                replaces fused.py:600): forward, PPO cotangents and gradient
-                in one call, as a pipeline of tensor-core products and
-                elementwise stages over chunks of CHUNK_ROWS rows. The steps
-                before the kernel stay plain torch (fused.py:646-680): the
-                masked advantage normalisation, the one-hot actions and the
-                wrow/vrow row weights. The kernels mask the ragged edges
-                themselves, so no row padding.
+                ((loss, metrics), grads) through K4 (which replaces
+                fused.py:600): forward, PPO cotangents and gradient in one
+                call. The steps before the kernel stay plain torch
+                (fused.py:646-680): the masked advantage normalisation, the
+                one-hot actions and the wrow/vrow row weights. The kernels
+                mask the ragged edges themselves, so no row padding.
+
+Two routes, chosen by one predicate, ``pipeline_supports`` (encoder and
+trunk widths multiples of 32, at most 32 seats and 64 actions):
+
+  tensor_core   csrc/lossgrad.cu + lossgrad.cuh: K2 (lg_forward), K3
+                (lg_grad) and K4 (lg_lossgrad) as pipelines of bf16
+                tensor-core products and elementwise stages over chunks of
+                rows, sharing one set of forward stages. The weights are
+                packed to bf16 once per parameter state (``_packed``).
+  cuda_core     csrc/policy_net.cu: K2 (pn_forward) and K3 (pn_grad) over
+                tiles of a few rows in shared memory, for the widths the
+                pipeline does not cover (e.g. hidden 48). No K4: such a net
+                trains through K2 + K3.
 
 Each kernel has its plain-torch version here: ``fused_forward_plain``
 follows _fwd_body's cast points (K2), autograd through it is K3's, and
 ``loss_vg_plain`` is K4's. A wrapper given CUDA tensors launches its kernel
-or raises; CPU tensors take the plain version; ``host_forward``,
-``host_grads`` and ``host_loss_grads`` run the kernels' own code built with
-g++ on CPU tensors (K4's with plain-loop products).
-Each kernel wrapper counts its launches in ``<wrapper>.launches``;
-``kernel_plan`` reports the tile size and resources the kernels run with.
+or raises; ``host_forward``, ``host_grads`` and ``host_loss_grads`` run the
+kernels' own code built with g++ on CPU tensors (the pipelines with
+plain-loop products, csrc/lossgrad_host.cpp). Each kernel wrapper counts
+its launches in ``<wrapper>.launches`` (and by route in ``.by_route``);
+``kernel_plan`` reports which route runs and its resources.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -43,8 +56,10 @@ from game_engine_tpu_torch.policies.net import bf, gelu
 _F32 = torch.float32
 MAX_LAYERS = 8  # policy_net.cuh
 N_STATS = 4
-CHUNK_ROWS = 32768  # K4's rows per chunk: about 2.6 GB of scratch at the attn net's width
-NSPLIT = 32         # K4's row ranges per weight-gradient product (one slab each)
+CHUNK_ROWS = 32768  # K3's and K4's rows per chunk: about 2.6 GB of scratch at the attn net's width
+NSPLIT = 32         # their row ranges per weight-gradient product (one slab each)
+FWD_CHUNK_ROWS = 32768  # K2's rows per chunk: about 0.9 GB of scratch at the attn net's width
+ROUTES = ("tensor_core", "cuda_core")
 # policy_net.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
 _SLOT = {"w_phi0": 0, "b_phi0": 1, "w_phi1": 2, "b_phi1": 3, "ln_s": 4, "ln_b": 5,
          "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12}
@@ -139,41 +154,146 @@ def _meta(d: Dims) -> np.ndarray:
         np.int32), off])
 
 
-def _pack_params(params: dict, d: Dims, device) -> tuple:
-    """-> (prm f32, prmB bf16-rounded f32, prmT with every weight transposed,
-    meta int32 numpy) for the kernels; raises on a missing or misshapen
-    param or one on another device."""
-    flat, flat_t = [], []
+def _flat_params(params: dict, d: Dims, device) -> list:
+    """The parameters as f32 tensors in _param_names order; raises on a
+    missing or misshapen param or one on another device."""
+    out = []
     for name, shape in _param_shapes(d).items():
         p = params[name]
         if tuple(p.shape) != shape:
             raise ValueError(f"param {name} has shape {tuple(p.shape)}, expected {shape}")
         if p.device != device:
             raise ValueError(f"param {name} is on {p.device}, the rows on {device}")
-        p = p.detach().to(_F32)
-        flat.append(p.reshape(-1))
-        flat_t.append((p.t() if p.dim() == 2 else p).reshape(-1))
-    prm = torch.cat(flat).contiguous()
-    return prm, bf(prm).contiguous(), torch.cat(flat_t).contiguous(), _meta(d)
+        out.append(p.detach().to(_F32))
+    return out
+
+
+def _pack_params(params: dict, d: Dims, device) -> tuple:
+    """-> (prm f32, prmB bf16-rounded f32, prmT with every weight transposed,
+    meta int32 numpy) for the CUDA-core kernels."""
+    flat = _flat_params(params, d, device)
+    prm = torch.cat([p.reshape(-1) for p in flat]).contiguous()
+    prm_t = torch.cat([(p.t() if p.dim() == 2 else p).reshape(-1) for p in flat]).contiguous()
+    return prm, bf(prm).contiguous(), prm_t, _meta(d)
+
+
+def pipeline_supports(d: Dims) -> bool:
+    """Whether the tensor-core pipelines cover the net (csrc/lossgrad.cuh
+    lg::supported, which checks the same before a launch): encoder and trunk
+    widths multiples of 32, at most 32 seats and 64 actions. The one routing
+    predicate of K2, K3 and K4. Zero padding of hp would change the
+    LayerNorm and the attention scale, so narrower nets are not padded:
+    they run K2 and K3 on the CUDA cores and have no K4."""
+    return d.hp % 32 == 0 and d.hidden % 32 == 0 and d.P <= 32 and d.A <= 64
+
+
+def route_of(d: Dims) -> str:
+    """Which of ROUTES runs K2 and K3 for the net."""
+    return "tensor_core" if pipeline_supports(d) else "cuda_core"
+
+
+def _require_pipeline(d: Dims, what: str) -> None:
+    if not pipeline_supports(d):
+        raise ValueError(f"{what} needs pipeline_supports(d): hp and hidden multiples of 32, "
+                         f"P <= 32, A <= 64; not {d}")
+
+
+@dataclasses.dataclass
+class _Packed:
+    """The pipelines' view of one parameter state: prm, the flat f32
+    parameters (biases, LayerNorm affine); weights, lg_pack's bf16 forward
+    and transposed packings; and what the state was (refs, stamp)."""
+
+    prm: torch.Tensor
+    weights: torch.Tensor
+    meta: np.ndarray
+    refs: list
+    stamp: tuple
+
+
+_pack_cache: dict = {}  # (dims, device) -> _Packed: the last state packed there
+
+
+def _pipeline_lib(device):
+    """The pipelines' library for tensors on `device`: the CUDA kernels, or
+    on the CPU the host harness."""
+    return _build.lossgrad_host_lib() if device.type == "cpu" else _build.lossgrad_lib()
+
+
+def _packed(d: Dims, params: dict, device) -> _Packed:
+    """The packed parameters, packed anew only when the state changed: the
+    unroll calls K2 33 times a train step on the same parameters. A state is
+    the tensor objects, their addresses and their autograd version counters,
+    which every in-place update bumps (Tensor.add_, an optimizer step,
+    copy_). A write through ``p.data`` bypasses the counter: do not update
+    parameters that way between calls."""
+    tensors = [params[name] for name in _param_names(d)]
+    stamp = tuple((p.data_ptr(), p._version) for p in tensors)
+    slot = (d, device)
+    hit = _pack_cache.get(slot)
+    if hit is not None and hit.stamp == stamp and \
+            all(ref() is p for ref, p in zip(hit.refs, tensors)):
+        return hit
+    prm = torch.cat([p.reshape(-1) for p in _flat_params(params, d, device)]).contiguous()
+    meta = _meta(d)
+    weights = torch.empty((int(_pipeline_lib(device).lg_weights_bytes(meta.ctypes.data)),),
+                          dtype=torch.uint8, device=device)
+    _lg_call("lg_pack", (meta.ctypes.data, prm.data_ptr(), weights.data_ptr()), device,
+             "weight packing")
+    _packed.packs += 1
+    out = _Packed(prm, weights, meta, [weakref.ref(p) for p in tensors], stamp)
+    _pack_cache[slot] = out
+    return out
+
+
+_packed.packs = 0
+
+
+def _lg_call(name: str, args: tuple, device, what: str) -> None:
+    """One entry of the pipeline library, on the host or on `device`'s
+    current stream; raises on its error."""
+    lib = _pipeline_lib(device)
+    if device.type == "cpu":
+        if getattr(lib, name + "_host")(*args) != 0:
+            raise RuntimeError(f"host {what} failed")
+        return
+    err = getattr(lib, name)(*args, _stream(device))
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.lg_error_string(err).decode()}")
 
 
 def kernel_plan(d: Dims) -> dict:
-    """How the kernels run on the current CUDA device: rows per tile, shared
-    bytes per block and registers per thread of the forward (K2) and the
-    gradient kernel (K3); K4's chunk, splits and scratch bytes per chunk."""
-    lib = _build.policy_lib()
+    """How the kernels run the net on the current CUDA device. "route" says
+    which forward (K2) and gradient (K3) run. tensor_core: rows per chunk
+    and scratch bytes (in all and a row) of K2, K3 and K4. cuda_core: rows
+    per tile, shared bytes per block and registers per thread of K2 and K3;
+    no K4."""
     meta = _meta(d)
+    out = {"route": route_of(d)}
+    if pipeline_supports(d):
+        lib = _build.lossgrad_lib()
+        if len(meta) != lib.lg_meta_ints():
+            raise RuntimeError("policy_net.cuh's Net layout differs from fused.py's")
+
+        def scratch(chunk, nsplit, fwd_only):
+            one, two = (int(lib.lg_scratch_bytes(meta.ctypes.data, c, nsplit, fwd_only))
+                        for c in (chunk, 2 * chunk))
+            return {"chunk_rows": chunk, "scratch_bytes": one,
+                    "scratch_bytes_per_row": (two - one) // chunk}
+
+        out["forward"] = scratch(FWD_CHUNK_ROWS, 1, 1)
+        out["gradient"] = {**scratch(CHUNK_ROWS, NSPLIT, 0), "nsplit": NSPLIT}
+        out["loss_grad"] = out["gradient"]
+        return out
+    lib = _build.policy_lib()
     if len(meta) != lib.pn_meta_ints():
         raise RuntimeError("policy_net.cuh's Net layout differs from fused.py's")
-    out = {}
     for bwd, name in ((0, "forward"), (1, "gradient")):
         got = np.zeros(3, np.int32)
         _raise_on(lib.pn_plan(meta.ctypes.data, bwd, got.ctypes.data), lib, "plan")
         out[name] = {"rows_per_tile": int(got[0]), "shared_bytes": int(got[1]),
                      "registers": int(got[2])}
-    out["loss_grad"] = {"chunk_rows": CHUNK_ROWS, "nsplit": NSPLIT,
-                        "scratch_bytes": int(_build.lossgrad_lib().lg_scratch_bytes(
-                            meta.ctypes.data, CHUNK_ROWS, NSPLIT))}
+    out["loss_grad"] = None
     return out
 
 
@@ -293,86 +413,104 @@ def _stream(device) -> int:
         return torch.cuda.current_stream(device).cuda_stream
 
 
-def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
-    """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32."""
-    _check_rows(d, rows, "cuda")
+def _pipeline_forward(d: Dims, rows, params, chunk_rows: int):
+    _require_pipeline(d, "the tensor-core forward")
     dev = rows.device
-    prm, prm_b, _, meta = _pack_params(params, d, dev)
+    lib = _pipeline_lib(dev)
+    pk = _packed(d, params, dev)
     n = rows.shape[0]
+    chunk = max(1, min(n, chunk_rows))
+    scratch = torch.empty((int(lib.lg_scratch_bytes(pk.meta.ctypes.data, chunk, 1, 1)),),
+                          dtype=torch.uint8, device=dev)
     logits = torch.empty((n, d.A), dtype=_F32, device=dev)
     value = torch.empty((n,), dtype=_F32, device=dev)
-    lib = _build.policy_lib()
-    err = lib.pn_forward(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
-                         prm_b.data_ptr(), logits.data_ptr(), value.data_ptr(), _stream(dev))
-    _raise_on(err, lib, "K2 (policy forward)")
-    kernel_forward.launches += 1
+    _lg_call("lg_forward",
+             (pk.meta.ctypes.data, rows.data_ptr(), n, pk.prm.data_ptr(), pk.weights.data_ptr(),
+              scratch.data_ptr(), chunk, logits.data_ptr(), value.data_ptr()),
+             dev, "K2 (policy forward)")
     return logits, value
 
 
-kernel_forward.launches = 0
+def _pipeline_grads(d: Dims, rows, rowin, params, ppo, chunk_rows: int, nsplit: int):
+    """K3 (ppo None: rowin = dl | dv) or K4 (ppo = (clip_eps, ent_coef)) ->
+    (grads, the four sums)."""
+    _require_pipeline(d, "the tensor-core gradient" if ppo is None else "K4")
+    dev = rows.device
+    lib = _pipeline_lib(dev)
+    pk = _packed(d, params, dev)
+    n = rows.shape[0]
+    chunk = max(1, min(n, chunk_rows))
+    scratch = torch.empty((int(lib.lg_scratch_bytes(pk.meta.ctypes.data, chunk, nsplit, 0)),),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((pk.prm.numel() + N_STATS,), dtype=_F32, device=dev)
+    head = (pk.meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr())
+    tail = (pk.prm.data_ptr(), pk.weights.data_ptr(), scratch.data_ptr(), chunk, nsplit,
+            out.data_ptr())
+    if ppo is None:
+        _lg_call("lg_grad", head + tail, dev, "K3 (policy backward)")
+    else:
+        _lg_call("lg_lossgrad", head + tuple(ppo) + tail, dev, "K4 (PPO loss-grad)")
+    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.by_route[route] += 1
+
+
+def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
+    """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32, by
+    the route route_of(d) names."""
+    _check_rows(d, rows, "cuda")
+    route = route_of(d)
+    if route == "tensor_core":
+        out = _pipeline_forward(d, rows, params, FWD_CHUNK_ROWS)
+    else:
+        dev = rows.device
+        prm, prm_b, _, meta = _pack_params(params, d, dev)
+        n = rows.shape[0]
+        out = (torch.empty((n, d.A), dtype=_F32, device=dev),
+               torch.empty((n,), dtype=_F32, device=dev))
+        lib = _build.policy_lib()
+        err = lib.pn_forward(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
+                             prm_b.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                             _stream(dev))
+        _raise_on(err, lib, "K2 (policy forward)")
+    _count(kernel_forward, route)
+    return out
 
 
 def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor,
                  params: dict) -> dict:
     """K3: the parameter gradient of sum(dl * logits) + sum(dv * value) over
-    CUDA rows, recomputing the forward."""
+    CUDA rows, recomputing the forward, by the route route_of(d) names."""
     _check_rows(d, rows, "cuda")
     n = rows.shape[0]
     rowin = torch.cat([dl.to(_F32).reshape(n, d.A), dv.to(_F32).reshape(n, 1)], 1).contiguous()
     _check_f32(rowin, (n, d.A + 1), rows.device, "dl | dv")
-    dev = rows.device
-    prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    slabs = torch.empty((blocks * prm.numel(),), dtype=_F32, device=dev)
-    out = torch.empty((prm.numel(),), dtype=_F32, device=dev)
-    lib = _build.policy_lib()
-    err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(), prm.data_ptr(),
-                      prm_b.data_ptr(), prm_t.data_ptr(), slabs.data_ptr(), blocks,
-                      out.data_ptr(), _stream(dev))
-    _raise_on(err, lib, "K3 (policy backward)")
-    kernel_grads.launches += 1
-    return _unpack(out, d)
-
-
-kernel_grads.launches = 0
-
-
-def lossgrad_supports(d: Dims) -> bool:
-    """K4's pipeline (csrc/lossgrad.cuh lg::supported, which checks the same
-    before a launch): encoder and trunk widths multiples of 32, at most 32
-    seats and 64 actions. Narrower than K2/K3: zero padding of hp would
-    change the LayerNorm and the attention scale, so it is not padded."""
-    return d.hp % 32 == 0 and d.hidden % 32 == 0 and d.P <= 32 and d.A <= 64
+    route = route_of(d)
+    if route == "tensor_core":
+        grads, _ = _pipeline_grads(d, rows, rowin, params, None, CHUNK_ROWS, NSPLIT)
+    else:
+        dev = rows.device
+        prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        slabs = torch.empty((blocks * prm.numel(),), dtype=_F32, device=dev)
+        out = torch.empty((prm.numel(),), dtype=_F32, device=dev)
+        lib = _build.policy_lib()
+        err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(),
+                          prm.data_ptr(), prm_b.data_ptr(), prm_t.data_ptr(), slabs.data_ptr(),
+                          blocks, out.data_ptr(), _stream(dev))
+        _raise_on(err, lib, "K3 (policy backward)")
+        grads = _unpack(out, d)
+    _count(kernel_grads, route)
+    return grads
 
 
 def loss_supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
     """Whether K4 covers the net: the one routing decision for the fused
-    loss. Nets K2/K3 cover but K4 does not train through K2 + K3."""
-    return supports(lowered, cfg) and lossgrad_supports(dims_for(lowered, cfg))
-
-
-def _lossgrad_launch(d: Dims, rows, rowin, params, clip_eps, ent_coef, chunk_rows, nsplit,
-                     lib, host: bool):
-    if not lossgrad_supports(d):
-        raise ValueError(f"K4 needs hp and hidden multiples of 32, P <= 32, A <= 64: {d}")
-    dev = rows.device
-    prm, _, _, meta = _pack_params(params, d, dev)
-    n = rows.shape[0]
-    chunk = max(1, min(n, chunk_rows))
-    scratch = torch.empty((int(lib.lg_scratch_bytes(meta.ctypes.data, chunk, nsplit)),),
-                          dtype=torch.uint8, device=dev)
-    out = torch.empty((prm.numel() + N_STATS,), dtype=_F32, device=dev)
-    args = (meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(), clip_eps, ent_coef,
-            prm.data_ptr(), scratch.data_ptr(), chunk, nsplit, out.data_ptr())
-    if host:
-        if lib.lg_lossgrad_host(*args) != 0:
-            raise RuntimeError("host loss-grad failed")
-    else:
-        err = lib.lg_lossgrad(*args, _stream(dev))
-        if err != 0:
-            raise RuntimeError(f"K4 (PPO loss-grad) launch failed: "
-                               f"{lib.lg_error_string(err).decode()}")
-    return _unpack(out[:-N_STATS], d), out[-N_STATS:]
+    loss. Nets the pipeline does not cover train through K2 + K3."""
+    return supports(lowered, cfg) and pipeline_supports(dims_for(lowered, cfg))
 
 
 def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
@@ -381,18 +519,25 @@ def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: 
     (grads, stats [pg_loss, vf * v_loss, entropy, ratio_mean])."""
     _check_rows(d, rows, "cuda")
     _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
-    out = _lossgrad_launch(d, rows, rowin, params, clip_eps, ent_coef, CHUNK_ROWS, NSPLIT,
-                           _build.lossgrad_lib(), host=False)
-    kernel_loss_grads.launches += 1
+    out = _pipeline_grads(d, rows, rowin, params, (clip_eps, ent_coef), CHUNK_ROWS, NSPLIT)
+    _count(kernel_loss_grads, "tensor_core")
     return out
 
 
-kernel_loss_grads.launches = 0
+for _fn in (kernel_forward, kernel_grads, kernel_loss_grads):
+    _fn.launches = 0
+    _fn.by_route = dict.fromkeys(ROUTES, 0)
 
 
-def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int = 3):
-    """K2's tile code built with g++, on CPU rows -> (logits, value)."""
+def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int = 3,
+                 chunk_rows: int = FWD_CHUNK_ROWS):
+    """K2's own code built with g++, on CPU rows -> (logits, value), by the
+    route route_of(d) names. tensor_core: the pipeline's stages, layout and
+    chunks of chunk_rows (csrc/lossgrad_host.cpp); cuda_core: the tile code
+    over tiles of rows_per_tile (csrc/policy_net_host.cpp)."""
     _check_rows(d, rows, "cpu")
+    if pipeline_supports(d):
+        return _pipeline_forward(d, rows, params, chunk_rows)
     prm, prm_b, _, meta = _pack_params(params, d, rows.device)
     n = rows.shape[0]
     logits = torch.empty((n, d.A), dtype=_F32)
@@ -407,14 +552,19 @@ def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int =
 
 
 def host_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
-               blocks: int = 3, rows_per_tile: int = 2) -> dict:
-    """K3's tile code and slab reduction built with g++, on CPU rows and
-    rowin = dl | dv -> grads."""
+               blocks: int = 3, rows_per_tile: int = 2, chunk_rows: int = CHUNK_ROWS,
+               nsplit: int = 3) -> dict:
+    """K3's own code built with g++, on CPU rows and rowin = dl | dv ->
+    grads, by route as host_forward: the pipeline over chunks and nsplit row
+    splits, or the tile code and its reduction over `blocks` slabs."""
     _check_rows(d, rows, "cpu")
+    rowin = rowin.to(_F32).contiguous()
+    _check_f32(rowin, (rows.shape[0], d.A + 1), rows.device, "dl | dv")
+    if pipeline_supports(d):
+        return _pipeline_grads(d, rows, rowin, params, None, chunk_rows, nsplit)[0]
     prm, prm_b, prm_t, meta = _pack_params(params, d, rows.device)
     slabs = torch.empty((blocks * prm.numel(),), dtype=_F32)
     out = torch.empty((prm.numel(),), dtype=_F32)
-    rowin = rowin.to(_F32).contiguous()
     lib = _build.policy_host_lib()
     err = lib.pn_grad_host(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
                            prm.data_ptr(), prm_b.data_ptr(), prm_t.data_ptr(),
@@ -432,8 +582,7 @@ def host_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: di
     on CPU rows -> (grads, stats)."""
     _check_rows(d, rows, "cpu")
     _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
-    return _lossgrad_launch(d, rows, rowin, params, clip_eps, ent_coef, chunk_rows, nsplit,
-                            _build.lossgrad_host_lib(), host=True)
+    return _pipeline_grads(d, rows, rowin, params, (clip_eps, ent_coef), chunk_rows, nsplit)
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +618,8 @@ def _as_rows(d: Dims, obs: torch.Tensor) -> torch.Tensor:
 def make_apply(lowered: Lowered, cfg: N.NetConfig):
     """(params, obs (..., F)) -> (logits (..., A), value (...)), a drop-in for
     net.apply_net on the deepsets/attn archs: K2 forward / K3 backward on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors (by the route route_of names), the plain version on CPU
+    tensors."""
     if not supports(lowered, cfg):
         raise ValueError("fused kernels cover deepsets/attn with 1 head")
     d = dims_for(lowered, cfg)

@@ -12,7 +12,7 @@ computes GAE, then runs `epochs` full-batch clipped-PPO updates with
 torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
 deepsets/attn net runs through the policy-net kernels (policies/fused.py):
 K2 in the unroll and the bootstrap value, K4 in each update (or K2 + K3
-with ``fused_loss=False``).
+with ``fused_loss=False``, and for the widths K4 does not cover).
 
 Randomness comes from an explicit torch.Generator; it does not reproduce
 jax.random's draws (sample_actions takes given noise for that).

@@ -98,7 +98,9 @@ def main(argv=None):
         mode = "forced" if fused else "auto"
         fused = fused or (device.type == "cuda" and FZ.supports(lowered, net_cfg))
         if fused and FZ.supports(lowered, net_cfg):
+            # which K2/K3 run (tensor_core or cuda_core), and whether K4 does
             print(json.dumps({"event": "fused_net", "mode": mode, "disable_with": "--no-fused",
+                              "forward": FZ.route_of(FZ.dims_for(lowered, net_cfg)),
                               "loss": "k4" if FZ.loss_supports(lowered, net_cfg) else "k2_k3"}),
                   flush=True)
     cfg = PPOConfig(horizon=args.horizon, epochs=args.epochs, lr=args.lr,

@@ -12,11 +12,12 @@ observations of a werewolf scripted rollout at hidden 64:
 Tolerances are those of tests/test_fused_net.py, relative to the max |ref|:
 bf16 rounding points differ between XLA, the Pallas kernels and torch.
 The CUDA kernels' own code, built with g++ into host harnesses, is held
-against the plain versions at the same tolerances: K2's and K3's tile code
-(csrc/policy_net.cuh) over ragged tiles and several gradient slabs, and
-K4's pipeline (csrc/lossgrad.cuh, the stages, buffer layout, chunks and
-slab order of the tensor-core version, with plain-loop products) over
-ragged chunks and several row splits.
+against the plain versions at the same tolerances: the CUDA-core K2's and
+K3's tile code (csrc/policy_net.cuh) over ragged tiles and several gradient
+slabs, and the pipelines of K2, K3 and K4 (csrc/lossgrad.cuh, the stages,
+buffer layouts, chunks and slab order of the tensor-core versions, with
+plain-loop products) over ragged chunks and several row splits, within
+5e-3 (forward) and 1e-3 (gradients); the pipelines of K2 and K3 also against the JAX kernels.
 """
 
 import jax
@@ -120,6 +121,11 @@ def test_forward_plain_matches_jax_kernel(ww, pww, traj, arch):
     l1, v1 = FZ.fused_forward_plain(d, rows_of(traj, d), params)
     assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
     assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
+    # the tensor-core K2's own stages (host pipeline) against the JAX kernel
+    assert FZ.route_of(d) == "tensor_core"
+    l3, v3 = FZ.host_forward(d, rows_of(traj, d), params, chunk_rows=40)
+    assert rel_err(l3.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
+    assert rel_err(v3.numpy(), to_np(v0).reshape(-1)) < 2e-2
     # make_apply on CPU tensors takes the plain version, any leading dims
     l2, v2 = FZ.make_apply(pww, cfg)(params, torch.as_tensor(traj["obs"]).bfloat16())
     assert tuple(l2.shape) == l0.shape and tuple(v2.shape) == v0.shape
@@ -137,9 +143,14 @@ def test_backward_plain_matches_jax_kernel(ww, pww, traj):
     _, vjp = jax.vjp(lambda p: apply(p, obs), jp)
     (want,) = vjp((jnp.asarray(traj["dl"]).reshape(lead + (d.A,)),
                    jnp.asarray(traj["dv"]).reshape(lead)))
-    got = plain_vjp(d, rows_of(traj, d), port_params(jp), torch.as_tensor(traj["dl"]),
-                    torch.as_tensor(traj["dv"]))
+    dl, dv = torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])
+    got = plain_vjp(d, rows_of(traj, d), port_params(jp), dl, dv)
     grads_close(got, {k: np.asarray(v) for k, v in want.items()})
+    # the tensor-core K3's own stages (host pipeline) against the JAX kernel
+    piped = FZ.host_grads(d, rows_of(traj, d), torch.cat([dl, dv[:, None]], 1), port_params(jp),
+                          chunk_rows=40, nsplit=3)
+    grads_close({k: v.numpy() for k, v in piped.items()},
+                {k: np.asarray(v) for k, v in want.items()})
 
 
 def test_loss_vg_plain_matches_jax(ww, pww, traj):
@@ -178,11 +189,13 @@ def test_loss_vg_plain_matches_jax(ww, pww, traj):
 
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
 def test_kernel_tile_code_matches_plain(ww, pww, traj, arch):
-    """The kernels' code built with g++: K2's forward over ragged tiles,
-    K3's gradient summed over three slabs, and K4's pipeline over ragged
-    chunks and three row splits, against the plain versions."""
-    jcfg, jp = jax_params(ww, arch)
+    """The kernels' code built with g++: the CUDA-core K2's forward over
+    ragged tiles and K3's gradient summed over three slabs, at a width that
+    takes that route (hidden 48), and K4's pipeline over ragged chunks and
+    three row splits (hidden 64), against the plain versions."""
+    jcfg, jp = jax_params(ww, arch, hidden=48)
     d = FZ.dims_for(pww, port_cfg(jcfg))
+    assert FZ.route_of(d) == "cuda_core"
     rows, params = rows_of(traj, d), port_params(jp)
     assert len(FZ._meta(d)) == _build.policy_host_lib().pn_meta_ints()
     l0, v0 = FZ.fused_forward_plain(d, rows, params)
@@ -197,6 +210,9 @@ def test_kernel_tile_code_matches_plain(ww, pww, traj, arch):
                         blocks=3, rows_per_tile=2)
     grads_close({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()})
 
+    jcfg, jp = jax_params(ww, arch)
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
     rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
                           torch.as_tensor(traj["logp_noise"]) - 2.0,
                           torch.as_tensor(traj["adv"]), torch.as_tensor(traj["ret"]),
@@ -288,6 +304,126 @@ def test_k4_pipeline_matches_plain(ww, pww, traj, arch, chunk_rows, nsplit):
     np.testing.assert_allclose(s_k.numpy(), s_ref.numpy(), rtol=1e-4, atol=1e-5)
 
 
+CHUNKINGS = [(10 ** 6, 1), (7, 5), (64, 2)]
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+@pytest.mark.parametrize("chunk_rows", [c for c, _ in CHUNKINGS])
+def test_k2_pipeline_matches_plain(ww, pww, traj, arch, chunk_rows):
+    """The tensor-core K2's stages (lg::run_forward through the host
+    harness: forward-only layout, no backward buffers) against
+    fused_forward_plain for one chunk and ragged chunks, within 5e-3: the
+    products add the same bf16 operands in another order, and where that
+    flips one of _fwd_body's bf16 roundings the output moves by one bf16
+    step (2^-8). The same bits on a repeat and, each row being independent
+    of its chunk, at every chunking."""
+    jcfg, jp = jax_params(ww, arch)
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    l0, v0 = FZ.fused_forward_plain(d, rows, params)
+    l1, v1 = FZ.host_forward(d, rows, params, chunk_rows=chunk_rows)
+    assert tuple(l1.shape) == (rows.shape[0], d.A) and tuple(v1.shape) == (rows.shape[0],)
+    assert rel_err(l1.numpy(), l0.numpy()) < 5e-3
+    assert rel_err(v1.numpy(), v0.numpy()) < 5e-3
+    l2, v2 = FZ.host_forward(d, rows, params, chunk_rows=chunk_rows)
+    assert torch.equal(l1, l2) and torch.equal(v1, v2)
+    l3, v3 = FZ.host_forward(d, rows, params, chunk_rows=13)
+    assert torch.equal(l1, l3) and torch.equal(v1, v3)
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+@pytest.mark.parametrize("chunk_rows,nsplit", CHUNKINGS)
+def test_k3_pipeline_matches_plain(ww, pww, traj, arch, chunk_rows, nsplit):
+    """The tensor-core K3 (lg::run_grad with the caller's dl | dv through
+    the host harness) against autograd through fused_forward_plain with
+    seeded cotangents, every parameter within 1e-3, over ragged chunks and
+    1-5 row splits; the same bits on a repeat."""
+    jcfg, jp = jax_params(ww, arch)
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    dl, dv = torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])
+    rowin = torch.cat([dl, dv[:, None]], 1)
+    want = plain_vjp(d, rows, params, dl, dv)
+    got = FZ.host_grads(d, rows, rowin, params, chunk_rows=chunk_rows, nsplit=nsplit)
+    grads_close({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()},
+                tol=1e-3)
+    again = FZ.host_grads(d, rows, rowin, params, chunk_rows=chunk_rows, nsplit=nsplit)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+def test_k2_and_k4_share_one_forward(ww, pww, traj):
+    """K4's loss reads the logits and the value that K2 writes (head_logit,
+    head_value in lossgrad.cuh): with one legal action a row the masked
+    log-softmax is 0 whatever the logits, so K4's value loss must be K2's
+    value against ret, to f32 rounding."""
+    jcfg, jp = jax_params(ww, "attn")
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    rows, params = rows_of(traj, d), port_params(jp)
+    _, value = FZ.host_forward(d, rows, params, chunk_rows=50)
+    n = rows.shape[0]
+    ret = torch.as_tensor(traj["ret"]).reshape(n)
+    _, stats = FZ.host_loss_grads(d, rows, loss_rowin(traj, d), params, CLIP, ENT,
+                                  chunk_rows=50, nsplit=2)
+    want = float((0.5 * (value.double() - ret.double()) ** 2).sum() * VF / n)
+    assert abs(float(stats[1]) - want) < 1e-5 * max(1.0, abs(want))
+
+
+@pytest.mark.parametrize("hidden,route", [(64, "tensor_core"), (256, "tensor_core"),
+                                          (48, "cuda_core"), (96, "cuda_core")])
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+def test_k2_k3_route_by_pipeline_coverage(pww, traj, arch, hidden, route):
+    """One predicate, pipeline_supports, routes K2 and K3: widths it covers
+    take the tensor-core pipeline, the others (hidden 48: trunk not a
+    multiple of 32; hidden 96: hp 48) the CUDA-core tile code; a net the
+    pipeline does not cover never reaches it, and the refusal names the
+    predicate."""
+    cfg = N.NetConfig(hidden=hidden, arch=arch)
+    d = FZ.dims_for(pww, cfg)
+    assert FZ.route_of(d) == route
+    assert FZ.pipeline_supports(d) == (route == "tensor_core")
+    assert FZ.loss_supports(pww, cfg) == (route == "tensor_core")
+    params = N.init_params(torch.Generator().manual_seed(1), d.F, d.A, cfg, pww, device="cpu")
+    rows = rows_of(traj, d)[:9]
+    rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)[:9]
+    packs = FZ._packed.packs
+    l1, v1 = FZ.host_forward(d, rows, params)  # the route route_of names
+    g1 = FZ.host_grads(d, rows, rowin, params)
+    assert (FZ._packed.packs > packs) == (route == "tensor_core")  # only the pipeline packs
+    l0, v0 = FZ.fused_forward_plain(d, rows, params)
+    assert rel_err(l1.numpy(), l0.numpy()) < 2e-2 and rel_err(v1.numpy(), v0.numpy()) < 2e-2
+    want = plain_vjp(d, rows, params, rowin[:, :-1], rowin[:, -1])
+    grads_close({k: v.numpy() for k, v in g1.items()}, {k: v.numpy() for k, v in want.items()})
+    if route == "cuda_core":  # the pipeline's own entries refuse the net
+        with pytest.raises(ValueError, match="pipeline_supports"):
+            FZ._pipeline_forward(d, rows, params, 64)
+        with pytest.raises(ValueError, match="pipeline_supports"):
+            FZ._pipeline_grads(d, rows, rowin, params, None, 64, 2)
+        with pytest.raises(ValueError, match="pipeline_supports"):
+            FZ.host_loss_grads(d, rows, loss_rowin(traj, d)[:9], params, CLIP, ENT)
+
+
+def test_k2_scratch_is_forward_only(pww):
+    """K2's scratch holds only what its own later stages read: 27,648 bytes
+    a row at the attn net's width (hidden 256, hp 128) against K3's and
+    K4's ~79 KB, no gradient slabs, and the packed weights (about 1 MB) in a
+    buffer of their own."""
+    d = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn"))
+    lib, meta = _build.lossgrad_host_lib(), FZ._meta(d)
+
+    def per_row(nsplit, fwd_only):
+        one = lib.lg_scratch_bytes(meta.ctypes.data, 1024, nsplit, fwd_only)
+        return (lib.lg_scratch_bytes(meta.ctypes.data, 2048, nsplit, fwd_only) - one) / 1024
+
+    assert per_row(1, 1) == 27648
+    assert per_row(1, 1) == per_row(FZ.NSPLIT, 1)  # no slabs
+    assert per_row(1, 1) < 0.4 * per_row(1, 0)
+    assert lib.lg_scratch_bytes(meta.ctypes.data, FZ.FWD_CHUNK_ROWS, 1, 1) < 2 ** 30
+    assert 2 ** 20 <= lib.lg_weights_bytes(meta.ctypes.data) < 2 ** 21
+    ds = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="deepsets"))
+    assert lib.lg_scratch_bytes(FZ._meta(ds).ctypes.data, 1024, 1, 1) \
+        < lib.lg_scratch_bytes(meta.ctypes.data, 1024, 1, 1)
+
+
 def test_k4_pipeline_ratios_on_both_sides_of_the_clip(ww, pww, traj):
     """At logp_old = the policy's own log-probs + noise the ratios fall
     inside and outside the clip band, so both branches of lax.min's tie
@@ -316,14 +452,14 @@ def test_k4_pipeline_ratios_on_both_sides_of_the_clip(ww, pww, traj):
 def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
     cfg = N.NetConfig(hidden=48, arch="attn")  # hp = 32, hidden not a multiple of 32
     d = FZ.dims_for(pww, cfg)
-    assert not FZ.lossgrad_supports(d)
+    assert not FZ.pipeline_supports(d)
     params = N.init_params(torch.Generator().manual_seed(0), d.F, d.A, cfg, pww, device="cpu")
     with pytest.raises(ValueError, match="K4 needs"):
         FZ.host_loss_grads(d, rows_of(traj, d), loss_rowin(traj, d), params, CLIP, ENT)
     assert FZ.supports(pww, cfg) and not FZ.loss_supports(pww, cfg)
     with pytest.raises(ValueError, match="K4 covers"):  # refused when built, not when run
         FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
-    assert FZ.lossgrad_supports(FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn")))
+    assert FZ.pipeline_supports(FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn")))
     assert FZ.loss_supports(pww, N.NetConfig(hidden=256, arch="attn"))
 
 
@@ -334,11 +470,11 @@ def test_k4_scratch_at_the_main_path_width(pww):
     lib = _build.lossgrad_host_lib()
     assert lib.lg_meta_ints() == len(FZ._meta(d))
     meta = FZ._meta(d)
-    one = lib.lg_scratch_bytes(meta.ctypes.data, 1024, FZ.NSPLIT)
-    two = lib.lg_scratch_bytes(meta.ctypes.data, 2048, FZ.NSPLIT)
+    one = lib.lg_scratch_bytes(meta.ctypes.data, 1024, FZ.NSPLIT, 0)
+    two = lib.lg_scratch_bytes(meta.ctypes.data, 2048, FZ.NSPLIT, 0)
     per_row = (two - one) / 1024
     assert 75_000 <= per_row <= 82_000, per_row
-    assert lib.lg_scratch_bytes(meta.ctypes.data, FZ.CHUNK_ROWS, FZ.NSPLIT) < 3 * 2 ** 30
+    assert lib.lg_scratch_bytes(meta.ctypes.data, FZ.CHUNK_ROWS, FZ.NSPLIT, 0) < 3 * 2 ** 30
     ds = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="deepsets"))
-    small = _build.lossgrad_host_lib().lg_scratch_bytes(FZ._meta(ds).ctypes.data, 1024, 1)
+    small = _build.lossgrad_host_lib().lg_scratch_bytes(FZ._meta(ds).ctypes.data, 1024, 1, 0)
     assert small < one  # no attention buffers without attention

@@ -29,6 +29,7 @@ from game_engine_tpu.core.engine import BatchedEngine as JaxBatchedEngine
 from game_engine_tpu.core.state import init_state as jax_init_state
 from game_engine_tpu.policies import net as JN
 from game_engine_tpu.train import ppo as JP
+from game_engine_tpu_torch.policies import fused as FZ
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
@@ -203,11 +204,14 @@ def test_train_run_main_on_cpu(pww, arch):
     assert not any(e["event"] == "fused_net" for e in events)  # auto: off on the CPU
 
 
-@pytest.mark.parametrize("hidden,loss", [(48, "k2_k3"), (96, "k2_k3"), (64, "k4")])
-def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, loss):
-    """The fused train path at widths K4 does not cover (hidden 48: trunk
-    not a multiple of 32; hidden 96: hp 48) trains through K2 + K3 instead
-    of failing in its first update; run.main says which loss it runs."""
+@pytest.mark.parametrize("hidden,forward,loss", [(48, "cuda_core", "k2_k3"),
+                                                 (96, "cuda_core", "k2_k3"),
+                                                 (64, "tensor_core", "k4")])
+def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, forward, loss):
+    """The fused train path at widths the pipeline does not cover (hidden
+    48: trunk not a multiple of 32; hidden 96: hp 48) trains through the
+    CUDA-core K2 + K3 instead of failing in its first update; run.main says
+    which forward and which loss it runs."""
     cfg = P.PPOConfig(horizon=2, epochs=1, fused_net=True,
                       net=N.NetConfig(hidden=hidden, arch="attn"))
     assert (P.make_loss_vg_fn(pww, cfg) is not None) == (loss == "k4")
@@ -215,11 +219,82 @@ def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, loss):
             "--horizon", "2", "--epochs", "1", "--updates", "1", "--eval-batch", "0", "--fused"]
     params, events = run_main(argv)
     assert [e for e in events if e["event"] == "fused_net"] == [
-        {"event": "fused_net", "mode": "forced", "disable_with": "--no-fused", "loss": loss}]
+        {"event": "fused_net", "mode": "forced", "disable_with": "--no-fused",
+         "forward": forward, "loss": loss}]
     init = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(pww), N.action_space(pww),
                          cfg.net, pww, device="cpu")
     assert any(float((params[k].detach() - init[k]).abs().max()) > 0 for k in init)
     assert np.isfinite([e for e in events if e["event"] == "train"][0]["loss"])
+
+
+def _cache_setup(pww, arch="attn"):
+    cfg = P.PPOConfig(net=N.NetConfig(hidden=64, arch=arch))
+    params, opt = P.init_training(pww, cfg, torch.Generator().manual_seed(4), device="cpu")
+    d = FZ.dims_for(pww, cfg.net)
+    rng = np.random.default_rng(12)
+    rows = torch.as_tensor(rng.random((10, d.F)).astype(np.float32)).bfloat16().contiguous()
+    return cfg, params, opt, d, rows
+
+
+def _forward_checked(d, rows, params):
+    """The pipeline's forward (packed weights from the cache), held to the
+    plain version on the parameters of this moment."""
+    logits, value = FZ.host_forward(d, rows, params)
+    lp, vp = FZ.fused_forward_plain(d, rows, {k: v.detach() for k, v in params.items()})
+    assert rel_err(logits.numpy(), lp.numpy()) < 5e-3
+    assert rel_err(value.numpy(), vp.numpy()) < 5e-3
+    return logits, value
+
+
+def test_packed_weights_pack_once_while_params_are_unchanged(pww):
+    """The pipelines pack the weights to bf16 once per parameter state: K2's
+    repeated calls of an unroll, then K3 on the same state, reuse one
+    packing; another parameter set of the same shape packs anew."""
+    _, params, _, d, rows = _cache_setup(pww)
+    packs = FZ._packed.packs
+    first = _forward_checked(d, rows, params)
+    assert FZ._packed.packs == packs + 1
+    for _ in range(3):
+        again = FZ.host_forward(d, rows, params)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    FZ.host_grads(d, rows, torch.ones(rows.shape[0], d.A + 1), params)
+    assert FZ._packed.packs == packs + 1
+    other = {k: v.detach().clone() for k, v in params.items()}
+    with torch.no_grad():
+        other["b_v"] += 1.0
+    moved = _forward_checked(d, rows, other)
+    assert FZ._packed.packs == packs + 2
+    assert not torch.equal(moved[1], first[1])
+
+
+@pytest.mark.parametrize("name", ["w_phi1", "b_pi", "w_v"])
+def test_packed_weights_follow_an_in_place_add(pww, name):
+    """An in-place update of one parameter (a packed weight or a bias read
+    from the flat f32 copy) changes the next forward."""
+    _, params, _, d, rows = _cache_setup(pww)
+    before = _forward_checked(d, rows, params)
+    packs = FZ._packed.packs
+    with torch.no_grad():
+        params[name].add_(0.25)
+    after = _forward_checked(d, rows, params)
+    assert FZ._packed.packs == packs + 1
+    assert not (torch.equal(after[0], before[0]) and torch.equal(after[1], before[1]))
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+def test_packed_weights_follow_an_adam_step(pww, arch):
+    """torch.optim.Adam updates the parameters in place, at the same
+    addresses: the forward after a step is the new parameters', not the
+    packing of the old ones."""
+    cfg, params, opt, d, rows = _cache_setup(pww, arch)
+    before = _forward_checked(d, rows, params)
+    ptrs = {k: v.data_ptr() for k, v in params.items()}
+    for p in params.values():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert ptrs == {k: v.data_ptr() for k, v in params.items()}
+    after = _forward_checked(d, rows, params)
+    assert not torch.equal(after[0], before[0]) and not torch.equal(after[1], before[1])
 
 
 def test_train_run_checkpoint_and_resume(tmp_path):
