@@ -8,7 +8,8 @@ which it builds from csrc/ first:
 
 - the engine: BatchedEngine(werewolf, "cuda").rollout, the batched
   scripted-bot rollout with auto-reset, 1024 steps per call at 4096 and
-  65,536 rooms of 8 seats, through the rollout kernel (K1);
+  65,536 rooms of 8 seats, through the rollout kernel (K1: a room on a group
+  of lanes, a seat a lane, its words in shared memory sized to the game);
 - the learner: game_engine_tpu_torch.train.run.main, PPO self-play of the
   full-width attn net (docs/checkpoints/attn_werewolf_u120.npz) on 4096
   werewolf rooms, through the policy-net kernels, all three pipelines of
@@ -21,14 +22,23 @@ Phases, one JSON line each:
   env             torch/CUDA versions and the GPU's name and power limit
   build           nvcc builds of csrc/rollout.cu, policy_net.cu and
                   lossgrad.cu, in parallel (one nvcc each, started
-                  together): seconds and ptxas reports
+                  together): seconds and ptxas reports (K1's registers,
+                  stack and spill bytes also as numbers)
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
-                  4096x8 (256 steps), two-truths 1024x4 and harbor-lots
-                  1024x5 (128 steps), and werewolf at two block sizes
+                  4096x8 (256 steps) at 128, 64 and 256 lanes a block,
+                  two-truths 1024x4 and harbor-lots 8192x5 (128 steps),
+                  werewolf compiled for 12 seats (4096 rooms, a 16-lane
+                  group) and for 20 seats (1024 rooms, a room a warp), one
+                  plain run a case whatever the block size; each line has the launch's plan (lanes a room, dynamic shared
+                  memory a block, blocks an SM holds) and the kernel's ms;
+                  groups of 8, 16 and 32 lanes must all have run
   main            the engine path at both sizes: env-steps/s of the kernel,
-                  and one timed call of the plain version from the same
-                  start, whose output must equal the kernel's first call
+                  the launch's plan, and one timed call of the plain version
+                  from the same start, whose output must equal the kernel's
+                  first call; K1's bound from the interpreter's integer
+                  operations on these rooms, counted by the -DGE_COUNT host
+                  build of the kernel's body (g++) over the first call
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256
@@ -46,7 +56,8 @@ Phases, one JSON line each:
                   5e-2 absolute. With --profile, also the device time by
                   stage (torch.profiler) of one K2 and one K3 call at 32,768
                   rows and one K4 call at 131,072, and K2's time by rows
-                  per chunk
+                  per chunk; and in `main` K1's clock cycles by section of
+                  the step (the -DGE_PROFILE build of the kernel)
   compare_narrow  the CUDA-core K2 and K3 (csrc/policy_net.cu), the route of
                   the widths the pipeline does not cover, once on the same
                   32,768 rows for an attn net at hidden 48, same tolerances
@@ -64,8 +75,9 @@ Phases, one JSON line each:
 
 Then a {"kernels": [...]} line (each kernel's launches on the main paths,
 which of its routes ran there, its error, time, plain version's time and
-bound: the larger of its bf16 operations over 989 TFLOP/s and its bytes
-over 3.35 TB/s), the nvidia-smi line, and the last line
+bound: the larger of its operations over the card's peak for their type and
+its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4, int32 at SMs x 64
+lanes x the top SM clock for K1), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (nonzero exit). Without a
 CUDA device, or outside a checkout of the repository, it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
@@ -133,6 +145,17 @@ def ptxas_report(lib) -> list:
 
     return [ln.strip() for ln in _build.build_log(lib).splitlines()
             if "registers" in ln or "stack frame" in ln]
+
+
+def ptxas_numbers(lib) -> dict:
+    """Registers, stack and spill bytes of a library's one kernel."""
+    import re
+
+    text = " ".join(ptxas_report(lib))
+    found = {"registers": r"Used (\d+) registers", "stack_bytes": r"(\d+) bytes stack frame",
+             "spill_store_bytes": r"(\d+) bytes spill stores",
+             "spill_load_bytes": r"(\d+) bytes spill loads"}
+    return {k: int(re.search(pat, text).group(1)) for k, pat in found.items()}
 
 
 def mean_ms(fn, reps=3):
@@ -637,9 +660,14 @@ def main(argv=()) -> int:
     import numpy as np
 
     from game_engine_tpu_torch import _build
-    from game_engine_tpu_torch.bench import gpu_line
+    from game_engine_tpu_torch.bench import gpu_line, int32_ops_per_s
     from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout
-    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
+    from game_engine_tpu_torch.core.rollout_kernel import (
+        count_rollout,
+        kernel_rollout,
+        launch_plan,
+        profile_rollout,
+    )
     from game_engine_tpu_torch.core.state import init_state
     from game_engine_tpu_torch.gamespec.compile import GameConfig, compile_game
     from game_engine_tpu_torch.gamespec.parser import load_builtin
@@ -654,44 +682,62 @@ def main(argv=()) -> int:
     _build.build_cuda()  # one nvcc per source, all at once
     lib = _build.cuda_lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
+          "rollout_kernel": ptxas_numbers(lib),
           "policy_net_ptxas": ptxas_report(_build.policy_lib()),
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib())})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
     hl = lower(compile_game(load_builtin("harbor-lots")))  # 5 to 8 seats
+    ww12 = lower(compile_game(load_builtin("werewolf"), GameConfig(max_players=12)))
+    ww20 = lower(compile_game(load_builtin("werewolf"), GameConfig(max_players=20)))
 
     # -- kernel vs plain, bit-exact on the card ------------------------------
     worst = 0
     ww_threads = {}
+    lanes_run = set()
+    plain = {}  # one plain run a case, whatever the block size
+    t0 = time.perf_counter()
+    # load the library and the game's tables before anything is timed
+    kernel_rollout(ww, init_state(ww, 8, 8, 0, device="cuda"), 1)
     for name, lw, B, n, steps, threads in (
             ("werewolf", ww, 4096, 8, 256, 128),
             ("two-truths-and-a-lie", tt, 1024, 4, 128, 128),
-            ("harbor-lots", hl, 1024, 5, 128, 128),
+            ("harbor-lots", hl, 8192, 5, 128, 128),
             ("werewolf", ww, 4096, 8, 256, 64),
-            ("werewolf", ww, 4096, 8, 256, 256)):
+            ("werewolf", ww, 4096, 8, 256, 256),
+            ("werewolf-12-seats", ww12, 4096, 12, 128, 128),
+            ("werewolf-20-seats", ww20, 1024, 20, 128, 128)):
         start = init_state(lw, B, n, np.arange(B, dtype=np.uint32), device="cuda")
         launches = kernel_rollout.launches
-        got, eps = kernel_rollout(lw, start, steps, threads_per_block=threads)
-        torch.cuda.synchronize()
+        (got, eps), ms = timed_ms(
+            lambda: kernel_rollout(lw, start, steps, threads_per_block=threads))
         if kernel_rollout.launches != launches + 1:
             raise AssertionError("kernel_rollout did not launch the kernel")
-        ref, ref_eps = make_rollout(lw, steps)(start)
+        if (name, B, n, steps) not in plain:
+            plain[name, B, n, steps] = make_rollout(lw, steps)(start)
+        ref, ref_eps = plain[name, B, n, steps]
         err = max_abs_err(got, ref, eps, ref_eps)
-        emit({"phase": "compare", "game": name, "rooms": B, "seats": n, "steps": steps,
-              "threads_per_block": threads, "episodes": int(eps),
-              "plain_episodes": int(ref_eps), "max_abs_err": err})
+        plan = launch_plan(lw, B, threads)
+        lanes_run.add(plan["lanes_per_room"])
+        emit({"phase": "compare", "game": name, "rooms": B, "seats": n, "P": lw.P,
+              "steps": steps, **plan, "kernel_ms": ms,
+              "episodes": int(eps), "plain_episodes": int(ref_eps), "max_abs_err": err})
         if err != 0:
             bad = [f for f, x, y in zip(got._fields, got, ref) if not torch.equal(x, y)]
             raise AssertionError(f"{name}: kernel != plain in {bad}")
         if int(eps) <= 0:
             raise AssertionError(f"{name}: no episode completed in {steps} steps")
-        if name == "werewolf":
+        if lw is ww:
             ww_threads[threads] = got
         worst = max(worst, err)
+    if lanes_run != {8, 16, 32}:
+        raise AssertionError(f"compare ran groups of {sorted(lanes_run)} lanes, not 8, 16 and 32")
     for threads in (64, 256):  # blocks of rooms are independent
         if not all(torch.equal(x, y) for x, y in zip(ww_threads[threads], ww_threads[128])):
             raise AssertionError(f"werewolf at {threads} threads/block differs from 128")
+    del plain
+    emit({"phase": "compare_done", "cases": 7, "seconds": time.perf_counter() - t0})
 
     # -- the main path ---------------------------------------------------------
     eng = BatchedEngine(ww, "cuda")
@@ -726,10 +772,29 @@ def main(argv=()) -> int:
         if episodes[B] <= 0:
             raise AssertionError(f"no episode completed at {B} rooms")
         kernel_ms[B] = statistics.median(times[B])
+        extra = {}
         if B == SIZES[0]:
-            # loose: K1 interprets integer programs; only the state's bytes count
-            k1_bound = bound(0, 2 * nbytes(*starts[B]))
+            # the larger of the state's bytes, read and written once, over the
+            # memory rate, and the integer operations the interpreter cannot
+            # do without on these rooms over the card's int32 rate
+            t0 = time.perf_counter()
+            counts = count_rollout(ww, init_state(ww, B, 8, np.arange(B, dtype=np.uint32),
+                                                  device="cpu"), STEPS)
+            count_seconds = time.perf_counter() - t0
+            int32_rate = int32_ops_per_s()
+            by_bytes = 2 * nbytes(*starts[B]) / PEAK_BYTES * 1e3
+            by_ops = counts["int_ops"] / int32_rate * 1e3
+            k1_bound = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+            extra = {"interpreter_counts": counts, "count_seconds": count_seconds, "int32_ops_per_s": int32_rate,
+                     "bound_ms_by_bytes": by_bytes, "bound_ms_by_operations": by_ops}
+            if profiled:
+                cycles = profile_rollout(ww, starts[B], STEPS)
+                total = sum(cycles.values())
+                extra["cycle_share_by_section"] = {
+                    k: v / total for k, v in sorted(cycles.items(), key=lambda kv: -kv[1])}
+                extra["cycles_per_room_step"] = total / (B * STEPS)
         emit({"phase": "main", "game": "werewolf", "rooms": B, "seats": 8, "steps": STEPS,
+              **launch_plan(ww, B), **extra,
               "kernel_ms_per_call": times[B], "kernel_ms_median": kernel_ms[B],
               "env_steps_per_s": B * STEPS / (kernel_ms[B] / 1e3),
               "plain_ms": plain_ms[B],

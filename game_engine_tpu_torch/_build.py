@@ -28,9 +28,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-# game, game_len, bools, nums, strs, pdict, odict, present, regs, scal, eps,
-# B, num_steps, auto_reset
-_ROLLOUT_ARGS = [_P, _I] + [_P] * 9 + [_I64, _I, _I]
+# bools, nums, strs, pdict, odict, present, regs, scal, eps, B, num_steps,
+# auto_reset
+_ROLLOUT_ARGS = [_P] * 9 + [_I64, _I, _I]
 # meta, obs, nrows, prm, prmB, logits, value
 _PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
 # meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
@@ -131,28 +131,67 @@ def build_cuda() -> list:
     return _compile_all(_cuda_jobs())
 
 
-@functools.lru_cache(maxsize=None)
-def cuda_lib() -> ctypes.CDLL:
-    """csrc/rollout.cu built with nvcc for sm_90a, loaded."""
-    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[:1])[0])
-    lib.ge_rollout.restype = _I
-    lib.ge_rollout.argtypes = _ROLLOUT_ARGS + [_I, _P]  # threads, stream
-    lib.ge_limits.restype = None
-    lib.ge_limits.argtypes = [_P]
+def _rollout_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.ge_size.restype = None
+    lib.ge_size.argtypes = [_P, _I, _I, _P]  # game on the host, game_len, threads, out
+    return lib
+
+
+def _rollout_lib(profile: bool) -> ctypes.CDLL:
+    job = _cuda_jobs()[0]
+    if profile:
+        job = (job[0], "librollout_profile", job[2] + ["-DGE_PROFILE"])
+    lib = _rollout_common(ctypes.CDLL(_compile_all([job])[0]))
+    lib.ge_plan.restype = _I
+    lib.ge_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, game_len, B, threads, out
     lib.ge_error_string.restype = ctypes.c_char_p
     lib.ge_error_string.argtypes = [_I]
+    entry = lib.ge_rollout_profile if profile else lib.ge_rollout
+    entry.restype = _I
+    # game on the device, game on the host, game_len, ..., threads, [prof,] stream
+    entry.argtypes = [_P, _P, _I] + _ROLLOUT_ARGS + [_I] + [_P] * profile + [_P]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_lib() -> ctypes.CDLL:
+    """csrc/rollout.cu built with nvcc for sm_90a, loaded: the library the
+    engine runs."""
+    return _rollout_lib(False)
+
+
+@functools.lru_cache(maxsize=None)
+def profile_lib() -> ctypes.CDLL:
+    """csrc/rollout.cu built with -DGE_PROFILE: its entry ge_rollout_profile
+    also takes 32 int64 of clock sums on the device. A measuring tool; the
+    engine runs cuda_lib()."""
+    return _rollout_lib(True)
+
+
+def _host_rollout_lib(stem: str, flags: list) -> ctypes.CDLL:
+    lib = _rollout_common(ctypes.CDLL(_compile_all([(
+        os.path.join(_CSRC, "rollout_host.cpp"), stem, _GXX_CMD + flags)])[0]))
+    lib.ge_rollout_host.restype = _I
+    lib.ge_rollout_host.argtypes = [_P, _I] + _ROLLOUT_ARGS  # game, game_len, ...
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def host_lib() -> ctypes.CDLL:
     """csrc/rollout_host.cpp (the kernel's per-room body) built with g++."""
-    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "rollout_host.cpp"),
-                                     "librollout_host", _GXX_CMD)])[0])
-    lib.ge_rollout_host.restype = _I
-    lib.ge_rollout_host.argtypes = _ROLLOUT_ARGS
-    lib.ge_limits.restype = None
-    lib.ge_limits.argtypes = [_P]
+    return _host_rollout_lib("librollout_host", [])
+
+
+@functools.lru_cache(maxsize=None)
+def host_count_lib() -> ctypes.CDLL:
+    """csrc/rollout_host.cpp built with -DGE_COUNT: the same body counting
+    the interpreter's operations (ge_counts_reset, ge_counts_read into 4
+    int64). A measuring tool; the tests run host_lib()."""
+    lib = _host_rollout_lib("librollout_count", ["-DGE_COUNT"])
+    lib.ge_counts_reset.restype = None
+    lib.ge_counts_reset.argtypes = []
+    lib.ge_counts_read.restype = None
+    lib.ge_counts_read.argtypes = [_P]
     return lib
 
 

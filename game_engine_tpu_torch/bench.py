@@ -27,6 +27,21 @@ def gpu_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+INT32_LANES_PER_SM = 64  # int32 ALU lanes of one Hopper SM, an operation a clock each
+
+
+def int32_ops_per_s() -> float:
+    """The first GPU's int32 rate: SMs x 64 lanes x the top SM clock
+    nvidia-smi reports."""
+    import torch
+
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch

@@ -109,8 +109,8 @@ def rollout(lowered: Lowered, state: GameState, num_steps: int,
             auto_reset: bool = True):
     """num_steps engine steps with scripted bots -> (state, episodes).
 
-    CUDA tensors go through the CUDA rollout kernel (one thread per room,
-    all steps in one launch); CPU tensors through the plain-torch loop."""
+    CUDA tensors go through the CUDA rollout kernel (a group of lanes per
+    room, all steps in one launch); CPU tensors through the plain-torch loop."""
     if state.present.is_cuda:
         from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
 

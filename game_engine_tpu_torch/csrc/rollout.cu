@@ -7,69 +7,180 @@
 // state held on chip for the whole call, one global-memory round trip per
 // call. Bit-identical to the plain-torch rollout (core/engine.make_rollout).
 //
-// What bounds it on the H100: integer ALU and control flow, not HBM. A
-// werewolf room is 191 int32 (about 764 B) read once and written once per
-// call, while every step runs thousands of integer ops per room through a
-// data-dependent interpreter (predicate DNF, branch first-match, an effect
-// DAG). Rooms in different phases take different branches, so a warp
-// diverges; the per-room arrays (Room, the IR node values) are indexed at
-// run time and live in local memory, so they spill through L1/L2.
+// What bounds it on the H100: the serial latency of a room's step, not HBM
+// and not integer throughput. A room's state is a few hundred int32 read
+// once and written once per call, while every step walks a data-dependent
+// interpreter (predicate DNF, branch first-match, an effect DAG) whose
+// table reads and branches depend on one another. The TPU kernel lays rooms
+// along lanes because its vector unit wants (8, 128) tiles; with one room a
+// thread, a few thousand rooms fill a fraction of this card's warp slots,
+// each warp runs the union of its 32 rooms' phases, and the room's arrays,
+// indexed at run time, live in local memory.
 //
-// What the design does about it: one thread per room, so divergence costs
-// only when the rooms of a warp sit in different phases, and no
-// synchronisation is needed between rooms; the ragged edge is masked, so
-// any batch size works. The global state stays in the (bank, P, rooms)
-// layout, so the load and the store of one field by 32 consecutive rooms is
-// one coalesced 128-byte access. The game's tables (the pack.py blob, about
-// 5.7 KB for werewolf) are copied into shared memory once per block: every
-// table read in the interpreter is a shared-memory read, and one build
-// serves every game. All num_steps steps run in a loop inside the kernel.
+// What the design does about it (csrc/room_step.cuh has the details): a room
+// is run by a group of G lanes, one seat a lane, G a power of two >= P, so
+// the per-seat loops of the engine run side by side, a warp holds 32 / G
+// rooms to diverge, and the same rooms give G times the warps to hide
+// latency; a call of so few rooms that the card has warp slots to spare
+// widens the groups further (plan). The room's words (state, action, effect-IR node values) live in
+// dynamic shared memory as [slot][thread], sized by the host to the game's
+// own banks and largest effect block, behind the game's tables (the pack.py
+// blob, copied in once per block, so one build serves every game). Groups
+// meet only at their own lanes' __syncwarp and ballots inside the step loop.
+// The global state stays in the (bank, P, rooms) layout; the block copies
+// its rooms in and out with one loop over (slot, seat, room), so neighbouring
+// threads touch neighbouring rooms of one field.
+//
+// -DGE_PROFILE builds the variant that sums clock64() by section of the step
+// (ge_rollout_profile); the engine never loads it.
 
 #include <cuda_runtime.h>
 
 #include "room_step.cuh"
 
+namespace {
+
 __global__ void ge_rollout_kernel(const int32_t* __restrict__ game, int game_len,
                                   ge::MinorState ms, int32_t* __restrict__ eps,
-                                  int64_t B, int num_steps, int auto_reset) {
-  extern __shared__ int32_t sgame[];
-  for (int i = threadIdx.x; i < game_len; i += blockDim.x) sgame[i] = game[i];
+                                  int64_t B, int num_steps, int auto_reset, int G,
+                                  long long* __restrict__ prof) {
+  extern __shared__ int32_t smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  for (int i = tid; i < game_len; i += T) smem[i] = game[i];
   __syncthreads();
-  const int64_t room = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (room >= B) return;
-  const ge::Game g = ge::game_view(sgame);
-  ge::Room r;
-  ge::room_load(g, r, ms, room, B);
-  eps[room] = ge::room_rollout(g, r, num_steps, auto_reset);
-  ge::room_store(g, r, ms, room, B);
+  const ge::Game g = ge::game_view(smem);
+  int32_t* words = smem + game_len;
+  const int R = T / G;  // rooms a block
+  const int64_t room0 = (int64_t)blockIdx.x * R;
+  ge::rooms_copy(g, ms, words, T, G, R, room0, B, tid, T, false);
+  __syncthreads();
+  const int lane = tid & (G - 1), first = (tid & 31) & ~(G - 1);
+  const int64_t room = room0 + tid / G;
+  if (room < B) {  // whole groups take or leave this branch
+    const uint32_t mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << first;
+    ge::Room r = ge::room_open(g, ms, words + (tid - lane), T, lane, mask, first, room, B);
+    const int32_t episodes = ge::room_rollout(g, r, num_steps, auto_reset);
+    if (lane == 0) {
+      eps[room] = episodes;
+      ge::room_close(r, ms, room, B);
+#ifdef GE_PROFILE
+      for (int k = 0; k < ge::N_PROF; ++k)
+        if (r.prof[k]) atomicAdd((unsigned long long*)prof + k, (unsigned long long)r.prof[k]);
+#endif
+    }
+  }
+  __syncthreads();
+  ge::rooms_copy(g, ms, words, T, G, R, room0, B, tid, T, true);
 }
+
+// What a launch over B rooms is sized to when `threads` lanes a block are
+// asked for.
+struct Plan {
+  int threads;  // lanes a block: the largest halving of the asked that fits
+  int G;        // lanes a room
+  size_t smem;  // dynamic shared memory a block
+  int held;     // blocks one SM holds at a time
+  cudaError_t err;
+};
+
+// A room gets at least a lane a seat. While every room would still hold a
+// warp slot of the card at once, its group is doubled and the spare lanes
+// idle: a warp of fewer rooms runs fewer phases one after another, and a
+// call of few rooms is bound by that latency, not by lanes.
+Plan plan(const ge::Game& g, int game_len, int64_t B, int threads) {
+  Plan p{ge::fit_threads(g, game_len, threads), ge::group_lanes(g.P), 0, 0, cudaSuccess};
+  if (p.threads == 0) {  // not even one warp's rooms fit
+    p.err = cudaErrorInvalidValue;
+    return p;
+  }
+  threads = p.threads;
+  p.smem = (size_t)ge::shared_bytes(g, game_len, threads);
+  if (p.smem > 48 * 1024)
+    p.err = cudaFuncSetAttribute(ge_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)p.smem);
+  int dev = 0, sms = 0;
+  if (p.err == cudaSuccess) p.err = cudaGetDevice(&dev);
+  if (p.err == cudaSuccess)
+    p.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (p.err == cudaSuccess)
+    p.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.held, ge_rollout_kernel, threads,
+                                                          p.smem);
+  if (p.err != cudaSuccess) return p;
+  const int64_t warp_slots = (int64_t)sms * p.held * (threads / 32);
+  while (p.G < ge::MAX_GROUP && B * (2 * p.G) / 32 <= warp_slots) p.G *= 2;
+  return p;
+}
+
+bool launchable(const ge::Game& g, int game_len, int64_t B, int threads) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0 && B > 0 && game_len > 0 &&
+         g.P >= 1 && g.P <= ge::MAX_GROUP;
+}
+
+int launch(const int32_t* game, const int32_t* game_host, int game_len,
+           const ge::MinorState& ms, int32_t* eps, int64_t B, int num_steps,
+           int auto_reset, int threads, long long* prof, cudaStream_t stream) {
+  const ge::Game g = ge::game_view(game_host);
+  if (!launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(g, game_len, B, threads);
+  if (p.err != cudaSuccess) return (int)p.err;
+  const int R = p.threads / p.G;
+  const int64_t blocks = (B + R - 1) / R;
+  ge_rollout_kernel<<<(unsigned)blocks, p.threads, p.smem, stream>>>(
+      game, game_len, ms, eps, B, num_steps, auto_reset, p.G, prof);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
-void ge_limits(int32_t* out) { ge::limits(out); }
-
 const char* ge_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the rollout on `stream` over B rooms, in place on the minor-layout
-// buffers; eps receives each room's completed episodes. Returns
-// cudaGetLastError() after the launch (0 = launched).
-int ge_rollout(const int32_t* game, int game_len, int32_t* bools, int32_t* nums,
-               int32_t* strs, int32_t* pdict, int32_t* odict, int32_t* present,
-               int32_t* regs, int32_t* scal, int32_t* eps, int64_t B,
-               int num_steps, int auto_reset, int threads, void* stream) {
-  if (threads <= 0 || threads > 1024 || B <= 0 || game_len <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)game_len * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ge_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
-  const int64_t blocks = (B + threads - 1) / threads;
-  ge_rollout_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      game, game_len, ms, eps, B, num_steps, auto_reset);
-  return (int)cudaGetLastError();
+// room_step.cuh size_report: how a block of the game (a host array) is sized.
+void ge_size(const int32_t* game_host, int game_len, int threads, int64_t* out) {
+  ge::size_report(game_host, game_len, threads, out);
 }
+
+// How a launch over B rooms of the game (a host array) would be sized when
+// `threads` lanes a block are asked for: out = {lanes a room, dynamic shared
+// memory bytes a block, blocks one SM holds at a time, lanes a block}.
+// Returns a CUDA error code (0 = ok).
+int ge_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int64_t* out) {
+  const ge::Game g = ge::game_view(game_host);
+  if (!launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(g, game_len, B, threads);
+  out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
+  return (int)p.err;
+}
+
+#ifndef GE_PROFILE
+// Launches the rollout on `stream` over B rooms, in place on the minor-layout
+// buffers; eps receives each room's completed episodes. `game` is the game
+// array on the device and `game_host` the same array on the host, from which
+// the launch is sized. Returns cudaGetLastError() after the launch (0 =
+// launched).
+int ge_rollout(const int32_t* game, const int32_t* game_host, int game_len,
+               int32_t* bools, int32_t* nums, int32_t* strs, int32_t* pdict,
+               int32_t* odict, int32_t* present, int32_t* regs, int32_t* scal,
+               int32_t* eps, int64_t B, int num_steps, int auto_reset, int threads,
+               void* stream) {
+  const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
+  return launch(game, game_host, game_len, ms, eps, B, num_steps, auto_reset, threads,
+                nullptr, (cudaStream_t)stream);
+}
+#else
+// The same launch with clock sums: prof receives N_PROF (32) int64 sums of
+// clock64() over every room, by section (room_step.cuh PROF_*); the caller
+// zeroes it.
+int ge_rollout_profile(const int32_t* game, const int32_t* game_host, int game_len,
+                       int32_t* bools, int32_t* nums, int32_t* strs, int32_t* pdict,
+                       int32_t* odict, int32_t* present, int32_t* regs, int32_t* scal,
+                       int32_t* eps, int64_t B, int num_steps, int auto_reset,
+                       int threads, long long* prof, void* stream) {
+  const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
+  return launch(game, game_host, game_len, ms, eps, B, num_steps, auto_reset, threads,
+                prof, (cudaStream_t)stream);
+}
+#endif
 
 }  // extern "C"

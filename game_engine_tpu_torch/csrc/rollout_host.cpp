@@ -1,15 +1,25 @@
 // rollout_host.cpp — the CUDA rollout kernel's per-room body (room_step.cuh),
-// compiled with g++ and looped over rooms on the host. The same signature
-// as ge_rollout in rollout.cu, minus the launch arguments; the CPU tests use
-// it to run the kernel's own logic without a GPU.
+// compiled with g++ and looped over rooms on the host: each room's words in
+// the kernel's [slot][lane] layout (a block of one room), its seats run in
+// order. The same signature as ge_rollout in rollout.cu, minus the launch
+// arguments; the CPU tests use it to run the kernel's own logic without a GPU.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC rollout_host.cpp -o librollout_host.so
+// With -DGE_COUNT the run also counts the interpreter's operations
+// (ge_counts_reset / ge_counts_read).
+
+#include <stddef.h>
+
+#include <vector>
 
 #include "room_step.cuh"
 
 extern "C" {
 
-void ge_limits(int32_t* out) { ge::limits(out); }
+// room_step.cuh size_report: how a block of the game would be sized on the card.
+void ge_size(const int32_t* game, int game_len, int threads, int64_t* out) {
+  ge::size_report(game, game_len, threads, out);
+}
 
 int ge_rollout_host(const int32_t* game, int game_len, int32_t* bools,
                     int32_t* nums, int32_t* strs, int32_t* pdict, int32_t* odict,
@@ -17,14 +27,25 @@ int ge_rollout_host(const int32_t* game, int game_len, int32_t* bools,
                     int64_t B, int num_steps, int auto_reset) {
   if (B <= 0 || game_len <= 0) return 1;
   const ge::Game g = ge::game_view(game);
+  if (g.P < 1 || g.P > ge::MAX_GROUP) return 2;
   const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
+  const int G = ge::group_lanes(g.P);
+  std::vector<int32_t> words((size_t)g.L.words * G);
   for (int64_t room = 0; room < B; ++room) {
-    ge::Room r;
-    ge::room_load(g, r, ms, room, B);
+    ge::rooms_copy(g, ms, words.data(), G, G, 1, room, B, 0, 1, false);
+    ge::Room r = ge::room_open(g, ms, words.data(), G, 0, 0, 0, room, B);
     eps[room] = ge::room_rollout(g, r, num_steps, auto_reset);
-    ge::room_store(g, r, ms, room, B);
+    ge::room_close(r, ms, room, B);
+    ge::rooms_copy(g, ms, words.data(), G, G, 1, room, B, 0, 1, true);
   }
   return 0;
 }
+
+#ifdef GE_COUNT
+// the counts since the last reset: atoms evaluated, node-seat evaluations,
+// state writes, splitmix32 hashes
+void ge_counts_reset() { for (int k = 0; k < ge::N_COUNTS; ++k) ge::counts[k] = 0; }
+void ge_counts_read(int64_t* out) { for (int k = 0; k < ge::N_COUNTS; ++k) out[k] = ge::counts[k]; }
+#endif
 
 }  // extern "C"

@@ -1,45 +1,100 @@
-// room_step.cuh — one room of the batched engine, for one CUDA thread (or one
-// iteration of the host harness's loop): scripted bots, the engine step
-// (P1..P5), the on-enter effect-IR interpreter (P20) and auto-reset.
+// room_step.cuh — one room of the batched engine, run by a group of lanes with
+// one seat each: scripted bots, the engine step (P1..P5), the on-enter
+// effect-IR interpreter (P20) and auto-reset. It is the body of the CUDA
+// rollout kernel (csrc/rollout.cu), which replaces the TPU kernel
+// game_engine_tpu/core/pallas_rollout.py::make_pallas_rollout, and of the g++
+// host harness (csrc/rollout_host.cpp) that the CPU tests run.
 //
 // The game is interpreted from the packed table blob of
-// game_engine_tpu/native/pack.py, preceded by a directory of section offsets
-// (core/rollout_kernel.py builds it), so one build serves every game. The
-// semantics are the batched engine's (game_engine_tpu/core/step.py and
-// engine.make_rollout): every per-player quantity runs over all P seats with
-// the `present` mask, exactly as the plain-torch step does, and the result
-// is bit-identical to it. Integer rules (SEMANTICS.md P20): effect-IR
-// arithmetic wraps as int32 (computed in uint32, cast back); hashing is
-// uint32 splitmix32; int8 banks store the low byte of what is written.
+// game_engine_tpu_torch/native/pack.py behind a directory of section offsets
+// (core/rollout_kernel.game_array builds it), so one build serves every game.
+// The semantics are the batched engine's (game_engine_tpu_torch/core/step.py
+// and core/engine.make_rollout), and the result is bit-identical to it.
+// Integer rules (SEMANTICS.md P20): effect-IR arithmetic wraps as int32
+// (computed in uint32, cast back); hashing is uint32 splitmix32; int8 banks
+// keep the low byte of what is written, sign-extended.
 //
-// GE_HD marks functions compiled for both the device (nvcc) and the host
-// harness (g++, csrc/rollout_host.cpp).
+// What bounds the interpreter on an H100 is the serial latency of one room's
+// step (table reads, data-dependent branches, per-seat loops), not memory
+// traffic or arithmetic. So the step is laid out across seats, not rooms:
+//
+// - A room is run by G lanes of one warp, G a power of two >= P (so P <= 32;
+//   the launch picks G). Lane p owns seat p and lanes P..G-1 idle; every
+//   "for each seat" loop of the engine is the lane's own work
+//   (GE_EACH_SEAT). The room's scalars (phase, prev, done, winner, t, seed,
+//   the present mask) are registers, the same in every lane of the group.
+// - Everything per seat is a word w[slot * stride + seat] of shared memory:
+//   the state banks, the action, a scratch word and the effect-IR node
+//   values. Consecutive lanes hold consecutive words, so a slot index known
+//   only at run time costs no bank conflict and no local memory, and the
+//   number of slots is the game's own (layout_of), not a compiled maximum.
+// - What one seat needs of the others goes through a ballot over the group
+//   (seats_where: counts, the alive set, completion) or through the others'
+//   words after a group barrier (GE_SYNC: the effect IR's cross-seat nodes,
+//   the deal's keys, a target's string). Groups of one warp in different
+//   phases only ever wait for their own lanes.
+//
+// On the host the same source runs a room as a loop over its seats:
+// GE_EACH_SEAT iterates, seats_where loops, GE_SYNC is nothing, and the
+// words are indexed the same way. GE_HD marks functions compiled for both.
+//
+// -DGE_PROFILE (device) sums clock64() by section of the step into
+// Room::prof; -DGE_COUNT (host) counts the interpreter's operations in
+// ge::counts. Neither is in the libraries the engine loads.
 #pragma once
 
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #define GE_HD __host__ __device__ inline
+#define GE_HDM __host__ __device__
 #else
 #define GE_HD inline
+#define GE_HDM
+#endif
+
+#ifdef __CUDA_ARCH__
+// the body runs for this lane's seat (not at all on a padding lane)
+#define GE_EACH_SEAT(g, r, p) \
+  for (int p = (r).lane, ge_once = 1; ge_once && p < (g).P; ge_once = 0)
+// group barrier: the seats' earlier writes are visible to each other
+#define GE_SYNC(r) __syncwarp((r).mask)
+#else
+#define GE_EACH_SEAT(g, r, p) for (int p = 0; p < (g).P; ++p)
+#define GE_SYNC(r) ((void)0)
+#endif
+
+#if defined(GE_PROFILE) && defined(__CUDA_ARCH__)
+#define GE_TIC(r) const long long ge_t0 = clock64()
+#define GE_TOC(r, sec) (r).prof[sec] += clock64() - ge_t0
+#else
+#define GE_TIC(r) ((void)0)
+#define GE_TOC(r, sec) ((void)0)
 #endif
 
 namespace ge {
 
-// compile-time bounds of the per-thread arrays; core/rollout_kernel.py reads
-// them through ge_limits() and refuses games beyond them
-constexpr int MAX_P = 16;
-constexpr int MAX_NB = 16;
-constexpr int MAX_NN = 16;
-constexpr int MAX_NS = 8;
-constexpr int MAX_NPD = 4;
-constexpr int MAX_NOD = 4;
-constexpr int MAX_NODES = 128;   // effect-IR nodes in one block
-constexpr int COND_STACK = 16;   // nodes in one branch-condition tree
-constexpr int N_LIMITS = 8;
+constexpr int MAX_GROUP = 32;   // a room's seats are lanes of one warp
+constexpr int COND_STACK = 16;  // nodes in one branch-condition tree (host-checked)
+constexpr int MIN_THREADS = 32;       // the smallest block: one warp
+constexpr int64_t MAX_SHARED = 232448;  // bytes of dynamic shared memory an H100 block can ask for
+
+// sections of the -DGE_PROFILE clock sums; effect programs follow, one
+// section a mechanic (the last collects the rest)
+enum { PROF_POLICY, PROF_ACCEPT, PROF_BRANCH, PROF_RESET, PROF_EFFECTS };
+constexpr int N_PROF = 32;
+// operations the -DGE_COUNT host build counts
+enum { CNT_ATOMS, CNT_NODES, CNT_WRITES, CNT_HASHES, N_COUNTS };
+#ifdef GE_COUNT
+inline int64_t counts[N_COUNTS];
+#define GE_ADD(which, n) (ge::counts[which] += (n))
+#else
+#define GE_ADD(which, n) ((void)0)
+#endif
 
 // directory prepended to the blob: dir[sid] = offset of section sid's data
-// in the game array, dir[DIR_LEN + sid] = its length
+// in the game array, dir[DIR_LEN + sid] = its length; dir[0] = the effect-IR
+// nodes of the game's largest block
 constexpr int DIR_LEN = 16;
 constexpr int DIR_INTS = 2 * DIR_LEN;
 
@@ -53,7 +108,7 @@ constexpr int MECH_ROW = 18;   // type, phase, 16 params
 constexpr int PHASE_ROW = 11;  // is_action, target_pred, terminal, static_next,
                                // kind, kmax, rec_num, rec_pdict, rec_pdict_src,
                                // rec_odict, dsl_id
-// effect-IR codes (gamespec/effects.py)
+// effect-IR codes (gamespec/effects.py); NK_AT and later read other seats
 enum { NK_CONST, NK_FIELD, NK_SEAT, NK_NPLAYERS, NK_CHOICE, NK_CHOSEIN,
        NK_ALIVE, NK_PRESENT, NK_PRED, NK_BIN, NK_CMP, NK_NOT, NK_AND, NK_OR,
        NK_WHERE, NK_AT, NK_INCOMING, NK_EQCOUNT, NK_RANK, NK_REDUCE,
@@ -67,15 +122,28 @@ enum { AB_BOOL, AB_NUM, AB_STR, AB_CONST };
 enum { OP_EQ, OP_NE, OP_GE, OP_LE, OP_GT, OP_LT };
 enum { K_NONE, K_TARGET, K_OPTION, K_SUBMIT };
 
+#ifdef GE_COUNT
+// Integer operations effect-IR node `kind` needs at seat p of P at the least:
+// none for a constant, the seat's number or the room's size; one for a node
+// of the seat's own values; a read of each seat it looks at for a cross-seat
+// node (RANK: the earlier ones). A room-level node (REDUCE, ARGBEST) is one
+// pass over the seats for the whole room, booked at seat 0.
+inline int node_ops(int kind, int p, int P) {
+  switch (kind) {
+    case NK_CONST: case NK_SEAT: case NK_NPLAYERS: return 0;
+    case NK_INCOMING: case NK_EQCOUNT: return P;
+    case NK_RANK: return p;
+    case NK_REDUCE: case NK_ARGBEST: return p == 0 ? P : 0;
+    default: return 1;
+  }
+}
+#endif
+
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr uint32_t MIX = 0x85EBCA6Bu;
 
-GE_HD void limits(int32_t* out) {
-  out[0] = MAX_P; out[1] = MAX_NB; out[2] = MAX_NN; out[3] = MAX_NS;
-  out[4] = MAX_NPD; out[5] = MAX_NOD; out[6] = MAX_NODES; out[7] = COND_STACK;
-}
-
 GE_HD uint32_t splitmix32(uint32_t x) {
+  GE_ADD(CNT_HASHES, 1);
   x += GOLDEN;
   uint32_t z = x;
   z = (z ^ (z >> 16)) * 0x85EBCA6Bu;
@@ -86,6 +154,7 @@ GE_HD uint32_t splitmix32(uint32_t x) {
 GE_HD int32_t wrap_add(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
 GE_HD int32_t wrap_sub(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
 GE_HD int32_t wrap_mul(int32_t a, int32_t b) { return (int32_t)((uint32_t)a * (uint32_t)b); }
+GE_HD int32_t low_byte(int32_t v) { return (int32_t)(int8_t)v; }  // an int8 bank's store
 
 GE_HD bool compare(int op, int32_t x, int32_t y) {
   switch (op) {
@@ -98,59 +167,170 @@ GE_HD bool compare(int op, int32_t x, int32_t y) {
   }
 }
 
+GE_HD int popc(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+GE_HD bool has_bit(uint32_t m, int i) { return (m >> i) & 1u; }
+
+// index of the k-th (from 0) set bit of m; m has more than k bits set
+GE_HD int nth_set_bit(uint32_t m, int k) {
+  for (; k > 0; --k) m &= m - 1;
+#ifdef __CUDA_ARCH__
+  return __ffs((int)m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// the first n seats
+GE_HD uint32_t first_seats(int n) { return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u; }
+
+// smallest power of two >= P: the fewest lanes that run one room
+GE_HD int group_lanes(int P) {
+  int G = 1;
+  while (G < P) G *= 2;
+  return G;
+}
+
 // bit idx_plus1 of the 64-bit phase mask (lo, hi): phase-set membership of a
-// dense phase index, -1 included
+// dense phase index, -1 included (pack.py's masks hold NP + 1 <= 64 bits)
 GE_HD bool mask64_has(int32_t lo, int32_t hi, int idx_plus1) {
   uint64_t bits = (uint64_t)(uint32_t)lo | ((uint64_t)(uint32_t)hi << 32);
   return idx_plus1 >= 0 && idx_plus1 < 64 && ((bits >> idx_plus1) & 1);
 }
 
-// A view of the game array (directory + pack.py blob).
-struct Game {
-  int P, NP, NB, NN, NS, NPD, NOD;  // NPD/NOD: the state's (>= 1) widths
-  int alive_slot, start_index, maxv, n_mechs;
-  const int32_t *atoms, *pred_off, *term_off, *lits, *phase, *rec_true,
-      *rec_false, *pdtrans, *conds, *branch_off, *branches, *mechs, *pool,
-      *defaults;
+// The per-seat word slots of a room, sized to the game. [0, state) mirror
+// the global state and are loaded and stored; the rest is working room.
+struct Layout {
+  int bools, nums, strs, pdict, odict;        // NB, NN, NS, NPD * P, NOD slots
+  int present, acted, choice, choice_phase;   // one slot each
+  int state;                                  // slots before this are state
+  int act;    // the seat's action of this step
+  int tmp;    // scratch of one stage
+  int vals;   // effect-IR node values of the running block
+  int words;  // slots in all
 };
+
+// A view of the game array (directory + pack.py blob): sections as offsets
+// into gm.
+struct Game {
+  const int32_t* gm;
+  int P, NP, NB, NN, NS, NPD, NOD;  // NPD/NOD: the state's (>= 1) widths
+  int alive_slot, start_index, maxv, n_mechs, max_nodes;
+  int atoms, pred_off, term_off, lits, phase, rec_true, rec_false, pdtrans,
+      conds, branch_off, branches, mechs, pool, defaults;
+  Layout L;
+};
+
+GE_HD Layout layout_of(const Game& g) {
+  Layout L;
+  int o = 0;
+  L.bools = o; o += g.NB;
+  L.nums = o; o += g.NN;
+  L.strs = o; o += g.NS;
+  L.pdict = o; o += g.NPD * g.P;
+  L.odict = o; o += g.NOD;
+  L.present = o++;
+  L.acted = o++;
+  L.choice = o++;
+  L.choice_phase = o++;
+  L.state = o;
+  L.act = o++;
+  L.tmp = o++;
+  L.vals = o; o += g.max_nodes;
+  L.words = o;
+  return L;
+}
 
 GE_HD Game game_view(const int32_t* gm) {
   Game g;
+  g.gm = gm;
   const int32_t* h = gm + gm[SEC_HEADER];
   g.P = h[0]; g.NP = h[1]; g.NB = h[2]; g.NN = h[3]; g.NS = h[4];
   g.NPD = h[5] > 1 ? h[5] : 1;
   g.NOD = h[6] > 1 ? h[6] : 1;
   g.alive_slot = h[7]; g.start_index = h[8]; g.maxv = h[12];
-  g.atoms = gm + gm[SEC_ATOMS];
-  g.pred_off = gm + gm[SEC_PRED_OFF];
-  g.term_off = gm + gm[SEC_TERM_OFF];
-  g.lits = gm + gm[SEC_LITS];
-  g.phase = gm + gm[SEC_PHASE];
-  g.rec_true = gm + gm[SEC_RECTRUE];
-  g.rec_false = gm + gm[SEC_RECFALSE];
-  g.pdtrans = gm + gm[SEC_PDTRANS];
-  g.conds = gm + gm[SEC_CONDS];
-  g.branch_off = gm + gm[SEC_BRANCH_OFF];
-  g.branches = gm + gm[SEC_BRANCHES];
-  g.mechs = gm + gm[SEC_MECHS];
+  g.max_nodes = gm[0];
+  g.atoms = gm[SEC_ATOMS];
+  g.pred_off = gm[SEC_PRED_OFF];
+  g.term_off = gm[SEC_TERM_OFF];
+  g.lits = gm[SEC_LITS];
+  g.phase = gm[SEC_PHASE];
+  g.rec_true = gm[SEC_RECTRUE];
+  g.rec_false = gm[SEC_RECFALSE];
+  g.pdtrans = gm[SEC_PDTRANS];
+  g.conds = gm[SEC_CONDS];
+  g.branch_off = gm[SEC_BRANCH_OFF];
+  g.branches = gm[SEC_BRANCHES];
+  g.mechs = gm[SEC_MECHS];
   g.n_mechs = gm[DIR_LEN + SEC_MECHS] / MECH_ROW;
-  g.pool = gm + gm[SEC_POOL];
-  g.defaults = gm + gm[SEC_DEFAULTS];
+  g.pool = gm[SEC_POOL];
+  g.defaults = gm[SEC_DEFAULTS];
+  g.L = layout_of(g);
   return g;
 }
 
-// One room's state, in per-thread arrays (player-major within each bank).
+// bytes of dynamic shared memory of a block of `threads` lanes: the game's
+// tables and every lane's words
+GE_HD int64_t shared_bytes(const Game& g, int game_len, int threads) {
+  return ((int64_t)game_len + (int64_t)g.L.words * threads) * (int64_t)sizeof(int32_t);
+}
+
+// the largest of threads, threads / 2, ... (in whole warps) down to one warp
+// whose block fits in shared memory; 0 when not even one warp's does
+GE_HD int fit_threads(const Game& g, int game_len, int threads) {
+  while (threads > MIN_THREADS && shared_bytes(g, game_len, threads) > MAX_SHARED)
+    threads = threads / 64 * 32;
+  return shared_bytes(g, game_len, threads) <= MAX_SHARED ? threads : 0;
+}
+
+// How a block of the game (a host array) is sized when `threads` lanes are
+// asked for: out = {words a lane holds, lanes of the block that fits (0 =
+// none), its bytes of shared memory (of one warp's block when none fits),
+// the most bytes a block can have}. The one place the sizing is computed.
+inline void size_report(const int32_t* game, int game_len, int threads, int64_t* out) {
+  const Game g = game_view(game);
+  const int fit = fit_threads(g, game_len, threads);
+  out[0] = g.L.words;
+  out[1] = fit;
+  out[2] = shared_bytes(g, game_len, fit ? fit : MIN_THREADS);
+  out[3] = MAX_SHARED;
+}
+
+// One room: its seats' words and its scalars. On the device every lane of
+// the group holds a copy with its own `lane`; the scalars agree across them.
 struct Room {
-  int8_t bools[MAX_P * MAX_NB];          // [p * NB + b], 0/1
-  int32_t nums[MAX_P * MAX_NN];          // [p * NN + b]
-  int8_t strs[MAX_P * MAX_NS];           // [p * NS + b]
-  int8_t pdict[MAX_P * MAX_NPD * MAX_P]; // [(p * NPD + f) * P + q]
-  int8_t odict[MAX_P * MAX_NOD];         // [p * NOD + s]
-  int8_t present[MAX_P], acted[MAX_P];
-  int32_t choice[MAX_P], choice_phase[MAX_P];
+  int32_t* w;     // the room's words: w[slot * stride + seat]
+  int stride;     // words between slots: the block's threads (host: G)
+  int lane;       // device: this thread's seat; lanes P..G-1 own no seat
+  uint32_t mask;  // device: the group's lanes within the warp
+  int shift;      // device: the group's first lane within the warp
   int32_t phase, prev, done, winner, t;
   uint32_t seed;
+  uint32_t present;  // bit p: seat p is occupied (constant over a rollout)
+#ifdef GE_PROFILE
+  long long prof[N_PROF];
+#endif
+  GE_HDM int32_t& at(int slot, int p) const { return w[slot * stride + p]; }
 };
+
+// Bit p of the result is f(p), for the seats p < P: a ballot over the group.
+template <class F>
+GE_HD uint32_t seats_where(const Game& g, const Room& r, F f) {
+#ifdef __CUDA_ARCH__
+  const bool v = r.lane < g.P && f(r.lane);
+  return (__ballot_sync(r.mask, v) & r.mask) >> r.shift;
+#else
+  uint32_t m = 0;
+  for (int p = 0; p < g.P; ++p) m |= (f(p) ? 1u : 0u) << p;
+  return m;
+#endif
+}
 
 // Global state in the (bank, P, rooms) int32 layout of
 // core/rollout_kernel.to_minor: one field of consecutive rooms is contiguous.
@@ -158,54 +338,71 @@ struct MinorState {
   int32_t *bools, *nums, *strs, *pdict, *odict, *present, *regs, *scal;
 };
 
-GE_HD void room_load(const Game& g, Room& r, const MinorState& m, int64_t i, int64_t B) {
-  const int P = g.P;
-  for (int b = 0; b < g.NB; ++b)
-    for (int p = 0; p < P; ++p) r.bools[p * g.NB + b] = (int8_t)(m.bools[((int64_t)b * P + p) * B + i] != 0);
-  for (int b = 0; b < g.NN; ++b)
-    for (int p = 0; p < P; ++p) r.nums[p * g.NN + b] = m.nums[((int64_t)b * P + p) * B + i];
-  for (int b = 0; b < g.NS; ++b)
-    for (int p = 0; p < P; ++p) r.strs[p * g.NS + b] = (int8_t)m.strs[((int64_t)b * P + p) * B + i];
-  for (int f = 0; f < g.NPD; ++f)
-    for (int p = 0; p < P; ++p)
-      for (int q = 0; q < P; ++q)
-        r.pdict[(p * g.NPD + f) * P + q] = (int8_t)m.pdict[(((int64_t)f * P + p) * P + q) * B + i];
-  for (int s = 0; s < g.NOD; ++s)
-    for (int p = 0; p < P; ++p) r.odict[p * g.NOD + s] = (int8_t)m.odict[((int64_t)s * P + p) * B + i];
-  for (int p = 0; p < P; ++p) {
-    r.present[p] = (int8_t)(m.present[(int64_t)p * B + i] != 0);
-    r.acted[p] = (int8_t)(m.regs[(int64_t)p * B + i] != 0);
-    r.choice[p] = m.regs[((int64_t)P + p) * B + i];
-    r.choice_phase[p] = m.regs[((int64_t)2 * P + p) * B + i];
+// the global word behind state slot `slot` of seat p of room i
+GE_HD int32_t* state_word(const Game& g, const MinorState& m, int slot, int p,
+                          int64_t i, int64_t B) {
+  const Layout& L = g.L;
+  const int64_t P = g.P;
+  if (slot < L.nums) return m.bools + ((slot - L.bools) * P + p) * B + i;
+  if (slot < L.strs) return m.nums + ((slot - L.nums) * P + p) * B + i;
+  if (slot < L.pdict) return m.strs + ((slot - L.strs) * P + p) * B + i;
+  if (slot < L.odict) {  // slot = f * P + q holds pdict[f][p][q]
+    const int f = (slot - L.pdict) / g.P, q = (slot - L.pdict) % g.P;
+    return m.pdict + ((f * P + p) * P + q) * B + i;
   }
+  if (slot < L.present) return m.odict + ((slot - L.odict) * P + p) * B + i;
+  if (slot == L.present) return m.present + p * B + i;
+  return m.regs + ((slot - L.acted) * P + p) * B + i;
+}
+
+// what a state slot holds of a global word: flags as 0/1, int8 banks as
+// their low byte
+GE_HD int32_t state_value(const Game& g, int slot, int32_t v) {
+  const Layout& L = g.L;
+  if (slot < L.nums || slot == L.present || slot == L.acted) return v != 0;
+  if (slot >= L.strs && slot < L.present) return low_byte(v);
+  return v;
+}
+
+// Loads (store = false) or stores the state words of rooms [room0, room0 + R)
+// that exist, R rooms of G columns each in w; worker `tid` of `n` takes every
+// n-th word in (slot, seat, room) order, so neighbouring workers touch
+// neighbouring rooms of one field: contiguous global words.
+GE_HD void rooms_copy(const Game& g, const MinorState& m, int32_t* w, int stride,
+                      int G, int R, int64_t room0, int64_t B, int tid, int n,
+                      bool store) {
+  const int total = g.L.state * g.P * R;
+  for (int x = tid; x < total; x += n) {
+    const int rr = x % R, p = (x / R) % g.P, slot = x / (R * g.P);
+    if (room0 + rr >= B) continue;
+    int32_t* gw = state_word(g, m, slot, p, room0 + rr, B);
+    int32_t& sw = w[slot * stride + rr * G + p];
+    if (store) *gw = sw;
+    else sw = state_value(g, slot, *gw);
+  }
+}
+
+// The room's scalars from global memory and the present mask from its words
+// (after rooms_copy and a barrier); w points at the room's first column.
+GE_HD Room room_open(const Game& g, const MinorState& m, int32_t* w, int stride,
+                     int lane, uint32_t mask, int shift, int64_t i, int64_t B) {
+  Room r;
+  r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
   r.phase = m.scal[i];
   r.prev = m.scal[B + i];
   r.done = m.scal[2 * B + i] != 0;
   r.winner = m.scal[3 * B + i];
   r.t = m.scal[4 * B + i];
   r.seed = (uint32_t)m.scal[5 * B + i];
+  r.present = seats_where(g, r, [&](int p) { return r.at(g.L.present, p) != 0; });
+#ifdef GE_PROFILE
+  for (int k = 0; k < N_PROF; ++k) r.prof[k] = 0;
+#endif
+  return r;
 }
 
-GE_HD void room_store(const Game& g, const Room& r, const MinorState& m, int64_t i, int64_t B) {
-  const int P = g.P;
-  for (int b = 0; b < g.NB; ++b)
-    for (int p = 0; p < P; ++p) m.bools[((int64_t)b * P + p) * B + i] = r.bools[p * g.NB + b];
-  for (int b = 0; b < g.NN; ++b)
-    for (int p = 0; p < P; ++p) m.nums[((int64_t)b * P + p) * B + i] = r.nums[p * g.NN + b];
-  for (int b = 0; b < g.NS; ++b)
-    for (int p = 0; p < P; ++p) m.strs[((int64_t)b * P + p) * B + i] = r.strs[p * g.NS + b];
-  for (int f = 0; f < g.NPD; ++f)
-    for (int p = 0; p < P; ++p)
-      for (int q = 0; q < P; ++q)
-        m.pdict[(((int64_t)f * P + p) * P + q) * B + i] = r.pdict[(p * g.NPD + f) * P + q];
-  for (int s = 0; s < g.NOD; ++s)
-    for (int p = 0; p < P; ++p) m.odict[((int64_t)s * P + p) * B + i] = r.odict[p * g.NOD + s];
-  for (int p = 0; p < P; ++p) {
-    m.present[(int64_t)p * B + i] = r.present[p];
-    m.regs[(int64_t)p * B + i] = r.acted[p];
-    m.regs[((int64_t)P + p) * B + i] = r.choice[p];
-    m.regs[((int64_t)2 * P + p) * B + i] = r.choice_phase[p];
-  }
+// The scalars back to global memory (one lane of the group calls it).
+GE_HD void room_close(const Room& r, const MinorState& m, int64_t i, int64_t B) {
   m.scal[i] = r.phase;
   m.scal[B + i] = r.prev;
   m.scal[2 * B + i] = r.done;
@@ -216,57 +413,55 @@ GE_HD void room_store(const Game& g, const Room& r, const MinorState& m, int64_t
 
 // -- predicates -------------------------------------------------------------
 
-// atom `field <op> const` for seat p over the given banks
-GE_HD bool atom_eval(const Game& g, const int8_t* sb, const int32_t* sn,
-                     const int8_t* ss, int ai, int p) {
-  const int32_t* a = g.atoms + ai * 5;
+// atom `field <op> const` for seat p
+GE_HD bool atom_eval(const Game& g, const Room& r, int ai, int p) {
+  GE_ADD(CNT_ATOMS, 1);
+  const int32_t* a = g.gm + g.atoms + ai * 5;
   if (a[0] == AB_CONST) return a[4] == 1;
-  int32_t x = a[0] == AB_BOOL ? (int32_t)sb[p * g.NB + a[1]]
-            : a[0] == AB_NUM ? sn[p * g.NN + a[1]]
-                             : (int32_t)ss[p * g.NS + a[1]];
-  return compare(a[2], x, a[3]);
+  const int slot = (a[0] == AB_BOOL ? g.L.bools : a[0] == AB_NUM ? g.L.nums : g.L.strs) + a[1];
+  return compare(a[2], r.at(slot, p), a[3]);
 }
 
 // DNF predicate: no terms = false; an empty term = true
-GE_HD bool pred_eval(const Game& g, const int8_t* sb, const int32_t* sn,
-                     const int8_t* ss, int pi, int p) {
-  for (int t = g.pred_off[pi]; t < g.pred_off[pi + 1]; ++t) {
+GE_HD bool pred_eval(const Game& g, const Room& r, int pi, int p) {
+  const int32_t* pred_off = g.gm + g.pred_off;
+  const int32_t* term_off = g.gm + g.term_off;
+  const int32_t* lits = g.gm + g.lits;
+  for (int t = pred_off[pi]; t < pred_off[pi + 1]; ++t) {
     bool ok = true;
-    for (int l = g.term_off[t]; l < g.term_off[t + 1] && ok; ++l)
-      ok = atom_eval(g, sb, sn, ss, g.lits[l], p);
+    for (int l = term_off[t]; l < term_off[t + 1] && ok; ++l)
+      ok = atom_eval(g, r, lits[l], p);
     if (ok) return true;
   }
   return false;
 }
 
-GE_HD int n_present(const Game& g, const Room& r) {
-  int n = 0;
-  for (int p = 0; p < g.P; ++p) n += r.present[p];
-  return n;
+// is_alive if declared, else present, for the seat itself
+GE_HD bool alive_self(const Game& g, const Room& r, int p) {
+  return has_bit(r.present, p) && (g.alive_slot < 0 || r.at(g.L.bools + g.alive_slot, p));
 }
 
-// is_alive if declared, else present (live banks)
-GE_HD bool alive_at(const Game& g, const Room& r, int q) {
-  return r.present[q] && (g.alive_slot < 0 || r.bools[q * g.NB + g.alive_slot]);
+// the alive seats as a mask
+GE_HD uint32_t alive_mask(const Game& g, const Room& r) {
+  return seats_where(g, r, [&](int p) { return alive_self(g, r, p); });
 }
 
-// present players satisfying predicate pi (live banks)
+// present players satisfying predicate pi
 GE_HD int count_pred(const Game& g, const Room& r, int pi) {
-  int c = 0;
-  for (int p = 0; p < g.P; ++p)
-    c += r.present[p] && pred_eval(g, r.bools, r.nums, r.strs, pi, p);
-  return c;
+  return popc(seats_where(g, r, [&](int p) {
+    return has_bit(r.present, p) && pred_eval(g, r, pi, p);
+  }));
 }
 
-// Room-level branch condition. An AND is the conjunction of its children,
-// so the tree is walked with an explicit stack (no device recursion); the
-// host checks that every tree fits in COND_STACK.
+// Room-level branch condition, the same in every lane. An AND is the
+// conjunction of its children, so the tree is walked with an explicit stack
+// (no device recursion); the host checks that every tree fits in COND_STACK.
 GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
   int stack[COND_STACK];
   int sp = 0;
   stack[sp++] = root;
   while (sp > 0) {
-    const int32_t* c = g.conds + stack[--sp] * 5;
+    const int32_t* c = g.gm + g.conds + stack[--sp] * 5;
     switch (c[0]) {
       case COND_ALWAYS: break;
       case COND_COUNTCMP: {
@@ -276,13 +471,14 @@ GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
         break;
       }
       case COND_ALLPRESENT:
-        if (count_pred(g, r, c[1]) != n_present(g, r)) return false;
+        if (count_pred(g, r, c[1]) != popc(r.present)) return false;
         break;
       case COND_PREVIN:
         if (!mask64_has(c[1], c[2], r.prev + 1)) return false;
         break;
       case COND_AND:
-        for (int k = 0; k < c[2] && sp < COND_STACK; ++k) stack[sp++] = g.pool[c[1] + k];
+        for (int k = 0; k < c[2] && sp < COND_STACK; ++k)
+          stack[sp++] = g.gm[g.pool + c[1] + k];
         break;
       default: return false;
     }
@@ -292,171 +488,163 @@ GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
 
 // -- on-enter effect programs (P20) ------------------------------------------
 
-// One MECH_EFFECTS program: per block, every node reads the block-entry
-// snapshot; statements write the live room in declared order.
+// One MECH_EFFECTS program. Per block, every node is evaluated before any
+// statement, so the nodes read the block-entry state from the live words;
+// statements then write the seat's own words in declared order.
 GE_HD void run_effects(const Game& g, Room& r, const int32_t* q) {
   const int P = g.P;
+  const Layout& L = g.L;
+  const int32_t* pool = g.gm + g.pool;
   int off = q[0];
   const int n_blocks = q[1], rv_off = q[2], rv_n = q[3];
-  int8_t sb[MAX_P * MAX_NB], ss[MAX_P * MAX_NS];
-  int32_t sn[MAX_P * MAX_NN];
-  int32_t vals[MAX_NODES * MAX_P];  // vals[k * P + p]: node k at seat p
-  const int np = n_present(g, r);
+  const int np = popc(r.present);
   for (int blk = 0; blk < n_blocks; ++blk) {
-    const int n_nodes = g.pool[off], n_stmts = g.pool[off + 1];
-    const int32_t* nodes = g.pool + off + 2;
+    const int n_nodes = pool[off], n_stmts = pool[off + 1];
+    const int32_t* nodes = pool + off + 2;
     const int32_t* stmts = nodes + n_nodes * 4;
     off += 2 + n_nodes * 4 + n_stmts * 6;
-    for (int x = 0; x < P * g.NB; ++x) sb[x] = r.bools[x];
-    for (int x = 0; x < P * g.NN; ++x) sn[x] = r.nums[x];
-    for (int x = 0; x < P * g.NS; ++x) ss[x] = r.strs[x];
+    GE_SYNC(r);  // the last block's readers are done with the node values
 
     for (int k = 0; k < n_nodes; ++k) {
       const int32_t* nd = nodes + k * 4;
       const int kind = nd[0], a = nd[1], b = nd[2], c = nd[3];
-      int32_t* out = vals + k * P;
-      // operand rows, formed only where a/b/c name nodes
-      auto va = [&](int p) { return vals[a * P + p]; };
-      auto vb = [&](int p) { return vals[b * P + p]; };
-      auto vc = [&](int p) { return vals[c * P + p]; };
-      switch (kind) {
-        case NK_CONST: for (int p = 0; p < P; ++p) out[p] = a; break;
-        case NK_FIELD:
-          for (int p = 0; p < P; ++p)
-            out[p] = a == FXB_BOOL ? (int32_t)sb[p * g.NB + b]
-                   : a == FXB_NUM ? sn[p * g.NN + b] : (int32_t)ss[p * g.NS + b];
-          break;
-        case NK_SEAT: for (int p = 0; p < P; ++p) out[p] = p + 1; break;
-        case NK_NPLAYERS: for (int p = 0; p < P; ++p) out[p] = np; break;
-        case NK_CHOICE: for (int p = 0; p < P; ++p) out[p] = r.choice[p]; break;
-        case NK_CHOSEIN:
-          for (int p = 0; p < P; ++p) out[p] = mask64_has(a, b, r.choice_phase[p] + 1);
-          break;
-        case NK_ALIVE:
-          for (int p = 0; p < P; ++p)
-            out[p] = r.present[p] && (g.alive_slot < 0 || sb[p * g.NB + g.alive_slot]);
-          break;
-        case NK_PRESENT: for (int p = 0; p < P; ++p) out[p] = r.present[p]; break;
-        case NK_PRED:
-          for (int p = 0; p < P; ++p) out[p] = pred_eval(g, sb, sn, ss, a, p);
-          break;
-        case NK_BIN:
-          for (int p = 0; p < P; ++p) {
-            int32_t x = vb(p), y = vc(p);
-            out[p] = a == BIN_ADD ? wrap_add(x, y) : a == BIN_SUB ? wrap_sub(x, y)
-                   : a == BIN_MUL ? wrap_mul(x, y) : a == BIN_MIN ? (x < y ? x : y)
-                   : (x > y ? x : y);
+      // operand values, formed only where a/b/c name nodes
+      auto va = [&](int s) { return r.at(L.vals + a, s); };
+      auto vb = [&](int s) { return r.at(L.vals + b, s); };
+      auto vc = [&](int s) { return r.at(L.vals + c, s); };
+      if (kind >= NK_AT) GE_SYNC(r);  // reads the other seats' operands
+      GE_EACH_SEAT(g, r, p) {
+        int32_t out = 0;
+        GE_ADD(CNT_NODES, node_ops(kind, p, P));
+        switch (kind) {
+          case NK_CONST: out = a; break;
+          case NK_FIELD:
+            out = r.at((a == FXB_BOOL ? L.bools : a == FXB_NUM ? L.nums : L.strs) + b, p);
+            break;
+          case NK_SEAT: out = p + 1; break;
+          case NK_NPLAYERS: out = np; break;
+          case NK_CHOICE: out = r.at(L.choice, p); break;
+          case NK_CHOSEIN: out = mask64_has(a, b, r.at(L.choice_phase, p) + 1); break;
+          case NK_ALIVE: out = alive_self(g, r, p); break;
+          case NK_PRESENT: out = has_bit(r.present, p); break;
+          case NK_PRED: out = pred_eval(g, r, a, p); break;
+          case NK_BIN: {
+            const int32_t x = vb(p), y = vc(p);
+            out = a == BIN_ADD ? wrap_add(x, y) : a == BIN_SUB ? wrap_sub(x, y)
+                : a == BIN_MUL ? wrap_mul(x, y) : a == BIN_MIN ? (x < y ? x : y)
+                : (x > y ? x : y);
+            break;
           }
-          break;
-        case NK_CMP: for (int p = 0; p < P; ++p) out[p] = compare(a, vb(p), vc(p)); break;
-        case NK_NOT: for (int p = 0; p < P; ++p) out[p] = va(p) == 0; break;
-        case NK_AND: for (int p = 0; p < P; ++p) out[p] = va(p) != 0 && vb(p) != 0; break;
-        case NK_OR: for (int p = 0; p < P; ++p) out[p] = va(p) != 0 || vb(p) != 0; break;
-        case NK_WHERE: for (int p = 0; p < P; ++p) out[p] = va(p) != 0 ? vb(p) : vc(p); break;
-        case NK_AT:  // val[idx-1] if idx names a present seat, else 0
-          for (int p = 0; p < P; ++p) {
-            int32_t i = vb(p);
-            out[p] = (i >= 1 && i <= P && r.present[i - 1]) ? va(i - 1) : 0;
+          case NK_CMP: out = compare(a, vb(p), vc(p)); break;
+          case NK_NOT: out = va(p) == 0; break;
+          case NK_AND: out = va(p) != 0 && vb(p) != 0; break;
+          case NK_OR: out = va(p) != 0 || vb(p) != 0; break;
+          case NK_WHERE: out = va(p) != 0 ? vb(p) : vc(p); break;
+          case NK_AT: {  // val[idx-1] if idx names a present seat, else 0
+            const int32_t i = vb(p);
+            out = (i >= 1 && i <= P && has_bit(r.present, i - 1)) ? va(i - 1) : 0;
+            break;
           }
-          break;
-        case NK_INCOMING:  // sum of val over masked seats whose key names p
-          for (int p = 0; p < P; ++p) {
+          case NK_INCOMING: {  // sum of val over masked seats whose key names p
             uint32_t s = 0;
             for (int j = 0; j < P; ++j)
-              if (vc(j) != 0 && r.present[j] && vb(j) == p + 1) s += (uint32_t)va(j);
-            out[p] = (int32_t)s;
+              if (vc(j) != 0 && has_bit(r.present, j) && vb(j) == p + 1) s += (uint32_t)va(j);
+            out = (int32_t)s;
+            break;
           }
-          break;
-        case NK_EQCOUNT:
-        case NK_RANK:  // masked seats (all / earlier) with an equal key
-          for (int p = 0; p < P; ++p) {
-            int32_t s = 0;
+          case NK_EQCOUNT:
+          case NK_RANK: {  // masked seats (all / earlier) with an equal key
             const int hi = kind == NK_RANK ? p : P;
             for (int j = 0; j < hi; ++j)
-              s += vb(j) != 0 && r.present[j] && va(j) == va(p);
-            out[p] = s;
+              out += vb(j) != 0 && has_bit(r.present, j) && va(j) == va(p);
+            break;
           }
-          break;
-        case NK_REDUCE: {  // room-level; empty max/min is 0
-          int32_t acc = 0;
-          bool any = false;
-          for (int j = 0; j < P; ++j) {
-            if (vc(j) == 0 || !r.present[j]) continue;
-            int32_t v = vb(j);
-            if (a == RED_COUNT) acc += 1;
-            else if (a == RED_SUM) acc = wrap_add(acc, v);
-            else if (!any) acc = v;
-            else if (a == RED_MAX) acc = v > acc ? v : acc;
-            else acc = v < acc ? v : acc;
-            any = true;
+          case NK_REDUCE: {  // room-level; empty max/min is 0
+            bool any = false;
+            for (int j = 0; j < P; ++j) {
+              if (vc(j) == 0 || !has_bit(r.present, j)) continue;
+              const int32_t v = vb(j);
+              if (a == RED_COUNT) out += 1;
+              else if (a == RED_SUM) out = wrap_add(out, v);
+              else if (!any) out = v;
+              else if (a == RED_MAX) out = v > out ? v : out;
+              else out = v < out ? v : out;
+              any = true;
+            }
+            break;
           }
-          for (int p = 0; p < P; ++p) out[p] = acc;
-          break;
+          case NK_ARGBEST: {  // ties resolve to the lowest seat; empty is 0
+            int32_t best = 0;
+            for (int j = 0; j < P; ++j) {
+              if (vc(j) == 0 || !has_bit(r.present, j)) continue;
+              const int32_t v = vb(j);
+              if (out == 0 || (a == ARG_MAX ? v > best : v < best)) { best = v; out = j + 1; }
+            }
+            break;
+          }
+          default: break;
         }
-        case NK_ARGBEST: {  // ties resolve to the lowest seat; empty is 0
-          int32_t best = 0, win = 0;
-          for (int j = 0; j < P; ++j) {
-            if (vc(j) == 0 || !r.present[j]) continue;
-            int32_t v = vb(j);
-            if (win == 0 || (a == ARG_MAX ? v > best : v < best)) { best = v; win = j + 1; }
-          }
-          for (int p = 0; p < P; ++p) out[p] = win;
-          break;
-        }
-        default: break;
+        r.at(L.vals + k, p) = out;
       }
     }
 
+    GE_SYNC(r);  // statements read seat 1's and the deal's node values
     for (int si = 0; si < n_stmts; ++si) {
       const int32_t* st = stmts + si * 6;
       const int skind = st[0], bank = st[1], slot = st[2];
-      auto vv = [&](int p) { return vals[st[3] * P + p]; };
-      auto vw = [&](int p) { return vals[st[4] * P + p]; };
-      auto vk = [&](int p) { return vals[st[5] * P + p]; };
+      auto vv = [&](int s) { return r.at(L.vals + st[3], s); };
+      auto vw = [&](int s) { return r.at(L.vals + st[4], s); };
+      auto vk = [&](int s) { return r.at(L.vals + st[5], s); };
       if (skind == ST_OVER) {  // P11/P17: trigger and winner from seat 1
-        if (vw(0) != 0 && r.present[0]) { r.done = 1; r.winner = vv(0); }
+        if (vw(0) != 0 && has_bit(r.present, 0)) { r.done = 1; r.winner = vv(0); }
         continue;
       }
       if (skind == ST_DEAL) {
         // P10: rank every seat by splitmix32 key (absent seats last); st[3]
         // is the pool offset of the (P+1, P) multiset table, st[5] the salt
-        uint32_t keys[MAX_P];
-        for (int p = 0; p < P; ++p)
-          keys[p] = r.present[p] ? splitmix32(r.seed * 0x100u + (uint32_t)p
-                                              + (uint32_t)vk(p) * GOLDEN)
-                                 : 0xFFFFFFFFu;
-        for (int p = 0; p < P; ++p) {
-          if (vw(p) == 0 || !r.present[p]) continue;
+        GE_EACH_SEAT(g, r, p)
+          r.at(L.tmp, p) = (int32_t)(has_bit(r.present, p)
+              ? splitmix32(r.seed * 0x100u + (uint32_t)p + (uint32_t)vk(p) * GOLDEN)
+              : 0xFFFFFFFFu);
+        GE_SYNC(r);
+        GE_EACH_SEAT(g, r, p) {
+          if (vw(p) == 0 || !has_bit(r.present, p)) continue;
+          const uint32_t mine = (uint32_t)r.at(L.tmp, p);
           int rank = 0;
-          for (int j = 0; j < P; ++j)
-            rank += keys[j] < keys[p] || (keys[j] == keys[p] && j < p);
-          r.strs[p * g.NS + slot] = (int8_t)g.pool[st[3] + np * P + rank];
+          for (int j = 0; j < P; ++j) {
+            const uint32_t key = (uint32_t)r.at(L.tmp, j);
+            rank += key < mine || (key == mine && j < p);
+          }
+          GE_ADD(CNT_WRITES, 1);
+          r.at(L.strs + slot, p) = low_byte(pool[st[3] + np * P + rank]);
         }
+        GE_SYNC(r);  // the keys are read; tmp is free again
         continue;
       }
-      for (int p = 0; p < P; ++p) {
-        if (vw(p) == 0 || !r.present[p]) continue;
+      GE_EACH_SEAT(g, r, p) {
+        if (vw(p) == 0 || !has_bit(r.present, p)) continue;
+        GE_ADD(CNT_WRITES, 1);
         switch (skind) {
           case ST_KILL:  // P15: clear is_alive, then set the reveal flags
-            if (g.alive_slot >= 0) r.bools[p * g.NB + g.alive_slot] = 0;
-            for (int k = 0; k < rv_n; ++k) r.bools[p * g.NB + g.pool[rv_off + k]] = 1;
+            if (g.alive_slot >= 0) r.at(L.bools + g.alive_slot, p) = 0;
+            for (int k = 0; k < rv_n; ++k) r.at(L.bools + pool[rv_off + k], p) = 1;
             break;
           case ST_SET:
-            if (bank == FXB_BOOL) r.bools[p * g.NB + slot] = vv(p) != 0;
-            else if (bank == FXB_STR) r.strs[p * g.NS + slot] = (int8_t)vv(p);
-            else r.nums[p * g.NN + slot] = vv(p);
+            if (bank == FXB_BOOL) r.at(L.bools + slot, p) = vv(p) != 0;
+            else if (bank == FXB_STR) r.at(L.strs + slot, p) = low_byte(vv(p));
+            else r.at(L.nums + slot, p) = vv(p);
             break;
           case ST_ADD:
-            r.nums[p * g.NN + slot] = wrap_add(r.nums[p * g.NN + slot], vv(p));
+            r.at(L.nums + slot, p) = wrap_add(r.at(L.nums + slot, p), vv(p));
             break;
           case ST_RESET:  // dict banks clear to empty
-            if (bank == FXB_ODICT) r.odict[p * g.NOD + slot] = 0;
-            else for (int j = 0; j < P; ++j) r.pdict[(p * g.NPD + slot) * P + j] = 0;
+            if (bank == FXB_ODICT) r.at(L.odict + slot, p) = 0;
+            else for (int j = 0; j < P; ++j) r.at(L.pdict + slot * P + j, p) = 0;
             break;
           case ST_SETD: {  // pdict[key] = val; a key naming no present seat is a no-op
-            int32_t k = vk(p);
-            if (k >= 1 && k <= P && r.present[k - 1])
-              r.pdict[(p * g.NPD + slot) * P + (k - 1)] = (int8_t)vv(p);
+            const int32_t k = vk(p);
+            if (k >= 1 && k <= P && has_bit(r.present, k - 1))
+              r.at(L.pdict + slot * P + (k - 1), p) = low_byte(vv(p));
             break;
           }
           default: break;
@@ -469,130 +657,147 @@ GE_HD void run_effects(const Game& g, Room& r, const int32_t* q) {
 // Every mechanic of the room's (just entered) phase, in declared order.
 GE_HD void apply_on_enter(const Game& g, Room& r) {
   for (int mi = 0; mi < g.n_mechs; ++mi) {
-    const int32_t* m = g.mechs + mi * MECH_ROW;
-    if (m[0] == MECH_EFFECTS && m[1] == r.phase) run_effects(g, r, m + 2);
+    const int32_t* m = g.gm + g.mechs + mi * MECH_ROW;
+    if (m[0] == MECH_EFFECTS && m[1] == r.phase) {
+      GE_TIC(r);
+      run_effects(g, r, m + 2);
+      GE_TOC(r, PROF_EFFECTS + mi < N_PROF ? PROF_EFFECTS + mi : N_PROF - 1);
+    }
   }
 }
 
 // -- bots, step, reset --------------------------------------------------------
 
 // Scripted bots (engine.scripted_actions): one splitmix32 stream per
-// (seed, t, seat); every present seat emits, acceptance filters.
-GE_HD void room_policy(const Game& g, const Room& r, int32_t* out) {
-  const int P = g.P;
-  const int32_t* ph = g.phase + r.phase * PHASE_ROW;
+// (seed, t, seat); every present seat emits into its action word,
+// acceptance filters.
+GE_HD void room_policy(const Game& g, Room& r) {
+  GE_TIC(r);
+  const int32_t* ph = g.gm + g.phase + r.phase * PHASE_ROW;
   const int kind = ph[4], kmax = ph[5];
   const uint32_t h0 = splitmix32(r.seed * MIX + (uint32_t)r.t);
-  int n_alive = 0;
-  for (int q = 0; q < P; ++q) n_alive += alive_at(g, r, q);
-  const int np = n_present(g, r);
-  for (int p = 0; p < P; ++p) {
+  const uint32_t alive = alive_mask(g, r);
+  const int n_alive = popc(alive), np = popc(r.present);
+  GE_EACH_SEAT(g, r, p) {
     const uint32_t h = splitmix32(h0 ^ ((uint32_t)(p + 1) * GOLDEN));
     int32_t c = 0;
     if (kind == K_TARGET) {  // the k-th alive seat, k = h % n_alive
-      if (n_alive > 0) {
-        const int k = (int)(h % (uint32_t)n_alive);
-        for (int q = 0, seen = 0; q < P; ++q) {
-          if (!alive_at(g, r, q)) continue;
-          if (seen++ == k) { c = q + 1; break; }
-        }
-      }
+      if (n_alive > 0) c = nth_set_bit(alive, (int)(h % (uint32_t)n_alive)) + 1;
     } else if (kind == K_OPTION) {
       const uint32_t hi = (uint32_t)(kmax > 0 ? kmax : np);
       c = 1 + (int32_t)(h % (hi > 0 ? hi : 1u));
     } else if (kind == K_SUBMIT) {
       c = 1;
     }
-    out[p] = r.present[p] ? c : 0;
+    r.at(g.L.act, p) = has_bit(r.present, p) ? c : 0;
   }
+  GE_TOC(r, PROF_POLICY);
 }
 
-// One engine step (core/step.py make_step): P1/P2 acceptance against the
-// pre-step state, record writes, P3 completion, P4/P5 first-match branch,
-// transition and on-enter mechanics. t counts every step, done or not.
-GE_HD void room_step(const Game& g, Room& r, const int32_t* act) {
+// One engine step (core/step.py make_step) on the seats' action words: P1/P2
+// acceptance against the pre-step state, record writes, P3 completion, P4/P5
+// first-match branch, transition and on-enter mechanics. t counts every
+// step, done or not.
+GE_HD void room_step(const Game& g, Room& r) {
   const int P = g.P;
+  const Layout& L = g.L;
   const int i = r.phase;
-  const int32_t* ph = g.phase + i * PHASE_ROW;
+  const int32_t* ph = g.gm + g.phase + i * PHASE_ROW;
   const bool is_action = ph[0] != 0;
   const int tpred = ph[1], kind = ph[4], kmax = ph[5];
   const int rec_num = ph[6], rec_pd = ph[7], pd_src = ph[8], rec_od = ph[9];
-  const int np = n_present(g, r);
-
-  bool targeted[MAX_P], accept[MAX_P];
-  int32_t c_norm[MAX_P], pd_val[MAX_P];
-  for (int p = 0; p < P; ++p) {
-    const int32_t c = act[p];
-    targeted[p] = r.present[p] && pred_eval(g, r.bools, r.nums, r.strs, tpred, p);
-    const bool in_players = c >= 1 && c <= P;
-    bool legal;
-    if (kind == K_TARGET) legal = in_players && alive_at(g, r, c - 1);
-    else if (kind == K_OPTION) legal = c >= 1 && c <= (kmax > 0 ? kmax : np);
-    else legal = kind == K_SUBMIT;
-    accept[p] = is_action && !r.done && targeted[p] && !r.acted[p] && c != 0 && legal;
-    c_norm[p] = kind == K_SUBMIT ? 1 : c;
-    // pdict record: the target's source-string code, translated
-    int32_t src = (in_players && pd_src >= 0 && pd_src < g.NS)
-                      ? (int32_t)r.strs[(c - 1) * g.NS + pd_src] : 0;
-    int32_t tr = (src >= 0 && src < g.maxv) ? g.pdtrans[i * g.maxv + src] : 0;
-    pd_val[p] = pd_src >= 0 ? tr : 0;
-  }
-  for (int p = 0; p < P; ++p) {
-    if (!accept[p]) continue;
-    const int32_t c = act[p];
-    for (int b = 0; b < g.NB; ++b) {
-      if (g.rec_true[i * g.NB + b]) r.bools[p * g.NB + b] = 1;
-      if (g.rec_false[i * g.NB + b]) r.bools[p * g.NB + b] = 0;
+  const int np = popc(r.present);
+  {
+    GE_TIC(r);
+    GE_SYNC(r);  // the strings the last step's effects or reset wrote
+    const uint32_t alive = alive_mask(g, r);
+    // a seat's records touch only its own words, and never a string or the
+    // alive set another seat's acceptance reads
+    GE_EACH_SEAT(g, r, p) {
+      const int32_t c = r.at(L.act, p);
+      const bool targeted = has_bit(r.present, p) && pred_eval(g, r, tpred, p);
+      const bool in_players = c >= 1 && c <= P;
+      bool legal;
+      if (kind == K_TARGET) legal = in_players && has_bit(alive, c - 1);
+      else if (kind == K_OPTION) legal = c >= 1 && c <= (kmax > 0 ? kmax : np);
+      else legal = kind == K_SUBMIT;
+      const bool accept = is_action && !r.done && targeted && !r.at(L.acted, p) && c != 0 && legal;
+      if (accept) {
+        const int32_t c_norm = kind == K_SUBMIT ? 1 : c;
+        GE_ADD(CNT_WRITES, 1);
+        for (int b = 0; b < g.NB; ++b) {
+          if (g.gm[g.rec_true + i * g.NB + b]) r.at(L.bools + b, p) = 1;
+          if (g.gm[g.rec_false + i * g.NB + b]) r.at(L.bools + b, p) = 0;
+        }
+        if (rec_num >= 0 && rec_num < g.NN) r.at(L.nums + rec_num, p) = c_norm;
+        if (rec_pd >= 0 && rec_pd < g.NPD && in_players) {
+          // pdict record: the target's source-string code, translated
+          const int32_t src = (pd_src >= 0 && pd_src < g.NS) ? r.at(L.strs + pd_src, c - 1) : 0;
+          const int32_t tr = (src >= 0 && src < g.maxv) ? g.gm[g.pdtrans + i * g.maxv + src] : 0;
+          r.at(L.pdict + rec_pd * P + (c - 1), p) = low_byte(pd_src >= 0 ? tr : 0);
+        }
+        if (rec_od >= 0 && rec_od < g.NOD) r.at(L.odict + rec_od, p) = 1;
+        r.at(L.acted, p) = 1;
+        r.at(L.choice, p) = c_norm;
+        r.at(L.choice_phase, p) = i;
+      }
+      r.at(L.tmp, p) = targeted && !r.at(L.acted, p);  // still owed an action
     }
-    if (rec_num >= 0 && rec_num < g.NN) r.nums[p * g.NN + rec_num] = c_norm[p];
-    if (rec_pd >= 0 && rec_pd < g.NPD && c >= 1 && c <= P)
-      r.pdict[(p * g.NPD + rec_pd) * P + (c - 1)] = (int8_t)pd_val[p];
-    if (rec_od >= 0 && rec_od < g.NOD) r.odict[p * g.NOD + rec_od] = 1;
-    r.acted[p] = 1;
-    r.choice[p] = c_norm[p];
-    r.choice_phase[p] = i;
+    GE_SYNC(r);  // every seat has read its target's string
+    GE_TOC(r, PROF_ACCEPT);
   }
 
+  GE_TIC(r);
   bool complete = !r.done;
-  if (is_action)
-    for (int p = 0; p < P; ++p)
-      if (targeted[p] && !r.acted[p]) complete = false;
+  if (is_action && seats_where(g, r, [&](int p) { return r.at(L.tmp, p) != 0; }) != 0)
+    complete = false;
   int next = ph[3];
-  const int b0 = g.branch_off[i], b1 = g.branch_off[i + 1];
-  if (b1 > b0) {
-    next = g.branches[(b1 - 1) * 2 + 1];  // P5 fallback: the last branch
-    for (int b = b0; b < b1; ++b)
-      if (cond_eval(g, r, g.branches[b * 2])) { next = g.branches[b * 2 + 1]; break; }
+  if (complete) {  // the branch matters only to a room that moves on
+    const int32_t* branch_off = g.gm + g.branch_off;
+    const int32_t* branches = g.gm + g.branches;
+    const int b0 = branch_off[i], b1 = branch_off[i + 1];
+    if (b1 > b0) {
+      next = branches[(b1 - 1) * 2 + 1];  // P5 fallback: the last branch
+      for (int b = b0; b < b1; ++b)
+        if (cond_eval(g, r, branches[b * 2])) { next = branches[b * 2 + 1]; break; }
+    }
   }
+  GE_TOC(r, PROF_BRANCH);
   r.t += 1;
   if (complete && next != i) {
     r.prev = i;
     r.phase = next;
-    for (int p = 0; p < P; ++p) r.acted[p] = 0;
+    GE_EACH_SEAT(g, r, p) r.at(L.acted, p) = 0;
     apply_on_enter(g, r);
   }
 }
 
 // A fresh room of n seats (init_state): defaults, start phase, on-enter.
 GE_HD void room_init(const Game& g, Room& r, int n, uint32_t seed) {
-  const int P = g.P;
-  for (int p = 0; p < P; ++p) {
-    for (int b = 0; b < g.NB; ++b) r.bools[p * g.NB + b] = g.defaults[b] != 0;
-    for (int b = 0; b < g.NN; ++b) r.nums[p * g.NN + b] = g.defaults[g.NB + b];
-    for (int b = 0; b < g.NS; ++b) r.strs[p * g.NS + b] = (int8_t)g.defaults[g.NB + g.NN + b];
-    for (int x = 0; x < g.NPD * P; ++x) r.pdict[p * g.NPD * P + x] = 0;
-    for (int s = 0; s < g.NOD; ++s) r.odict[p * g.NOD + s] = 0;
-    r.present[p] = p < n;
-    r.acted[p] = 0;
-    r.choice[p] = 0;
-    r.choice_phase[p] = -1;
+  const Layout& L = g.L;
+  const int32_t* defaults = g.gm + g.defaults;
+  {
+    GE_TIC(r);
+    GE_EACH_SEAT(g, r, p) {
+      for (int b = 0; b < g.NB; ++b) r.at(L.bools + b, p) = defaults[b] != 0;
+      for (int b = 0; b < g.NN; ++b) r.at(L.nums + b, p) = defaults[g.NB + b];
+      for (int b = 0; b < g.NS; ++b) r.at(L.strs + b, p) = low_byte(defaults[g.NB + g.NN + b]);
+      for (int x = 0; x < g.NPD * g.P; ++x) r.at(L.pdict + x, p) = 0;
+      for (int s = 0; s < g.NOD; ++s) r.at(L.odict + s, p) = 0;
+      r.at(L.present, p) = p < n;
+      r.at(L.acted, p) = 0;
+      r.at(L.choice, p) = 0;
+      r.at(L.choice_phase, p) = -1;
+    }
+    r.present = first_seats(n);
+    r.phase = g.start_index;
+    r.prev = -1;
+    r.done = 0;
+    r.winner = 0;
+    r.t = 0;
+    r.seed = seed;
+    GE_TOC(r, PROF_RESET);
   }
-  r.phase = g.start_index;
-  r.prev = -1;
-  r.done = 0;
-  r.winner = 0;
-  r.t = 0;
-  r.seed = seed;
   apply_on_enter(g, r);
 }
 
@@ -600,13 +805,12 @@ GE_HD void room_init(const Game& g, Room& r, int n, uint32_t seed) {
 // (engine.make_rollout). Returns the episodes completed.
 GE_HD int32_t room_rollout(const Game& g, Room& r, int num_steps, int auto_reset) {
   int32_t episodes = 0;
-  int32_t act[MAX_P];
   for (int s = 0; s < num_steps; ++s) {
-    room_policy(g, r, act);
+    room_policy(g, r);
     const int32_t done_in = r.done;
-    room_step(g, r, act);
+    room_step(g, r);
     episodes += r.done && !done_in;  // a room born done is not recounted
-    if (auto_reset && r.done) room_init(g, r, n_present(g, r), splitmix32(r.seed ^ 0xDECAF000u));
+    if (auto_reset && r.done) room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
   }
   return episodes;
 }

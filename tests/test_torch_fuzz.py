@@ -17,6 +17,7 @@ from game_engine_tpu_torch.core.step import make_step
 from tests.test_fuzz_ir import _compiled, _fuzz_doc
 from tests.test_parity import assert_state_matches
 from tests.test_torch_kernel_host import assert_host_matches_plain
+from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_state import port_lowered_doc
 
 

@@ -3,25 +3,35 @@ with g++ through the host harness (csrc/rollout_host.cpp) against the
 plain-torch rollout, exactly, plus the kernel wrapper's layout, packing and
 argument checks. The kernel itself runs only on a GPU (chip_smoke.py)."""
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 import torch
 
+from game_engine_tpu.core.engine import make_rollout as jax_make_rollout
+from game_engine_tpu.core.state import init_state as jax_init_state
 from game_engine_tpu.native.pack import pack as jax_pack
 from game_engine_tpu_torch.core.engine import make_rollout
 from game_engine_tpu_torch.core.rollout_kernel import (
     check_game,
     check_state,
+    block_size,
+    count_rollout,
     from_minor,
     game_array,
+    group_lanes,
     host_rollout,
     kernel_rollout,
     to_minor,
 )
 from game_engine_tpu_torch.core.state import GameState, init_state
+from game_engine_tpu_torch.gamespec.tables import LAnd
 from game_engine_tpu_torch.native.pack import pack
 from tests.test_torch_engine import born_done_game
-from tests.test_torch_state import builtin_pair, catalog_games, lowered_game
+from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_state import assert_same_state, builtin_pair, catalog_games, lowered_game
 from tests.test_torch_step import wrap_pair
 
 
@@ -61,6 +71,46 @@ def test_kernel_body_twelve_seats():
     lw = builtin_pair("werewolf", {"max_players": 12}).port
     assert lw.P == 12
     assert assert_host_matches_plain(lw, 4, torch.tensor([10, 12, 11, 12]), 150) > 0
+
+
+@pytest.mark.parametrize("name,config,n", [
+    ("werewolf", None, [5, 5, 7, 5]),           # 5 and 7 seats on an 8-lane group
+    ("harbor-lots", None, [5, 6, 5, 7]),
+    ("werewolf", {"max_players": 12}, [12, 9, 12, 11]),   # 12 of 16 lanes
+    ("werewolf", {"max_players": 5}, [5, 4, 5, 5]),       # P itself no power of two
+])
+def test_kernel_body_rooms_narrower_than_their_group(name, config, n):
+    lw = builtin_pair(name, config).port
+    assert max(n) <= lw.P <= group_lanes(lw.P) and max(n) < group_lanes(lw.P)
+    assert assert_host_matches_plain(lw, 4, torch.tensor(n), 120) > 0
+
+
+@pytest.mark.parametrize("seats", [20, 32])
+def test_kernel_body_more_seats_than_sixteen(seats):
+    """Past what the kernel's first design compiled in (16 seats): a room on
+    a whole warp."""
+    lw = builtin_pair("werewolf", {"max_players": seats}).port
+    assert lw.P == seats and group_lanes(seats) == 32
+    n = torch.tensor([seats, seats - 1, 17, 6])
+    assert assert_host_matches_plain(lw, 4, n, 150) > 0
+
+
+@pytest.mark.parametrize("seats", [20, 32])
+def test_kernel_body_matches_jax_past_sixteen_seats(seats):
+    """The chain kernel body = plain = the JAX engine at widths no catalog
+    game has: a fault the plain step and the kernel body shared would show
+    against the JAX package only."""
+    pair = builtin_pair("werewolf", {"max_players": seats})
+    B, steps = 4, 150
+    n = np.array([seats, seats - 1, 17, 6], np.int32)
+    seeds = np.arange(B, dtype=np.uint32)
+    ref, ref_eps = jax.jit(jax_make_rollout(pair.jax, steps, auto_reset=True))(
+        jax_init_state(pair.jax, B, n, seeds))
+    start = init_state(pair.port, B, torch.as_tensor(n), seeds, device="cpu")
+    for rollout in (make_rollout(pair.port, steps), lambda st: host_rollout(pair.port, st, steps)):
+        got, eps = rollout(start)
+        assert_same_state(ref, got)
+        assert int(eps) == int(ref_eps) > 0
 
 
 def test_kernel_body_mixed_sizes_and_seeds():
@@ -107,14 +157,100 @@ def test_game_array_directory():
         i += 2 + n
 
 
+def test_group_lanes():
+    assert [group_lanes(p) for p in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 20, 32)] == [
+        1, 2, 4, 4, 8, 8, 16, 16, 16, 32, 32, 32]
+
+
+def test_shared_memory_is_sized_to_the_game():
+    """Words a lane by hand: the bool, num and str fields, a pdict row of P
+    a bank, the odict banks, present/acted/choice/choice_phase, the action
+    and a scratch word, and the largest effect block's nodes."""
+    ww = lowered_game("werewolf").port
+    assert block_size(ww)["words_per_lane"] == (6 + 1 + 3 + 1 * 8 + 1 + 4) + 2 + 21 == 46
+    assert len(game_array(ww)) == 1455
+    assert block_size(ww, 128)["shared_bytes"] == 4 * (1455 + 46 * 128) == 29372
+    assert block_size(ww, 64)["shared_bytes"] == 17596
+    relic = builtin_pair("relic-draft").port
+    assert block_size(relic)["words_per_lane"] == (6 + 3 + 1 + 1 * 8 + 1 + 4) + 2 + 53 == 78
+    assert len(game_array(relic)) == 726
+    assert block_size(relic, 128)["shared_bytes"] == 4 * (726 + 78 * 128) == 42840
+    # twenty seats: the pdict row grows with P
+    w20 = builtin_pair("werewolf", {"max_players": 20}).port
+    assert block_size(w20)["words_per_lane"] == 46 + 12
+    assert block_size(ww, 128)["threads"] == 128 and block_size(ww, 1024)["threads"] == 1024
+    assert block_size(ww)["max_shared_bytes"] == 232448  # 227 KB
+    # a game whose rooms fit only a smaller block gets the largest halving
+    layout = dataclasses.replace(ww.game.layout, n_odict=300)
+    wide = dataclasses.replace(ww, game=dataclasses.replace(ww.game, layout=layout))
+    size = block_size(wide, 256)
+    assert size["words_per_lane"] == 46 + 299 and size["threads"] == 128
+    assert size["shared_bytes"] == 4 * (len(game_array(wide)) + 345 * 128) <= 232448
+    assert 4 * (len(game_array(wide)) + 345 * 256) > 232448
+    assert block_size(wide, 192)["threads"] == 96  # halved in whole warps
+
+
+@pytest.mark.parametrize("game", catalog_games())
+def test_room_words_agree_with_the_kernel_layout(game):
+    """The kernel's own layout (room_step.cuh layout_of), which sizes the
+    launch, against the words a lane needs counted from the game's layout."""
+    lw = builtin_pair(game).port
+    lay = lw.game.layout
+    nodes = max([len(nodes) for m in lw.mechanics for nodes, _ in m.blocks] or [0])
+    assert game_array(lw)[0] == nodes
+    state = (lay.n_bool + lay.n_num + lay.n_str + max(1, lay.n_pdict) * lw.P
+             + max(1, lay.n_odict) + 4)
+    size = block_size(lw, 128)
+    assert size["words_per_lane"] == state + 2 + nodes
+    assert size["threads"] == 128
+    assert size["shared_bytes"] == 4 * (len(game_array(lw)) + size["words_per_lane"] * 128)
+    check_game(lw)
+
+
+def test_check_game_refuses_only_what_the_design_cannot_hold():
+    lw = lowered_game("werewolf").port
+    check_game(lw)
+    check_game(builtin_pair("werewolf", {"max_players": 32}).port)
+    with pytest.raises(ValueError, match=r"P=33 seats.*P <= 32"):
+        check_game(builtin_pair("werewolf", {"max_players": 33}).port)
+    with pytest.raises(ValueError, match=r"NP=64 phases.*NP <= 63"):
+        check_game(dataclasses.replace(lw, NP=64))
+    at = next(i for i, br in enumerate(lw.branches) if br)
+    deep = lw.branches[at][0][0]
+    assert not isinstance(deep, LAnd)
+    for _ in range(16):
+        deep = LAnd((deep,))
+    with pytest.raises(ValueError, match=r"17 nodes in one branch condition.*<= 16"):
+        check_game(dataclasses.replace(
+            lw, branches=lw.branches[:at] + [[(deep, 0)]] + lw.branches[at + 1:]))
+    # a room too large for a one-warp block: need and limit are both named
+    layout = dataclasses.replace(lw.game.layout, n_pdict=230)
+    wide = dataclasses.replace(lw, game=dataclasses.replace(lw.game, layout=layout))
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory.*<= 232448"):
+        check_game(wide)
+
+
+def test_count_rollout_counts_the_interpreters_operations():
+    lw = lowered_game("werewolf").port
+    st = init_state(lw, 4, 8, np.arange(4, dtype=np.uint32), device="cpu")
+    counts = count_rollout(lw, st, 50)
+    # one hash a room-step for the stream, one a seat for its action; deals
+    # and resets add theirs
+    assert counts["hashes"] >= 4 * 50 * (1 + 8)
+    assert counts["atoms"] > 0 and counts["node_ops"] > 0 and counts["state_writes"] > 0
+    assert counts["int_ops"] == (counts["atoms"] + counts["node_ops"]
+                                 + counts["state_writes"] + 9 * counts["hashes"])
+    assert count_rollout(lw, st, 50) == counts  # reset between runs
+
+
 def test_wrapper_checks_raise():
     lw = lowered_game("werewolf").port
     st = init_state(lw, 2, 6, 0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_rollout(lw, st, 4)  # no silent CPU fallback
-    with pytest.raises(ValueError, match="P=8"):
-        check_game(lw, np.array([4, 16, 16, 8, 4, 4, 128, 16]))
-    check_game(lw, np.array([16, 16, 16, 8, 4, 4, 128, 16]))
+    with pytest.raises(ValueError, match="P=33"):
+        check_game(builtin_pair("werewolf", {"max_players": 33}).port)
+    check_game(lw)
     with pytest.raises(ValueError, match="field nums"):
         check_state(lw, st._replace(nums=st.nums.to(torch.int64)))
     with pytest.raises(ValueError, match="field strs has shape"):
