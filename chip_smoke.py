@@ -72,8 +72,34 @@ Phases, one JSON line each:
   train_k3        one more update with fused_loss=False (K2 + K3)
   train_plain     one update of run.main with --no-fused (no kernel), for
                   the end-to-end comparison
+  serve_scripted  the server: the port's HTTP game host (server/api.py on
+                  the torch backend, journaling on) started in-process on
+                  the card and driven for 30 s by utils/load_test.py's
+                  Client at its default shape (200 werewolf rooms, 8
+                  clients; the slot pool grows 64 -> 128 -> 256), one
+                  add-bot a room (4 seats: the client's and 3 scripted
+                  bots): requests/s, games/min, continue_ms
+                  p50/p90/p99 and the engine steps behind them; 0 errors
+  serve_policy    the same with --bots-per-room 5 (add-bot fills a room to
+                  the game's minimum, so a room is still 4 seats: the
+                  client's and 3 bots) and every bot seat on
+                  greedy PolicyBots from the attn checkpoint, whose forward
+                  is K2 on the tensor cores (launches > 0, all that route);
+                  then three checks: (a) on the live states of the last
+                  step K2's greedy actions equal the plain version's
+                  wherever the top two legal logits are more than 1e-3
+                  apart, its logits within 2e-2; (b) eight rooms of each
+                  run restored from their journals into a fresh host on the
+                  card give snapshot_state bit for bit; (c) eight scripted
+                  rooms' journals replay on a CPU host to the same
+                  snapshot_state. Also where a step of the server spends
+                  its time (engine step, policy forward, host read) and K2
+                  alone at 64-2048 rows: device time (torch.profiler), time
+                  on the card's clock (CUDA events) and host time to
+                  enqueue, kept apart
 
-Then a {"kernels": [...]} line (each kernel's launches on the main paths,
+Then a {"kernels": [...]} line (each kernel's launches on the main paths
+(K2's learner and serving launches also apart),
 which of its routes ran there, its error, time, plain version's time and
 bound: the larger of its operations over the card's peak for their type and
 its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4, int32 at SMs x 64
@@ -108,6 +134,10 @@ HORIZON = 32          # and its steps: one epoch of the train path
 TOL_FWD, TOL_GRAD, TOL_LOSS, TOL_METRIC = 2e-2, 5e-2, 2e-2, 5e-2
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM bandwidth
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+# the server: utils/load_test.py's default shape (rooms, clients), 30 s a run
+SERVE_ROOMS, SERVE_CLIENTS, SERVE_SECONDS = 200, 8, 30.0
+SERVE_CHECK_ROOMS = 8
+K2_SERVE_ROWS = (64, 256, 512, 1024, 2048)
 TRAIN_ARGV = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
               "--players", "6", "--horizon", str(HORIZON), "--epochs", "4", "--updates", "3",
               "--eval-batch", "512", "--resume", CKPT]
@@ -637,6 +667,330 @@ def train_phase(lowered, gpu: str) -> dict:
             "ppo_loss_grad": launches["ppo_loss_grad"]}
 
 
+WW_KEY = "werewolf-(mafia)#r1"  # the host's slots key of the catalog's werewolf
+
+
+def quantile(xs, p):
+    """The p-quantile of xs by rank (utils/load_test.py's, unrounded)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
+
+
+def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
+    """One load_test drive of the port's server on the card, counts set to 0
+    just before it and read just after. The clients first create and start
+    their rooms (set-up, timed apart: the lobby store rewrites its whole
+    file on every change); the SERVE_SECONDS window starts once every room
+    is live. Returns (the stopped server, its host intact; the line)."""
+    import threading
+
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.server import manager as MG
+    from game_engine_tpu_torch.server.api import make_server
+    from game_engine_tpu_torch.utils.load_test import Client
+
+    srv = make_server(0, storage, bot_ckpts=bot_ckpts, device="cuda")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    steps = {"calls": 0, "seconds": 0.0, "slots": 0}
+    step_slots = MG._TorchSlots.step_slots
+
+    def counted(self, slots, *args, **kwargs):  # the host clock around each engine step
+        t0 = time.perf_counter()
+        step_slots(self, slots, *args, **kwargs)
+        steps["seconds"] += time.perf_counter() - t0
+        steps["calls"] += 1
+        steps["slots"] += len(slots)
+
+    stop, stats, lock = threading.Event(), {}, threading.Lock()
+    per = SERVE_ROOMS // SERVE_CLIENTS
+    clients = [Client(srv.server_address[1], "werewolf", per, stop, stats, lock, c,
+                      bots_per_room=bots_per_room) for c in range(SERVE_CLIENTS)]
+    eps = ("create", "start", "continue", "action", "state", "chat")
+
+    def snap():
+        with lock:
+            return ({ep: len(stats.get(ep, [])) for ep in eps}, stats.get("games_done", 0),
+                    stats.get("errors", 0), dict(steps), time.time())
+
+    MG._TorchSlots.step_slots = counted
+    zero_launches()
+    t0 = time.time()
+    try:
+        for c in clients:
+            c.start()
+        while snap()[0]["start"] < per * SERVE_CLIENTS and snap()[2] == 0 \
+                and time.time() - t0 < 600:
+            time.sleep(0.2)
+        begin = snap()
+        time.sleep(SERVE_SECONDS)
+        end = snap()
+        stop.set()
+        for c in clients:
+            c.join(timeout=120)
+        torch.cuda.synchronize()
+    finally:
+        MG._TorchSlots.step_slots = step_slots
+        srv.shutdown()
+        srv.server_close()
+    launches = FZ.kernel_forward.launches
+    by_route = dict(FZ.kernel_forward.by_route)
+    host = srv.ctx.host
+    gs = host._slots[WW_KEY]
+    wall = end[4] - begin[4]
+    lat = {ep: stats.get(ep, [])[begin[0][ep]:end[0][ep]] for ep in eps}
+    n_req = sum(len(v) for v in lat.values())
+    games = end[1] - begin[1]
+    n_steps = end[3]["calls"] - begin[3]["calls"]
+    line = {
+        "phase": name, "rooms": per * SERVE_CLIENTS, "clients": SERVE_CLIENTS,
+        "bots_per_room": bots_per_room,
+        "seats_per_room": int(gs.host["present"][next(iter(host._rooms.values()))[1]].sum()),
+        "bot_tier": "policy" if bot_ckpts else "scripted",
+        "setup_s": begin[4] - t0, "setup_start_ms_p50": quantile(
+            stats.get("start", [])[:begin[0]["start"]], 0.5),
+        "window_s": wall, "requests": n_req, "req_per_s": n_req / wall,
+        "games_completed": games, "games_per_min": games / wall * 60,
+        "errors": stats.get("errors", 0), "error_samples": stats.get("error_samples", []),
+        "continue_ms": {f"p{int(q * 100)}": quantile(lat["continue"], q)
+                        for q in (0.5, 0.9, 0.99)},
+        "continue_ms_mean": statistics.mean(lat["continue"]) if lat["continue"] else None,
+        **{f"{ep}_ms_p50": quantile(lat[ep], 0.5) for ep in
+           ("create", "start", "action", "state", "chat")},
+        "requests_by_endpoint": {ep: len(v) for ep, v in lat.items()},
+        "engine_steps": n_steps,
+        "engine_steps_per_continue": n_steps / max(1, len(lat["continue"])),
+        "step_slots_host_ms_mean": (end[3]["seconds"] - begin[3]["seconds"])
+        / max(1, n_steps) * 1e3,
+        "step_slots_share_of_window": (end[3]["seconds"] - begin[3]["seconds"]) / wall,
+        "rooms_per_engine_step": (end[3]["slots"] - begin[3]["slots"]) / max(1, n_steps),
+        "slot_capacity": gs.capacity, "live_rooms": len(host._rooms),
+        "k2_launches": launches, "k2_by_route": by_route, "gpu": gpu}
+    if bot_ckpts:
+        line["policy_route"] = host._policies[WW_KEY].route
+    emit(line)
+    if line["errors"] != 0:
+        raise AssertionError(f"{name}: {line['errors']} request errors: {line['error_samples']}")
+    if not lat["continue"] or games <= 0:
+        raise AssertionError(f"{name}: no /continue answered or no game completed in the window")
+    if gs.capacity < 256:
+        raise AssertionError(f"{name}: the slot pool stayed at {gs.capacity}, not 256")
+    if bot_ckpts:
+        if launches <= 0 or by_route != {"tensor_core": launches, "cuda_core": 0}:
+            raise AssertionError(f"{name}: K2 launches {by_route}, expected > 0, all tensor_core")
+    elif launches != 0:
+        raise AssertionError(f"{name}: the scripted run launched K2 {launches} times")
+    return srv, line
+
+
+def live_rooms(host, n: int) -> list:
+    """The n werewolf rooms of a host that have taken the most steps."""
+    gs = host._slots[WW_KEY]
+    rooms = [(gs.version(s), rid) for rid, (k, s) in host._rooms.items() if k == WW_KEY]
+    return [rid for _, rid in sorted(rooms, reverse=True)[:n]]
+
+
+def restore_check(srv, rids: list, device: str, bot_ckpts) -> int:
+    """Rooms restored from their journals into a fresh host on `device`
+    give the live host's snapshot_state bit for bit; returns the engine
+    steps replayed."""
+    from game_engine_tpu_torch.server.manager import GameHost
+
+    live = srv.ctx.host
+    with live._lock:
+        want = {rid: live._slots[live._rooms[rid][0]].snapshot_state(live._rooms[rid][1])
+                for rid in rids}
+    fresh = GameHost(persist_dir=live._persist_dir, bot_ckpts=bot_ckpts, device=device)
+    for rid in rids:
+        if not fresh.restore_room(rid):
+            raise AssertionError(f"room {rid} did not restore on {device}")
+        key, slot = fresh._rooms[rid]
+        got = fresh._slots[key].snapshot_state(slot)
+        if got != want[rid]:
+            bad = [k for k in want[rid] if got[k] != want[rid][k]]
+            raise AssertionError(f"room {rid} restored on {device} differs in {bad}")
+    return sum(want[rid]["t"] for rid in rids)
+
+
+def greedy_check(host) -> dict:
+    """(a): K2's greedy actions against the plain version's on the live
+    states of the last step, where the top two legal logits are more than
+    1e-3 apart; logits within TOL_FWD."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies.serve import first_argmax
+
+    gs, pb = host._slots[WW_KEY], host._policies[WW_KEY]
+    lw, state = gs.lowered, gs.state
+    d = FZ.dims_for(lw, pb.cfg)
+    with torch.inference_mode():
+        rows = FZ._as_rows(d, N.observe(lw, state))
+        lk, vk = FZ.kernel_forward(d, rows, pb.params)
+        lp, vp = FZ.fused_forward_plain(d, rows, pb.params)
+        mask = N.legal_action_mask(lw, state).reshape(-1, d.A)
+        mk = torch.where(mask, lk, -1e9)
+        mp = torch.where(mask, lp, -1e9)
+        top = mp.topk(2, dim=-1).values
+        seat = mask.any(-1) & state.present.reshape(-1)
+        clear = seat & (top[:, 0] - top[:, 1] > 1e-3)
+        ak, ap = first_argmax(mk), first_argmax(mp)
+        served = pb.greedy(state).reshape(-1)
+    out = {"rows": rows.shape[0], "seats_with_a_choice": int(seat.sum()),
+           "clear_margin_seats": int(clear.sum()),
+           "disagree_on_clear": int(((ak != ap) & clear).sum()),
+           "disagree_anywhere": int(((ak != ap) & seat).sum()),
+           "served_equals_k2": bool(torch.equal(served[seat], (ak + 1).to(torch.int32)[seat])),
+           "logits_rel_err": rel_err(lk, lp), "value_rel_err": rel_err(vk, vp)}
+    check("serving K2 logits", out["logits_rel_err"], TOL_FWD)
+    check("serving K2 value", out["value_rel_err"], TOL_FWD)
+    if out["disagree_on_clear"] or not out["served_equals_k2"] or not out["clear_margin_seats"]:
+        raise AssertionError(f"greedy actions: {out}")
+    return out
+
+
+def sync_ms(fn, reps: int = 10) -> float:
+    """Mean host milliseconds of fn() with the card drained before and after."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def device_ms(fn, reps: int = 3) -> tuple:
+    """(device milliseconds of the kernels of one fn() call, kernels a call)
+    by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if t > 0:
+            us += t
+            count += ev.count
+    return us / reps / 1e3, count / reps
+
+
+def serve_breakdown(host) -> dict:
+    """Where one engine step of the server goes, on a copy of the live slot
+    batch (capacity x P rows): the eager engine step with its scripted
+    bots, the policy bots (observe, K2, legal mask, argmax), the host read
+    of the stepped rooms, and a whole step_slots of eight rooms; K2 alone
+    at 64-2048 rows. Host milliseconds with the card drained (sync_ms),
+    device milliseconds of the kernels (torch.profiler), and K2's time on
+    the card's clock (CUDA events) and host time to enqueue."""
+    import copy
+
+    import torch
+
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+
+    gs, pb = host._slots[WW_KEY], host._policies[WW_KEY]
+    lw = gs.lowered
+    g2 = copy.copy(gs)
+    g2.state = GameState(*(t.clone() for t in gs.state))
+    g2.host = {k: v.copy() for k, v in gs.host.items()}
+    eng, state = g2.engine, g2.state
+    rids = live_rooms(host, SERVE_CHECK_ROOMS)
+    slots = [host._rooms[r][1] for r in rids]
+    humans = {host._rooms[r][1]: host._humans[r] for r in rids}
+    pseats = {host._rooms[r][1]: host._policy_seats[r] for r in rids}
+
+    def step():
+        return eng.step(state, eng.bot_actions(state))
+
+    out = {"capacity": g2.capacity, "rows": g2.capacity * lw.P}
+    out["engine_step_ms"] = sync_ms(step)
+    out["engine_step_device_ms"], out["engine_step_kernels"] = device_ms(step)
+    with torch.inference_mode():
+        out["policy_greedy_ms"] = sync_ms(lambda: pb.greedy(state))
+        out["policy_greedy_device_ms"], out["policy_greedy_kernels"] = device_ms(
+            lambda: pb.greedy(state))
+        out["observe_ms"] = sync_ms(lambda: N.observe(lw, state))
+    out["host_read_ms"] = sync_ms(lambda: g2._pull(slots))
+    out["host_read_device_ms"], out["host_read_kernels"] = device_ms(lambda: g2._pull(slots))
+    out["step_slots_ms"] = sync_ms(lambda: g2.step_slots(slots, {}, humans, policy=pb,
+                                                         policy_seats=pseats), reps=5)
+    d = FZ.dims_for(lw, pb.cfg)
+    with torch.inference_mode():
+        rows_all = FZ._as_rows(d, N.observe(lw, state))
+    k2 = {}
+    for n in K2_SERVE_ROWS:
+        rows = rows_all[:n].contiguous()
+        call = (lambda r=rows: FZ.kernel_forward(d, r, pb.params))
+        _, ev_ms = mean_ms(call, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        dev_ms, kernels = device_ms(call)
+        k2[n] = {"device_ms": dev_ms, "event_ms": ev_ms, "host_enqueue_ms": host_ms,
+                 "kernels": kernels}
+    out["k2_by_rows"] = k2
+    return out
+
+
+def serve_phase(gpu: str) -> dict:
+    """The server's main path, twice (scripted, policy bots), then the
+    checks (a)-(c) and the breakdown. Returns {"launches": K2 launches of
+    the policy run, "k2": the small-row timings}."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    ckpts = [f"werewolf={os.path.join(HERE, CKPT)}"]
+    try:
+        scripted, s_line = serve_run("serve_scripted", 1, None, os.path.join(tmp, "s.json"),
+                                     gpu)
+        s_rooms = live_rooms(scripted.ctx.host, SERVE_CHECK_ROOMS)
+        s_steps = restore_check(scripted, s_rooms, "cuda", None)
+        s_cpu = restore_check(scripted, s_rooms, "cpu", None)
+        del scripted
+        policy, line = serve_run("serve_policy", 5, ckpts, os.path.join(tmp, "p.json"), gpu)
+        launches = line["k2_launches"]
+        greedy = greedy_check(policy.ctx.host)
+        p_rooms = live_rooms(policy.ctx.host, SERVE_CHECK_ROOMS)
+        p_steps = restore_check(policy, p_rooms, "cuda", ckpts)
+        breakdown = serve_breakdown(policy.ctx.host)
+        # the card's busy time in a window, from the device time of one step
+        # (engine step and host read; policy bots where they ran) x the steps
+        step_dev = {"serve_scripted": breakdown["engine_step_device_ms"]
+                    + breakdown["host_read_device_ms"],
+                    "serve_policy": breakdown["engine_step_device_ms"]
+                    + breakdown["host_read_device_ms"] + breakdown["policy_greedy_device_ms"]}
+        idle = {ln["phase"]: 1 - ln["engine_steps"] * step_dev[ln["phase"]] / 1e3
+                / ln["window_s"] for ln in (s_line, line)}
+        emit({"phase": "serve_checks", "greedy_k2_vs_plain": greedy,
+              "device_idle_share_estimate": idle,
+              "restored_on_card": {"scripted": {"rooms": s_rooms, "steps": s_steps},
+                                   "policy": {"rooms": p_rooms, "steps": p_steps}},
+              "restored_on_cpu": {"scripted": {"rooms": s_rooms, "steps": s_cpu}},
+              "breakdown": breakdown, "gpu": gpu})
+        del policy
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "k2": breakdown["k2_by_rows"]}
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
@@ -825,10 +1179,13 @@ def main(argv=()) -> int:
     del traj, adv, ret
     torch.cuda.empty_cache()
     launches = train_phase(ww, gpu)
+    serving = serve_phase(gpu)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
+    learner_k2 = launches["policy_forward"]
+    launches["policy_forward"] += serving["launches"]
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": main_launches, "max_abs_err": worst,
@@ -839,6 +1196,9 @@ def main(argv=()) -> int:
         "bound_ms": policy[k]["bound"][0], "bound_by": policy[k]["bound"][1],
         "library_ms": None, "ran": "tensor_core",
         **{e: v for e, v in policy[k].items() if e not in ("ms", "plain_ms", "bound")},
+        **({"learner_launches": learner_k2, "serving_launches": serving["launches"],
+            "serving_route": "tensor_core", "serving_ms_by_rows": serving["k2"]}
+           if k == "policy_forward" else {}),
         **({"narrow_route": {"ran": "cuda_core", "source": NARROW_SOURCE, "hidden": 48,
                              "launches_on_main_path": 0,
                              **{e: v for e, v in narrow[k].items() if e != "bound"}}}

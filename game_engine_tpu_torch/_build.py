@@ -6,7 +6,9 @@ harnesses (the kernels' per-room and per-tile bodies, compiled by g++)
 serve the CPU tests. All land in build/kernels/ at the repository root,
 named by a hash of every source in csrc/ and the compiler command, so an
 unchanged tree is built once and an edit to any source or header rebuilds.
-A failed build raises with the compiler's output.
+A failed build raises with the compiler's output. Builds are serialised
+within a process (threads of the HTTP server may ask for the same library
+at once) and written to a per-process temporary file across processes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -59,9 +62,18 @@ def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> 
     return os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
 
 
+_BUILD_LOCK = threading.RLock()
+
+
 def _compile_all(jobs: list) -> list:
     """Compile each (src, stem, cmd_prefix) not yet built, all compilers
-    running at once; returns the library paths in order."""
+    running at once; returns the library paths in order. One thread at a
+    time: a second caller waits and then finds the libraries built."""
+    with _BUILD_LOCK:
+        return _compile_locked(jobs)
+
+
+def _compile_locked(jobs: list) -> list:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, running = [], []
     for src, stem, cmd_prefix in jobs:

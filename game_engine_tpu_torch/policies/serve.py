@@ -1,0 +1,139 @@
+"""Serve trained policies as in-room bots (--bot-ckpt).
+
+Counterpart of game_engine_tpu/policies/serve.py. Loads a policies/net.py
+checkpoint and exposes GREEDY (argmax) action selection — deterministic
+given the room state, so journal replay reproduces policy-bot rooms
+bit-identically on the route that wrote the journal.
+
+The forward is chosen once, when the bots are built:
+
+  fused   ``fused.make_apply`` under ``torch.inference_mode()`` when
+          ``fused.supports(lowered, cfg)``: the policy-forward kernel (K2)
+          on CUDA tensors, by the route ``fused.route_of`` names; its plain
+          version (``fused_forward_plain``) on CPU tensors.
+  plain   ``net.apply_net``, for every other net (mlp, multi-head attn).
+
+The choice is logged once and never changes afterwards: a K2 that fails to
+build or launch raises, it does not fall back to the plain forward. K2 and
+the plain version can differ by one bf16 step in a logit, so a journal with
+policy seats replays exactly on the route that wrote it; across routes the
+actions agree wherever the top-two legal logits are clearly apart.
+
+Checkpoints load through ``net.load_policy``, which infers the net config
+(arch / hidden / heads) from the parameter shapes, so a bare
+``--bot-ckpt werewolf=path.npz`` needs no extra flags.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Any
+
+import torch
+
+from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.core.state import GameState, init_state
+from game_engine_tpu_torch.gamespec.tables import Lowered
+from game_engine_tpu_torch.policies import fused as FZ
+from game_engine_tpu_torch.policies import net as N
+
+_log = logging.getLogger(__name__)
+
+
+def forward_route(lowered: Lowered, cfg: N.NetConfig, device) -> str:
+    """Which forward PolicyBots runs for this net on `device`: a K2 route
+    ("tensor_core" or "cuda_core") on the card, "fused_plain" (K2's plain
+    version) on the CPU, or "apply_net" for nets K2 does not cover."""
+    if not FZ.supports(lowered, cfg):
+        return "apply_net"
+    if torch.device(device).type == "cpu":
+        return "fused_plain"
+    return FZ.route_of(FZ.dims_for(lowered, cfg))
+
+
+class PolicyBots:
+    """Greedy policy actor bound to one compiled game and one device (the
+    device of its parameters)."""
+
+    def __init__(self, lowered: Lowered, params: dict[str, Any],
+                 cfg: N.NetConfig, ckpt_path: str = ""):
+        self.lowered = lowered
+        self.params = params
+        self.cfg = cfg
+        self.ckpt_path = ckpt_path
+        self.device = next(iter(params.values())).device
+        self.route = forward_route(lowered, cfg, self.device)
+        if self.route == "apply_net":
+            self._forward = lambda obs: N.apply_net(params, obs, cfg, lowered)
+        else:
+            apply = FZ.make_apply(lowered, cfg)
+            self._forward = lambda obs: apply(params, obs)
+        _log.info("%s", json.dumps({"event": "bot_policy", "ckpt": ckpt_path,
+                                    "game": lowered.game.spec.name, "arch": cfg.arch,
+                                    "hidden": cfg.hidden, "forward": self.route}))
+
+    def check_fits(self) -> None:
+        """Raise ValueError (or the forward's shape error) when the
+        checkpoint does not fit the game: a plain forward over one fresh
+        room must give (1, P, A) logits, and a net K2 covers must have
+        exactly K2's parameter shapes. Launches no kernel."""
+        lw = self.lowered
+        st = init_state(lw, 1, min(4, lw.P), 0, device=self.device)
+        with torch.inference_mode():
+            logits, _ = N.apply_net(self.params, N.observe(lw, st), self.cfg, lw)
+        want = (1, lw.P, N.action_space(lw))
+        if tuple(logits.shape) != want:
+            raise ValueError(f"logits {tuple(logits.shape)}, the game needs {want}")
+        if self.route != "apply_net":
+            for name, shape in FZ._param_shapes(FZ.dims_for(lw, self.cfg)).items():
+                if tuple(self.params[name].shape) != shape:
+                    raise ValueError(f"param {name} has shape "
+                                     f"{tuple(self.params[name].shape)}, K2 needs {shape}")
+
+    def masked_logits(self, state: GameState) -> tuple[torch.Tensor, torch.Tensor]:
+        """((B, P, A) f32 logits with illegal choices at -1e9, (B, P, A)
+        legal mask)."""
+        lw = self.lowered
+        with torch.inference_mode():
+            logits, _ = self._forward(N.observe(lw, state))
+            mask = N.legal_action_mask(lw, state)
+            return torch.where(mask, logits, torch.tensor(-1e9, dtype=logits.dtype,
+                                                          device=logits.device)), mask
+
+    def greedy(self, state: GameState) -> torch.Tensor:
+        """(B, P) int32 greedy choices on the state's device: argmax over the
+        legal-masked logits, 0 where the phase offers no legal choice.
+        Deterministic — ties resolve to the lowest action index (the first
+        maximum, as jnp.argmax), so replay is exact."""
+        logits, mask = self.masked_logits(state)
+        a = first_argmax(logits).to(torch.int32) + 1
+        return torch.where(mask.any(-1) & state.present, a, 0)
+
+    def actions(self, state: GameState):
+        """(B, P) int32 numpy actions for a batched GameState."""
+        return self.greedy(state).cpu().numpy()
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along the last axis (torch.argmax does not
+    promise which maximum it returns on every device)."""
+    hit = x == x.max(-1, keepdim=True).values
+    idx = torch.arange(x.shape[-1], device=x.device).expand_as(x)
+    return torch.where(hit, idx, x.shape[-1]).min(-1).values
+
+
+def load_bot_policies(specs: list[str], device=D.DEFAULT
+                      ) -> dict[str, tuple[dict, N.NetConfig, str]]:
+    """Parse repeated --bot-ckpt 'game=path' (or bare 'path', matching every
+    game) into {game_fragment: (params, cfg, path)}, the parameters loaded
+    once, as new tensors, on `device`."""
+    out: dict[str, tuple[dict, N.NetConfig, str]] = {}
+    for spec in specs or []:
+        if "=" in spec:
+            game, path = spec.split("=", 1)
+        else:
+            game, path = "", spec
+        params, cfg = N.load_policy(path, device)
+        out[game.strip().lower()] = (params, cfg, path)
+    return out

@@ -58,3 +58,37 @@ def test_failed_build_raises_with_compiler_output(csrc):
     with pytest.raises(RuntimeError, match="not_declared"):
         _build._compile_all([(str(csrc / "broken.cpp"), "libbroken", _build._GXX_CMD)])
     assert not [n for n in os.listdir(_build.BUILD_DIR) if n.startswith("libbroken")]
+
+
+def test_threads_asking_at_once_build_the_library_once(csrc, monkeypatch):
+    """The server's handler threads can ask for the same library at once
+    (the first requests after a start): one compiler runs, every thread
+    gets the same path."""
+    import subprocess
+    import threading
+
+    started = []
+    popen = subprocess.Popen
+
+    def counting_popen(cmd, *args, **kwargs):
+        started.append(cmd)
+        return popen(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(subprocess, "Popen", counting_popen)
+    job = (str(csrc / "policy_net_host.cpp"), "libpolicy_net_host", _build._GXX_CMD)
+    paths, errors = [], []
+
+    def build():
+        try:
+            paths.extend(_build._compile_all([job]))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    assert len(started) == 1 and len(set(paths)) == 1 and len(paths) == 4
+    assert os.path.exists(paths[0])

@@ -21,8 +21,12 @@ from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.core import engine as E
 from game_engine_tpu_torch.core import state as S
 from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.policies import serve as SV
+from game_engine_tpu_torch.server import api as A
+from game_engine_tpu_torch.server import manager as MG
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
+from game_engine_tpu_torch.utils import checkpoint as CK
 from tests.test_torch_state import builtin_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +55,8 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_importing_the_whole_port_loads_no_jax_package():
     proc = _run(_NO_JAX.format(extra=""))
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+    # every module was imported, the serving slice's among them
+    assert int(proc.stdout.split()[-1]) >= 45
 
 
 def test_chip_smoke_up_to_its_cuda_check_loads_no_jax_package():
@@ -68,7 +73,9 @@ ENTRY_POINTS = [
     (S.init_state, "device"), (S.state_from_numpy, "device"),
     (E.BatchedEngine.__init__, "device"), (N.init_params, "device"),
     (N.params_from_numpy, "device"), (N.load_policy, "device"),
-    (P.init_training, "device"),
+    (P.init_training, "device"), (CK.load_state, "device"), (CK.load_tree, "device"),
+    (CK.replay, "device"), (SV.load_bot_policies, "device"), (MG.GameHost.__init__, "device"),
+    (A.AppContext.__init__, "device"), (A.make_server, "device"),
 ]
 
 
@@ -109,6 +116,10 @@ def test_entry_points_raise_without_a_card(no_card):
                                            "attn_werewolf_u120.npz")),
         lambda: P.init_training(pw, P.PPOConfig(net=cfg), gen),
         lambda: R.main(["--updates", "0", "--eval-batch", "0"]),
+        lambda: MG.GameHost(),
+        lambda: A.make_server(port=0),
+        lambda: SV.load_bot_policies([os.path.join(REPO, "docs", "checkpoints",
+                                                    "attn_werewolf_u120.npz")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
