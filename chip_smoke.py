@@ -98,6 +98,30 @@ Phases, one JSON line each:
                   on the card's clock (CUDA events) and host time to
                   enqueue, kept apart
 
+  compare_search  the search kernel (S, csrc/search.cu) against its plain
+                  version on the card (search_scores_plain) and against the
+                  port's C++ search on the host (CppRoom.search_scores and
+                  search): werewolf, cult-of-the-depths, two-truths-and-a-
+                  lie, 64 live rooms each at several depths of a scripted
+                  rollout, every seat, rollouts 32 x horizon 200, at D = 0
+                  and D = 8 determinizations; 0 differences in totals and in
+                  choices, and the decisions checked
+  search_timing   S by decisions a launch (1, 8, 64, 512, 4096 at D = 0;
+                  1, 8, 64 at D = 8) on werewolf rooms: the kernel's ms, the
+                  host ms of actions_for_slots with its copies, launches a
+                  call, the bound by operations (the -DGE_COUNT host build)
+                  and the port's C++ search of the same decisions on one
+                  host core
+  serve_search    the serving shape with --bot-search all on the torch
+                  backend: the search's launches and its share of a step;
+                  8 rooms restored from their journals bit for bit
+  serve_native    the same on --backend native: the engine on the host, the
+                  search on the card
+  eval_search     utils/eval_search.py on the card: werewolf 200 rooms and
+                  werewolf 100 rooms at D = 8, rollouts 32 x horizon 200;
+                  win rates and decisions must equal the JAX script's
+                  (EVAL_JAX)
+
 Then a {"kernels": [...]} line (each kernel's launches on the main paths
 (K2's learner and serving launches also apart),
 which of its routes ran there, its error, time, plain version's time and
@@ -566,8 +590,10 @@ def tensor_core_launches() -> dict:
 
 def zero_launches() -> None:
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
+    from game_engine_tpu_torch.core.search_kernel import kernel_search
 
     kernel_rollout.launches = 0
+    kernel_search.launches = 0
     for fn in policy_wrappers().values():
         fn.launches = 0
         fn.by_route = dict.fromkeys(fn.by_route, 0)
@@ -676,7 +702,8 @@ def quantile(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
 
 
-def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
+def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
+              backend: str = "torch", bot_search=None):
     """One load_test drive of the port's server on the card, counts set to 0
     just before it and read just after. The clients first create and start
     their rooms (set-up, timed apart: the lobby store rewrites its whole
@@ -686,22 +713,36 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
 
     import torch
 
+    from game_engine_tpu_torch.core import search_kernel as SK
     from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import search as PS
     from game_engine_tpu_torch.server import manager as MG
     from game_engine_tpu_torch.server.api import make_server
     from game_engine_tpu_torch.utils.load_test import Client
 
-    srv = make_server(0, storage, bot_ckpts=bot_ckpts, device="cuda")
+    srv = make_server(0, storage, bot_ckpts=bot_ckpts, backend=backend, bot_search=bot_search,
+                      device="cuda")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
-    steps = {"calls": 0, "seconds": 0.0, "slots": 0}
-    step_slots = MG._TorchSlots.step_slots
+    steps = {"calls": 0, "seconds": 0.0, "slots": 0, "search_seconds": 0.0}
+    native = backend == "native"
+    # the engine step: a batched step of many rooms (torch) or one room (native)
+    cls, meth = (MG._NativeRooms, "step_slot") if native else (MG._TorchSlots, "step_slots")
+    step_fn = getattr(cls, meth)
+    search_meth = "native_actions" if native else "actions_for_slots"
+    search_fn = getattr(PS.SearchBots, search_meth)
 
     def counted(self, slots, *args, **kwargs):  # the host clock around each engine step
         t0 = time.perf_counter()
-        step_slots(self, slots, *args, **kwargs)
+        step_fn(self, slots, *args, **kwargs)
         steps["seconds"] += time.perf_counter() - t0
         steps["calls"] += 1
-        steps["slots"] += len(slots)
+        steps["slots"] += 1 if native else len(slots)
+
+    def searched(self, *args, **kwargs):  # the host clock around each search decision call
+        t0 = time.perf_counter()
+        out = search_fn(self, *args, **kwargs)
+        steps["search_seconds"] += time.perf_counter() - t0
+        return out
 
     stop, stats, lock = threading.Event(), {}, threading.Lock()
     per = SERVE_ROOMS // SERVE_CLIENTS
@@ -714,7 +755,8 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
             return ({ep: len(stats.get(ep, [])) for ep in eps}, stats.get("games_done", 0),
                     stats.get("errors", 0), dict(steps), time.time())
 
-    MG._TorchSlots.step_slots = counted
+    setattr(cls, meth, counted)
+    setattr(PS.SearchBots, search_meth, searched)
     zero_launches()
     t0 = time.time()
     try:
@@ -731,9 +773,11 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
             c.join(timeout=120)
         torch.cuda.synchronize()
     finally:
-        MG._TorchSlots.step_slots = step_slots
+        setattr(cls, meth, step_fn)
+        setattr(PS.SearchBots, search_meth, search_fn)
         srv.shutdown()
         srv.server_close()
+    s_launches = SK.kernel_search.launches
     launches = FZ.kernel_forward.launches
     by_route = dict(FZ.kernel_forward.by_route)
     host = srv.ctx.host
@@ -743,11 +787,14 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
     n_req = sum(len(v) for v in lat.values())
     games = end[1] - begin[1]
     n_steps = end[3]["calls"] - begin[3]["calls"]
+    first = next(iter(host._rooms.values()))[1]
+    search_s = end[3]["search_seconds"] - begin[3]["search_seconds"]
+    step_s = end[3]["seconds"] - begin[3]["seconds"]
     line = {
-        "phase": name, "rooms": per * SERVE_CLIENTS, "clients": SERVE_CLIENTS,
-        "bots_per_room": bots_per_room,
-        "seats_per_room": int(gs.host["present"][next(iter(host._rooms.values()))[1]].sum()),
-        "bot_tier": "policy" if bot_ckpts else "scripted",
+        "phase": name, "backend": backend, "rooms": per * SERVE_CLIENTS,
+        "clients": SERVE_CLIENTS, "bots_per_room": bots_per_room,
+        "seats_per_room": gs.n_players[first] if native else int(gs.host["present"][first].sum()),
+        "bot_tier": "policy" if bot_ckpts else "search" if bot_search else "scripted",
         "setup_s": begin[4] - t0, "setup_start_ms_p50": quantile(
             stats.get("start", [])[:begin[0]["start"]], 0.5),
         "window_s": wall, "requests": n_req, "req_per_s": n_req / wall,
@@ -766,7 +813,9 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
         "step_slots_share_of_window": (end[3]["seconds"] - begin[3]["seconds"]) / wall,
         "rooms_per_engine_step": (end[3]["slots"] - begin[3]["slots"]) / max(1, n_steps),
         "slot_capacity": gs.capacity, "live_rooms": len(host._rooms),
-        "k2_launches": launches, "k2_by_route": by_route, "gpu": gpu}
+        "k2_launches": launches, "k2_by_route": by_route, "search_launches": s_launches,
+        "search_host_s_in_window": search_s,
+        "search_share_of_step": search_s / step_s if step_s else None, "gpu": gpu}
     if bot_ckpts:
         line["policy_route"] = host._policies[WW_KEY].route
     emit(line)
@@ -774,13 +823,16 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str):
         raise AssertionError(f"{name}: {line['errors']} request errors: {line['error_samples']}")
     if not lat["continue"] or games <= 0:
         raise AssertionError(f"{name}: no /continue answered or no game completed in the window")
-    if gs.capacity < 256:
-        raise AssertionError(f"{name}: the slot pool stayed at {gs.capacity}, not 256")
+    if gs.capacity < SERVE_ROOMS:
+        raise AssertionError(f"{name}: the slot pool stayed at {gs.capacity} slots "
+                             f"for {SERVE_ROOMS} rooms")
     if bot_ckpts:
         if launches <= 0 or by_route != {"tensor_core": launches, "cuda_core": 0}:
             raise AssertionError(f"{name}: K2 launches {by_route}, expected > 0, all tensor_core")
     elif launches != 0:
         raise AssertionError(f"{name}: the scripted run launched K2 {launches} times")
+    if bool(bot_search) != (s_launches > 0):
+        raise AssertionError(f"{name}: {s_launches} search launches with bot_search={bot_search}")
     return srv, line
 
 
@@ -791,17 +843,18 @@ def live_rooms(host, n: int) -> list:
     return [rid for _, rid in sorted(rooms, reverse=True)[:n]]
 
 
-def restore_check(srv, rids: list, device: str, bot_ckpts) -> int:
+def restore_check(srv, rids: list, device: str, bot_ckpts, **host_kw) -> int:
     """Rooms restored from their journals into a fresh host on `device`
-    give the live host's snapshot_state bit for bit; returns the engine
-    steps replayed."""
+    (the live host's backend and bots, or `host_kw`'s) give the live host's
+    snapshot_state bit for bit; returns the engine steps replayed."""
     from game_engine_tpu_torch.server.manager import GameHost
 
     live = srv.ctx.host
     with live._lock:
         want = {rid: live._slots[live._rooms[rid][0]].snapshot_state(live._rooms[rid][1])
                 for rid in rids}
-    fresh = GameHost(persist_dir=live._persist_dir, bot_ckpts=bot_ckpts, device=device)
+    fresh = GameHost(persist_dir=live._persist_dir, bot_ckpts=bot_ckpts, device=device,
+                     **host_kw)
     for rid in rids:
         if not fresh.restore_room(rid):
             raise AssertionError(f"room {rid} did not restore on {device}")
@@ -991,6 +1044,310 @@ def serve_phase(gpu: str) -> dict:
     return {"launches": launches, "k2": breakdown["k2_by_rows"]}
 
 
+# -- the search kernel (S) ------------------------------------------------------
+
+SEARCH_SOURCE = "game_engine_tpu_torch/csrc/search.cu"
+# S is the counterpart of C++ host code, not of a pallas_call site
+SEARCH_REPLACES = "game_engine_tpu/native/gamesim.cpp:707"
+SEARCH_GAMES = ("werewolf", "cult-of-the-depths", "two-truths-and-a-lie")
+SEARCH_ROOMS = 64                # live rooms a game in compare_search
+SEARCH_R, SEARCH_H = 32, 200     # rollouts x horizon: the serving default
+SEARCH_SIZES = ((0, (1, 8, 64, 512, 4096)), (8, (1, 8, 64)))  # decisions a launch by D
+SEARCH_LINE_SIZE = 512           # the kernels line's S: werewolf, 512 decisions, D = 0
+SEARCH_PLAIN_CHUNK = 8192        # requests a call of the plain version
+EVAL_RUNS = (("werewolf", 200, 32, 200, 0), ("werewolf", 100, 32, 200, 8))
+# the JAX package's script at the same arguments, on a host CPU
+# (python -m game_engine_tpu.utils.eval_search werewolf 200 32 200 [, ... 100 32 200 8]):
+# scripted, minority-searching and majority-searching minority win rates, decisions
+EVAL_JAX = {EVAL_RUNS[0]: (0.25, 0.72, 0.0, 4417), EVAL_RUNS[1]: (0.26, 0.65, 0.19, 2643)}
+
+
+def search_pool(lw, rooms: int, n: int, seed0: int):
+    """`rooms` live rooms of `n` seats at several depths of a scripted
+    rollout, on the port's native simulator: [(CppRoom.read(), room seed)]."""
+    from game_engine_tpu_torch.native import CppGame
+
+    game, out, k = CppGame(lw), [], 0
+    while len(out) < rooms:
+        seed, k = seed0 + k, k + 1
+        room = game.room(n, seed)
+        for _ in range((5 * k) % 31):
+            if room.read()["done"]:
+                break
+            room.step(room.policy_actions())
+        r = room.read()
+        if not r["done"]:
+            out.append((r, seed))
+    return out
+
+
+def reads_state(lw, reads, n: int, device: str):
+    """The rooms of search_pool as one GameState on `device`."""
+    import torch
+
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.policies.serve import state_from_read
+
+    ones = [state_from_read(lw, r, n, seed, device) for r, seed in reads]
+    return GameState(*(torch.cat(f) for f in zip(*ones)))
+
+
+def read_of(st: dict, w: int) -> dict:
+    """Room w of a state_to_numpy dict as a CppRoom.read() state."""
+    return {"phase_index": int(st["phase"][w]), "done": bool(st["done"][w]),
+            "winner": int(st["winner"][w]), "prev_index": int(st["prev_phase"][w]),
+            "t": int(st["t"][w]),
+            **{k: st[k][w].astype("int32") for k in ("bools", "nums", "strs", "pdict", "odict",
+                                                      "acted", "choice", "choice_phase")}}
+
+
+def cpp_decisions(sb, reads, n: int):
+    """The decisions of the JAX package's search bots, on the port's C++
+    simulator (gamesim.cpp gs_room_search / gs_room_search_scores) on the
+    host: (rooms, P) choices, 0 where a seat has no decision."""
+    import numpy as np
+
+    from game_engine_tpu_torch.native import CppGame
+    from game_engine_tpu_torch.policies.search import _mix
+
+    sc = sb.scoring
+    room = CppGame(sb.lowered).room(n, 0)
+    out = np.zeros((len(reads), sb.lowered.P), np.int32)
+    args = (sb.rollouts, sb.horizon, sc.mode, sc.team_slot, sc.team_codes)
+    for i, (r, seed) in enumerate(reads):
+        base = _mix(seed, sb.salt)
+        for pid in range(1, n + 1):
+            if sb.determinize == 0:
+                room.write(r)
+                out[i, pid - 1] = room.search(pid, *args, base)
+                continue
+            totals = {}
+            for d in range(sb.determinize):  # policies/search.py _search_room_det
+                st_d = sb._det.apply(r, pid - 1, n, _mix(base, (pid * 0x01000193 + d) & 0xFFFFFFFF))
+                room.write(st_d)
+                got = room.search_scores(pid, *args, _mix(base, (0xD0000001 + d) & 0xFFFFFFFF))
+                if got is None:
+                    break
+                for c, v in got.items():
+                    totals[c] = totals.get(c, 0) + v
+            if totals:
+                out[i, pid - 1] = sb._best(totals)
+    return out
+
+
+def host_totals(sb, source, table) -> "np.ndarray":
+    """Each request's total by the port's CppRoom.search_scores on the host."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.state import state_to_numpy
+    from game_engine_tpu_torch.native import CppGame
+
+    sc = sb.scoring
+    st = state_to_numpy(source)
+    game, rooms, cache = CppGame(sb.lowered), {}, {}
+    out = np.zeros(len(table), np.int64)
+    for row, (w, p, c, salt) in enumerate(table.cpu().numpy().tolist()):
+        key = (w, p, salt)
+        if key not in cache:
+            n = int(st["present"][w].sum())
+            room = rooms.setdefault(n, game.room(n, 0))
+            room.write(read_of(st, w))
+            cache[key] = room.search_scores(p + 1, sb.rollouts, sb.horizon, sc.mode,
+                                            sc.team_slot, sc.team_codes, salt & 0xFFFFFFFF)
+        out[row] = cache[key][c]
+    return out
+
+
+def plain_totals(sb, source, table):
+    """Each request's total by search_scores_plain on the card, in chunks."""
+    import torch
+
+    from game_engine_tpu_torch.core import search_kernel as SK
+
+    return torch.cat([SK.search_scores_plain(sb.lowered, source, table[a:a + SEARCH_PLAIN_CHUNK],
+                                             sb.rollouts, sb.horizon, sb.scoring)
+                      for a in range(0, len(table), SEARCH_PLAIN_CHUNK)]).cpu().numpy()
+
+
+def compare_search(gpu: str) -> dict:
+    """S against the plain version on the card and against the C++ search on
+    the host: totals and choices, the three games, D = 0 and 8. Returns the
+    worst total difference and the decisions checked."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    worst, checked, requests = 0, 0, 0
+    for game in SEARCH_GAMES:
+        lw = lower(compile_game(load_builtin(game)))
+        n = min(6, lw.P)
+        reads = search_pool(lw, SEARCH_ROOMS, n, 500)
+        source = reads_state(lw, reads, n, "cuda")
+        for det in (0, 8):
+            t0 = time.perf_counter()
+            sb = SearchBots(lw, SEARCH_R, SEARCH_H, determinize=det, device="cuda")
+            launches = kernel_search.launches
+            got = sb.actions(source)
+            if kernel_search.launches != launches + 1 or sb.last_launch() is None:
+                raise AssertionError(f"{game} D={det}: {kernel_search.launches - launches} launches")
+            src, table, totals = sb.last_launch()
+            plain = plain_totals(sb, src, table)
+            host = host_totals(sb, src, table)
+            want = cpp_decisions(sb, reads, n)
+            line = {"phase": "compare_search", "game": game, "det": det, "rooms": len(reads),
+                    "seats": n, "rollouts": SEARCH_R, "horizon": SEARCH_H,
+                    "decisions": sb.last_call["decisions"], "requests": len(table),
+                    "worlds": sb.last_call["worlds"], "seats_checked": int(got.size),
+                    "total_diffs_vs_plain": int((totals != plain).sum()),
+                    "total_diffs_vs_cpp": int((totals != host).sum()),
+                    "choice_diffs_vs_cpp": int((got != want).sum()),
+                    "max_abs_err": int(max(np.abs(totals - plain).max(initial=0),
+                                           np.abs(totals - host).max(initial=0))),
+                    "seconds": time.perf_counter() - t0, "gpu": gpu}
+            emit(line)
+            if line["total_diffs_vs_plain"] or line["total_diffs_vs_cpp"] \
+                    or line["choice_diffs_vs_cpp"]:
+                raise AssertionError(f"compare_search {game} D={det}: {line}")
+            if not line["requests"]:
+                raise AssertionError(f"compare_search {game} D={det}: nothing was searched")
+            worst = max(worst, line["max_abs_err"])
+            checked += line["decisions"]
+            requests += line["requests"]
+    emit({"phase": "compare_search_done", "decisions_checked": checked,
+          "requests_checked": requests, "max_abs_err": worst})
+    return {"max_abs_err": worst, "decisions": checked}
+
+
+def search_timing(gpu: str, int32_rate: float) -> dict:
+    """S by decisions a launch on werewolf rooms on the card: the kernel's
+    ms (CUDA events, median of 5), the host ms of actions_for_slots with its
+    copies (median of 5), launches a call, the bound by operations (the
+    -DGE_COUNT host build over the call's requests) and the port's C++
+    search of the same decisions on one host core. Returns the kernels
+    line's S fields (SEARCH_LINE_SIZE decisions at D = 0)."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core import search_kernel as SK
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.core.state import GameState, state_to_numpy
+    from game_engine_tpu_torch.core.step import waiting_seats
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    lw = lower(compile_game(load_builtin("werewolf")))
+    eng = BatchedEngine(lw, "cuda")
+    parts = []
+    for k, depth in enumerate((3, 7, 11, 15)):  # live rooms at four depths
+        st = eng.init(2048, 6, np.arange(2048, dtype=np.uint32) + 4096 * k)
+        for _ in range(depth):
+            st = eng.step(st, eng.bot_actions(st))
+        parts.append(st)
+    pool = GameState(*(torch.cat(f) for f in zip(*parts)))
+    waiting = waiting_seats(lw, pool).sum(1).cpu().numpy()
+    cum = np.cumsum(waiting)
+    pool_np = state_to_numpy(pool)
+    out, line = {}, None
+    for det, sizes in SEARCH_SIZES:
+        sb = SearchBots(lw, SEARCH_R, SEARCH_H, determinize=det, device="cuda")
+        for size in sizes:
+            slots = list(range(int(np.searchsorted(cum, size)) + 1))
+            host_ms, launches = [], SK.kernel_search.launches
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sb.actions_for_slots(pool, slots)
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            per_call = (SK.kernel_search.launches - launches) / 5
+            decisions = sb.last_call["decisions"]
+            src, table, _ = sb.last_launch()
+            times = [timed_ms(lambda: SK.kernel_search(lw, src, table, SEARCH_R, SEARCH_H,
+                                                       sb.scoring))[1] for _ in range(5)]
+            t0 = time.perf_counter()
+            counts = SK.count_search(lw, GameState(*(f.cpu() for f in src)), table.cpu(),
+                                     SEARCH_R, SEARCH_H, sb.scoring)
+            count_s = time.perf_counter() - t0
+            by_ops = counts["int_ops"] / int32_rate * 1e3
+            t0 = time.perf_counter()
+            cpp_decisions(sb, [(read_of(pool_np, i), int(pool_np["seed"][i])) for i in slots], 6)
+            cpp_ms = (time.perf_counter() - t0) * 1e3
+            row = {"phase": "search_timing", "det": det, "decisions": decisions,
+                   "rooms": len(slots), "requests": len(table),
+                   "rollouts_a_launch": len(table) * SEARCH_R,
+                   "plan": SK.search_plan(lw, len(table) * SEARCH_R),
+                   "kernel_ms": statistics.median(times), "kernel_ms_all": times,
+                   "host_ms": statistics.median(host_ms), "launches_a_call": per_call,
+                   "bound_ms": by_ops, "bound_by": "operations", "int_ops": counts["int_ops"],
+                   "count_seconds": count_s, "cpp_one_core_ms": cpp_ms, "gpu": gpu}
+            emit(row)
+            if per_call != 1:
+                raise AssertionError(f"actions_for_slots launched {per_call} times a call")
+            out[(det, size)] = row
+            if det == 0 and size == SEARCH_LINE_SIZE:
+                _, plain_ms = timed_ms(lambda: SK.search_scores_plain(
+                    lw, src, table, SEARCH_R, SEARCH_H, sb.scoring))
+                line = {"ms": row["kernel_ms"], "plain_ms": plain_ms,
+                        "bound": (by_ops, "operations"), "requests": len(table),
+                        "decisions": decisions}
+    cross = [f"{s}" for (d, s), r in sorted(out.items()) if d == 0
+             and r["host_ms"] < r["cpp_one_core_ms"]]
+    emit({"phase": "search_timing_done", "card_wins_from_decisions_d0": cross[:1] or None,
+          "gpu": gpu})
+    return line
+
+
+def serve_search_phase(gpu: str) -> dict:
+    """The search bots' serving path: `--bot-search all` on the torch backend
+    (serve_search), then on the native backend (serve_native: the engine on
+    the host, the search on the card), each at the serving shape, with
+    SERVE_CHECK_ROOMS rooms restored from their journals bit for bit.
+    Returns the search launches of each run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_search_")
+    out = {}
+    try:
+        for name, backend in (("serve_search", "torch"), ("serve_native", "native")):
+            srv, line = serve_run(name, 1, None, os.path.join(tmp, f"{backend}.json"), gpu,
+                                  backend=backend, bot_search=["all"])
+            rids = live_rooms(srv.ctx.host, SERVE_CHECK_ROOMS)
+            steps = restore_check(srv, rids, "cuda", None, backend=backend, bot_search=["all"])
+            emit({"phase": f"{name}_restore", "rooms": rids, "steps": steps,
+                  "equal_bit_for_bit": True, "gpu": gpu})
+            out[name] = line["search_launches"]
+            del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def eval_phase(gpu: str) -> int:
+    """utils/eval_search on the card at EVAL_RUNS: win rates and
+    s_per_decision; returns the search launches."""
+    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    from game_engine_tpu_torch.utils.eval_search import eval_game
+
+    launches = kernel_search.launches
+    for game, rooms, rollouts, horizon, det in EVAL_RUNS:
+        t0 = time.perf_counter()
+        line = eval_game(game, rooms, rollouts, horizon, det, device="cuda")
+        got = tuple(line[k] for k in ("scripted_minority_or_seat1_win", "minority_search_win",
+                                      "majority_search_minority_win", "decisions"))
+        want = EVAL_JAX[(game, rooms, rollouts, horizon, det)]
+        emit({"phase": "eval_search", **line, "seconds": time.perf_counter() - t0,
+              "equals_jax_script": got == want, "gpu": gpu})
+        if got != want:
+            raise AssertionError(f"eval_search {game} D={det}: {got}, the JAX script's {want}")
+    return kernel_search.launches - launches
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
@@ -1038,7 +1395,9 @@ def main(argv=()) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           "rollout_kernel": ptxas_numbers(lib),
           "policy_net_ptxas": ptxas_report(_build.policy_lib()),
-          "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib())})
+          "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
+          "search_ptxas": ptxas_report(_build.search_lib()),
+          "search_kernel": ptxas_numbers(_build.search_lib())})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
@@ -1180,6 +1539,10 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     launches = train_phase(ww, gpu)
     serving = serve_phase(gpu)
+    s_compare = compare_search(gpu)
+    s_line = search_timing(gpu, int32_ops_per_s())
+    s_serving = serve_search_phase(gpu)
+    s_eval = eval_phase(gpu)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
@@ -1203,7 +1566,15 @@ def main(argv=()) -> int:
                              "launches_on_main_path": 0,
                              **{e: v for e, v in narrow[k].items() if e != "bound"}}}
            if k in narrow else {})}
-        for k in POLICY_REPLACES]})
+        for k in POLICY_REPLACES] + [{
+        "name": "search", "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
+        "replaces_kind": "C++ host code (search_scores_core), no pallas_call site",
+        "launches": sum(s_serving.values()), "launches_by_path": {**s_serving, "eval_search": s_eval},
+        "max_abs_err": s_compare["max_abs_err"], "decisions_checked": s_compare["decisions"],
+        "ms": s_line["ms"], "plain_ms": s_line["plain_ms"], "bound_ms": s_line["bound"][0],
+        "bound_by": s_line["bound"][1], "library_ms": None,
+        "shape": {"game": "werewolf", "decisions": s_line["decisions"],
+                  "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

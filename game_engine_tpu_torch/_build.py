@@ -1,9 +1,10 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu) are compiled by
-nvcc for sm_90a into shared libraries with a plain C interface; the host
-harnesses (the kernels' per-room and per-tile bodies, compiled by g++)
-serve the CPU tests. All land in build/kernels/ at the repository root,
+The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu, search.cu) are
+compiled by nvcc for sm_90a into shared libraries with a plain C interface;
+the host harnesses (the kernels' per-room and per-tile bodies, compiled by
+g++) serve the CPU tests, and csrc/gamesim.cpp (the native per-room
+simulator) is built by g++ -O3 for the native backend. All land in build/kernels/ at the repository root,
 named by a hash of every source in csrc/ and the compiler command, so an
 unchanged tree is built once and an edit to any source or header rebuilds.
 A failed build raises with the compiler's output. Builds are serialised
@@ -34,6 +35,9 @@ _F = ctypes.c_float
 # bools, nums, strs, pdict, odict, present, regs, scal, eps, B, num_steps,
 # auto_reset
 _ROLLOUT_ARGS = [_P] * 9 + [_I64, _I, _I]
+# bools, nums, strs, pdict, odict, present, regs, scal, B, req, n_req, rollouts,
+# horizon, mode, team_slot, team_codes, n_codes, totals
+_SEARCH_ARGS = [_P] * 8 + [_I64, _P, _I64, _I, _I, _I, _I, _P, _I, _P]
 # meta, obs, nrows, prm, prmB, logits, value
 _PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
 # meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
@@ -133,13 +137,14 @@ _GXX_CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
 def _cuda_jobs() -> list:
     return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
             (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd()),
-            (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd())]
+            (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd()),
+            (os.path.join(_CSRC, "search.cu"), "libsearch", _nvcc_cmd())]
 
 
 def build_cuda() -> list:
     """Build every CUDA library at once (one nvcc per source, in parallel);
-    returns their paths. cuda_lib(), policy_lib() and lossgrad_lib() then
-    load them."""
+    returns their paths. cuda_lib(), policy_lib(), lossgrad_lib() and
+    search_lib() then load them."""
     return _compile_all(_cuda_jobs())
 
 
@@ -211,7 +216,7 @@ def host_count_lib() -> ctypes.CDLL:
 def policy_lib() -> ctypes.CDLL:
     """csrc/policy_net.cu (the CUDA-core K2 and K3, for the widths the
     pipeline does not cover) built with nvcc for sm_90a, loaded."""
-    lib = ctypes.CDLL(_compile_all(_cuda_jobs()[1:2])[0])
+    lib = ctypes.CDLL(_compile_all([_cuda_jobs()[1]])[0])
     lib.pn_forward.restype = _I
     lib.pn_forward.argtypes = _PN_FWD_ARGS + [_P]  # stream
     lib.pn_grad.restype = _I
@@ -246,7 +251,7 @@ def _lossgrad_common(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
 def lossgrad_lib() -> ctypes.CDLL:
     """csrc/lossgrad.cu (the tensor-core pipelines of K2, K3 and K4) built
     with nvcc for sm_90a, loaded."""
-    lib = _lossgrad_common(ctypes.CDLL(_compile_all(_cuda_jobs()[2:])[0]), "", [_P])  # stream
+    lib = _lossgrad_common(ctypes.CDLL(_compile_all([_cuda_jobs()[2]])[0]), "", [_P])  # stream
     lib.lg_error_string.restype = ctypes.c_char_p
     lib.lg_error_string.argtypes = [_I]
     return lib
@@ -272,6 +277,84 @@ def policy_host_lib() -> ctypes.CDLL:
     lib.pn_grad_host.argtypes = _PN_GRAD_ARGS + [_I]  # rows per tile
     lib.pn_meta_ints.restype = _I
     lib.pn_meta_ints.argtypes = []
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def search_lib() -> ctypes.CDLL:
+    """csrc/search.cu (the lookahead search's rollouts) built with nvcc for
+    sm_90a, loaded."""
+    lib = _rollout_common(ctypes.CDLL(_compile_all([_cuda_jobs()[3]])[0]))
+    lib.ge_search_plan.restype = _I
+    lib.ge_search_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, len, N, threads, out
+    lib.ge_error_string.restype = ctypes.c_char_p
+    lib.ge_error_string.argtypes = [_I]
+    lib.ge_search.restype = _I
+    # game on the device, game on the host, game_len, ..., threads, stream
+    lib.ge_search.argtypes = [_P, _P, _I] + _SEARCH_ARGS + [_I, _P]
+    return lib
+
+
+def _host_search_lib(stem: str, flags: list) -> ctypes.CDLL:
+    lib = _rollout_common(ctypes.CDLL(_compile_all([(
+        os.path.join(_CSRC, "search_host.cpp"), stem, _GXX_CMD + flags)])[0]))
+    lib.ge_search_host.restype = _I
+    lib.ge_search_host.argtypes = [_P, _I] + _SEARCH_ARGS  # game, game_len, ...
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def search_host_lib() -> ctypes.CDLL:
+    """csrc/search_host.cpp (the search kernel's per-rollout body) built with
+    g++."""
+    return _host_search_lib("libsearch_host", [])
+
+
+@functools.lru_cache(maxsize=None)
+def search_count_lib() -> ctypes.CDLL:
+    """csrc/search_host.cpp built with -DGE_COUNT: the same body counting the
+    interpreter's operations. A measuring tool; the tests run
+    search_host_lib()."""
+    lib = _host_search_lib("libsearch_count", ["-DGE_COUNT"])
+    lib.ge_counts_reset.restype = None
+    lib.ge_counts_reset.argtypes = []
+    lib.ge_counts_read.restype = None
+    lib.ge_counts_read.argtypes = [_P]
+    return lib
+
+
+GAMESIM_CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+@functools.lru_cache(maxsize=None)
+def gamesim_lib() -> ctypes.CDLL:
+    """csrc/gamesim.cpp (the native per-room simulator, a copy of the JAX
+    package's) built with g++ -O3 and loaded, its entries typed; raises with
+    the compiler's output when the build fails."""
+    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "gamesim.cpp"), "libgamesim",
+                                     GAMESIM_CMD)])[0])
+    lib.gs_create.restype = _P
+    lib.gs_create.argtypes = [_P, _I64]
+    lib.gs_destroy.argtypes = [_P]
+    lib.gs_room_new.restype = _P
+    lib.gs_room_new.argtypes = [_P, _I, ctypes.c_uint32]
+    lib.gs_room_destroy.argtypes = [_P]
+    lib.gs_room_step.argtypes = [_P, _P]
+    lib.gs_room_policy.argtypes = [_P, _P]
+    lib.gs_state_size.restype = _I64
+    lib.gs_state_size.argtypes = [_P]
+    lib.gs_room_read.argtypes = [_P, _P]
+    lib.gs_room_write.argtypes = [_P, _P]
+    lib.gs_selfplay.restype = _I64
+    lib.gs_selfplay.argtypes = [_P, _I, _I, ctypes.c_uint32, _I]
+    # room, pid, rollouts, max_steps, mode, team_slot, team_codes, n_codes, salt
+    search = [_P, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+              ctypes.c_int32, _P, ctypes.c_int32, ctypes.c_uint32]
+    lib.gs_room_search.restype = ctypes.c_int32
+    lib.gs_room_search.argtypes = search
+    lib.gs_room_search_scores.restype = ctypes.c_int32
+    # ..., out_cands, out_scores, cap
+    lib.gs_room_search_scores.argtypes = search + [_P, _P, ctypes.c_int32]
     return lib
 
 

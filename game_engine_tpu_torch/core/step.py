@@ -640,3 +640,22 @@ def make_step(lowered: Lowered):
         return apply_on_enter(lowered, state, trans, state.phase)
 
     return step
+
+
+def waiting_seats(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """(B, P) bool — the seats the current phase waits on: a player_action
+    phase, the seat present, targeted by the phase's predicate and not yet
+    acted, the room not done. The seats a search decides for."""
+    pe = PredEval(lowered, state)
+    is_action = tables(lowered, state.phase.device)["phase_is_action"][state.phase.long()]
+    target = torch.zeros_like(state.present)
+    by_pred: dict[int, list[int]] = {}
+    for i, pi in enumerate(lowered.phase_target_pred):
+        by_pred.setdefault(int(pi), []).append(i)
+    for pi, idxs in by_pred.items():
+        hit = torch.zeros_like(state.done)
+        for i in idxs:
+            hit = hit | (state.phase == i)
+        target = torch.where(hit[:, None], pe.pred(pi), target)
+    return (is_action[:, None] & target & state.present & ~state.acted
+            & ~state.done[:, None])

@@ -1,0 +1,56 @@
+// launch_plan.cuh — how a launch of a room kernel is sized: the rollout
+// kernel (csrc/rollout.cu, K1: a room a group) and the search kernel
+// (csrc/search.cu, S: a rollout a group). Host code only; the kernel to size
+// is a parameter, so both share one plan and neither kernel's code changes.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "room_step.cuh"
+
+namespace ge {
+
+// What a launch over n rooms is sized to when `threads` lanes a block are
+// asked for.
+struct Plan {
+  int threads;  // lanes a block: the largest halving of the asked that fits
+  int G;        // lanes a room
+  size_t smem;  // dynamic shared memory a block
+  int held;     // blocks one SM holds at a time
+  cudaError_t err;
+};
+
+// A room gets at least a lane a seat. While every room would still hold a
+// warp slot of the card at once, its group is doubled and the spare lanes
+// idle: a warp of fewer rooms runs fewer phases one after another, and a
+// call of few rooms is bound by that latency, not by lanes.
+inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int threads) {
+  Plan p{fit_threads(g, game_len, threads), group_lanes(g.P), 0, 0, cudaSuccess};
+  if (p.threads == 0) {  // not even one warp's rooms fit
+    p.err = cudaErrorInvalidValue;
+    return p;
+  }
+  threads = p.threads;
+  p.smem = (size_t)shared_bytes(g, game_len, threads);
+  if (p.smem > 48 * 1024)
+    p.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)p.smem);
+  int dev = 0, sms = 0;
+  if (p.err == cudaSuccess) p.err = cudaGetDevice(&dev);
+  if (p.err == cudaSuccess)
+    p.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (p.err == cudaSuccess)
+    p.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.held, kernel, threads, p.smem);
+  if (p.err != cudaSuccess) return p;
+  const int64_t warp_slots = (int64_t)sms * p.held * (threads / 32);
+  while (p.G < MAX_GROUP && n * (2 * p.G) / 32 <= warp_slots) p.G *= 2;
+  return p;
+}
+
+// Whether a launch over n rooms of lanes `threads` a block may be asked for.
+inline bool launchable(const Game& g, int game_len, int64_t n, int threads) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0 && n > 0 && game_len > 0 &&
+         g.P >= 1 && g.P <= MAX_GROUP;
+}
+
+}  // namespace ge

@@ -22,8 +22,8 @@
 // the per-seat loops of the engine run side by side, a warp holds 32 / G
 // rooms to diverge, and the same rooms give G times the warps to hide
 // latency; a call of so few rooms that the card has warp slots to spare
-// widens the groups further (plan). The room's words (state, action, effect-IR node values) live in
-// dynamic shared memory as [slot][thread], sized by the host to the game's
+// widens the groups further (launch_plan.cuh). The room's words (state,
+// action, effect-IR node values) live in dynamic shared memory as [slot][thread], sized by the host to the game's
 // own banks and largest effect block, behind the game's tables (the pack.py
 // blob, copied in once per block, so one build serves every game). Groups
 // meet only at their own lanes' __syncwarp and ballots inside the step loop.
@@ -36,6 +36,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_plan.cuh"
 #include "room_step.cuh"
 
 namespace {
@@ -73,55 +74,12 @@ __global__ void ge_rollout_kernel(const int32_t* __restrict__ game, int game_len
   ge::rooms_copy(g, ms, words, T, G, R, room0, B, tid, T, true);
 }
 
-// What a launch over B rooms is sized to when `threads` lanes a block are
-// asked for.
-struct Plan {
-  int threads;  // lanes a block: the largest halving of the asked that fits
-  int G;        // lanes a room
-  size_t smem;  // dynamic shared memory a block
-  int held;     // blocks one SM holds at a time
-  cudaError_t err;
-};
-
-// A room gets at least a lane a seat. While every room would still hold a
-// warp slot of the card at once, its group is doubled and the spare lanes
-// idle: a warp of fewer rooms runs fewer phases one after another, and a
-// call of few rooms is bound by that latency, not by lanes.
-Plan plan(const ge::Game& g, int game_len, int64_t B, int threads) {
-  Plan p{ge::fit_threads(g, game_len, threads), ge::group_lanes(g.P), 0, 0, cudaSuccess};
-  if (p.threads == 0) {  // not even one warp's rooms fit
-    p.err = cudaErrorInvalidValue;
-    return p;
-  }
-  threads = p.threads;
-  p.smem = (size_t)ge::shared_bytes(g, game_len, threads);
-  if (p.smem > 48 * 1024)
-    p.err = cudaFuncSetAttribute(ge_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)p.smem);
-  int dev = 0, sms = 0;
-  if (p.err == cudaSuccess) p.err = cudaGetDevice(&dev);
-  if (p.err == cudaSuccess)
-    p.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (p.err == cudaSuccess)
-    p.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.held, ge_rollout_kernel, threads,
-                                                          p.smem);
-  if (p.err != cudaSuccess) return p;
-  const int64_t warp_slots = (int64_t)sms * p.held * (threads / 32);
-  while (p.G < ge::MAX_GROUP && B * (2 * p.G) / 32 <= warp_slots) p.G *= 2;
-  return p;
-}
-
-bool launchable(const ge::Game& g, int game_len, int64_t B, int threads) {
-  return threads >= 32 && threads <= 1024 && threads % 32 == 0 && B > 0 && game_len > 0 &&
-         g.P >= 1 && g.P <= ge::MAX_GROUP;
-}
-
 int launch(const int32_t* game, const int32_t* game_host, int game_len,
            const ge::MinorState& ms, int32_t* eps, int64_t B, int num_steps,
            int auto_reset, int threads, long long* prof, cudaStream_t stream) {
   const ge::Game g = ge::game_view(game_host);
-  if (!launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(g, game_len, B, threads);
+  if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
+  const ge::Plan p = ge::plan((const void*)ge_rollout_kernel, g, game_len, B, threads);
   if (p.err != cudaSuccess) return (int)p.err;
   const int R = p.threads / p.G;
   const int64_t blocks = (B + R - 1) / R;
@@ -147,8 +105,8 @@ void ge_size(const int32_t* game_host, int game_len, int threads, int64_t* out) 
 // Returns a CUDA error code (0 = ok).
 int ge_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int64_t* out) {
   const ge::Game g = ge::game_view(game_host);
-  if (!launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(g, game_len, B, threads);
+  if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
+  const ge::Plan p = ge::plan((const void*)ge_rollout_kernel, g, game_len, B, threads);
   out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
   return (int)p.err;
 }

@@ -3,7 +3,9 @@
 // effect-IR interpreter (P20) and auto-reset. It is the body of the CUDA
 // rollout kernel (csrc/rollout.cu), which replaces the TPU kernel
 // game_engine_tpu/core/pallas_rollout.py::make_pallas_rollout, and of the g++
-// host harness (csrc/rollout_host.cpp) that the CPU tests run.
+// host harness (csrc/rollout_host.cpp) that the CPU tests run. Its search
+// rollout (room_search_rollout) is the body of the search kernel
+// (csrc/search.cu, host harness csrc/search_host.cpp).
 //
 // The game is interpreted from the packed table blob of
 // game_engine_tpu_torch/native/pack.py behind a directory of section offsets
@@ -813,6 +815,89 @@ GE_HD int32_t room_rollout(const Game& g, Room& r, int num_steps, int auto_reset
     if (auto_reset && r.done) room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
   }
   return episodes;
+}
+
+// -- lookahead search (native/gamesim.cpp search_scores_core) -----------------
+
+// A search request: a row of REQ_INTS int32, {source room, deciding seat
+// (0-based), candidate choice, salt (uint32 bits)}; its total is the sum of
+// `rollouts` rollout scores.
+constexpr int REQ_INTS = 4;
+enum { SEARCH_TEAM = 1, SEARCH_SCORE = 2 };
+
+// What a rollout is scored by (train/ppo.py terminal_rewards): team mode by
+// the seat's final team string against the winner's team code, score mode by
+// the winning seat.
+struct SearchSpec {
+  int rollouts, horizon, mode, team_slot, n_codes;
+  const int32_t* team_codes;
+};
+
+// The seed of rollout k of a request: the same stream for every candidate of
+// a decision (common random numbers), as search_scores_core reseeds its copy.
+GE_HD uint32_t search_seed(uint32_t salt, int32_t t, int k) {
+  return splitmix32(salt ^ ((uint32_t)t * MIX) ^ (GOLDEN * (uint32_t)(k + 1)));
+}
+
+// Whether a request names a source room and a seat of the game.
+GE_HD bool search_request_ok(const Game& g, const int32_t* q, int64_t B) {
+  return q[0] >= 0 && q[0] < B && q[1] >= 0 && q[1] < g.P;
+}
+
+// The source room of rollout x (request x / rollouts, its k = x % rollouts)
+// of n_req requests: -1 past the end or for a request out of range.
+GE_HD int64_t search_source(const Game& g, const int32_t* req, int64_t n_req, int rollouts,
+                            int64_t B, int64_t x) {
+  if (x < 0 || x >= n_req * rollouts) return -1;
+  const int32_t* q = req + (x / rollouts) * REQ_INTS;
+  return search_request_ok(g, q, B) ? q[0] : -1;
+}
+
+// Loads the state words of the rooms of rollouts [x0, x0 + R) into w, R rooms
+// of G columns each as rooms_copy does, each from its request's source room
+// by index: the rollouts of one source room read its words where they are,
+// with no copy of the room per rollout in global memory.
+GE_HD void rooms_load(const Game& g, const MinorState& m, int32_t* w, int stride, int G, int R,
+                      int64_t B, const int32_t* req, int64_t n_req, int rollouts, int64_t x0,
+                      int tid, int n) {
+  const int total = g.L.state * g.P * R;
+  for (int x = tid; x < total; x += n) {
+    const int rr = x % R, p = (x / R) % g.P, slot = x / (R * g.P);
+    const int64_t i = search_source(g, req, n_req, rollouts, B, x0 + rr);
+    if (i < 0) continue;
+    w[slot * stride + rr * G + p] = state_value(g, slot, *state_word(g, m, slot, p, i, B));
+  }
+}
+
+// One rollout of a search decision on a room opened from its source: up to
+// `horizon` steps of the scripted bots and the engine step, seat p's action
+// word set to c after the bots' first emission (only p's own lane writes it,
+// before room_step's barrier), no reset, stopping once the room is done (the
+// group's scalars agree, so its lanes leave together). Returns the rollout's
+// score for seat p: 0 unless done; team mode +1 when p's final team is the
+// winner's, else -1; score mode n - 1 when p won, else -1.
+GE_HD int32_t room_search_rollout(const Game& g, Room& r, int p, int32_t c, const SearchSpec& s) {
+  for (int step = 0; step < s.horizon && !r.done; ++step) {
+    room_policy(g, r);
+    if (step == 0) GE_EACH_SEAT(g, r, q) if (q == p) r.at(g.L.act, q) = c;
+    room_step(g, r);
+  }
+  if (!r.done) return 0;
+  if (s.mode == SEARCH_TEAM) {
+    int wi = r.winner - 1;
+    wi = wi < 0 ? 0 : (wi >= s.n_codes ? s.n_codes - 1 : wi);
+    GE_SYNC(r);  // seat p's team word, as the last effects left it
+    return r.at(g.L.strs + s.team_slot, p) == s.team_codes[wi] ? 1 : -1;
+  }
+  return r.winner == p + 1 ? popc(r.present) - 1 : -1;
+}
+
+// Whether the search can score rollouts by this spec (a game with neither
+// terminal rule is refused by the host).
+GE_HD bool search_spec_ok(const Game& g, const SearchSpec& s) {
+  return s.rollouts >= 1 && s.horizon >= 0 &&
+         (s.mode == SEARCH_SCORE ||
+          (s.mode == SEARCH_TEAM && s.team_slot >= 0 && s.team_slot < g.NS && s.n_codes > 0));
 }
 
 }  // namespace ge

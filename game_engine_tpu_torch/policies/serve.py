@@ -22,6 +22,10 @@ actions agree wherever the top-two legal logits are clearly apart.
 Checkpoints load through ``net.load_policy``, which infers the net config
 (arch / hidden / heads) from the parameter shapes, so a bare
 ``--bot-ckpt werewolf=path.npz`` needs no extra flags.
+
+On the native backend (server/manager.py ``_NativeRooms``) a room's
+``CppRoom.read()`` becomes a one-room GameState on the bots' device
+(``state_from_read``), so the same forward, K2 on the card, decides.
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ import json
 import logging
 from typing import Any
 
+import numpy as np
 import torch
 
 from game_engine_tpu_torch import device as D
-from game_engine_tpu_torch.core.state import GameState, init_state
+from game_engine_tpu_torch.core.state import _DTYPES, GameState, init_state
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import fused as FZ
 from game_engine_tpu_torch.policies import net as N
@@ -113,6 +118,39 @@ class PolicyBots:
     def actions(self, state: GameState):
         """(B, P) int32 numpy actions for a batched GameState."""
         return self.greedy(state).cpu().numpy()
+
+    # -- native backend bridge ------------------------------------------------
+
+    def state_from_native(self, read: dict[str, Any], n_players: int,
+                          seed: int = 0) -> GameState:
+        """One-room GameState on the bots' device from CppRoom.read()."""
+        return state_from_read(self.lowered, read, n_players, seed, self.device)
+
+    def native_actions(self, read: dict[str, Any], n_players: int,
+                       seed: int = 0) -> dict[int, int]:
+        """{pid: choice} for one native room (0-emissions dropped). The
+        seed rides into GameState for interface parity with SearchBots —
+        the greedy forward itself never reads it."""
+        acts = self.actions(self.state_from_native(read, n_players, seed))[0]
+        return {p + 1: int(acts[p]) for p in range(len(acts)) if acts[p] != 0}
+
+
+def state_from_read(lowered: Lowered, read: dict[str, Any], n_players: int,
+                    seed: int, device) -> GameState:
+    """A one-room GameState on `device` from a CppRoom.read() state dict
+    (the arrays the batched engine would hold for that room)."""
+    present = np.arange(lowered.P) < n_players
+    one = {
+        "bools": np.asarray(read["bools"]).astype(bool), "nums": read["nums"],
+        "strs": read["strs"], "pdict": read["pdict"], "odict": read["odict"],
+        "present": present, "phase": read["phase_index"], "prev_phase": read["prev_index"],
+        "acted": np.asarray(read["acted"]).astype(bool), "choice": read["choice"],
+        "choice_phase": read["choice_phase"], "done": bool(read["done"]),
+        "winner": read["winner"], "t": read["t"], "seed": int(seed) & 0xFFFFFFFF,
+    }
+    return GameState(**{
+        name: torch.as_tensor(np.asarray(one[name], np.int64)[None], device=device).to(
+            _DTYPES[name]) for name in GameState._fields})
 
 
 def first_argmax(x: torch.Tensor) -> torch.Tensor:

@@ -108,6 +108,9 @@ class AppContext:
                  chat_llm_cmd: Optional[str] = None,
                  chat_llm_entry: Optional[str] = None,
                  bot_search: Optional[list] = None,
+                 search_rollouts: int = 32,
+                 search_horizon: int = 200,
+                 search_det: int = 0,
                  device=D.DEFAULT):
         self.storage = MemoryStorage(storage_path)
         persist_dir = (storage_path + ".rooms") if storage_path else None
@@ -119,7 +122,9 @@ class AppContext:
         self.host = GameHost(games_path, backend=backend, persist_dir=persist_dir,
                              chat_lm=chat_lm, bot_ckpts=bot_ckpts,
                              chat_complete=chat_complete,
-                             bot_search=bot_search, device=device)
+                             bot_search=bot_search, search_rollouts=search_rollouts,
+                             search_horizon=search_horizon, search_det=search_det,
+                             device=device)
         # /api/generate-dsl model seam (reference: 3 gpt-5 calls behind
         # src/app/api/generate-dsl/route.ts:19-48). A deployment brings its
         # own model as a shell command (prompt on stdin -> YAML on stdout)
@@ -431,6 +436,9 @@ def make_server(port: int = 0, storage_path: Optional[str] = None,
                 chat_llm_cmd: Optional[str] = None,
                 chat_llm_entry: Optional[str] = None,
                 bot_search: Optional[list] = None,
+                search_rollouts: int = 32,
+                search_horizon: int = 200,
+                search_det: int = 0,
                 device=D.DEFAULT) -> ThreadingHTTPServer:
     """The HTTP server over a GameHost on `device` (the card unless the
     caller asks for the CPU; raises without one)."""
@@ -438,7 +446,9 @@ def make_server(port: int = 0, storage_path: Optional[str] = None,
                      bot_ckpts=bot_ckpts, llm_cmd=llm_cmd, llm_entry=llm_entry,
                      chat_llm_cmd=chat_llm_cmd,
                      chat_llm_entry=chat_llm_entry,
-                     bot_search=bot_search, device=device)
+                     bot_search=bot_search, search_rollouts=search_rollouts,
+                     search_horizon=search_horizon, search_det=search_det,
+                     device=device)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -546,8 +556,10 @@ def main(argv=None):  # pragma: no cover
     ap.add_argument("--port", type=int, default=8123)
     ap.add_argument("--storage", default="temp-rooms.json")
     ap.add_argument("--backend", default="torch", choices=["torch", "native"],
-                    help="torch: the batched engine on --device (the only "
-                         "backend the port has yet; native raises)")
+                    help="torch: the batched engine on --device (the "
+                         "default); native: a C++ room a game on the host "
+                         "(csrc/gamesim.cpp; the JAX package's default), "
+                         "policy and search bots still on --device")
     ap.add_argument("--device", default=D.DEFAULT,
                     help="cuda (the card, the default) or cpu")
     ap.add_argument("--cpu", action="store_true", help="the same as --device cpu")
@@ -561,7 +573,22 @@ def main(argv=None):  # pragma: no cover
                          "werewolf=docs/checkpoints/attn_werewolf_u120.npz")
     ap.add_argument("--bot-search", action="append", default=None,
                     metavar="GAME|all",
-                    help="lookahead search bots (not ported yet: raises)")
+                    help="serve lookahead SEARCH bots (policies/search.py: "
+                         "every legal choice rolled forward to termination "
+                         "by the search kernel on the card, its plain "
+                         "version on the CPU) for matching games; "
+                         "repeatable. Needs no checkpoint; the most specific "
+                         "--bot-ckpt/--bot-search fragment wins per game")
+    ap.add_argument("--search-rollouts", type=int, default=32,
+                    help="search-bot rollouts per candidate action")
+    ap.add_argument("--search-horizon", type=int, default=200,
+                    help="search-bot per-rollout step cap")
+    ap.add_argument("--search-det", type=int, default=0, metavar="D",
+                    help="information-set search: score candidates over D "
+                         "hidden-state determinizations sampled under each "
+                         "searcher's own observation mask instead of "
+                         "reading the true room state (0 = full-information "
+                         "lookahead). D*rollouts rollouts per candidate")
     ap.add_argument("--llm-cmd", default=None, metavar="SHELL_CMD",
                     help="external model for /api/generate-dsl: a shell "
                          "command receiving the generation prompt on stdin "
@@ -589,6 +616,9 @@ def main(argv=None):  # pragma: no cover
                       chat_llm_cmd=args.chat_llm_cmd,
                       chat_llm_entry=args.chat_llm_entry,
                       bot_search=args.bot_search,
+                      search_rollouts=args.search_rollouts,
+                      search_horizon=args.search_horizon,
+                      search_det=args.search_det,
                       device="cpu" if args.cpu else args.device)
     print(f"game host listening on :{srv.server_address[1]}")
     srv.serve_forever()

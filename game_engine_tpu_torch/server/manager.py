@@ -1,12 +1,15 @@
 """GameHost: interactive rooms hosted inside one batched engine state.
 
-Counterpart of game_engine_tpu/server/manager.py on the port's torch
-backend: every live room of a game is a slot of one batched GameState on
-the host's device (``_TorchSlots``), stepped by the port's engine step,
-with greedy policy bots through the policy-forward kernel (K2) on the
-card. The JAX package's other backends and bot tiers wait for later parts
-of the port and raise ``NotImplementedError`` here: ``backend="native"``
-and ``bot_search`` (ROADMAP queue 1 item 3b), ``chat_lm`` (item 5).
+Counterpart of game_engine_tpu/server/manager.py. Two backends:
+``torch`` (the default: every live room of a game is a slot of one batched
+GameState on the host's device, ``_TorchSlots``, stepped by the port's
+engine step) and ``native`` (a room a C++ ``CppRoom`` of the port's copy of
+gamesim.cpp, ``_NativeRooms``, stepped on the host; the JAX package's
+default). Bots are scripted, or greedy policy bots through the
+policy-forward kernel (K2) on the card (``bot_ckpts``), or lookahead search
+bots through the search kernel on the card (``bot_search``), on either
+backend. ``chat_lm`` waits for ROADMAP queue 1 item 5 and raises
+``NotImplementedError``.
 
 The reference binds one LangGraph thread per room and re-runs a 4-LLM
 pipeline per turn (reference: src/app/api/rooms/create/route.ts:16-26,
@@ -40,6 +43,7 @@ import torch
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.core.engine import BatchedEngine
 from game_engine_tpu_torch.core.state import GameState, init_state
+from game_engine_tpu_torch.core.step import waiting_seats
 from game_engine_tpu_torch.gamespec.compile import GameConfig, compile_game
 from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
 from game_engine_tpu_torch.gamespec.parser import games_dir, load_game_spec
@@ -151,7 +155,7 @@ class _TorchSlots:
         waiting matrix) from the device, in one copy."""
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         sub = GameState(*(f.index_select(0, idx) for f in self.state))
-        parts = list(zip(GameState._fields, sub)) + [("waiting", self._waiting_matrix(sub))]
+        parts = list(zip(GameState._fields, sub)) + [("waiting", waiting_seats(self.lowered, sub))]
         flat = torch.cat([t.reshape(len(slots), -1).to(torch.int64) for _, t in parts],
                          dim=1).cpu().numpy()
         at = 0
@@ -239,7 +243,12 @@ class _TorchSlots:
                     hmask[slot, pid - 1] = True
                     hval[slot, pid - 1] = int(choice)
         if include_bots and policy is not None and pmask.any():
-            pa = policy.greedy(self.state)
+            if hasattr(policy, "actions_for_slots"):
+                # search bots: one launch for the decisions of the stepped
+                # rooms, their candidates from the host mirror
+                pa = policy.actions_for_slots(self.state, slots, host=self.host)
+            else:
+                pa = policy.greedy(self.state)
             actions = torch.where(torch.as_tensor(pmask, device=dev), pa, actions)
         actions = torch.where(torch.as_tensor(hmask, device=dev),
                               torch.as_tensor(hval, device=dev), actions)
@@ -327,27 +336,6 @@ class _TorchSlots:
         return [pid for pid in seats
                 if 1 <= pid <= self.lowered.P and waiting[pid - 1]]
 
-    def _waiting_matrix(self, state: GameState) -> torch.Tensor:
-        """(B, P) bool — seats the current phase is waiting on (targeted,
-        present, not yet acted, phase is player_action, room not done)."""
-        from game_engine_tpu_torch.core.state import tables
-        from game_engine_tpu_torch.core.step import PredEval
-
-        lowered = self.lowered
-        pe = PredEval(lowered, state)
-        is_action = tables(lowered, state.phase.device)["phase_is_action"][state.phase.long()]
-        target = torch.zeros_like(state.present)
-        by_pred: dict[int, list[int]] = {}
-        for i, pi in enumerate(lowered.phase_target_pred):
-            by_pred.setdefault(int(pi), []).append(i)
-        for pi, idxs in by_pred.items():
-            hit = torch.zeros_like(state.done)
-            for i in idxs:
-                hit = hit | (state.phase == i)
-            target = torch.where(hit[:, None], pe.pred(pi), target)
-        return (is_action[:, None] & target & state.present & ~state.acted
-                & ~state.done[:, None])
-
     def bot_turn_slots(self, humans_by_slot: dict[int, tuple]) -> list[int]:
         """Slots that are mid-bot-turn (not done, not waiting on any
         human), from the host mirror."""
@@ -362,6 +350,122 @@ class _TorchSlots:
                        if 1 <= pid <= P):
                 out.append(slot)
         return out
+
+
+class _NativeRooms:
+    """Native (C++) backend: one CppRoom of csrc/gamesim.cpp per slot,
+    stepped on the host with no device dispatch; bit-identical to the
+    torch backend (tests/test_torch_native.py). Policy bots decide on the
+    host's device from the room's state sent there; search bots find the
+    deciding seats on the host and send the room only to search it."""
+
+    def __init__(self, lowered: Lowered, capacity: int = SLOTS_PER_GAME):
+        from game_engine_tpu_torch.native import CppGame
+
+        self.lowered = lowered
+        self.game = CppGame(lowered)
+        self.capacity = capacity
+        self.free = list(range(capacity))
+        self.rooms: dict[int, Any] = {}
+        self.n_players: dict[int, int] = {}
+        self.seeds: dict[int, int] = {}
+        self.projectors: dict[int, Projector] = {}
+        self.items: dict[int, list] = {}
+        self.prev_dead: dict[int, list] = {}
+
+    def alloc(self, n_players: int, seed: int) -> int:
+        if not self.free:  # elastic pool, as _TorchSlots
+            self.free.extend(range(self.capacity, self.capacity * 2))
+            self.capacity *= 2
+        slot = self.free.pop(0)
+        self.rooms[slot] = self.game.room(n_players, seed)
+        self.n_players[slot] = n_players
+        self.seeds[slot] = int(seed) & 0xFFFFFFFF
+        self.projectors[slot] = Projector(self.lowered.game)
+        self.items[slot] = []
+        self.prev_dead[slot] = []
+        return slot
+
+    def release(self, slot: int) -> None:
+        self.free.append(slot)
+        for d in (self.rooms, self.n_players, self.seeds, self.projectors,
+                  self.items, self.prev_dead):
+            d.pop(slot, None)
+
+    def step_slot(self, slot: int, human_actions: dict[int, int],
+                  include_bots: bool = True,
+                  human_seats: tuple[int, ...] = (1,),
+                  policy=None, policy_seats: tuple[int, ...] = ()) -> None:
+        room = self.rooms[slot]
+        actions = room.policy_actions() if include_bots else {}
+        if include_bots and policy is not None and policy_seats:
+            # the room's state read on the host: the same forward (PolicyBots,
+            # on the bots' device) or search (SearchBots, whose rollout
+            # streams the room seed feeds) as the torch backend
+            pa = policy.native_actions(room.read(), self.n_players[slot],
+                                       seed=self.seeds[slot])
+            for pid in policy_seats:
+                if pid in pa:
+                    actions[pid] = pa[pid]
+                else:
+                    actions.pop(pid, None)
+        for pid in human_seats:  # human exclusion
+            actions.pop(pid, None)
+        actions.update(human_actions)
+        room.step(actions)
+
+    def snapshot_state(self, slot: int) -> dict[str, Any]:
+        """CppRoom.read() as JSON (the layout of _TorchSlots.snapshot_state,
+        so journals cross backends and packages)."""
+        r = self.rooms[slot].read()
+        out = {k: (v.astype(int).tolist() if isinstance(v, np.ndarray) else v)
+               for k, v in r.items() if k != "phase_id"}
+        out["n"] = self.n_players[slot]
+        out["seed"] = self.seeds[slot]
+        return out
+
+    def restore_state(self, slot: int, d: dict[str, Any]) -> None:
+        self.rooms[slot].write(d)
+
+    def snapshot_raw(self, slot: int, names) -> dict[str, Any]:
+        from game_engine_tpu_torch.view.decode import decode_native
+
+        return decode_native(self.lowered, self.rooms[slot].read(),
+                             self.n_players[slot], names)
+
+    def is_done(self, slot: int) -> bool:
+        return bool(self.rooms[slot].read()["done"])
+
+    def version(self, slot: int) -> int:
+        return int(self.rooms[slot].read()["t"])
+
+    def phase_index(self, slot: int) -> int:
+        return int(self.rooms[slot].read()["phase_index"])
+
+    def alive_ids(self, slot: int) -> list[int]:
+        r = self.rooms[slot].read()
+        n = self.n_players[slot]
+        if self.lowered.alive_bool >= 0:
+            return [p + 1 for p in range(n) if r["bools"][p, self.lowered.alive_bool]]
+        return list(range(1, n + 1))
+
+    def must_act_seats(self, slot: int, seats) -> list[int]:
+        r = self.rooms[slot].read()
+        phase = r["phase_index"]
+        if r["done"] or not bool(self.lowered.phase_is_action[phase]):
+            return []
+        # targeted iff the phase's predicate holds for the seat's fields
+        from game_engine_tpu_torch.gamespec.expr import eval_predicate
+        from game_engine_tpu_torch.view.decode import decode_native
+
+        snap = decode_native(self.lowered, r, self.n_players[slot])
+        cp = self.lowered.game.phases[phase]
+        return [
+            pid for pid in seats
+            if 1 <= pid <= self.n_players[slot]
+            and not r["acted"][pid - 1]
+            and eval_predicate(cp.target_pred, snap["player_states"][str(pid)])
+        ]
 
 
 class RoomGone(LookupError):
@@ -382,12 +486,16 @@ class GameHost:
                  bot_ckpts: Optional[list[str]] = None,
                  chat_complete=None,
                  bot_search: Optional[list[str]] = None,
+                 search_rollouts: int = 32,
+                 search_horizon: int = 200,
+                 search_det: int = 0,
                  device=D.DEFAULT):
-        """backend: 'torch' (the batched engine on `device`), the only one
-        the port has yet; 'jax' is the JAX package's own and 'native' (the
-        C++ per-room simulator) waits for ROADMAP queue 1 item 3b.
+        """backend: 'torch' (the batched engine on `device`, the default) or
+        'native' (the C++ per-room simulator on the host; the JAX package's
+        default). 'jax' is the JAX package's own.
         device: the card ("cuda", the default; raises without one) unless
-        the caller asks for the CPU.
+        the caller asks for the CPU; policy and search bots decide there on
+        either backend.
         persist_dir: directory for per-room crash-recovery journals; None
         disables durability (tests, throwaway hosts).
         chat_lm: the on-device chat LM, ROADMAP queue 1 item 5 (raises).
@@ -400,21 +508,22 @@ class GameHost:
         the TOP responder tier (server/chat_llm.py; the reference's
         ChatBotNode gpt call, agent/game_agent_v2.py:385). Grounded
         verification and template fallback still apply host-side.
-        bot_search: lookahead search bots, ROADMAP queue 1 item 3b (raises)."""
-        if backend == "native":
+        bot_search: repeated game fragments ('' / 'all' matches every
+        game); matching games serve flat Monte-Carlo LOOKAHEAD bots
+        (policies/search.py: every legal choice rolled forward through the
+        search kernel on the card, its plain version on the CPU).
+        Precedence per game: the most specific fragment wins; a checkpoint
+        beats search at equal specificity.
+        search_rollouts/search_horizon: rollouts per candidate action and
+        the per-rollout step cap. search_det: D>0 scores candidates over D
+        hidden-state determinizations (information-set search)."""
+        if backend not in ("torch", "native"):
             raise NotImplementedError(
-                "backend 'native' (native/lib.py + gamesim.cpp) is not ported yet: "
-                "ROADMAP queue 1 item 3b; use backend='torch'")
-        if backend != "torch":
-            raise NotImplementedError(
-                f"backend {backend!r}: the port serves backend='torch' only "
+                f"backend {backend!r}: the port serves backend='torch' or 'native' "
                 "(the 'jax' backend is the JAX package's)")
         if chat_lm:
             raise NotImplementedError(
                 "chat_lm (policies/chat_lm.py) is not ported yet: ROADMAP queue 1 item 5")
-        if bot_search:
-            raise NotImplementedError(
-                "bot_search (policies/search.py) is not ported yet: ROADMAP queue 1 item 3b")
         self._device = D.resolve(device)
         self._lock = threading.RLock()
         self._chat_lm_hook = None
@@ -426,14 +535,22 @@ class GameHost:
         if bot_ckpts:
             from game_engine_tpu_torch.policies.serve import load_bot_policies
             self._bot_ckpts = load_bot_policies(bot_ckpts, self._device)
-        # slots key -> PolicyBots | None
+        # search-bot specs: game fragments, keyed like the checkpoints so
+        # precedence can compare specificity
+        self._bot_search: list[str] = [
+            "" if s.strip().lower() in ("", "all") else s.strip().lower()
+            for s in (bot_search or [])]
+        self._search_rollouts = int(search_rollouts)
+        self._search_horizon = int(search_horizon)
+        self._search_det = int(search_det)
+        # slots key -> PolicyBots | SearchBots | None
         self._policies: dict[str, Any] = {}
         self._policy_seats: dict[str, tuple[int, ...]] = {}  # per room
         self._backend = backend
         self._games_path = games_path or games_dir()
         self._spec_cache: dict[str, tuple[int, Any]] = {}  # path -> (mtime_ns, spec)
         self._persist_dir = persist_dir
-        self._slots: dict[str, _TorchSlots] = {}
+        self._slots: dict[str, Any] = {}  # _TorchSlots or _NativeRooms
         self._rooms: dict[str, tuple[str, int]] = {}  # roomId -> (game, slot)
         self._queues: dict[str, dict[int, int]] = {}  # roomId -> {pid: choice}
         self._chats: dict[str, Any] = {}
@@ -541,7 +658,10 @@ class GameHost:
                     f"game {spec.name!r} failed validation: "
                     + "; ".join(str(e) for e in errs[:3]))
             lowered = lower(compile_game(spec, GameConfig(rounds_per_player=rounds_per_player)))
-            self._slots[key] = _TorchSlots(lowered, self._device)
+            if self._backend == "native":
+                self._slots[key] = _NativeRooms(lowered)
+            else:
+                self._slots[key] = _TorchSlots(lowered, self._device)
             self._policies[key] = self._policy_for(game_name, lowered)
         return self._slots[key]
 
@@ -550,23 +670,49 @@ class GameHost:
         --bot-ckpt spec matches AND its parameter shapes fit the compiled
         game (checked by a plain dry forward, which launches no kernel — a
         mismatched checkpoint is skipped loudly, never served wrong; a
-        kernel that fails later raises). The most SPECIFIC matching
-        fragment wins ('werewolf' beats '')."""
+        kernel that fails later raises), or lookahead SearchBots when a
+        --bot-search fragment matches. The most SPECIFIC matching fragment
+        wins ('werewolf' beats ''); a checkpoint beats search at equal
+        specificity, so `--bot-ckpt werewolf=… --bot-search all` serves the
+        learned werewolf policy and search everywhere else."""
         name = game_name.lower()
-        cands = [(len(frag), frag, spec) for frag, spec in self._bot_ckpts.items()
-                 if not frag or frag in name]
-        for _, _, (params, cfg, path) in sorted(cands, key=lambda c: -c[0]):
-            from game_engine_tpu_torch.policies.serve import PolicyBots
-
-            pb = PolicyBots(lowered, params, cfg, path)
-            try:
-                pb.check_fits()
-            except (ValueError, RuntimeError, KeyError, IndexError):
-                logging.getLogger(__name__).exception(
-                    "bot checkpoint %s does not fit game %s; "
-                    "trying the next bot tier", path, game_name)
+        # (specificity, kind-rank, constructor) — kind-rank 0 = ckpt wins ties
+        cands: list[tuple[int, int, Any]] = []
+        for frag, (params, cfg, path) in self._bot_ckpts.items():
+            if frag and frag not in name:
                 continue
-            return pb
+
+            def _mk_ckpt(params=params, cfg=cfg, path=path):
+                from game_engine_tpu_torch.policies.serve import PolicyBots
+
+                pb = PolicyBots(lowered, params, cfg, path)
+                try:
+                    pb.check_fits()
+                except (ValueError, RuntimeError, KeyError, IndexError):
+                    logging.getLogger(__name__).exception(
+                        "bot checkpoint %s does not fit game %s; "
+                        "trying the next bot tier", path, game_name)
+                    return None
+                return pb
+
+            cands.append((len(frag), 0, _mk_ckpt))
+        for frag in self._bot_search:
+            if frag and frag not in name:
+                continue
+
+            def _mk_search():
+                from game_engine_tpu_torch.policies.search import make_search_bots
+
+                return make_search_bots(
+                    lowered, rollouts=self._search_rollouts,
+                    horizon=self._search_horizon, determinize=self._search_det,
+                    device=self._device)
+
+            cands.append((len(frag), 1, _mk_search))
+        for _, _, mk in sorted(cands, key=lambda c: (-c[0], c[1])):
+            actor = mk()
+            if actor is not None:
+                return actor
         return None
 
     # -- room lifecycle ---------------------------------------------------------
@@ -1175,7 +1321,7 @@ class GameHost:
             gs = self._slots[slots_key]
             seats = self._humans.get(room_id, (1,))
             truncated = True
-            batched = not self._replaying
+            batched = isinstance(gs, _TorchSlots) and not self._replaying
             for _ in range(max_steps):
                 q = self._queues.get(room_id, {})
                 self._queues[room_id] = {}

@@ -2,7 +2,8 @@
 HTTP, journaling on.
 
 Counterpart of game_engine_tpu/utils/load_test.py over the port's server
-on the torch backend. This harness measures the HOST under load — hundreds of journaled rooms driven
+(the torch backend by default, --backend native, scripted bots or
+--bot-search). This harness measures the HOST under load — hundreds of journaled rooms driven
 by concurrent clients playing complete games (continue / action / vote /
 occasional chat and state reads) for a fixed wall-clock window. Reports
 completed games, request throughput, and per-endpoint latency quantiles as
@@ -122,7 +123,7 @@ def main() -> None:
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--game", default="werewolf")
-    ap.add_argument("--backend", default="torch", choices=["torch"])
+    ap.add_argument("--backend", default="torch", choices=["torch", "native"])
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--storage", default=os.path.join(tempfile.gettempdir(),
                                                       "load_rooms.json"))
@@ -130,6 +131,12 @@ def main() -> None:
                     help="add-bot calls per room; each fills the room to the "
                          "game's minimum seats (werewolf: 4, so 3 bots), so "
                          "calls after the first add nobody")
+    ap.add_argument("--bot-search", action="append", default=None, metavar="GAME|all",
+                    help="serve lookahead search bots for matching games")
+    ap.add_argument("--search-det", type=int, default=0,
+                    help="information-set search over D determinizations")
+    ap.add_argument("--search-rollouts", type=int, default=32)
+    ap.add_argument("--search-horizon", type=int, default=200)
     args = ap.parse_args()
 
     # journaling ON (persist_dir rides the storage path) — capacity with
@@ -143,6 +150,8 @@ def main() -> None:
     from game_engine_tpu_torch.server.api import make_server
 
     srv = make_server(0, args.storage, backend=args.backend,
+                      bot_search=args.bot_search, search_rollouts=args.search_rollouts,
+                      search_horizon=args.search_horizon, search_det=args.search_det,
                       device=args.device)
     port = srv.server_address[1]
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -173,7 +182,8 @@ def main() -> None:
     print(json.dumps({
         "rooms": per * args.clients, "clients": args.clients,
         "backend": args.backend, "device": args.device,
-        "bot_tier": "scripted",
+        "bot_tier": "search" if args.bot_search else "scripted",
+        "search_det": args.search_det if args.bot_search else None,
         "wall_s": round(wall, 1),
         "requests": n_req, "req_per_s": round(n_req / wall, 1),
         "games_completed": stats.get("games_done", 0),

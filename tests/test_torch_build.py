@@ -29,6 +29,12 @@ def csrc(tmp_path, monkeypatch):
     ("lossgrad.cuh", "lossgrad.cu"),
     ("lossgrad.cuh", "lossgrad_host.cpp"),
     ("policy_net.cuh", "lossgrad.cu"),
+    ("room_step.cuh", "search.cu"),
+    ("room_step.cuh", "search_host.cpp"),
+    ("gamesim.cpp", "gamesim.cpp"),
+    ("search.cu", "rollout.cu"),
+    ("launch_plan.cuh", "rollout.cu"),
+    ("launch_plan.cuh", "search.cu"),
 ])
 def test_header_edit_renames_the_library(csrc, header, src):
     cmd = ["nvcc", "-O3"]
@@ -92,3 +98,21 @@ def test_threads_asking_at_once_build_the_library_once(csrc, monkeypatch):
     assert not errors
     assert len(started) == 1 and len(set(paths)) == 1 and len(paths) == 4
     assert os.path.exists(paths[0])
+
+
+def test_gamesim_and_search_sources_are_in_the_hash(csrc):
+    """The native simulator's and the search kernel's sources sit in csrc/,
+    so the hash of every library covers them: an edit to either renames
+    the simulator's library, and the simulator builds there with g++ -O3."""
+    names = set(os.listdir(csrc))
+    assert {"gamesim.cpp", "search.cu", "search_host.cpp"} <= names
+    sim = str(csrc / "gamesim.cpp")
+    before = _build.lib_path(sim, "libgamesim", _build.GAMESIM_CMD)
+    for name in ("gamesim.cpp", "search.cu"):
+        with open(csrc / name, "a") as f:
+            f.write("\n// edited\n")
+        after = _build.lib_path(sim, "libgamesim", _build.GAMESIM_CMD)
+        assert after != before
+        before = after
+    (path,) = _build._compile_all([(sim, "libgamesim", _build.GAMESIM_CMD)])
+    assert os.path.exists(path) and path.startswith(_build.BUILD_DIR)

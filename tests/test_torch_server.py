@@ -11,7 +11,9 @@ backend, on the CPU:
   compaction snapshots included;
 - 65 rooms grow the 64-slot pool and the in-flight rooms come through it
   unchanged;
-- the backends and bot tiers the port does not have yet raise.
+- the backend and bot tier the port does not have (the JAX package's own
+  ``jax`` backend, the chat LM) raise; the native backend and search bots
+  are tests/test_torch_native.py's and test_torch_search*.py's.
 """
 
 import json
@@ -593,8 +595,9 @@ def test_pool_growth_keeps_in_flight_rooms():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"backend": "native"}, "item 3b"), ({"chat_lm": "docs/checkpoints/chat_lm.npz"}, "item 5"),
-    ({"bot_search": ["all"]}, "item 3b"), ({"backend": "jax"}, "torch")])
+    ({"chat_lm": "docs/checkpoints/chat_lm.npz"}, "item 5"),
+    ({"backend": "native", "bot_search": ["all"], "chat_lm": "docs/checkpoints/chat_lm.npz"},
+     "item 5"), ({"backend": "jax"}, "torch")])
 def test_unported_backends_and_tiers_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         GameHost(device="cpu", **kw)
