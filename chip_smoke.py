@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's two main paths through the hand-written CUDA kernels,
-which it builds from csrc/ first:
+Drives the port's paths through the hand-written CUDA kernels, which it
+builds from csrc/ first (the league, the pipelined learner, the matchup
+evaluator, the arena and the exploit probe are listed with the phases):
 
 - the engine: BatchedEngine(werewolf, "cuda").rollout, the batched
   scripted-bot rollout with auto-reset, 1024 steps per call at 4096 and
@@ -122,8 +123,37 @@ Phases, one JSON line each:
                   win rates and decisions must equal the JAX script's
                   (EVAL_JAX)
 
-Then a {"kernels": [...]} line (each kernel's launches on the main paths
-(K2's learner and serving launches also apart),
+  league          train/league.py at the learner's shape (attn hidden 256,
+                  4096 werewolf rooms of 6, horizon 32, 4 epochs) from
+                  docs/checkpoints/attn_werewolf_league_anchor_u600.npz:
+                  one snapshot-arm update against
+                  attn_werewolf_league_noanchor_u300.npz (65 K2 + 4 K4) and
+                  one anchor-arm update (33 K2 + 4 K4), all on the tensor
+                  cores, one packing of the weights per parameter state (5
+                  and 4), a finite loss, a win rate in [0, 1], moved params;
+                  league_sync_step: the sync train step from the same start;
+                  league_run_main: run.main --league, 3 updates, a snapshot
+                  each (33 or 65 K2 and 4 K4 an update), the last snapshot
+                  reloads as the trained params
+  pipeline        train/pipeline.py run_pipelined, 3 rounds at the same
+                  shape, on two CUDA streams and in serial order from the
+                  same start, in turns (serial, two streams, two streams,
+                  serial): params and engine state bit for bit equal; each
+                  stage's ms alone, each order's ms a call and a round and
+                  train env-steps/s; the host's waits for the card in one
+                  unroll step (torch's sync debug mode)
+  matchup         evaluate.matchup_table over the four shipped attn werewolf
+                  checkpoints (16 ordered pairs, 1024 rooms x 64 steps): the
+                  K2 route twice (the same table), the plain route from the
+                  same seeds, every entry within 3 binomial standard
+                  errors; the Elo fits and ms a pair
+  arena           utils/arena.py, werewolf, 16 rooms, tiers scripted,
+                  search-det8 and the attn checkpoint, twice (the same
+                  table): S and K2 (tensor cores) launched
+  exploit         utils/eval_exploit.py, 32 rooms, rollouts 32 x horizon 200
+
+Then a {"kernels": [...]} line (each kernel's launches on the main paths,
+by path in launches_by_path,
 which of its routes ran there, its error, time, plain version's time and
 bound: the larger of its operations over the card's peak for their type and
 its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4, int32 at SMs x 64
@@ -1348,6 +1378,373 @@ def eval_phase(gpu: str) -> int:
     return kernel_search.launches - launches
 
 
+# -- the league, the pipelined learner, the matchup evaluator, the arena ------
+
+LEAGUE_START = "docs/checkpoints/attn_werewolf_league_anchor_u600.npz"
+LEAGUE_OPP = "docs/checkpoints/attn_werewolf_league_noanchor_u300.npz"
+MATCHUP_CKPTS = tuple(f"docs/checkpoints/attn_werewolf_{n}.npz" for n in (
+    "u120", "league_anchor_u600", "league_noanchor_u300", "league_noanchor_u600_collapsed"))
+# 64 steps, not 128: the loop is host-bound (a pair took 3.6 s at 128 steps on
+# the card), so steps, not rooms, set its time
+MATCHUP_ROOMS, MATCHUP_STEPS, MATCHUP_SEED = 1024, 64, 777
+PIPE_ROUNDS = 3
+ARENA_ROOMS, EXPLOIT_ROOMS = 16, 32
+
+
+def learner_start(path: str):
+    """(params, PPOConfig of the learner path at its full shape) for a
+    shipped checkpoint, loaded as new tensors on the card."""
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    params, net = N.load_policy(os.path.join(HERE, path), "cuda")
+    return params, P.PPOConfig(horizon=HORIZON, epochs=4, fused_net=True, net=net)
+
+
+def clone(params: dict) -> dict:
+    return {k: v.detach().clone() for k, v in params.items()}
+
+
+def max_change(params: dict, before: dict) -> float:
+    return max(float((params[k].detach() - before[k].detach()).abs().max()) for k in before)
+
+
+def check_launches(what: str, want: dict) -> dict:
+    """The policy kernels' launches since zero_launches, all on the tensor
+    cores, against `want`."""
+    got = policy_launches()
+    if got != want or tensor_core_launches() != want:
+        raise AssertionError(f"{what} launched {got} ({tensor_core_launches()} on the tensor "
+                             f"cores), expected {want} on the tensor cores")
+    return got
+
+
+def check_packs(what: str, packs: int, states: int) -> int:
+    """At most one packing of the weights per parameter state."""
+    if packs != states:
+        raise AssertionError(f"{what}: {packs} packs for {states} parameter states")
+    return packs
+
+
+def check_league_main(updates: int) -> tuple:
+    """(launches, snapshot-arm updates) of run.main --league since
+    zero_launches: per update 33 K2 (anchor arm) or 65 (snapshot arm) and 4
+    K4, all on the tensor cores."""
+    got = policy_launches()
+    k2_extra = got["policy_forward"] - updates * (HORIZON + 1)  # 32 more a snapshot arm
+    if got["ppo_loss_grad"] != 4 * updates or got["policy_backward"] or k2_extra % HORIZON \
+            or not 0 <= k2_extra <= updates * HORIZON or tensor_core_launches() != got:
+        raise AssertionError(f"run.main --league launched {got} "
+                             f"({tensor_core_launches()} on the tensor cores)")
+    return got, k2_extra // HORIZON
+
+
+def league_phase(lowered, gpu: str) -> dict:
+    """train/league.py at the learner's full shape from the shipped league
+    checkpoint: one snapshot-arm update against another shipped checkpoint
+    and one anchor-arm update, beside one sync train step from the same
+    start; then run.main --league. Returns the policy kernels' launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import league as L
+    from game_engine_tpu_torch.train import ppo as P
+    from game_engine_tpu_torch.train import run as R
+
+    params, cfg = learner_start(LEAGUE_START)
+    opp, _ = learner_start(LEAGUE_OPP)
+    state = start_state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 41,
+                                     device="cuda")
+    sync = clone(params)
+    opt = P.make_optimizer(params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    total = dict.fromkeys(POLICY_REPLACES, 0)
+    for arm, scripted in (("snapshot", False), ("anchor", True)):
+        step = L.make_league_train_step(lowered, cfg, scripted_opponent=scripted)
+        before = clone(params)
+        zero_launches()
+        packs = FZ._packed.packs
+        t0 = time.perf_counter()
+        state, m = step(params, params if scripted else opp, opt, state, gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # K2: the learner's 32 steps (and the opponent's), the bootstrap; K4: an epoch
+        got = check_launches(f"the league's {arm} update", {
+            "policy_forward": (1 if scripted else 2) * HORIZON + 1, "policy_backward": 0,
+            "ppo_loss_grad": cfg.epochs})
+        # theta_0 (and the opponent's), then theta_1 to theta_3 in the later epochs
+        packs = check_packs(f"league {arm}", FZ._packed.packs - packs,
+                            (1 if scripted else 2) + cfg.epochs - 1)
+        loss, rate = float(m["loss"]), float(m["learner_win_rate"])
+        moved = max_change(params, before)
+        if not (np.isfinite(loss) and 0.0 <= rate <= 1.0 and moved > 0):
+            raise AssertionError(f"league {arm}: loss {loss}, win rate {rate}, moved {moved}")
+        emit({"phase": "league", "arm": arm, "rooms": ROOMS, "horizon": HORIZON,
+              "epochs": cfg.epochs, "start": LEAGUE_START,
+              "opponent": "scripted" if scripted else LEAGUE_OPP, "seconds": seconds,
+              "unroll_ms": m["unroll_ms"], "update_ms": m["update_ms"],
+              "step_ms": m["unroll_ms"] + m["update_ms"],
+              "loss": loss, "v_loss": float(m["v_loss"]), "entropy": float(m["entropy"]),
+              "episodes": int(m["episodes"]), "learner_win_rate": rate,
+              "max_param_change": moved, "launches": got, "packs": packs, "gpu": gpu})
+        for k in total:
+            total[k] += got[k]
+    # the sync train step from the same start, for the comparison
+    _, sm = P.make_train_step(lowered, cfg)(sync, P.make_optimizer(sync, cfg), start_state,
+                                           torch.Generator(device="cuda").manual_seed(21))
+    emit({"phase": "league_sync_step", "unroll_ms": sm["unroll_ms"],
+          "update_ms": sm["update_ms"], "step_ms": sm["unroll_ms"] + sm["update_ms"],
+          "gpu": gpu})
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_league_")
+    try:
+        argv = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
+                "--players", "6", "--horizon", str(HORIZON), "--epochs", "4", "--updates", "3",
+                "--eval-batch", "0", "--resume", os.path.join(HERE, LEAGUE_START), "--league",
+                "--league-snapshot-every", "1", "--league-dir", tmp]
+        out = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trained = R.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, snapshot_arms = check_league_main(3)
+        train = [json.loads(ln) for ln in out.getvalue().splitlines()
+                 if ln.startswith("{") and '"train"' in ln][-1]
+        snaps = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+        if snaps != [f"snap_u{u:05d}.npz" for u in (1, 2, 3)]:
+            raise AssertionError(f"--league-dir holds {snaps}")
+        back, back_cfg = N.load_policy(os.path.join(tmp, snaps[-1]), "cuda")
+        if back_cfg != cfg.net or not all(torch.equal(back[k], trained[k].detach())
+                                          for k in back):
+            raise AssertionError("the last league snapshot does not reload as the trained params")
+        if not np.isfinite(train["loss"]) or train["pool_size"] != 4:
+            raise AssertionError(f"run.main --league train line {train}")
+        emit({"phase": "league_run_main", "argv": [a if a != tmp else "<tmp>" for a in argv],
+              "seconds": seconds, "train": train, "snapshots": snaps,
+              "snapshot_reloads": True, "launches": got, "snapshot_arm_updates": snapshot_arms,
+              "gpu": gpu})
+        for k in total:
+            total[k] += got[k]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def host_syncs(fn) -> int:
+    """How many times `fn` makes the host wait for the card (torch's sync
+    debug mode: each synchronizing call warns once)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def pipeline_phase(lowered, gpu: str) -> dict:
+    """train/pipeline.py at the learner's full shape: PIPE_ROUNDS rounds on
+    two streams against the same rounds in serial order from the same
+    start, in turns (serial, two streams, two streams, serial): params and
+    engine state bit for bit equal. Returns the policy kernels' launches
+    of one two-stream run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.train import ppo as P
+    from game_engine_tpu_torch.train.pipeline import make_pipeline, run_pipelined
+
+    params0, cfg = learner_start(LEAGUE_START)
+    pair = make_pipeline(lowered, cfg)
+    start = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 61,
+                       device="cuda")
+    # each stage alone, in order, from the same start
+    p = clone(params0)
+    opt = P.make_optimizer(p, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    (_, traj, last_obs), collect_ms = timed_ms(lambda: pair[0](p, start, gen))
+    _, update_ms = timed_ms(lambda: pair[1](p, opt, traj, last_obs))
+    del traj, last_obs
+    syncs = host_syncs(lambda: P.make_unroll(lowered, dataclasses.replace(cfg, horizon=1))(
+        p, start, gen))
+
+    def run(overlap: bool):
+        params = clone(params0)
+        opt = P.make_optimizer(params, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        zero_launches()
+        (state, m), ms = timed_ms(lambda: run_pipelined(
+            lowered, cfg, params, opt, start, gen, PIPE_ROUNDS, pipeline=pair, device="cuda",
+            overlap=overlap))
+        got = check_launches("the pipeline", {
+            "policy_forward": (PIPE_ROUNDS + 1) * HORIZON + PIPE_ROUNDS, "policy_backward": 0,
+            "ppo_loss_grad": PIPE_ROUNDS * cfg.epochs})
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError("pipeline: loss is not finite")
+        return {"params": params, "state": state, "ms": ms, "launches": got}
+
+    runs = [("serial", run(False)), ("two_streams", run(True)), ("two_streams", run(True)),
+            ("serial", run(False))]
+    ref = runs[0][1]
+    diffs = []
+    for name, r in runs[1:]:
+        same_params = all(torch.equal(r["params"][k], ref["params"][k]) for k in ref["params"])
+        same_state = all(torch.equal(x, y) for x, y in zip(r["state"], ref["state"]))
+        diffs.append({"order": name, "params_equal": same_params, "state_equal": same_state,
+                      "max_param_diff": max_change(r["params"], ref["params"])})
+    if not all(d["params_equal"] and d["state_equal"] for d in diffs):
+        raise AssertionError(f"the pipeline's orders disagree: {diffs}")
+    if max_change(ref["params"], params0) <= 0:
+        raise AssertionError("the pipeline did not move the params")
+    steps = PIPE_ROUNDS * ROOMS * HORIZON  # env-steps the updates consume
+    by_order = {}
+    for name, r in runs:
+        by_order.setdefault(name, []).append(r["ms"])
+    emit({"phase": "pipeline", "rooms": ROOMS, "horizon": HORIZON, "epochs": cfg.epochs,
+          "rounds": PIPE_ROUNDS, "collect_ms": collect_ms, "update_ms": update_ms,
+          "sum_ms": collect_ms + update_ms, "max_ms": max(collect_ms, update_ms),
+          "call_ms": by_order, "round_ms": {
+              k: [(ms - collect_ms) / PIPE_ROUNDS for ms in v] for k, v in by_order.items()},
+          "train_env_steps_per_s": {k: [steps / (ms / 1e3) for ms in v]
+                                    for k, v in by_order.items()},
+          "bitwise_equal_to_serial": diffs, "launches": runs[1][1]["launches"],
+          "actor_stream_priority": -1, "learner_stream_priority": 0,
+          "host_syncs_per_unroll_step": syncs, "gpu": gpu})
+    return runs[1][1]["launches"]
+
+
+def matchup_phase(lowered, gpu: str) -> dict:
+    """evaluate.matchup_table over the four shipped attn werewolf
+    checkpoints (16 ordered pairs): the K2 route twice (the same table),
+    then the plain route from the same generator seeds, every entry within
+    3 binomial standard errors of the K2 route's. Returns the policy
+    kernels' launches of the first K2 run."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import evaluate as E
+    from game_engine_tpu_torch.train import ppo as P
+
+    paths = [os.path.join(HERE, c) for c in MATCHUP_CKPTS]
+    net = N.load_policy(paths[0], "cpu")[1]
+    pairs = len(paths) ** 2
+
+    def table(fused: bool):
+        counts = {}
+        t0 = time.perf_counter()
+        tab = E.matchup_table(lowered, P.PPOConfig(net=net, fused_net=fused), paths,
+                              MATCHUP_ROOMS, MATCHUP_STEPS, 6, MATCHUP_SEED, device="cuda",
+                              counts=counts)
+        torch.cuda.synchronize()
+        return tab, counts, (time.perf_counter() - t0) * 1e3 / pairs
+
+    zero_launches()
+    k2_tab, k2_counts, k2_ms = table(True)
+    got = check_launches("the matchup", {"policy_forward": pairs * MATCHUP_STEPS * 2,
+                                         "policy_backward": 0, "ppo_loss_grad": 0})
+    again, again_counts, again_ms = table(True)
+    if again_counts != k2_counts:
+        raise AssertionError("the K2 matchup gave another table the second time")
+    zero_launches()
+    plain_tab, plain_counts, plain_ms = table(False)
+    if any(policy_launches().values()):
+        raise AssertionError(f"the plain matchup launched {policy_launches()}")
+    worst = 0.0
+    for key, (w1, n1) in k2_counts.items():
+        w2, n2 = plain_counts[key]
+        if min(n1, n2) == 0:
+            raise AssertionError(f"matchup {key}: no episode ended")
+        p = min(max((w1 + w2) / (n1 + n2), 0.5 / (n1 + n2)), 1 - 0.5 / (n1 + n2))
+        se = (p * (1 - p) * (1 / n1 + 1 / n2)) ** 0.5
+        worst = max(worst, abs(w1 / n1 - w2 / n2) / se)
+    if not worst <= 3.0:
+        raise AssertionError(f"a K2 matchup entry lies {worst} standard errors from plain")
+    emit({"phase": "matchup", "checkpoints": list(MATCHUP_CKPTS), "rooms": MATCHUP_ROOMS,
+          "steps": MATCHUP_STEPS, "pairs": pairs, "table": k2_tab, "elo": E.elo_fit(k2_tab),
+          "plain_table": plain_tab, "plain_elo": E.elo_fit(plain_tab),
+          "episodes": int(sum(n for _, n in k2_counts.values())),
+          "worst_standard_errors_from_plain": worst, "k2_repeat_equal": True,
+          "ms_per_pair": k2_ms, "ms_per_pair_repeat": again_ms, "plain_ms_per_pair": plain_ms,
+          "launches": got, "gpu": gpu})
+    return got
+
+
+def kernel_counts() -> dict:
+    """Every policy kernel's launches and S's since zero_launches, and K2's
+    on the tensor cores."""
+    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    from game_engine_tpu_torch.policies import fused as FZ
+
+    return {**policy_launches(),
+            "policy_forward_tensor_core": FZ.kernel_forward.by_route["tensor_core"],
+            "search": kernel_search.launches}
+
+
+def arena_phase(gpu: str) -> dict:
+    """utils/arena.py on the card: werewolf, ARENA_ROOMS rooms, tiers
+    scripted, search-det8 and the attn checkpoint, twice (the same table);
+    the search tiers launch S, the checkpoint tier K2 on the tensor cores.
+    Then utils/eval_exploit.py at EXPLOIT_ROOMS rooms. Returns the
+    launches of each."""
+    import contextlib
+    import io
+
+    from game_engine_tpu_torch.utils import arena as AR
+    from game_engine_tpu_torch.utils import eval_exploit as EX
+
+    specs = ["scripted", "search-det8", os.path.join(HERE, CKPT)]
+    runs = []
+    for _ in range(2):
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            out = AR.run_arena("werewolf", ARENA_ROOMS, specs, device="cuda")
+        runs.append((out, time.perf_counter() - t0, kernel_counts()))
+    (out, seconds, got), (again, again_s, _) = runs
+    if again != out:
+        raise AssertionError("the arena gave another table the second time")
+    if not got["policy_forward"] or not got["search"] \
+            or got["policy_forward_tensor_core"] != got["policy_forward"]:
+        raise AssertionError(f"the arena launched {got}")
+    emit({"phase": "arena", **out, "seconds": [seconds, again_s], "repeat_equal": True,
+          "errors": 0, "launches": got, "gpu": gpu})
+
+    zero_launches()
+    t0 = time.perf_counter()
+    ex = EX.run_exploit("werewolf", os.path.join(HERE, CKPT), EXPLOIT_ROOMS, 32, 200, 0,
+                        device="cuda")
+    seconds = time.perf_counter() - t0
+    ex_got = kernel_counts()
+    rates = [v for k, v in ex.items() if k.endswith(("_scripted", "_search", "_learned"))]
+    if not ex_got["policy_forward"] or not ex_got["search"] \
+            or ex_got["policy_forward_tensor_core"] != ex_got["policy_forward"] \
+            or not all(0.0 <= r <= 1.0 for r in rates):
+        raise AssertionError(f"eval_exploit: {ex}, launches {ex_got}")
+    emit({"phase": "exploit", **{k: v for k, v in ex.items() if k != "ckpt"}, "ckpt": CKPT,
+          "seconds": seconds, "launches": ex_got, "gpu": gpu})
+    return {"arena": got, "exploit": ex_got}
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
@@ -1543,24 +1940,34 @@ def main(argv=()) -> int:
     s_line = search_timing(gpu, int32_ops_per_s())
     s_serving = serve_search_phase(gpu)
     s_eval = eval_phase(gpu)
+    league = league_phase(ww, gpu)
+    piped = pipeline_phase(ww, gpu)
+    matchup = matchup_phase(ww, gpu)
+    judged = arena_phase(gpu)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
-    learner_k2 = launches["policy_forward"]
-    launches["policy_forward"] += serving["launches"]
+    by_path = {k: {"learner": launches[k], "league": league[k], "pipeline": piped[k],
+                   "matchup": matchup[k], "arena": judged["arena"][k],
+                   "exploit": judged["exploit"][k]} for k in POLICY_REPLACES}
+    by_path["policy_forward"]["serving"] = serving["launches"]
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
+    s_by_path = {**s_serving, "eval_search": s_eval, "arena": judged["arena"]["search"],
+                 "exploit": judged["exploit"]["search"]}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches, "max_abs_err": worst,
+        "replaces": REPLACES, "launches": main_launches,
+        "launches_by_path": {"engine": main_launches}, "max_abs_err": worst,
         "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1], "library_ms": None}] + [{
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
-        "launches": launches[k], "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],
+        "launches": launches[k], "launches_by_path": by_path[k],
+        "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],
         "bound_ms": policy[k]["bound"][0], "bound_by": policy[k]["bound"][1],
         "library_ms": None, "ran": "tensor_core",
         **{e: v for e, v in policy[k].items() if e not in ("ms", "plain_ms", "bound")},
-        **({"learner_launches": learner_k2, "serving_launches": serving["launches"],
-            "serving_route": "tensor_core", "serving_ms_by_rows": serving["k2"]}
+        **({"serving_route": "tensor_core", "serving_ms_by_rows": serving["k2"]}
            if k == "policy_forward" else {}),
         **({"narrow_route": {"ran": "cuda_core", "source": NARROW_SOURCE, "hidden": 48,
                              "launches_on_main_path": 0,
@@ -1569,7 +1976,7 @@ def main(argv=()) -> int:
         for k in POLICY_REPLACES] + [{
         "name": "search", "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
         "replaces_kind": "C++ host code (search_scores_core), no pallas_call site",
-        "launches": sum(s_serving.values()), "launches_by_path": {**s_serving, "eval_search": s_eval},
+        "launches": sum(s_by_path.values()), "launches_by_path": s_by_path,
         "max_abs_err": s_compare["max_abs_err"], "decisions_checked": s_compare["decisions"],
         "ms": s_line["ms"], "plain_ms": s_line["plain_ms"], "bound_ms": s_line["bound"][0],
         "bound_by": s_line["bound"][1], "library_ms": None,

@@ -202,16 +202,23 @@ def _require_pipeline(d: Dims, what: str) -> None:
 class _Packed:
     """The pipelines' view of one parameter state: prm, the flat f32
     parameters (biases, LayerNorm affine); weights, lg_pack's bf16 forward
-    and transposed packings; and what the state was (refs, stamp)."""
+    and transposed packings; what the state was (refs, stamp); and on CUDA
+    the stream that packed it and an event recorded after the packing."""
 
     prm: torch.Tensor
     weights: torch.Tensor
     meta: np.ndarray
     refs: list
     stamp: tuple
+    stream: object = None
+    ready: object = None
+
+    def live(self) -> bool:
+        return all(ref() is not None for ref in self.refs)
 
 
-_pack_cache: dict = {}  # (dims, device) -> _Packed: the last state packed there
+PACK_SLOTS = 4  # parameter states kept packed per (dims, device)
+_pack_cache: dict = {}  # (dims, device) -> [_Packed], the least recently used first
 
 
 def _pipeline_lib(device):
@@ -220,20 +227,36 @@ def _pipeline_lib(device):
     return _build.lossgrad_host_lib() if device.type == "cpu" else _build.lossgrad_lib()
 
 
+def _use_on_current_stream(pk: _Packed, device) -> _Packed:
+    """Order a packing before its use on the current stream when another
+    stream packed it, and tell the caching allocator that this stream reads
+    its buffers, so their memory is not handed out again until this
+    stream's work on them is done, even after the packing is evicted."""
+    if device.type == "cuda":
+        cur = torch.cuda.current_stream(device)
+        if cur != pk.stream:
+            cur.wait_event(pk.ready)
+            pk.prm.record_stream(cur)
+            pk.weights.record_stream(cur)
+    return pk
+
+
 def _packed(d: Dims, params: dict, device) -> _Packed:
-    """The packed parameters, packed anew only when the state changed: the
-    unroll calls K2 33 times a train step on the same parameters. A state is
+    """The packed parameters, packed anew only for a state not seen among the
+    last PACK_SLOTS: the unroll calls K2 33 times a train step on the same
+    parameters, a league unroll alternates the learner's and the opponent's,
+    and the pipeline keeps an actor copy beside the learner's. A state is
     the tensor objects, their addresses and their autograd version counters,
     which every in-place update bumps (Tensor.add_, an optimizer step,
     copy_). A write through ``p.data`` bypasses the counter: do not update
     parameters that way between calls."""
     tensors = [params[name] for name in _param_names(d)]
     stamp = tuple((p.data_ptr(), p._version) for p in tensors)
-    slot = (d, device)
-    hit = _pack_cache.get(slot)
-    if hit is not None and hit.stamp == stamp and \
-            all(ref() is p for ref, p in zip(hit.refs, tensors)):
-        return hit
+    entries = _pack_cache.setdefault((d, device), [])
+    for i, hit in enumerate(entries):
+        if hit.stamp == stamp and all(ref() is p for ref, p in zip(hit.refs, tensors)):
+            entries.append(entries.pop(i))
+            return _use_on_current_stream(hit, device)
     prm = torch.cat([p.reshape(-1) for p in _flat_params(params, d, device)]).contiguous()
     meta = _meta(d)
     weights = torch.empty((int(_pipeline_lib(device).lg_weights_bytes(meta.ctypes.data)),),
@@ -242,7 +265,13 @@ def _packed(d: Dims, params: dict, device) -> _Packed:
              "weight packing")
     _packed.packs += 1
     out = _Packed(prm, weights, meta, [weakref.ref(p) for p in tensors], stamp)
-    _pack_cache[slot] = out
+    if device.type == "cuda":
+        out.stream = torch.cuda.current_stream(device)
+        out.ready = torch.cuda.Event()
+        out.ready.record(out.stream)
+    # states whose tensors are gone can never match again: drop them first
+    entries[:] = [e for e in entries if e.live()] + [out]
+    del entries[:-PACK_SLOTS]
     return out
 
 

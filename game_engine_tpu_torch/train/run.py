@@ -4,18 +4,24 @@ Usage:
     python -m game_engine_tpu_torch.train.run --arch attn --device cuda \
         --batch 4096 --updates 200 --eval-every 25
 
-Counterpart of game_engine_tpu/train/run.py (without --league): self-play
-PPO over batched rooms with cross-play evaluation against the scripted
-policy in both directions, printing the same JSON event lines. On CUDA the
-deepsets/attn net runs through the policy-net kernels unless --no-fused.
---resume takes a checkpoint of the JAX package's layout (npz +
-.tree.json, e.g. docs/checkpoints/*.npz); --checkpoint writes one.
+Counterpart of game_engine_tpu/train/run.py: self-play PPO over batched
+rooms with cross-play evaluation against the scripted policy in both
+directions, printing the same JSON event lines. On CUDA the deepsets/attn
+net runs through the policy-net kernels unless --no-fused. --resume takes
+a checkpoint of the JAX package's layout (npz + .tree.json, e.g.
+docs/checkpoints/*.npz); --checkpoint writes one.
+
+--league trains against a pool of frozen snapshots (train/league.py)
+instead of mirror self-play, with the scripted policy as a permanent
+anchor unless --no-league-anchor; --league-dir also saves each snapshot
+(snap_u00001.npz, ...) for evaluate --matchup.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -86,6 +92,17 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--resume", default="", help="checkpoint path to resume params from")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--league", action="store_true",
+                    help="train against a pool of frozen snapshots "
+                         "(prioritized opponent sampling) instead of mirror self-play")
+    ap.add_argument("--league-snapshot-every", type=int, default=50)
+    ap.add_argument("--no-league-anchor", dest="league_anchor",
+                    action="store_false", default=True,
+                    help="drop the scripted policy from the opponent pool (with no "
+                         "weak anchor a long run's minority side can learn to resign)")
+    ap.add_argument("--league-dir", default="",
+                    help="also save each league snapshot here (for the "
+                         "evaluate --matchup win-rate matrix)")
     args = ap.parse_args(argv)
 
     device = D.resolve(args.device)
@@ -118,6 +135,16 @@ def main(argv=None):
         params = {k: loaded[k] for k in params}
         opt = make_optimizer(params, cfg)
         print(json.dumps({"event": "resume", "from": args.resume}), flush=True)
+    league = None
+    if args.league:
+        from game_engine_tpu_torch.train.league import League, make_league_train_step
+
+        league = League(snapshot_every=args.league_snapshot_every, anchor=args.league_anchor)
+        league.maybe_snapshot(params)
+        league_step = make_league_train_step(lowered, cfg)
+        if args.league_anchor:
+            anchor_step = make_league_train_step(lowered, cfg, scripted_opponent=True)
+        rng = np.random.default_rng(args.seed)
     train_step = make_train_step(lowered, cfg)
     state = init_state(lowered, args.batch, args.players,
                        np.arange(args.batch, dtype=np.uint32), device=device)
@@ -140,7 +167,21 @@ def main(argv=None):
     print(json.dumps({"event": "eval", "update": 0, **run_evals()}), flush=True)
     t0 = time.time()
     for u in range(1, args.updates + 1):
-        state, metrics = train_step(params, opt, state, gen)
+        if league is not None:
+            opp_idx, opp = league.sample_opponent(rng)
+            if opp_idx == league.ANCHOR_ID:
+                state, metrics = anchor_step(params, params, opt, state, gen)
+            else:
+                state, metrics = league_step(params, opp, opt, state, gen)
+            if float(metrics["episodes"]) > 0:  # no-episode updates carry no signal
+                league.record_result(opp_idx, float(metrics["learner_win_rate"]))
+            if league.maybe_snapshot(params) and args.league_dir:
+                os.makedirs(args.league_dir, exist_ok=True)
+                N.save_policy(os.path.join(args.league_dir, f"snap_u{u:05d}"), params,
+                              meta={"attn_heads": cfg.net.attn_heads})
+            metrics = dict(metrics, opponent=opp_idx, pool_size=len(league.params_pool))
+        else:
+            state, metrics = train_step(params, opt, state, gen)
         if u % 10 == 0 or u == args.updates:
             m = {k: round(float(v), 4) for k, v in metrics.items()}
             m.update(event="train", update=u,

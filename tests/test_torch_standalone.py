@@ -24,8 +24,12 @@ from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies import serve as SV
 from game_engine_tpu_torch.server import api as A
 from game_engine_tpu_torch.server import manager as MG
+from game_engine_tpu_torch.train import evaluate as EV
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
+from game_engine_tpu_torch.train.pipeline import run_pipelined
+from game_engine_tpu_torch.utils import arena as AR
+from game_engine_tpu_torch.utils import eval_exploit as EX
 from game_engine_tpu_torch.utils import checkpoint as CK
 from tests.test_torch_state import builtin_pair
 
@@ -76,6 +80,8 @@ ENTRY_POINTS = [
     (P.init_training, "device"), (CK.load_state, "device"), (CK.load_tree, "device"),
     (CK.replay, "device"), (SV.load_bot_policies, "device"), (MG.GameHost.__init__, "device"),
     (A.AppContext.__init__, "device"), (A.make_server, "device"),
+    (EV.matchup_table, "device"), (run_pipelined, "device"), (AR.run_arena, "device"),
+    (EX.run_exploit, "device"),
 ]
 
 
@@ -97,6 +103,22 @@ def test_train_run_device_flag_defaults_to_the_card(monkeypatch):
     assert seen == {"device": "cuda"}
 
 
+@pytest.mark.parametrize("main,argv", [
+    (EV.main, ["--batch", "2"]), (AR.main, ["werewolf", "1", "scripted"]),
+    (EX.main, ["werewolf"])], ids=["evaluate", "arena", "eval_exploit"])
+def test_evaluation_device_flags_default_to_the_card(monkeypatch, main, argv):
+    seen = {}
+
+    def resolve(device):
+        seen["device"] = device
+        raise RuntimeError("stop here")
+
+    monkeypatch.setattr(D, "resolve", resolve)
+    with pytest.raises(RuntimeError, match="stop here"):
+        main(argv)
+    assert seen == {"device": "cuda"}
+
+
 @pytest.fixture()
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -106,6 +128,7 @@ def test_entry_points_raise_without_a_card(no_card):
     pw = builtin_pair("werewolf").port
     cfg = N.NetConfig(hidden=64, arch="attn")
     gen = torch.Generator().manual_seed(0)
+    ckpt = os.path.join(REPO, "docs", "checkpoints", "attn_werewolf_u120.npz")
     calls = [
         lambda: S.init_state(pw, 2, 6, 0),
         lambda: S.state_from_numpy(S.state_to_numpy(S.init_state(pw, 2, 6, 0, device="cpu"))),
@@ -120,6 +143,12 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: A.make_server(port=0),
         lambda: SV.load_bot_policies([os.path.join(REPO, "docs", "checkpoints",
                                                     "attn_werewolf_u120.npz")]),
+        lambda: EV.main(["--batch", "2", "--steps", "1"]),
+        lambda: EV.main(["--batch", "2", "--steps", "1", "--matchup", ckpt]),
+        lambda: run_pipelined(pw, P.PPOConfig(net=cfg), {}, None,
+                              S.init_state(pw, 2, 6, 0, device="cpu"), gen, 1),
+        lambda: AR.main(["werewolf", "1", "scripted"]),
+        lambda: EX.main(["werewolf", ckpt, "1", "2", "8"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
