@@ -21,10 +21,11 @@ evaluator, the arena and the exploit probe are listed with the phases):
 Phases, one JSON line each:
 
   env             torch/CUDA versions and the GPU's name and power limit
-  build           nvcc builds of csrc/rollout.cu, policy_net.cu and
-                  lossgrad.cu, in parallel (one nvcc each, started
-                  together): seconds and ptxas reports (K1's registers,
-                  stack and spill bytes also as numbers)
+  build           nvcc builds of csrc/rollout.cu, policy_net.cu,
+                  lossgrad.cu, search.cu and chat_decode.cu, in parallel
+                  (one nvcc each, started together): seconds and ptxas
+                  reports (K1's, S's and LM's registers, stack and spill
+                  bytes also as numbers)
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
                   4096x8 (256 steps) at 128, 64 and 256 lanes a block,
@@ -75,7 +76,7 @@ Phases, one JSON line each:
                   the end-to-end comparison
   serve_scripted  the server: the port's HTTP game host (server/api.py on
                   the torch backend, journaling on) started in-process on
-                  the card and driven for 30 s by utils/load_test.py's
+                  the card and driven for 20 s by utils/load_test.py's
                   Client at its default shape (200 werewolf rooms, 8
                   clients; the slot pool grows 64 -> 128 -> 256), one
                   add-bot a room (4 seats: the client's and 3 scripted
@@ -152,12 +153,39 @@ Phases, one JSON line each:
                   table): S and K2 (tensor cores) launched
   exploit         utils/eval_exploit.py, 32 rooms, rollouts 32 x horizon 200
 
+  compare_chat    the chat LM's decode kernel (LM, csrc/chat_decode.cu: a
+                  reply a block, one launch a batch) against decode_plain
+                  on the card, docs/checkpoints/chat_lm.npz at full width:
+                  64 corpus contexts of unseen rooms (seeds from 320)
+                  greedy, and 32 of them sampled (T 0.8, top-p 0.9) with
+                  salts 0-2. Tokens equal but where the plain decode's top
+                  two logits are within 1e-3 (or a sampled draw within 1e-2
+                  of a boundary of its CDF), reported; the head's logits at
+                  the generated positions within 1e-2 of max|ref| (the plain
+                  decode with float64 sums moves them by ~4e-3, reported)
+  chat_timing     one reply: the kernel's ms (CUDA events, median of 5) and
+                  launches (1), the plain decode's ms and its kernel
+                  launches (torch.profiler), reply tokens/s, the bound
+  chat_probes     utils/eval_chat_probes.py on the card: composer,
+                  student_fb and sampled_fb at ok_rate 1.0, beside the JAX
+                  record (docs/chat_probe_eval_r5.json)
+  serve_chat      the serving shape for 20 s with --chat-lm and the attn
+                  policy bots, and one more client that only chats (closed
+                  loop: a greeting, a status and a score question in turn):
+                  chat_ms p50/p99, decode launches > 0, 0 errors, no plain
+                  decode on the card
+  train_chat_lm   train/chat_lm.py --device cuda at the shipped width
+                  (d 192, 4 layers, max_len 832, batch 256), 20 steps on the
+                  corpus of 8 rooms a game: steps/s, a finite falling loss,
+                  the held-out evaluation's replies through the kernel
+
 Then a {"kernels": [...]} line (each kernel's launches on the main paths,
 by path in launches_by_path,
 which of its routes ran there, its error, time, plain version's time and
 bound: the larger of its operations over the card's peak for their type and
-its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4, int32 at SMs x 64
-lanes x the top SM clock for K1), the nvidia-smi line, and the last line
+its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4 and LM's products
+(LM's float32 attention at 67 TFLOP/s), int32 at SMs x 64 lanes x the top
+SM clock for K1 and S), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (nonzero exit). Without a
 CUDA device, or outside a checkout of the repository, it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
@@ -188,8 +216,9 @@ HORIZON = 32          # and its steps: one epoch of the train path
 TOL_FWD, TOL_GRAD, TOL_LOSS, TOL_METRIC = 2e-2, 5e-2, 2e-2, 5e-2
 # published peaks of one H100 SXM (dense): bf16 tensor cores, HBM bandwidth
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
-# the server: utils/load_test.py's default shape (rooms, clients), 30 s a run
-SERVE_ROOMS, SERVE_CLIENTS, SERVE_SECONDS = 200, 8, 30.0
+PEAK_F32 = 67e12  # float32 outside the tensor cores
+# the server: utils/load_test.py's default shape (rooms, clients), 20 s a run
+SERVE_ROOMS, SERVE_CLIENTS, SERVE_SECONDS = 200, 8, 20.0
 SERVE_CHECK_ROOMS = 8
 K2_SERVE_ROWS = (64, 256, 512, 1024, 2048)
 TRAIN_ARGV = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
@@ -621,9 +650,11 @@ def tensor_core_launches() -> dict:
 def zero_launches() -> None:
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
     from game_engine_tpu_torch.core.search_kernel import kernel_search
+    from game_engine_tpu_torch.policies.chat_decode import kernel_decode
 
     kernel_rollout.launches = 0
     kernel_search.launches = 0
+    kernel_decode.launches = 0
     for fn in policy_wrappers().values():
         fn.launches = 0
         fn.by_route = dict.fromkeys(fn.by_route, 0)
@@ -732,18 +763,74 @@ def quantile(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
 
 
+CHAT_LINES = ("to Bot 2: hello there", "to Bot 2: who is still alive?",
+              "to Bot 3: what's the score?")
+
+
+def chat_poster(port: int, host, storage, stop, stats: dict, lock) -> None:
+    """One more client that only chats, closed loop with no pause: a
+    message of CHAT_LINES in turn to a started room in turn, its latency
+    recorded under "chat". The host holds a room from the start of its
+    /start call, the lobby marks it playing only after; until then the API
+    rightly answers a chat 409 "room not started", so such a room is passed
+    over and counted ("chat_unstarted_skips"), as a client that has not
+    seen its start answered would not chat there. A room that has left the
+    host (410) is skipped, any other failure is an error, with its status
+    and body among the samples."""
+    import urllib.error
+
+    from game_engine_tpu_torch.utils.load_test import _req
+
+    def failed(sample: str) -> None:
+        with lock:
+            stats["errors"] = stats.get("errors", 0) + 1
+            stats.setdefault("error_samples", []).append(sample[:160])
+
+    i = 0
+    while not stop.is_set():
+        with host._lock:
+            rids = sorted(host._rooms)
+        if not rids:
+            time.sleep(0.05)
+            continue
+        rid = rids[i % len(rids)]
+        room = storage.get_room(rid)
+        if room is None or room.status == "waiting":
+            with lock:
+                stats["chat_unstarted_skips"] = stats.get("chat_unstarted_skips", 0) + 1
+            i += 1
+            continue
+        try:
+            _, ms = _req(port, "POST", f"/api/rooms/{rid}/chat",
+                         {"playerId": 1, "message": CHAT_LINES[i % len(CHAT_LINES)]})
+            with lock:
+                stats.setdefault("chat", []).append(ms)
+        except urllib.error.HTTPError as e:
+            if e.code == 410:
+                with lock:
+                    stats["chat_gone"] = stats.get("chat_gone", 0) + 1
+            else:
+                failed(f"chat HTTP {e.code}: {e.read().decode(errors='replace')}")
+        except Exception as e:  # count, as the load clients do
+            failed(repr(e))
+        i += 1
+
+
 def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
-              backend: str = "torch", bot_search=None):
+              backend: str = "torch", bot_search=None, chat_lm=None):
     """One load_test drive of the port's server on the card, counts set to 0
     just before it and read just after. The clients first create and start
     their rooms (set-up, timed apart: the lobby store rewrites its whole
     file on every change); the SERVE_SECONDS window starts once every room
-    is live. Returns (the stopped server, its host intact; the line)."""
+    is live. With `chat_lm`, one chat_poster more runs in the window (the
+    load clients chat only every 23rd turn). Returns (the stopped server,
+    its host intact; the line)."""
     import threading
 
     import torch
 
     from game_engine_tpu_torch.core import search_kernel as SK
+    from game_engine_tpu_torch.policies import chat_decode as CD
     from game_engine_tpu_torch.policies import fused as FZ
     from game_engine_tpu_torch.policies import search as PS
     from game_engine_tpu_torch.server import manager as MG
@@ -751,7 +838,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
     from game_engine_tpu_torch.utils.load_test import Client
 
     srv = make_server(0, storage, bot_ckpts=bot_ckpts, backend=backend, bot_search=bot_search,
-                      device="cuda")
+                      chat_lm=chat_lm, device="cuda")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     steps = {"calls": 0, "seconds": 0.0, "slots": 0, "search_seconds": 0.0}
     native = backend == "native"
@@ -796,6 +883,10 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
                 and time.time() - t0 < 600:
             time.sleep(0.2)
         begin = snap()
+        if chat_lm:
+            clients.append(threading.Thread(target=chat_poster, daemon=True, args=(
+                srv.server_address[1], srv.ctx.host, srv.ctx.storage, stop, stats, lock)))
+            clients[-1].start()
         time.sleep(SERVE_SECONDS)
         end = snap()
         stop.set()
@@ -808,6 +899,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         srv.shutdown()
         srv.server_close()
     s_launches = SK.kernel_search.launches
+    d_launches = CD.kernel_decode.launches
     launches = FZ.kernel_forward.launches
     by_route = dict(FZ.kernel_forward.by_route)
     host = srv.ctx.host
@@ -843,6 +935,11 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         "step_slots_share_of_window": (end[3]["seconds"] - begin[3]["seconds"]) / wall,
         "rooms_per_engine_step": (end[3]["slots"] - begin[3]["slots"]) / max(1, n_steps),
         "slot_capacity": gs.capacity, "live_rooms": len(host._rooms),
+        "chat_ms": {f"p{int(q * 100)}": quantile(lat["chat"], q) for q in (0.5, 0.99)},
+        "chat_ms_mean": statistics.mean(lat["chat"]) if lat["chat"] else None,
+        "chat_lm": chat_lm is not None, "chat_poster": bool(chat_lm),
+        "chats_to_ended_rooms": stats.get("chat_gone", 0),
+        "chat_unstarted_skips": stats.get("chat_unstarted_skips", 0), "decode_launches": d_launches,
         "k2_launches": launches, "k2_by_route": by_route, "search_launches": s_launches,
         "search_host_s_in_window": search_s,
         "search_share_of_step": search_s / step_s if step_s else None, "gpu": gpu}
@@ -863,6 +960,8 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         raise AssertionError(f"{name}: the scripted run launched K2 {launches} times")
     if bool(bot_search) != (s_launches > 0):
         raise AssertionError(f"{name}: {s_launches} search launches with bot_search={bot_search}")
+    if bool(chat_lm) != (d_launches > 0):
+        raise AssertionError(f"{name}: {d_launches} chat decode launches with chat_lm={chat_lm}")
     return srv, line
 
 
@@ -1745,6 +1844,333 @@ def arena_phase(gpu: str) -> dict:
     return {"arena": got, "exploit": ex_got}
 
 
+# -- the chat LM's decode kernel (LM) -------------------------------------------
+
+CHAT_SOURCE = "game_engine_tpu_torch/csrc/chat_decode.cu"
+# LM is the counterpart of an XLA scan, not of a pallas_call site
+CHAT_REPLACES = "game_engine_tpu/policies/chat_lm.py:439"
+CHAT_CKPT = "docs/checkpoints/chat_lm.npz"
+CHAT_SEED0 = 320             # unseen rooms, as the trainer's held-out evaluation
+CHAT_GREEDY, CHAT_SAMPLED = 64, 32
+CHAT_TEMP, CHAT_TOP_P, CHAT_SALTS = 0.8, 0.9, (0, 1, 2)
+CHAT_MAX_NEW = 320           # greedy_reply's budget
+# the head's logits, of max|ref|: a float32 sum taken in another order
+# already moves them by ~4e-3 at the shipped width (compare_chat measures it,
+# as plain_f64_max_abs_err; tests/test_torch_chat_lm.py pins it)
+CHAT_TOL, CHAT_GAP = 1e-2, 1e-3
+CHAT_DRAW_MARGIN = 1e-2      # a sampled draw this close to a boundary of the CDF may flip
+# the JAX package's record of eval_chat_probes (docs/chat_probe_eval_r5.json):
+# ok_rate, raw_lm_ok_rate, fell_back, lm_served
+CHAT_PROBES_JAX = {"composer": (1.0, None, 0, 0), "student_fb": (1.0, 0.375, 16, 24),
+                   "sampled_fb": (1.0, 0.375, 16, 24)}
+CHAT_TRAIN_ARGV = ["--device", "cuda", "--d-model", "192", "--layers", "4", "--max-len", "832",
+                   "--batch", "256", "--steps", "20", "--seeds", "8"]
+
+
+def chat_contexts(cfg, n: int, seed0: int = CHAT_SEED0):
+    """n contexts of the corpus from unseen rooms: (contexts, prompt buffers
+    (n, max_len) int32 numpy, prompt lengths)."""
+    import numpy as np
+
+    from game_engine_tpu_torch.policies import chat_lm as LM
+
+    ctxs = [c for c, _ in LM.build_corpus(seeds=range(seed0, seed0 + 40), max_pairs=n)]
+    if len(ctxs) != n:
+        raise AssertionError(f"the corpus gave {len(ctxs)} contexts, not {n}")
+    bufs, n0 = zip(*(LM._prompt_buf(cfg, c) for c in ctxs))
+    return ctxs, np.stack(bufs), list(n0)
+
+
+def _nucleus_margin(lg, uv: float, inv_temp: float, top_p: float) -> float:
+    """How far a sampled draw from the plain decode's logits `lg` (V,) lay
+    from flipping: the least distance, in probability, between the draw's
+    threshold u·ck[-1] and a cumulative boundary ck, or between top_p and a
+    token's preceding mass (chat_decode._nucleus)."""
+    import torch
+
+    s = lg.double() * inv_temp
+    order = torch.argsort(-s, stable=True)
+    ps = torch.softmax(s, -1)[order]
+    cps = torch.cumsum(ps, -1)
+    kept = torch.where((cps - ps) < top_p, ps, torch.zeros_like(ps))
+    ck = torch.cumsum(kept, -1)
+    return float(min((ck - uv * ck[-1]).abs().min(), ((cps - ps) - top_p).abs().min()))
+
+
+def compare_replies(got, ref, lg, lr, n0, us=None, inv_temp=1.0, top_p=1.0) -> dict:
+    """Kernel tokens and logits `got`, `lg` against the plain decode's `ref`,
+    `lr`, context by context. A context's tokens may differ only where the
+    plain decode's choice was a near tie: its top two logits within
+    CHAT_GAP (greedy), or the draw within CHAT_DRAW_MARGIN of a boundary
+    (sampled). The logits are compared at the generated positions up to
+    the first difference (after it the inputs differ)."""
+    import torch
+
+    differ, ties, worst, ref_max = 0, [], 0.0, 0.0
+    for i in range(got.shape[0]):
+        a, b = got[i, n0[i]:], ref[i, n0[i]:]
+        diff = (a != b).nonzero()
+        stop = int(diff[0]) if len(diff) else len(a)
+        rows = slice(n0[i] - 1, n0[i] - 1 + min(stop + 1, len(a)))
+        m = ~torch.isnan(lr[i, rows, 0])
+        if bool(m.any()):
+            x, y = lg[i, rows][m], lr[i, rows][m]
+            if bool(torch.isnan(x).any()):
+                raise AssertionError(f"context {i}: the kernel wrote no logits where plain did")
+            worst = max(worst, float((x - y).abs().max()))
+            ref_max = max(ref_max, float(y.abs().max()))
+        if not len(diff):
+            continue
+        differ += 1
+        pos = n0[i] - 1 + stop
+        if bool(torch.isnan(lr[i, pos]).any()):
+            raise AssertionError(f"chat decode: context {i} generates reply token {stop} "
+                                 "where the plain decode had stopped")
+        top = torch.topk(lr[i, pos], 2).values
+        gap = float(top[0] - top[1])
+        entry = {"context": i, "reply_token": stop, "top_two_gap": gap}
+        if us is not None:
+            entry["draw_margin"] = _nucleus_margin(lr[i, pos], float(us[i][pos]), inv_temp, top_p)
+        explained = gap <= CHAT_GAP or entry.get("draw_margin", 1.0) <= CHAT_DRAW_MARGIN
+        if not explained:
+            raise AssertionError(f"chat decode: context {i} differs from plain at reply token "
+                                 f"{stop} away from a tie: {entry}")
+        ties.append(entry)
+    return {"replies": int(got.shape[0]), "replies_differing": differ, "tie_divergences": ties,
+            "max_abs_err": worst, "max_abs_ref": ref_max}
+
+
+def compare_chat(gpu: str) -> dict:
+    """The decode kernel against decode_plain on the card, at the shipped
+    checkpoint's full width: CHAT_GREEDY corpus contexts greedy and
+    CHAT_SAMPLED sampled with each salt of CHAT_SALTS, one launch a batch."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.policies import chat_decode as CD
+    from game_engine_tpu_torch.policies import chat_lm as LM
+
+    params, cfg = LM.load(os.path.join(HERE, CHAT_CKPT), "cuda")
+    pk = CD.packed(params, cfg)
+    ctxs, bufs, n0 = chat_contexts(cfg, CHAT_GREEDY)
+    t0 = time.perf_counter()
+    launches = CD.kernel_decode.launches
+    (got, lg), ms = timed_ms(lambda: CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW, logits=True))
+    if CD.kernel_decode.launches != launches + 1:
+        raise AssertionError("kernel_decode did not launch the kernel once")
+    ref, lr = CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW, logits=True)
+    _, l64 = CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW, logits=True, f64_sums=True)
+    greedy = compare_replies(got, ref, lg, lr, n0)
+    m = ~torch.isnan(lr) & ~torch.isnan(l64)
+    greedy["plain_f64_max_abs_err"] = float((l64[m] - lr[m]).abs().max())
+    check("chat decode logits (greedy)", greedy["max_abs_err"], CHAT_TOL * greedy["max_abs_ref"])
+    gen = [int(((got[i, k:] >= LM._NSPECIAL).cumprod(0)).sum()) for i, k in enumerate(n0)]
+    sctx, sbufs, sn0 = ctxs[:CHAT_SAMPLED], bufs[:CHAT_SAMPLED], n0[:CHAT_SAMPLED]
+    us = [LM._ctx_uniforms(c, cfg.max_len, salt) for salt in CHAT_SALTS for c in sctx]
+    inv_temp = float(np.float32(1.0 / CHAT_TEMP))
+    top_p = float(np.float32(CHAT_TOP_P))
+    sb, sn = np.concatenate([sbufs] * len(CHAT_SALTS)), sn0 * len(CHAT_SALTS)
+    kw = dict(u=np.stack(us), inv_temp=inv_temp, top_p=top_p, logits=True)
+    sgot, slg = CD.kernel_decode(pk, sb, sn, CHAT_MAX_NEW, **kw)
+    sref, slr = CD.decode_plain(params, cfg, sb, sn, CHAT_MAX_NEW, **kw)
+    sampled = compare_replies(sgot, sref, slg, slr, sn, us, inv_temp, top_p)
+    check("chat decode logits (sampled)", sampled["max_abs_err"],
+          CHAT_TOL * sampled["max_abs_ref"])
+    line = {"phase": "compare_chat", "checkpoint": CHAT_CKPT,
+            "d_model": cfg.d_model, "layers": cfg.n_layers, "heads": cfg.n_heads,
+            "max_len": cfg.max_len, "seeds_from": CHAT_SEED0, "greedy": greedy,
+            "sampled": {**sampled, "temperature": CHAT_TEMP, "top_p": CHAT_TOP_P,
+                        "salts": list(CHAT_SALTS)},
+            "batch_kernel_ms": ms, "prompt_tokens_mean": float(np.mean(n0)),
+            "reply_tokens_mean": float(np.mean(gen)), "tolerance_of_max_ref": CHAT_TOL,
+            "tie_gap": CHAT_GAP, "seconds": time.perf_counter() - t0, "gpu": gpu}
+    emit(line)
+    return {"max_abs_err": max(greedy["max_abs_err"], sampled["max_abs_err"]),
+            "ctx": ctxs[0], "bufs": bufs[:1], "n0": n0[:1], "params": params, "cfg": cfg}
+
+
+def chat_bound(cfg, n0: int, n_gen: int) -> tuple:
+    """(least ms, "operations" or "bytes") of one reply: the bf16 products
+    (4 layers' weights a position, the head at each generated position) at
+    the tensor cores' bf16 rate plus the float32 attention at 67 TFLOP/s,
+    against the weights read once and the caches and tokens written once at
+    the memory rate."""
+    Dm, H, nh, nl, V = cfg.d_model, 4 * cfg.d_model, cfg.n_heads, cfg.n_layers, 99
+    npos = n0 - 1 + n_gen  # positions run: the prompt's, then one a generated token
+    macs_w = npos * nl * (3 * Dm * Dm + Dm * Dm + 2 * Dm * H) + n_gen * Dm * V
+    macs_att = sum(nl * 2 * Dm * (p + 1) for p in range(npos))
+    t_ops = 2 * macs_w / PEAK_BF16 * 1e3 + 2 * macs_att / PEAK_F32 * 1e3
+    weights = 2 * (2 * V * Dm + nl * (4 * Dm * Dm + 2 * Dm * H)) \
+        + 4 * (cfg.max_len * Dm + cfg.max_len * Dm // nh + 2 * Dm + nl * (5 * Dm + H))
+    moved = weights + 4 * npos * nl * 2 * Dm + 4 * (cfg.max_len + 1) * 2
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def chat_timing(gpu: str, cmp: dict) -> dict:
+    """One reply of the first compared context: the kernel's ms (CUDA events,
+    median of 5 after a warm-up) and launches a reply; the plain decode's
+    ms and kernel launches a reply (torch.profiler); reply tokens a second;
+    the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from game_engine_tpu_torch.policies import chat_decode as CD
+
+    params, cfg, bufs, n0 = cmp["params"], cmp["cfg"], cmp["bufs"], cmp["n0"]
+    pk = CD.packed(params, cfg)
+    out, _ = CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW)
+    times = []
+    launches = CD.kernel_decode.launches
+    for _ in range(5):
+        (out, _), ms = timed_ms(lambda: CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW))
+        times.append(ms)
+    per_reply = (CD.kernel_decode.launches - launches) / 5
+    # generated tokens: the reply's, and the stop token unless max_new ended it
+    gen = min(int(((out[0, n0[0]:] >= 4).cumprod(0)).sum()) + 1, CHAT_MAX_NEW,
+              cfg.max_len - n0[0])
+    (pref, _), plain_ms = timed_ms(lambda: CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW))
+    if not torch.equal(pref, out):
+        raise AssertionError("chat_timing: the kernel's reply differs from plain")
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW)
+        torch.cuda.synchronize()
+    plain_kernels = sum(ev.count for ev in prof.key_averages()
+                        if (getattr(ev, "device_time_total", None)
+                            or getattr(ev, "cuda_time_total", 0)) > 0)
+    ms = statistics.median(times)
+    b = chat_bound(cfg, n0[0], gen)
+    line = {"phase": "chat_timing", "prompt_tokens": n0[0], "reply_tokens": gen,
+            "kernel_ms_per_reply": times, "kernel_ms_median": ms,
+            "kernel_launches_per_reply": per_reply, "plain_ms_per_reply": plain_ms,
+            "plain_kernel_launches_per_reply": plain_kernels,
+            "reply_tokens_per_s": gen / (ms / 1e3), "bound_ms": b[0], "bound_by": b[1],
+            "shared_bytes_per_block": CD.sizes(cfg, "cuda")["shared_bytes"],
+            "threads_per_block": CD.THREADS, "gpu": gpu}
+    emit(line)
+    if per_reply != 1:
+        raise AssertionError(f"a reply took {per_reply} launches, not 1")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b}
+
+
+class PlainOnCard:
+    """Counts decode_plain calls on CUDA parameters while entered: the
+    server and the hook must never take the plain decode on the card."""
+
+    def __enter__(self):
+        from game_engine_tpu_torch.policies import chat_decode as CD
+
+        self.calls, self.fn = 0, CD.decode_plain
+
+        def counted(params, *args, **kwargs):
+            self.calls += params["tok"].is_cuda
+            return self.fn(params, *args, **kwargs)
+
+        CD.decode_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from game_engine_tpu_torch.policies import chat_decode as CD
+
+        CD.decode_plain = self.fn
+        if exc[0] is None and self.calls:
+            raise AssertionError(f"the plain decode ran {self.calls} times on the card")
+
+
+def chat_probes_phase(gpu: str) -> int:
+    """utils/eval_chat_probes on the card: every tier must reach ok_rate 1.0;
+    its numbers beside the JAX record. Returns the decode launches."""
+    import contextlib
+    import io
+
+    from game_engine_tpu_torch.policies import chat_decode as CD
+    from game_engine_tpu_torch.utils import eval_chat_probes as ECP
+
+    launches = CD.kernel_decode.launches
+    t0 = time.perf_counter()
+    with PlainOnCard(), contextlib.redirect_stdout(io.StringIO()):
+        out = ECP.main(["--device", "cuda"])
+    n = CD.kernel_decode.launches - launches
+    keys = ("ok_rate", "raw_lm_ok_rate", "fell_back", "lm_served")
+    tiers = {t: {k: r[k] for k in keys} for t, r in out["tiers"].items()}
+    emit({"phase": "chat_probes", "tiers": tiers,
+          "jax_record": {t: dict(zip(keys, v)) for t, v in CHAT_PROBES_JAX.items()},
+          "failures": {t: r["failures"] for t, r in out["tiers"].items() if r["failures"]},
+          "decode_launches": n, "seconds": time.perf_counter() - t0, "gpu": gpu})
+    for t in CHAT_PROBES_JAX:
+        if tiers.get(t, {}).get("ok_rate") != 1.0:
+            raise AssertionError(f"chat_probes: tier {t} {tiers.get(t)}")
+    if n <= 0:
+        raise AssertionError("chat_probes launched no decode")
+    return n
+
+
+def serve_chat_phase(gpu: str) -> tuple:
+    """The server with --chat-lm and the attn policy bots: load_test's shape
+    for SERVE_SECONDS; decode launches > 0, 0 errors. Returns the
+    decode launches and K2's."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chat_")
+    try:
+        with PlainOnCard():
+            srv, line = serve_run("serve_chat", 5, [os.path.join(HERE, CKPT)],
+                                  os.path.join(tmp, "rooms.json"), gpu,
+                                  chat_lm=os.path.join(HERE, CHAT_CKPT))
+        del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if line["decode_launches"] <= 0 or not line["requests_by_endpoint"]["chat"]:
+        raise AssertionError("serve_chat: no chat answered or no chat decode launched")
+    return line["decode_launches"], line["k2_launches"]
+
+
+def train_chat_phase(gpu: str) -> int:
+    """train/chat_lm.py --device cuda at the shipped checkpoint's width for
+    20 steps on the corpus of 8 rooms a game; steps/s, a finite loss that
+    falls; the held-out evaluation's decodes through the kernel. Returns the
+    decode launches."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from game_engine_tpu_torch.policies import chat_decode as CD
+    from game_engine_tpu_torch.train import chat_lm as TR
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    launches = CD.kernel_decode.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with PlainOnCard(), contextlib.redirect_stdout(io.StringIO()):
+            res = TR.main(CHAT_TRAIN_ARGV + ["--out", os.path.join(tmp, "lm.npz")])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = CD.kernel_decode.launches - launches
+    losses, step_s = res["losses"], res["step_s"]
+    steady = step_s[1:]
+    line = {"phase": "train_chat_lm", "argv": CHAT_TRAIN_ARGV, "corpus_pairs": res["corpus_pairs"],
+            "corpus_s": res["corpus_s"], "losses": losses,
+            "first_step_s": step_s[0], "steps_per_s": len(steady) / sum(steady),
+            "step_ms_median": statistics.median(steady) * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "eval": {k: v for k, v in res["metrics"].items() if k != "by_kind_exact_match"},
+            "decode_launches": n, "seconds": time.perf_counter() - t0, "gpu": gpu}
+    emit(line)
+    if not all(math.isfinite(x) for x in losses) or \
+            not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+        raise AssertionError(f"train_chat_lm: the loss did not fall: {losses}")
+    if n <= 0:
+        raise AssertionError("train_chat_lm: the evaluation launched no decode")
+    return n
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
@@ -1794,7 +2220,9 @@ def main(argv=()) -> int:
           "policy_net_ptxas": ptxas_report(_build.policy_lib()),
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "search_ptxas": ptxas_report(_build.search_lib()),
-          "search_kernel": ptxas_numbers(_build.search_lib())})
+          "search_kernel": ptxas_numbers(_build.search_lib()),
+          "chat_decode_ptxas": ptxas_report(_build.chat_decode_lib()),
+          "chat_decode_kernel": ptxas_numbers(_build.chat_decode_lib())})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
@@ -1944,6 +2372,12 @@ def main(argv=()) -> int:
     piped = pipeline_phase(ww, gpu)
     matchup = matchup_phase(ww, gpu)
     judged = arena_phase(gpu)
+    c_compare = compare_chat(gpu)
+    c_line = chat_timing(gpu, c_compare)
+    zero_launches()
+    c_by_path = {"chat_probes": chat_probes_phase(gpu)}
+    c_by_path["serving"], k2_serve_chat = serve_chat_phase(gpu)
+    c_by_path["train_chat_lm"] = train_chat_phase(gpu)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
@@ -1952,6 +2386,7 @@ def main(argv=()) -> int:
                    "matchup": matchup[k], "arena": judged["arena"][k],
                    "exploit": judged["exploit"][k]} for k in POLICY_REPLACES}
     by_path["policy_forward"]["serving"] = serving["launches"]
+    by_path["policy_forward"]["serve_chat"] = k2_serve_chat
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     s_by_path = {**s_serving, "eval_search": s_eval, "arena": judged["arena"]["search"],
                  "exploit": judged["exploit"]["search"]}
@@ -1981,7 +2416,14 @@ def main(argv=()) -> int:
         "ms": s_line["ms"], "plain_ms": s_line["plain_ms"], "bound_ms": s_line["bound"][0],
         "bound_by": s_line["bound"][1], "library_ms": None,
         "shape": {"game": "werewolf", "decisions": s_line["decisions"],
-                  "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}]})
+                  "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}, {
+        "name": "chat_decode", "route": "cuda", "source": CHAT_SOURCE, "replaces": CHAT_REPLACES,
+        "replaces_kind": "XLA lax.scan (_make_decoder), no pallas_call site",
+        "launches": sum(c_by_path.values()), "launches_by_path": c_by_path,
+        "max_abs_err": c_compare["max_abs_err"], "ms": c_line["ms"],
+        "plain_ms": c_line["plain_ms"], "bound_ms": c_line["bound"][0],
+        "bound_by": c_line["bound"][1], "library_ms": None,
+        "shape": {"checkpoint": CHAT_CKPT, "replies_a_launch": 1, "max_new": CHAT_MAX_NEW}}]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu, search.cu) are
+The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu, search.cu,
+chat_decode.cu) are
 compiled by nvcc for sm_90a into shared libraries with a plain C interface;
 the host harnesses (the kernels' per-room and per-tile bodies, compiled by
 g++) serve the CPU tests, and csrc/gamesim.cpp (the native per-room
@@ -50,6 +51,8 @@ _LG_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P]
 _LG_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _I, _P]
 # meta, obs, nrows, rowin, clip_eps, ent_coef, prm, weights, scratch, chunk, nsplit, out
 _LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _P, _I64, _I, _P]
+# wb, wf, dims, io, kv, u, inv_temp, top_p, max_new, logits, n_ctx, threads
+_CD_ARGS = [_P, _P, _P, _P, _P, _P, _F, _F, _I, _P, _I, _I]
 
 
 def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
@@ -138,13 +141,14 @@ def _cuda_jobs() -> list:
     return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
             (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd()),
             (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd()),
-            (os.path.join(_CSRC, "search.cu"), "libsearch", _nvcc_cmd())]
+            (os.path.join(_CSRC, "search.cu"), "libsearch", _nvcc_cmd()),
+            (os.path.join(_CSRC, "chat_decode.cu"), "libchat_decode", _nvcc_cmd())]
 
 
 def build_cuda() -> list:
     """Build every CUDA library at once (one nvcc per source, in parallel);
-    returns their paths. cuda_lib(), policy_lib(), lossgrad_lib() and
-    search_lib() then load them."""
+    returns their paths. cuda_lib(), policy_lib(), lossgrad_lib(),
+    search_lib() and chat_decode_lib() then load them."""
     return _compile_all(_cuda_jobs())
 
 
@@ -320,6 +324,34 @@ def search_count_lib() -> ctypes.CDLL:
     lib.ge_counts_reset.argtypes = []
     lib.ge_counts_read.restype = None
     lib.ge_counts_read.argtypes = [_P]
+    return lib
+
+
+def _chat_decode_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.cd_sizes.restype = None
+    lib.cd_sizes.argtypes = [_P, _I, _P]  # dims, threads, out
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def chat_decode_lib() -> ctypes.CDLL:
+    """csrc/chat_decode.cu (the chat LM's decode, one launch a batch of
+    replies) built with nvcc for sm_90a, loaded."""
+    lib = _chat_decode_common(ctypes.CDLL(_compile_all([_cuda_jobs()[4]])[0]))
+    lib.cd_error_string.restype = ctypes.c_char_p
+    lib.cd_error_string.argtypes = [_I]
+    lib.cd_decode.restype = _I
+    lib.cd_decode.argtypes = _CD_ARGS + [_P]  # stream
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def chat_decode_host_lib() -> ctypes.CDLL:
+    """csrc/chat_decode_host.cpp (the decode kernel's body) built with g++."""
+    lib = _chat_decode_common(ctypes.CDLL(_compile_all([(
+        os.path.join(_CSRC, "chat_decode_host.cpp"), "libchat_decode_host", _GXX_CMD)])[0]))
+    lib.cd_decode_host.restype = _I
+    lib.cd_decode_host.argtypes = _CD_ARGS
     return lib
 
 

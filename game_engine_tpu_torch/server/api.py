@@ -105,6 +105,7 @@ class AppContext:
                  backend: str = "torch", chat_lm: Optional[str] = None,
                  bot_ckpts: Optional[list] = None, llm_cmd: Optional[str] = None,
                  llm_entry: Optional[str] = None,
+                 chat_sample_temp: float = 0.0,
                  chat_llm_cmd: Optional[str] = None,
                  chat_llm_entry: Optional[str] = None,
                  bot_search: Optional[list] = None,
@@ -121,6 +122,7 @@ class AppContext:
                                            timeout=120)
         self.host = GameHost(games_path, backend=backend, persist_dir=persist_dir,
                              chat_lm=chat_lm, bot_ckpts=bot_ckpts,
+                             chat_sample_temp=chat_sample_temp,
                              chat_complete=chat_complete,
                              bot_search=bot_search, search_rollouts=search_rollouts,
                              search_horizon=search_horizon, search_det=search_det,
@@ -433,6 +435,7 @@ def make_server(port: int = 0, storage_path: Optional[str] = None,
                 bot_ckpts: Optional[list] = None,
                 llm_cmd: Optional[str] = None,
                 llm_entry: Optional[str] = None,
+                chat_sample_temp: float = 0.0,
                 chat_llm_cmd: Optional[str] = None,
                 chat_llm_entry: Optional[str] = None,
                 bot_search: Optional[list] = None,
@@ -444,6 +447,7 @@ def make_server(port: int = 0, storage_path: Optional[str] = None,
     caller asks for the CPU; raises without one)."""
     ctx = AppContext(storage_path, games_path, backend=backend, chat_lm=chat_lm,
                      bot_ckpts=bot_ckpts, llm_cmd=llm_cmd, llm_entry=llm_entry,
+                     chat_sample_temp=chat_sample_temp,
                      chat_llm_cmd=chat_llm_cmd,
                      chat_llm_entry=chat_llm_entry,
                      bot_search=bot_search, search_rollouts=search_rollouts,
@@ -564,7 +568,16 @@ def main(argv=None):  # pragma: no cover
                     help="cuda (the card, the default) or cpu")
     ap.add_argument("--cpu", action="store_true", help="the same as --device cpu")
     ap.add_argument("--chat-lm", default=None, metavar="CKPT_NPZ",
-                    help="the on-device chat LM (not ported yet: raises)")
+                    help="serve bot chat from the on-device transformer "
+                         "(policies/chat_lm.py; the decode kernel on the "
+                         "card) instead of the templates")
+    ap.add_argument("--chat-sample-temp", type=float, default=0.0,
+                    metavar="T",
+                    help="roleplay tier: sample smalltalk chat kinds "
+                         "(greeting/open chatter) at temperature T with "
+                         "top-p 0.9 instead of greedy decoding — varied, "
+                         "deterministic per message (needs --chat-lm); "
+                         "state-reporting kinds stay greedy")
     ap.add_argument("--bot-ckpt", action="append", default=None,
                     metavar="[GAME=]CKPT_NPZ",
                     help="serve greedy learned-policy bots from a trained "
@@ -605,7 +618,7 @@ def main(argv=None):  # pragma: no cover
                          "on stdout; server/chat_llm.py builds the prompt "
                          "from visibility-gated state). Grounded answers "
                          "are verified host-side; failures fall through "
-                         "to the templates")
+                         "to --chat-lm then the templates")
     ap.add_argument("--chat-llm-entry", default=None, metavar="MODULE:FUNC",
                     help="like --chat-llm-cmd but a Python entrypoint "
                          "complete(prompt)->str, imported in-process")
@@ -613,6 +626,7 @@ def main(argv=None):  # pragma: no cover
     srv = make_server(args.port, args.storage, backend=args.backend,
                       chat_lm=args.chat_lm, bot_ckpts=args.bot_ckpt,
                       llm_cmd=args.llm_cmd, llm_entry=args.llm_entry,
+                      chat_sample_temp=args.chat_sample_temp,
                       chat_llm_cmd=args.chat_llm_cmd,
                       chat_llm_entry=args.chat_llm_entry,
                       bot_search=args.bot_search,

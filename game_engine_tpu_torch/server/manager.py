@@ -8,8 +8,9 @@ gamesim.cpp, ``_NativeRooms``, stepped on the host; the JAX package's
 default). Bots are scripted, or greedy policy bots through the
 policy-forward kernel (K2) on the card (``bot_ckpts``), or lookahead search
 bots through the search kernel on the card (``bot_search``), on either
-backend. ``chat_lm`` waits for ROADMAP queue 1 item 5 and raises
-``NotImplementedError``.
+backend. ``chat_lm`` serves the learned chat tier (policies/chat_lm.py)
+on the host's device: the chat decode kernel on the card, its plain version
+on the CPU.
 
 The reference binds one LangGraph thread per room and re-runs a 4-LLM
 pipeline per turn (reference: src/app/api/rooms/create/route.ts:16-26,
@@ -484,6 +485,7 @@ class GameHost:
                  persist_dir: Optional[str] = None,
                  chat_lm: Optional[str] = None,
                  bot_ckpts: Optional[list[str]] = None,
+                 chat_sample_temp: float = 0.0,
                  chat_complete=None,
                  bot_search: Optional[list[str]] = None,
                  search_rollouts: int = 32,
@@ -498,7 +500,13 @@ class GameHost:
         either backend.
         persist_dir: directory for per-room crash-recovery journals; None
         disables durability (tests, throwaway hosts).
-        chat_lm: the on-device chat LM, ROADMAP queue 1 item 5 (raises).
+        chat_lm: path to a policies/chat_lm.py checkpoint; bot chat then
+        decodes on `device` (the decode kernel on the card) instead of
+        using the template composer.
+        chat_sample_temp: >0 enables the roleplay tier — smalltalk kinds
+        (greeting/open chatter) decode with top-p/temperature sampling,
+        deterministically seeded from the context (chat_lm.SAMPLE_KINDS);
+        state-reporting kinds stay greedy.
         bot_ckpts: repeated 'game=path' (or bare 'path') policy checkpoint
         specs; matching games serve GREEDY learned-policy bots instead of
         the scripted uniform-legal policy (the reference's contextual LLM
@@ -521,12 +529,13 @@ class GameHost:
             raise NotImplementedError(
                 f"backend {backend!r}: the port serves backend='torch' or 'native' "
                 "(the 'jax' backend is the JAX package's)")
-        if chat_lm:
-            raise NotImplementedError(
-                "chat_lm (policies/chat_lm.py) is not ported yet: ROADMAP queue 1 item 5")
         self._device = D.resolve(device)
         self._lock = threading.RLock()
         self._chat_lm_hook = None
+        if chat_lm:
+            from game_engine_tpu_torch.policies.chat_lm import make_lm_hook
+            self._chat_lm_hook = make_lm_hook(
+                chat_lm, sample_temp=chat_sample_temp, device=self._device)
         self._chat_ext = None
         if chat_complete is not None:
             from game_engine_tpu_torch.server.chat_llm import make_chat_llm_hook

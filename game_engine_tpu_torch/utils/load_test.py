@@ -127,6 +127,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--storage", default=os.path.join(tempfile.gettempdir(),
                                                       "load_rooms.json"))
+    ap.add_argument("--chat-lm", default=None)
     ap.add_argument("--bots-per-room", type=int, default=1,
                     help="add-bot calls per room; each fills the room to the "
                          "game's minimum seats (werewolf: 4, so 3 bots), so "
@@ -150,7 +151,8 @@ def main() -> None:
     from game_engine_tpu_torch.server.api import make_server
 
     srv = make_server(0, args.storage, backend=args.backend,
-                      bot_search=args.bot_search, search_rollouts=args.search_rollouts,
+                      chat_lm=args.chat_lm, bot_search=args.bot_search,
+                      search_rollouts=args.search_rollouts,
                       search_horizon=args.search_horizon, search_det=args.search_det,
                       device=args.device)
     port = srv.server_address[1]

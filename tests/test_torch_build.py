@@ -35,6 +35,10 @@ def csrc(tmp_path, monkeypatch):
     ("search.cu", "rollout.cu"),
     ("launch_plan.cuh", "rollout.cu"),
     ("launch_plan.cuh", "search.cu"),
+    ("chat_decode.cuh", "chat_decode.cu"),
+    ("chat_decode.cuh", "chat_decode_host.cpp"),
+    ("chat_decode.cu", "rollout.cu"),
+    ("room_step.cuh", "chat_decode.cu"),
 ])
 def test_header_edit_renames_the_library(csrc, header, src):
     cmd = ["nvcc", "-O3"]

@@ -11,9 +11,10 @@ backend, on the CPU:
   compaction snapshots included;
 - 65 rooms grow the 64-slot pool and the in-flight rooms come through it
   unchanged;
-- the backend and bot tier the port does not have (the JAX package's own
-  ``jax`` backend, the chat LM) raise; the native backend and search bots
-  are tests/test_torch_native.py's and test_torch_search*.py's.
+- with ``--chat-lm`` the port's host and the JAX host post equal chat
+  messages, greedy and sampled, and ``make_server`` takes the chat flags;
+- the JAX package's own ``jax`` backend raises; the native backend and
+  search bots are tests/test_torch_native.py's and test_torch_search*.py's.
 """
 
 import json
@@ -591,13 +592,71 @@ def test_pool_growth_keeps_in_flight_rooms():
         np.testing.assert_array_equal(mirror[name], want, err_msg=name)
 
 
-# -- what the port does not have yet ---------------------------------------------
+# -- the chat LM ------------------------------------------------------------------
+
+CHAT_CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "docs", "checkpoints", "chat_lm.npz")
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"chat_lm": "docs/checkpoints/chat_lm.npz"}, "item 5"),
-    ({"backend": "native", "bot_search": ["all"], "chat_lm": "docs/checkpoints/chat_lm.npz"},
-     "item 5"), ({"backend": "jax"}, "torch")])
+@pytest.mark.parametrize("temp", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_chat_lm_messages_equal_the_jax_hosts(temp, one_torch_thread):
+    """--chat-lm on both hosts, the same seed and the same chat posts: equal
+    chat messages (but their wall-clock timestamps), the learned tier
+    answering on the port (its plain decode on the CPU) where it answers on
+    the JAX host."""
+    import functools
+
+    j = JaxGameHost(backend="jax", chat_lm=CHAT_CKPT, chat_sample_temp=temp)
+    p = torch_host(chat_lm=CHAT_CKPT, chat_sample_temp=temp)
+    served = []
+    hook = p._chat_lm_hook
+
+    @functools.wraps(hook)
+    def counted(ctx):
+        out = hook(ctx)
+        served.append(out)
+        return out
+
+    p._chat_lm_hook = counted
+    assert (hook.sampling, j._chat_lm_hook.sampling) == (temp > 0, temp > 0)
+    for h in (j, p):
+        h.start_room("r", "werewolf", 6, seed=3, human_seats=[1])
+        h.run_until_input_needed("r")
+        h.post_chat("r", 1, "hello there")
+        h.post_chat("r", 1, "to Bot 2: who is still alive?")
+    def messages(h):  # without the wall clock
+        return [{k: v for k, v in m.items() if k != "timestamp"} for m in h.chat_messages("r", 1)]
+
+    assert messages(p) == messages(j)
+    assert len(messages(p)) >= 4 and any(served)
+
+
+def test_make_server_accepts_the_chat_lm_flags(tmp_path, one_torch_thread):
+    srv = make_server(port=0, storage_path=str(tmp_path / "rooms.json"), device="cpu",
+                      chat_lm=CHAT_CKPT, chat_sample_temp=0.8)
+    hook = srv.ctx.host._chat_lm_hook
+    assert hook.sampling and hook.grounded and hook.params["tok"].device.type == "cpu"
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        code, d = req(srv, "POST", "/api/rooms/create", {"gameName": "werewolf",
+                                                          "playerName": "Vera"})
+        rid = d["room"]["roomId"]
+        req(srv, "POST", "/api/rooms/add-bot", {"roomId": rid})
+        code, _ = req(srv, "POST", f"/api/rooms/{rid}/start", {"seed": 4})
+        assert code == 200
+        code, _ = req(srv, "POST", f"/api/rooms/{rid}/chat",
+                      {"playerId": 1, "message": "to Bot 2: hello there"})
+        assert code == 200
+        code, chat = req(srv, "GET", f"/api/rooms/{rid}/chat?playerId=1")
+        assert code == 200 and len(chat["messages"]) >= 2
+    finally:
+        srv.shutdown()
+
+
+# -- what the port does not have -------------------------------------------------
+
+
+@pytest.mark.parametrize("kw,item", [({"backend": "jax"}, "torch")])
 def test_unported_backends_and_tiers_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         GameHost(device="cpu", **kw)
@@ -628,3 +687,63 @@ def test_load_test_client_drives_the_cpu_server(tmp_path):
     srv.shutdown()
     assert stats.get("errors", 0) == 0, stats.get("error_samples")
     assert stats.get("games_done", 0) >= 2 and stats["continue"]
+
+
+def test_chat_poster_passes_over_rooms_the_lobby_has_not_started(tmp_path):
+    """chip_smoke.py's chat client against the port's server on the CPU. A
+    room is in the host from the start of its /start call and playing in
+    the lobby only after; a chat in between is answered 409 "room not
+    started", so the client passes the room over and counts it, and chats
+    there once the start has been answered, with no request errors."""
+    import time
+
+    import chip_smoke
+
+    srv = make_server(0, str(tmp_path / "rooms.json"), device="cpu")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    storage, host = srv.ctx.storage, srv.ctx.host
+    lobby_may_go, set_thread = threading.Event(), storage.set_thread
+
+    def held_set_thread(*a):  # hold /start between the host and the lobby
+        lobby_may_go.wait(60)
+        set_thread(*a)
+
+    storage.set_thread = held_set_thread
+    try:
+        _, d = req(srv, "POST", "/api/rooms/create", {"gameName": "werewolf",
+                                                       "playerName": "Vera"})
+        rid = d["room"]["roomId"]
+        req(srv, "POST", "/api/rooms/add-bot", {"roomId": rid})
+        started = threading.Thread(
+            target=req, args=(srv, "POST", f"/api/rooms/{rid}/start", {"seed": 4}))
+        started.start()
+        t0 = time.time()
+        while not host.has_room(rid) and time.time() - t0 < 60:
+            time.sleep(0.01)
+        assert host.has_room(rid)
+        code, d = req(srv, "POST", f"/api/rooms/{rid}/chat", {"playerId": 1, "message": "hi"})
+        assert (code, d) == (409, {"error": "room not started"})
+
+        def post(until) -> dict:
+            stop, stats, lock = threading.Event(), {}, threading.Lock()
+            poster = threading.Thread(target=chip_smoke.chat_poster, args=(
+                srv.server_address[1], host, storage, stop, stats, lock))
+            poster.start()
+            t0 = time.time()
+            while not (until(stats) or stats.get("errors")) and time.time() - t0 < 30:
+                time.sleep(0.01)
+            stop.set()
+            poster.join(timeout=60)
+            return stats
+
+        held = post(lambda s: s.get("chat_unstarted_skips", 0) >= 3)
+        assert held.get("chat_unstarted_skips", 0) >= 3 and "chat" not in held
+        lobby_may_go.set()
+        started.join(timeout=60)
+        served = post(lambda s: len(s.get("chat", [])) >= 2)
+        assert len(served.get("chat", [])) >= 2 and "chat_unstarted_skips" not in served
+        for stats in (held, served):
+            assert stats.get("errors", 0) == 0, stats.get("error_samples")
+    finally:
+        lobby_may_go.set()
+        srv.shutdown()

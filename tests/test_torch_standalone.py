@@ -20,10 +20,12 @@ import torch
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.core import engine as E
 from game_engine_tpu_torch.core import state as S
+from game_engine_tpu_torch.policies import chat_lm as LM
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies import serve as SV
 from game_engine_tpu_torch.server import api as A
 from game_engine_tpu_torch.server import manager as MG
+from game_engine_tpu_torch.train import chat_lm as TLM
 from game_engine_tpu_torch.train import evaluate as EV
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
@@ -31,6 +33,7 @@ from game_engine_tpu_torch.train.pipeline import run_pipelined
 from game_engine_tpu_torch.utils import arena as AR
 from game_engine_tpu_torch.utils import eval_exploit as EX
 from game_engine_tpu_torch.utils import checkpoint as CK
+from game_engine_tpu_torch.utils import eval_chat_probes as ECP
 from tests.test_torch_state import builtin_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,8 +62,12 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_importing_the_whole_port_loads_no_jax_package():
     proc = _run(_NO_JAX.format(extra=""))
     assert proc.returncode == 0, proc.stderr
-    # every module was imported, the serving slice's among them
+    # every module was imported, the serving slice's and the chat LM's among them
     assert int(proc.stdout.split()[-1]) >= 45
+    names = _run(_NO_JAX.format(extra="print(' '.join(mods))")).stdout
+    for mod in ("oracle.interp", "policies.scripted", "policies.chat_lm",
+                "policies.chat_decode", "train.chat_lm", "utils.eval_chat_probes"):
+        assert f"game_engine_tpu_torch.{mod}" in names.split(), mod
 
 
 def test_chip_smoke_up_to_its_cuda_check_loads_no_jax_package():
@@ -81,7 +88,8 @@ ENTRY_POINTS = [
     (CK.replay, "device"), (SV.load_bot_policies, "device"), (MG.GameHost.__init__, "device"),
     (A.AppContext.__init__, "device"), (A.make_server, "device"),
     (EV.matchup_table, "device"), (run_pipelined, "device"), (AR.run_arena, "device"),
-    (EX.run_exploit, "device"),
+    (EX.run_exploit, "device"), (LM.init_params, "device"), (LM.params_from_numpy, "device"),
+    (LM.load, "device"), (LM.make_lm_hook, "device"),
 ]
 
 
@@ -105,7 +113,8 @@ def test_train_run_device_flag_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("main,argv", [
     (EV.main, ["--batch", "2"]), (AR.main, ["werewolf", "1", "scripted"]),
-    (EX.main, ["werewolf"])], ids=["evaluate", "arena", "eval_exploit"])
+    (EX.main, ["werewolf"]), (TLM.main, ["--steps", "1"]), (ECP.main, ["--no-lm"])],
+    ids=["evaluate", "arena", "eval_exploit", "train_chat_lm", "eval_chat_probes"])
 def test_evaluation_device_flags_default_to_the_card(monkeypatch, main, argv):
     seen = {}
 
@@ -129,6 +138,7 @@ def test_entry_points_raise_without_a_card(no_card):
     cfg = N.NetConfig(hidden=64, arch="attn")
     gen = torch.Generator().manual_seed(0)
     ckpt = os.path.join(REPO, "docs", "checkpoints", "attn_werewolf_u120.npz")
+    chat = os.path.join(REPO, "docs", "checkpoints", "chat_lm.npz")
     calls = [
         lambda: S.init_state(pw, 2, 6, 0),
         lambda: S.state_from_numpy(S.state_to_numpy(S.init_state(pw, 2, 6, 0, device="cpu"))),
@@ -149,6 +159,12 @@ def test_entry_points_raise_without_a_card(no_card):
                               S.init_state(pw, 2, 6, 0, device="cpu"), gen, 1),
         lambda: AR.main(["werewolf", "1", "scripted"]),
         lambda: EX.main(["werewolf", ckpt, "1", "2", "8"]),
+        lambda: LM.load(chat),
+        lambda: LM.make_lm_hook(chat),
+        lambda: LM.init_params(gen, LM.LMConfig()),
+        lambda: MG.GameHost(chat_lm=chat),
+        lambda: TLM.main(["--steps", "1"]),
+        lambda: ECP.main(["--no-lm"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
