@@ -153,6 +153,33 @@ Phases, one JSON line each:
                   table): S and K2 (tensor cores) launched
   exploit         utils/eval_exploit.py, 32 rooms, rollouts 32 x horizon 200
 
+  multidevice     the (data, model) mesh of parallel/mesh.py over ranks, at
+                  the learner's shape (the attn checkpoint, 4096 werewolf
+                  rooms of 6, horizon 32, 4 epochs):
+                  multidevice_nccl: make_mesh(1) on a world of one over NCCL;
+                  2 updates of the mesh-wrapped train step against the
+                  mesh-less step from the same start, bit for bit, each
+                  33 K2 + 4 K4 an update.
+                  multidevice_dp: one gloo world of 4 processes sharing the
+                  card (NCCL refuses two ranks on one card); meshes of its
+                  first 1, 2 and 4 ranks each take the first unroll and the
+                  first update's gradient (parallel/parity.py first_update):
+                  at dp = 2 and 4 the rooms and actions exact against dp = 1
+                  (a differing action is reported with its sampling margin),
+                  the summed K4 gradients within 5e-2 (the error printed);
+                  every rank 33 K2 and 1 K4 on the tensor cores.
+                  multidevice_pipeline: train/pipeline.py
+                  run_pipelined_sharded, 1 actor + 1 learner rank over gloo,
+                  2 rounds, against run_pipelined here, bit for bit.
+                  multidevice_dryrun: graft_entry.dryrun_multichip(4), a
+                  (2, 2) mesh over gloo, until episodes finish.
+                  multidevice_scaling: its curve at 1, 2 and 4 ranks, strong
+                  (4096 rooms in all) and weak (1024 a rank), the rollout
+                  through K1 (1024 steps a call) and the train step through
+                  K2 + K4, with the split of a step into unroll, update,
+                  collectives and host waits. Ranks that share one card
+                  share its time: the curve measures what sharding costs
+
   compare_chat    the chat LM's decode kernel (LM, csrc/chat_decode.cu: a
                   reply a block, one launch a batch) against decode_plain
                   on the card, docs/checkpoints/chat_lm.npz at full width:
@@ -180,7 +207,7 @@ Phases, one JSON line each:
                   the held-out evaluation's replies through the kernel
 
 Then a {"kernels": [...]} line (each kernel's launches on the main paths,
-by path in launches_by_path,
+by path in launches_by_path, the ranks' of the multidevice path included,
 which of its routes ran there, its error, time, plain version's time and
 bound: the larger of its operations over the card's peak for their type and
 its bytes over 3.35 TB/s; bf16 at 989 TFLOP/s for K2-K4 and LM's products
@@ -1844,6 +1871,247 @@ def arena_phase(gpu: str) -> dict:
     return {"arena": got, "exploit": ex_got}
 
 
+# -- multi-device: the (data, model) mesh over ranks ----------------------------
+
+MD_SEED0, MD_GEN = 81, 91     # the rooms' first seed and every rank's sampling seed
+MD_DP = (2, 4)                # data ranks sharing the card over gloo
+MD_ROUNDS = 2                 # the sharded pipeline's rounds
+MD_CURVE = {"per_rank": 1024, "global_batch": ROOMS, "horizon": HORIZON, "epochs": 4,
+            "roll_steps": STEPS, "net": {"hidden": 256, "arch": "attn"}, "seats": 6,
+            "train_steps": 2}
+MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad")
+
+
+def md_spec(cfg, **extra) -> dict:
+    """parallel/parity.py's spec of the learner's full shape from CKPT."""
+    import dataclasses
+
+    return {"game": "werewolf", "seats": 6, "rooms": ROOMS, "start_seed": MD_SEED0,
+            "gen_seed": MD_GEN, "ckpt": os.path.join(HERE, CKPT),
+            "net": dataclasses.asdict(cfg.net),
+            "ppo": {"horizon": cfg.horizon, "epochs": cfg.epochs, "fused_net": True},
+            "device": "cuda", **extra}
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k in MD_KERNELS:
+        total[k] += got.get(k, 0)
+
+
+def md_nccl_world_of_one(lowered, params0, cfg, gpu: str) -> dict:
+    """The mesh-wrapped train step on a world of one over NCCL against the
+    mesh-less step, 2 updates each from the same start: params, rooms and
+    metrics bit for bit, through K2 and K4. Returns the mesh run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.parallel.mesh import make_mesh
+    from game_engine_tpu_torch.train import ppo as P
+
+    start = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + MD_SEED0,
+                       device="cuda")
+    mesh = make_mesh(1, backend="nccl", device="cuda")
+    runs = []
+    try:
+        for m in (None, mesh):
+            params = clone(params0)
+            opt = P.make_optimizer(params, cfg)
+            gen = torch.Generator(device="cuda").manual_seed(MD_GEN)
+            step = P.make_train_step(lowered, cfg, m)
+            state, metrics = start, []
+            zero_launches()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, met = step(params, opt, state, gen)
+                metrics.append(met)
+            torch.cuda.synchronize()
+            got = check_launches("the mesh-wrapped train step" if m else "the train step", {
+                "policy_forward": 2 * (HORIZON + 1), "policy_backward": 0,
+                "ppo_loss_grad": 2 * cfg.epochs})
+            runs.append({"params": params, "state": state, "metrics": metrics, "launches": got,
+                         "seconds": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+    ref, got = runs
+    same = {"params": all(torch.equal(ref["params"][k], got["params"][k]) for k in ref["params"]),
+            "state": all(torch.equal(x, y) for x, y in zip(ref["state"], got["state"])),
+            "metrics": all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                           for a, b in zip(ref["metrics"], got["metrics"])
+                           for k in a if not k.endswith("_ms"))}
+    emit({"phase": "multidevice_nccl", "world": 1, "backend": "nccl", "mesh": mesh.shape,
+          "rooms": ROOMS, "horizon": HORIZON, "epochs": cfg.epochs, "updates": 2,
+          "bitwise_equal": same, "loss": [float(m["loss"]) for m in got["metrics"]],
+          "step_ms": [m["unroll_ms"] + m["update_ms"] for m in got["metrics"]],
+          "mesh_less_step_ms": [m["unroll_ms"] + m["update_ms"] for m in ref["metrics"]],
+          "launches": got["launches"], "gpu": gpu})
+    if not all(same.values()):
+        raise AssertionError(f"the NCCL world of one differs from the mesh-less step: {same}")
+    return got["launches"]
+
+
+def md_data_parallel(cfg, gpu: str) -> dict:
+    """dp = 2 and dp = 4 over gloo with the ranks sharing the card, against
+    dp = 1 in the same world: the rooms and actions after the first unroll
+    exact (a differing action is reported with its sampling margin), the
+    first update's summed K4 gradients within compare_policy's tolerance.
+    Returns the launches of every rank."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.parallel import parity
+    from game_engine_tpu_torch.parallel.launch import run_ranks
+
+    meshes = [(1, 1)] + [(n, 1) for n in MD_DP]
+    t0 = time.perf_counter()
+    out = run_ranks(parity.first_update, max(MD_DP),
+                    md_spec(cfg, meshes=meshes, backend="gloo"), backend="gloo", device="cuda",
+                    timeout=600)
+    seconds = time.perf_counter() - t0
+    one = out[0]["1x1"]
+    total = dict.fromkeys(MD_KERNELS, 0)
+    results = {}
+    for n in MD_DP:
+        ranks = [r[f"{n}x1"] for r in out[:n]]
+        for r in ranks:  # every rank: 32 K2 a step + the bootstrap, one K4
+            if (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"],
+                    r["launches"]["policy_forward_tensor_core"]) != (HORIZON + 1, 1, HORIZON + 1):
+                raise AssertionError(f"dp={n}: a rank launched {r['launches']}")
+            add_launches(total, r["launches"])
+        state_equal = {f: bool(np.array_equal(np.concatenate([r["state"][i] for r in ranks]),
+                                              one["state"][i]))
+                       for i, f in enumerate(GameState._fields)}
+        actions = np.concatenate([r["actions"] for r in ranks], 1)
+        differ = np.argwhere(actions != one["actions"])
+        margins = [float(one["margins"][tuple(ix)]) for ix in differ[:16]]
+        grad_err = max(float(np.abs(r["grads"][k] - g).max() / (np.abs(g).max() + 1e-6))
+                       for r in ranks for k, g in one["grads"].items())
+        loss_err = max(abs(float(r["loss"]) - float(one["loss"])) / abs(float(one["loss"]))
+                       for r in ranks)
+        results[n] = {"state_equal": all(state_equal.values()), "fields_differing":
+                      [f for f, ok in state_equal.items() if not ok],
+                      "actions_differing": int(len(differ)),
+                      "differing_at": differ[:16].tolist(), "their_margins": margins,
+                      "grad_max_rel_err": grad_err, "loss_rel_err": loss_err,
+                      "launches_per_rank": ranks[0]["launches"]}
+    acted = np.isfinite(one["margins"])
+    emit({"phase": "multidevice_dp", "backend": "gloo", "ranks_share_one_card": True,
+          "rooms": ROOMS, "horizon": HORIZON, "tolerance_grad": TOL_GRAD,
+          "dp1_min_sampling_margin": float(one["margins"][acted].min()), "by_dp": results,
+          "seconds": seconds, "gpu": gpu})
+    for n, r in results.items():
+        if r["actions_differing"] or not r["state_equal"]:
+            raise AssertionError(f"dp={n}: the first unroll differs from dp=1: {r}")
+        check(f"dp={n}: the first update's summed K4 gradients", r["grad_max_rel_err"],
+              TOL_GRAD)
+    return total
+
+
+def md_pipeline(lowered, params0, cfg, gpu: str) -> dict:
+    """run_pipelined_sharded with 1 actor + 1 learner rank over gloo on the
+    card, MD_ROUNDS rounds, against run_pipelined in this process from the
+    same start: params, rooms and metrics bit for bit. Returns the ranks'
+    launches."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.parallel import parity
+    from game_engine_tpu_torch.parallel.launch import run_ranks
+    from game_engine_tpu_torch.train import ppo as P
+    from game_engine_tpu_torch.train.pipeline import run_pipelined
+
+    spec = md_spec(cfg, actors=1, learners=1, rounds=MD_ROUNDS, backend="gloo")
+    t0 = time.perf_counter()
+    out = run_ranks(parity.pipeline, 2, spec, backend="gloo", device="cuda", timeout=600)
+    seconds = time.perf_counter() - t0
+    params = clone(params0)
+    opt = P.make_optimizer(params, cfg)
+    start = parity.start_of(spec, "cuda")
+    state, metrics = run_pipelined(lowered, cfg, params, opt, start,
+                                   torch.Generator(device="cuda").manual_seed(MD_GEN),
+                                   MD_ROUNDS, device="cuda")
+    torch.cuda.synchronize()
+    actor, learner = out
+    same = {"params": all(np.array_equal(r["params"][k], params[k].detach().cpu().numpy())
+                          for r in out for k in params),
+            "state": all(np.array_equal(a, b.cpu().numpy())
+                         for a, b in zip(actor["state"], state)),
+            "metrics": all(np.array_equal(learner["metrics"][k], metrics[k].cpu().numpy())
+                           for k in metrics)}
+    want = {"actor": (HORIZON * (MD_ROUNDS + 1), 0), "learner": (MD_ROUNDS, MD_ROUNDS * cfg.epochs)}
+    total = dict.fromkeys(MD_KERNELS, 0)
+    for r in out:
+        got = (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"])
+        if got != want[r["role"]]:
+            raise AssertionError(f"the sharded pipeline's {r['role']} launched {r['launches']}")
+        add_launches(total, r["launches"])
+    emit({"phase": "multidevice_pipeline", "actors": 1, "learners": 1, "rounds": MD_ROUNDS,
+          "backend": "gloo", "rooms": ROOMS, "bitwise_equal_to_run_pipelined": same,
+          "loss": float(learner["metrics"]["loss"]), "seconds": seconds,
+          "launches": {r["role"]: r["launches"] for r in out}, "gpu": gpu})
+    if not all(same.values()):
+        raise AssertionError(f"the sharded pipeline differs from run_pipelined: {same}")
+    return total
+
+
+def md_dryrun(gpu: str) -> dict:
+    """graft_entry.dryrun_multichip(4) on the card, a (2, 2) mesh over gloo,
+    with the scaling curve at 1, 2 and 4 ranks at the learner's shape:
+    strong (ROOMS in all) and weak (1024 rooms a rank), the rollout through
+    K1 and the train step through K2 + K4. Returns the curve's launches."""
+    import contextlib
+    import io
+
+    from game_engine_tpu_torch.graft_entry import dryrun_multichip
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = dryrun_multichip(4, device="cuda", backend="gloo", scaling=MD_CURVE)
+    seconds = time.perf_counter() - t0
+    curve = out.pop("scaling")
+    emit({"phase": "multidevice_dryrun", **out, "seconds": seconds, "gpu": gpu})
+    if out["mesh"] != {"data": 2, "model": 2} or not out["episodes"] > 0:
+        raise AssertionError(f"dryrun_multichip(4): {out}")
+    if "error" in curve:
+        raise AssertionError(f"the scaling curve failed: {curve['error']}")
+    emit({"phase": "multidevice_scaling", **curve, "gpu": gpu})
+    train = curve["launches"]["train"]
+    if not (curve["launches"]["rollout"] > 0 and train["policy_forward"] > 0
+            and train["ppo_loss_grad"] > 0
+            and train["policy_forward_tensor_core"] == train["policy_forward"]):
+        raise AssertionError(f"the curve did not run K1, K2 and K4: {curve['launches']}")
+    total = dict.fromkeys(MD_KERNELS, 0)
+    add_launches(total, {**train, "rollout": curve["launches"]["rollout"]})
+    add_launches(total, out["launches"])
+    return total
+
+
+def multidevice_phase(lowered, gpu: str) -> dict:
+    """The multi-device slice on the card: the NCCL world of one, dp = 2 and
+    4 over gloo, the sharded pipeline, dryrun_multichip(4) and the scaling
+    curve. Returns the kernels' launches on this path, the ranks' included."""
+    import torch
+
+    from game_engine_tpu_torch.parallel.launch import stop_fork_server
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params0, cfg = learner_start(CKPT)
+    total = dict.fromkeys(MD_KERNELS, 0)
+    add_launches(total, md_nccl_world_of_one(lowered, params0, cfg, gpu))
+    torch.cuda.empty_cache()
+    add_launches(total, md_data_parallel(cfg, gpu))
+    add_launches(total, md_pipeline(lowered, params0, cfg, gpu))
+    torch.cuda.empty_cache()
+    add_launches(total, md_dryrun(gpu))
+    stop_fork_server()  # the ranks' fork server: no later phase starts ranks
+    emit({"phase": "multidevice_done", "seconds": time.perf_counter() - t0,
+          "launches": total, "gpu": gpu})
+    return total
+
+
 # -- the chat LM's decode kernel (LM) -------------------------------------------
 
 CHAT_SOURCE = "game_engine_tpu_torch/csrc/chat_decode.cu"
@@ -2372,6 +2640,7 @@ def main(argv=()) -> int:
     piped = pipeline_phase(ww, gpu)
     matchup = matchup_phase(ww, gpu)
     judged = arena_phase(gpu)
+    multi = multidevice_phase(ww, gpu)
     c_compare = compare_chat(gpu)
     c_line = chat_timing(gpu, c_compare)
     zero_launches()
@@ -2384,7 +2653,8 @@ def main(argv=()) -> int:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
     by_path = {k: {"learner": launches[k], "league": league[k], "pipeline": piped[k],
                    "matchup": matchup[k], "arena": judged["arena"][k],
-                   "exploit": judged["exploit"][k]} for k in POLICY_REPLACES}
+                   "exploit": judged["exploit"][k], "multidevice": multi[k]}
+               for k in POLICY_REPLACES}
     by_path["policy_forward"]["serving"] = serving["launches"]
     by_path["policy_forward"]["serve_chat"] = k2_serve_chat
     launches = {k: sum(v.values()) for k, v in by_path.items()}
@@ -2392,8 +2662,9 @@ def main(argv=()) -> int:
                  "exploit": judged["exploit"]["search"]}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches,
-        "launches_by_path": {"engine": main_launches}, "max_abs_err": worst,
+        "replaces": REPLACES, "launches": main_launches + multi["rollout"],
+        "launches_by_path": {"engine": main_launches, "multidevice": multi["rollout"]},
+        "max_abs_err": worst,
         "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1], "library_ms": None}] + [{
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],

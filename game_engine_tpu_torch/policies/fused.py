@@ -668,33 +668,46 @@ def make_apply(lowered: Lowered, cfg: N.NetConfig):
     return apply
 
 
-def _loss_rows(d: Dims, legal, actions, logp_old, adv, ret, mask, vf_coef: float):
+def _loss_rows(d: Dims, legal, actions, logp_old, adv, ret, mask, vf_coef: float,
+               mesh=None):
     """The pre-kernel steps (fused.py:646-676) -> rowin (n, 2A + 5) f32 =
     legal | one-hot action | logp_old, normalised advantage, ret,
-    wrow = mask / msum, vrow = vf_coef / n."""
+    wrow = mask / msum, vrow = vf_coef / n.
+
+    With a mesh these rows are one rank's share of a batch split over its
+    data group: msum, the advantage's mean and variance and n are the whole
+    batch's (sums over the group), so the kernel's sums over these rows are
+    this rank's share of the whole batch's loss and gradient."""
+    from game_engine_tpu_torch.parallel.mesh import data_sums
+
     n = mask.numel()
     A = d.A
     m = mask.to(_F32).reshape(n, 1)
-    msum = m.sum().clamp_min(1.0)
     advf = adv.to(_F32).reshape(n, 1)
-    mean = (advf * m).sum() / msum
-    std = torch.sqrt((m * (advf - mean) ** 2).sum() / msum) + 1e-8
+    msum, adv_sum = data_sums(mesh, m.sum(), (advf * m).sum())
+    msum = msum.clamp_min(1.0)
+    mean = adv_sum / msum
+    (var_sum,) = data_sums(mesh, (m * (advf - mean) ** 2).sum())
+    std = torch.sqrt(var_sum / msum) + 1e-8
+    n_all = n if mesh is None else n * mesh.data_size
     a_idx = (actions.reshape(n).long() - 1).clamp(0, A - 1)
     aoh = F.one_hot(a_idx, A).to(_F32)
     return torch.cat([legal.reshape(n, A).to(_F32), aoh,
                       logp_old.to(_F32).reshape(n, 1), (advf - mean) / std,
                       ret.to(_F32).reshape(n, 1), m / msum,
-                      torch.full((n, 1), vf_coef / n, dtype=_F32, device=m.device)],
+                      torch.full((n, 1), vf_coef / n_all, dtype=_F32, device=m.device)],
                      dim=1).contiguous()
 
 
 def make_loss_vg(lowered: Lowered, cfg: N.NetConfig, clip_eps: float, vf_coef: float,
-                 ent_coef: float):
+                 ent_coef: float, mesh=None):
     """(params, obs, legal, actions, logp_old, adv, ret, mask) ->
     ((loss, metrics), grads): the fused train path's replacement for
     value_and_grad(ppo_loss), one K4 pass on CUDA tensors, the plain
     version on CPU tensors. Raises for a net K4 does not cover (see
-    loss_supports)."""
+    loss_supports). With a mesh, the rows are this rank's rooms and every
+    returned value is its share of the data group's whole batch (see
+    _loss_rows): their sum over the group is the batch's."""
     if not loss_supports(lowered, cfg):
         raise ValueError(f"K4 covers deepsets/attn with 1 head, encoder and trunk widths "
                          f"multiples of 32, at most 32 seats and 64 actions; not {cfg} "
@@ -703,7 +716,7 @@ def make_loss_vg(lowered: Lowered, cfg: N.NetConfig, clip_eps: float, vf_coef: f
 
     def loss_vg(params, obs, legal, actions, logp_old, adv, ret, mask):
         rows = _as_rows(d, obs)
-        rowin = _loss_rows(d, legal, actions, logp_old, adv, ret, mask, vf_coef)
+        rowin = _loss_rows(d, legal, actions, logp_old, adv, ret, mask, vf_coef, mesh)
         if rows.is_cuda:
             grads, stats = kernel_loss_grads(d, rows, rowin, params, clip_eps, ent_coef)
         elif rows.device.type == "cpu":

@@ -322,13 +322,35 @@ def init_params(generator: torch.Generator, in_dim: int, n_actions: int,
     return params
 
 
-def _trunk_and_heads(params, x, n_targets: int, ptr=None):
+def _trunk_and_heads(params, x, n_targets: int, ptr=None, mesh=None):
     """x bf16-valued f32 (..., in) -> (logits, value); ptr (..., P, hp)
-    bf16-valued seat embeddings for the pointer head."""
+    bf16-valued seat embeddings for the pointer head.
+
+    With a mesh whose model axis is wider than 1, params holds this rank's
+    trunk slices (parallel/mesh.py params_sharding): an even layer
+    multiplies by its columns, an odd layer by its rows and sums the f32
+    partial products over the model group before its bias and gelu, and
+    after an odd layer count the last even layer's columns are gathered
+    before the replicated heads (parallel/tp.py). The rounding points are
+    the unsharded trunk's."""
+    tp = mesh is not None and mesh.model_size > 1
+    if tp:
+        from game_engine_tpu_torch.parallel import tp as TP
     i = 0
     while f"w{i}" in params:
-        x = bf(gelu(_bf16_dot(x, params[f"w{i}"]) + params[f"b{i}"]))
+        if not tp:
+            x = bf(gelu(_bf16_dot(x, params[f"w{i}"]) + params[f"b{i}"]))
+        elif i % 2 == 0:
+            # the copy after the operand's bf16 cast, so the summed f32
+            # cotangent is rounded to bf16 once, as in the unsharded trunk
+            x = bf(gelu(TP.copy_to_model(bf(x), mesh) @ bf(params[f"w{i}"])
+                        + params[f"b{i}"]))
+        else:
+            x = bf(gelu(TP.reduce_from_model(_bf16_dot(x, params[f"w{i}"]), mesh)
+                        + params[f"b{i}"]))
         i += 1
+    if tp and i % 2 == 1:
+        x = TP.gather_from_model(x, mesh)
     logits = _bf16_dot(x, params["w_pi"]) + params["b_pi"]
     if ptr is not None:
         # pointer scores for the first P actions: the product rounds to bf16
@@ -343,11 +365,13 @@ def _trunk_and_heads(params, x, n_targets: int, ptr=None):
 
 
 def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
-              lowered: Lowered | None = None):
-    """obs (..., F) -> (logits (..., A) f32, value (...,) f32)."""
+              lowered: Lowered | None = None, mesh=None):
+    """obs (..., F) -> (logits (..., A) f32, value (...,) f32). With a
+    mesh of model axis > 1, the trunk is tensor-parallel over it (see
+    _trunk_and_heads) and params holds this rank's slices."""
     x = bf(obs.float())
     if cfg.arch not in ("deepsets", "attn"):
-        return _trunk_and_heads(params, x, obs.shape[-1])
+        return _trunk_and_heads(params, x, obs.shape[-1], mesh=mesh)
     if lowered is None:
         raise ValueError("deepsets/attn apply needs the lowered game")
     P, F0 = lowered.P, _per_player_dim(lowered)
@@ -373,7 +397,7 @@ def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
     pooled = phi.mean(-2)
     self_phi = (phi * viewer_oh[..., None]).sum(-2)
     trunk_in = bf(torch.cat([pooled, self_phi, globals_], dim=-1))
-    return _trunk_and_heads(params, trunk_in, P, ptr=phi)
+    return _trunk_and_heads(params, trunk_in, P, ptr=phi, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -415,14 +439,19 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
                    obs=None, apply_fn=None, gumbel=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, rows=None):
     """Sample per-player choices: argmax(masked logits + Gumbel noise), which
     is how jax.random.categorical draws.
 
     Returns (actions (B,P) 1-based int32, logp (B,P), value (B,P),
     legal-action mask (B,P,A)). ``gumbel`` supplies the noise (e.g. JAX's
     own draws in a test); otherwise it is drawn from ``generator``.
-    ``apply_fn`` overrides the net forward (e.g. the fused kernel)."""
+    ``apply_fn`` overrides the net forward (e.g. the fused kernel).
+    ``rows`` = (first, end, total) says that these B rooms are rows
+    [first, end) of a batch of `total` split over ranks: the noise is
+    drawn for the whole batch and this rank keeps its rows, so every split
+    samples what one process over the whole batch samples (every rank's
+    generator is seeded alike)."""
     if obs is None:
         obs = observe(lowered, state)
     if apply_fn is None:
@@ -435,7 +464,12 @@ def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
     if gumbel is None:
         if generator is None:
             raise ValueError("sample_actions needs gumbel noise or a generator")
-        gumbel = gumbel_noise(logits.shape, generator, logits.device)
+        if rows is None:
+            gumbel = gumbel_noise(logits.shape, generator, logits.device)
+        else:
+            first, end, total = rows
+            gumbel = gumbel_noise((total,) + tuple(logits.shape[1:]), generator,
+                                  logits.device)[first:end]
     a = torch.argmax(logits + gumbel, dim=-1)  # (B, P) in [0, A)
     logp = torch.log_softmax(logits, dim=-1).gather(-1, a[..., None])[..., 0]
     return (a + 1).to(torch.int32), logp, value, mask

@@ -16,6 +16,26 @@ with ``fused_loss=False``, and for the widths K4 does not cover).
 
 Randomness comes from an explicit torch.Generator; it does not reproduce
 jax.random's draws (sample_actions takes given noise for that).
+
+With a mesh (parallel/mesh.py) the same step runs on every rank of a
+(data, model) grid, as JAX's GSPMD program runs on every device:
+
+  data   each rank unrolls its own rooms, drawing the sampling noise for
+         the whole batch from a generator seeded alike on every rank and
+         keeping its rows, so any split samples what one process samples.
+         The loss normalises by the whole batch (the masked advantage
+         mean and std, msum and n are sums over the data group), each
+         rank's gradient is its rooms' share of the batch's, and one
+         all-reduce over the data group sums the gradients, loss and
+         metrics; Adam then takes the same step on every rank. K2 and K4
+         run per rank as they are, with the batch's row weights from the
+         host.
+  model  the plain net's trunk split column/row over the model group
+         (net.apply_net with the mesh); the kernels compute the whole
+         trunk in one pass, so a model axis wider than 1 runs the plain
+         net.
+
+A mesh of one rank runs the same arithmetic as no mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +53,7 @@ from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
 from game_engine_tpu_torch.core.engine import init_state_like
 from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.core.step import PredEval, make_step
+from game_engine_tpu_torch.parallel.mesh import data_sums
 from game_engine_tpu_torch.policies import net as N
 
 
@@ -62,9 +83,16 @@ def _game_over_mech(lowered: Lowered) -> LGameOver | None:
     return lowered.game_overs[0] if lowered.game_overs else None
 
 
-def make_apply_fn(lowered: Lowered, cfg: PPOConfig):
+def _tensor_parallel(mesh) -> bool:
+    return mesh is not None and mesh.model_size > 1
+
+
+def make_apply_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """(params, obs) -> (logits, value): the fused kernels when enabled and
-    supported, else the plain apply_net."""
+    supported, else the plain apply_net; the tensor-parallel plain net on a
+    mesh with a model axis wider than 1."""
+    if _tensor_parallel(mesh):
+        return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered, mesh)
     if cfg.fused_net:
         from game_engine_tpu_torch.policies import fused as FZ
 
@@ -131,17 +159,20 @@ def reset_done(lowered: Lowered, state: GameState) -> GameState:
                        for f, old in zip(fresh, state)))
 
 
-def make_unroll(lowered: Lowered, cfg: PPOConfig):
+def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
     step = make_step(lowered)
-    apply_fn = make_apply_fn(lowered, cfg) if cfg.fused_net else None
+    apply_fn = (make_apply_fn(lowered, cfg, mesh)
+                if cfg.fused_net or _tensor_parallel(mesh) else None)
 
     @torch.no_grad()
     def unroll(params, state: GameState, generator: torch.Generator):
+        rows = None if mesh is None else mesh.room_rows(state.present.shape[0])
         steps = []
         for _ in range(cfg.horizon):
             obs = N.observe(lowered, state)
             a, logp, v, legal = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
-                                                 apply_fn=apply_fn, generator=generator)
+                                                 apply_fn=apply_fn, generator=generator,
+                                                 rows=rows)
             mask = actor_mask(lowered, state)
             actions = torch.where(mask, a, 0)
             nxt = step(state, actions)
@@ -171,9 +202,12 @@ def gae(traj: Rollout, last_value: torch.Tensor, cfg: PPOConfig):
 
 
 def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
-             lowered: Lowered | None = None):
-    """Clipped-PPO loss -> (total, metrics)."""
-    if cfg.fused_net and cfg.net.arch in ("deepsets", "attn"):
+             lowered: Lowered | None = None, mesh=None):
+    """Clipped-PPO loss -> (total, metrics). With a mesh, traj holds this
+    rank's rooms and every returned value is their share of the data
+    group's whole batch (normalised by the batch's msum, advantage mean and
+    std, and room count): the shares sum to the batch's values."""
+    if cfg.fused_net and cfg.net.arch in ("deepsets", "attn") and not _tensor_parallel(mesh):
         # the kernels hold no activations: the whole trajectory in one call
         logits, value = make_apply_fn(lowered, cfg)(params, traj.obs)
     elif cfg.net.arch in ("deepsets", "attn"):
@@ -183,13 +217,13 @@ def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
         C = max(1, min(cfg.loss_chunk, T))
         while T % C:  # largest divisor of T not above the requested chunk
             C -= 1
-        outs = [checkpoint(lambda o: N.apply_net(params, o, cfg.net, lowered),
+        outs = [checkpoint(lambda o: N.apply_net(params, o, cfg.net, lowered, mesh),
                            traj.obs[t:t + C], use_reentrant=False)
                 for t in range(0, T, C)]
         logits = torch.cat([o[0] for o in outs])
         value = torch.cat([o[1] for o in outs])
     else:
-        logits, value = N.apply_net(params, traj.obs, cfg.net, lowered)
+        logits, value = N.apply_net(params, traj.obs, cfg.net, lowered, mesh)
     # the same legal-action masking as at sampling time
     logits = torch.where(traj.legal, logits, torch.full_like(logits, -1e9))
     logp_all = torch.log_softmax(logits, dim=-1)
@@ -198,12 +232,16 @@ def ppo_loss(params, traj: Rollout, adv, ret, cfg: PPOConfig,
     ratio = torch.exp(logp - traj.logp)
 
     m = traj.mask.to(torch.float32)
-    msum = m.sum().clamp_min(1.0)
-    mean = (adv * m).sum() / msum
-    adv_n = (adv - mean) / (torch.sqrt((m * (adv - mean) ** 2).sum() / msum) + 1e-8)
+    msum, adv_sum = data_sums(mesh, m.sum(), (adv * m).sum())
+    msum = msum.clamp_min(1.0)
+    mean = adv_sum / msum
+    (var_sum,) = data_sums(mesh, (m * (adv - mean) ** 2).sum())
+    adv_n = (adv - mean) / (torch.sqrt(var_sum / msum) + 1e-8)
     pg = -torch.minimum(ratio * adv_n, ratio.clamp(1 - cfg.clip, 1 + cfg.clip) * adv_n)
     pg_loss = (pg * m).sum() / msum
     v_loss = 0.5 * ((value - ret) ** 2).mean()
+    if mesh is not None:  # this rank's share of the mean over the batch's rooms
+        v_loss = v_loss * (1.0 / mesh.data_size)
     ent = -(logp_all.exp() * logp_all).sum(-1)
     ent_loss = -(ent * m).sum() / msum
     total = pg_loss + cfg.vf_coef * v_loss + cfg.ent_coef * ent_loss
@@ -224,18 +262,19 @@ def team_masks(lowered: Lowered, state: GameState) -> torch.Tensor:
     return seat1.expand(state.present.shape) & state.present
 
 
-def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig):
+def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """((loss, metrics), grads) through K4 (one pass over the rows), or None
-    when the config does not ask for it or K4 does not cover the net; the
-    update then runs ppo_loss through make_apply_fn (K2 + K3 with
-    fused_net)."""
-    if not (cfg.fused_net and cfg.fused_loss):
+    when the config does not ask for it, K4 does not cover the net or the
+    trunk is split over a model axis; the update then runs ppo_loss through
+    make_apply_fn (K2 + K3 with fused_net). With a mesh, this rank's
+    shares (see ppo_loss)."""
+    if not (cfg.fused_net and cfg.fused_loss) or _tensor_parallel(mesh):
         return None
     from game_engine_tpu_torch.policies import fused as FZ
 
     if not FZ.loss_supports(lowered, cfg.net):
         return None
-    mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef)
+    mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef, mesh)
 
     def loss_vg(params, traj, adv, ret):
         return mono(params, traj.obs, traj.legal, traj.actions, traj.logp, adv, ret,
@@ -267,21 +306,53 @@ class _Clock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def make_update(lowered: Lowered, cfg: PPOConfig):
-    """update(params, opt, traj, adv, ret) -> (loss, metrics): one Adam
-    step of `params` in place on the PPO loss of a trajectory, through K4
-    (fused_loss), K2 + K3 (fused_net alone) or autograd over apply_net."""
-    loss_vg = make_loss_vg_fn(lowered, cfg)
+def _sum_over_data(mesh, loss, metrics: dict, grads: list):
+    """The rank's shares of the loss, metrics and gradients summed over the
+    data group, in one collective."""
+    keys = list(metrics)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.detach().reshape(1)]
+                     + [metrics[k].detach().reshape(1) for k in keys])
+    mesh.data_sum(flat)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return flat[at], dict(zip(keys, flat[at + 1:].unbind())), out
 
-    def update(params, opt: torch.optim.Optimizer, traj: Rollout, adv, ret):
+
+def make_grad_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
+    """grad_fn(params, traj, adv, ret) -> (loss, metrics, grads by name):
+    the PPO loss of a trajectory and its parameter gradient, through K4
+    (fused_loss), K2 + K3 (fused_net alone) or autograd over apply_net.
+    With a mesh, the whole batch's values: this rank's shares summed over
+    its data group."""
+    loss_vg = make_loss_vg_fn(lowered, cfg, mesh)
+
+    def grad_fn(params, traj: Rollout, adv, ret):
         names = list(params)
         if loss_vg is not None:
             (loss, metrics), grads = loss_vg(params, traj, adv, ret)
             grads = [grads[k] for k in names]
         else:
-            loss, metrics = ppo_loss(params, traj, adv, ret, cfg, lowered)
+            loss, metrics = ppo_loss(params, traj, adv, ret, cfg, lowered, mesh)
             grads = torch.autograd.grad(loss, [params[k] for k in names])
-        for k, g in zip(names, grads):
+        if mesh is not None:
+            loss, metrics, grads = _sum_over_data(mesh, loss, metrics, grads)
+        return loss, metrics, dict(zip(names, grads))
+
+    return grad_fn
+
+
+def make_update(lowered: Lowered, cfg: PPOConfig, mesh=None):
+    """update(params, opt, traj, adv, ret) -> (loss, metrics): one Adam
+    step of `params` in place on the PPO loss of a trajectory (make_grad_fn;
+    with a mesh, on the data group's summed gradient)."""
+    grad_fn = make_grad_fn(lowered, cfg, mesh)
+
+    def update(params, opt: torch.optim.Optimizer, traj: Rollout, adv, ret):
+        loss, metrics, grads = grad_fn(params, traj, adv, ret)
+        for k, g in grads.items():
             params[k].grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
@@ -290,13 +361,28 @@ def make_update(lowered: Lowered, cfg: PPOConfig):
     return update
 
 
-def make_train_step(lowered: Lowered, cfg: PPOConfig):
+def rollout_metrics(traj: Rollout, mesh=None) -> dict:
+    """reward_per_step (f32) and episodes (int64) of a trajectory; with a
+    mesh, of the data group's whole batch (one collective)."""
+    reward = traj.reward.sum(-1).mean()
+    episodes = traj.done.sum()
+    if mesh is not None:
+        both = mesh.data_sum(torch.stack([(reward * (1.0 / mesh.data_size)).double(),
+                                          episodes.double()]))
+        reward, episodes = both[0].to(reward.dtype), both[1].to(episodes.dtype)
+    return {"reward_per_step": reward, "episodes": episodes}
+
+
+def make_train_step(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """train_step(params, opt, state, generator) -> (state, metrics): one
     unroll, GAE and cfg.epochs Adam updates of `params` in place. metrics
-    holds the loss terms as tensors and unroll_ms / update_ms as floats."""
-    unroll = make_unroll(lowered, cfg)
-    apply_fn = make_apply_fn(lowered, cfg)
-    update = make_update(lowered, cfg)
+    holds the loss terms as tensors and unroll_ms / update_ms as floats.
+    With a mesh (see the module docstring), `state` holds this rank's
+    rooms, `params` its slices, every rank's generator is seeded alike,
+    and the metrics are the data group's."""
+    unroll = make_unroll(lowered, cfg, mesh)
+    apply_fn = make_apply_fn(lowered, cfg, mesh)
+    update = make_update(lowered, cfg, mesh)
 
     def train_step(params, opt: torch.optim.Optimizer, state: GameState,
                    generator: torch.Generator):
@@ -314,8 +400,7 @@ def make_train_step(lowered: Lowered, cfg: PPOConfig):
         clock.mark()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        metrics["reward_per_step"] = traj.reward.sum(-1).mean()
-        metrics["episodes"] = traj.done.sum()
+        metrics.update(rollout_metrics(traj, mesh))
         metrics["unroll_ms"], metrics["update_ms"] = clock.spans_ms()
         return state, metrics
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch import graft_entry as G
 from game_engine_tpu_torch.core import engine as E
 from game_engine_tpu_torch.core import state as S
 from game_engine_tpu_torch.policies import chat_lm as LM
@@ -29,7 +30,10 @@ from game_engine_tpu_torch.train import chat_lm as TLM
 from game_engine_tpu_torch.train import evaluate as EV
 from game_engine_tpu_torch.train import ppo as P
 from game_engine_tpu_torch.train import run as R
-from game_engine_tpu_torch.train.pipeline import run_pipelined
+from game_engine_tpu_torch.parallel import mesh as M
+from game_engine_tpu_torch.parallel import parity
+from game_engine_tpu_torch.parallel.launch import run_ranks
+from game_engine_tpu_torch.train.pipeline import run_pipelined, submeshes
 from game_engine_tpu_torch.utils import arena as AR
 from game_engine_tpu_torch.utils import eval_exploit as EX
 from game_engine_tpu_torch.utils import checkpoint as CK
@@ -66,7 +70,9 @@ def test_importing_the_whole_port_loads_no_jax_package():
     assert int(proc.stdout.split()[-1]) >= 45
     names = _run(_NO_JAX.format(extra="print(' '.join(mods))")).stdout
     for mod in ("oracle.interp", "policies.scripted", "policies.chat_lm",
-                "policies.chat_decode", "train.chat_lm", "utils.eval_chat_probes"):
+                "policies.chat_decode", "train.chat_lm", "utils.eval_chat_probes",
+                "parallel.mesh", "parallel.tp", "parallel.launch", "parallel.parity",
+                "graft_entry", "utils.eval_heldout"):
         assert f"game_engine_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -90,6 +96,9 @@ ENTRY_POINTS = [
     (EV.matchup_table, "device"), (run_pipelined, "device"), (AR.run_arena, "device"),
     (EX.run_exploit, "device"), (LM.init_params, "device"), (LM.params_from_numpy, "device"),
     (LM.load, "device"), (LM.make_lm_hook, "device"),
+    (M.make_mesh, "device"), (M.mesh_over, "device"), (M.initialize_multihost, "device"),
+    (run_ranks, "device"), (submeshes, "device"), (G.entry, "device"),
+    (G.dryrun_multichip, "device"), (G._scaling_curve, "device"),
 ]
 
 
@@ -165,6 +174,12 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: MG.GameHost(chat_lm=chat),
         lambda: TLM.main(["--steps", "1"]),
         lambda: ECP.main(["--no-lm"]),
+        lambda: M.make_mesh(),
+        lambda: M.initialize_multihost("localhost:29500", 2, 0),
+        lambda: run_ranks(parity.engine_rollout, 2, {}),
+        lambda: G.entry(),
+        lambda: G.dryrun_multichip(2),
+        lambda: G._scaling_curve(2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
