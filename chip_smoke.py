@@ -24,8 +24,8 @@ Phases, one JSON line each:
   build           nvcc builds of csrc/rollout.cu, policy_net.cu,
                   lossgrad.cu, search.cu and chat_decode.cu, in parallel
                   (one nvcc each, started together): seconds and ptxas
-                  reports (K1's, S's and LM's registers, stack and spill
-                  bytes also as numbers)
+                  reports (K1's and S's registers, stack and spill bytes
+                  also as numbers, and each of LM's three kernels')
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
                   4096x8 (256 steps) at 128, 64 and 256 lanes a block,
@@ -180,19 +180,28 @@ Phases, one JSON line each:
                   collectives and host waits. Ranks that share one card
                   share its time: the curve measures what sharding costs
 
-  compare_chat    the chat LM's decode kernel (LM, csrc/chat_decode.cu: a
-                  reply a block, one launch a batch) against decode_plain
-                  on the card, docs/checkpoints/chat_lm.npz at full width:
-                  64 corpus contexts of unseen rooms (seeds from 320)
-                  greedy, and 32 of them sampled (T 0.8, top-p 0.9) with
-                  salts 0-2. Tokens equal but where the plain decode's top
-                  two logits are within 1e-3 (or a sampled draw within 1e-2
-                  of a boundary of its CDF), reported; the head's logits at
+  compare_chat    the chat LM's decode kernels (LM, csrc/chat_decode.cu: the
+                  tensor-core prefill of every prompt row, then a cluster of
+                  8 blocks a context for the generated tokens) against
+                  decode_plain on the card, docs/checkpoints/chat_lm.npz at
+                  full width: 64 corpus contexts of unseen rooms (seeds from
+                  320) greedy in one call, and 32 of them sampled (T 0.8,
+                  top-p 0.9) with salts 0-2 in one call. Tokens equal but
+                  where the plain decode's top two logits are within 1e-3
+                  (or a sampled draw within 1e-2 of a boundary of its CDF),
+                  each such tie reported and counted; the head's logits at
                   the generated positions within 1e-2 of max|ref| (the plain
-                  decode with float64 sums moves them by ~4e-3, reported)
-  chat_timing     one reply: the kernel's ms (CUDA events, median of 5) and
-                  launches (1), the plain decode's ms and its kernel
-                  launches (torch.profiler), reply tokens/s, the bound
+                  decode with float64 sums moves them by ~4e-3, reported);
+                  the launches of each call (2 x layers - 1 prefill + 1)
+  chat_timing     one reply: the prefill's and the decode's ms and their sum
+                  (CUDA events around each part, median of 5), us a
+                  generated position, launches a reply (asserted: 8), the
+                  64-context batch's ms (median of 3), the decode's clusters
+                  at once and resident layers, the plain decode's ms and
+                  its kernel launches (torch.profiler), reply tokens/s, the
+                  bound; the kernels' reply equal to plain's. With
+                  --profile, the decode's cycles a position by stage
+                  (csrc/chat_decode.cu built with -DCD_PROFILE)
   chat_probes     utils/eval_chat_probes.py on the card: composer,
                   student_fb and sampled_fb at ok_rate 1.0, beside the JAX
                   record (docs/chat_probe_eval_r5.json)
@@ -296,6 +305,38 @@ def ptxas_numbers(lib) -> dict:
              "spill_store_bytes": r"(\d+) bytes spill stores",
              "spill_load_bytes": r"(\d+) bytes spill loads"}
     return {k: int(re.search(pat, text).group(1)) for k, pat in found.items()}
+
+
+def ptxas_by_kernel(lib, names) -> dict:
+    """Registers, stack and spill bytes of each kernel of a library whose
+    mangled name holds one of `names`, from the compiler's report."""
+    import re
+
+    from game_engine_tpu_torch import _build
+
+    out, current = {}, None
+    for ln in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            current = next((n for n in names if n in m.group(1)), None)
+            if current:
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[current].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            current = None
+    missing = [n for n in names if "registers" not in out.get(n, {})]
+    if missing:
+        raise AssertionError(f"no ptxas report of {missing}")
+    return out
 
 
 def mean_ms(fn, reps=3):
@@ -674,6 +715,13 @@ def tensor_core_launches() -> dict:
     return {k: fn.by_route["tensor_core"] for k, fn in policy_wrappers().items()}
 
 
+def decode_programs() -> dict:
+    """The chat decode's launches by program since the counts were zeroed."""
+    from game_engine_tpu_torch.policies.chat_decode import kernel_decode
+
+    return {"prefill": kernel_decode.prefill_launches, "decode": kernel_decode.decode_launches}
+
+
 def zero_launches() -> None:
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
     from game_engine_tpu_torch.core.search_kernel import kernel_search
@@ -681,7 +729,7 @@ def zero_launches() -> None:
 
     kernel_rollout.launches = 0
     kernel_search.launches = 0
-    kernel_decode.launches = 0
+    kernel_decode.launches = kernel_decode.prefill_launches = kernel_decode.decode_launches = 0
     for fn in policy_wrappers().values():
         fn.launches = 0
         fn.by_route = dict.fromkeys(fn.by_route, 0)
@@ -927,6 +975,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         srv.server_close()
     s_launches = SK.kernel_search.launches
     d_launches = CD.kernel_decode.launches
+    d_programs = decode_programs()
     launches = FZ.kernel_forward.launches
     by_route = dict(FZ.kernel_forward.by_route)
     host = srv.ctx.host
@@ -967,6 +1016,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         "chat_lm": chat_lm is not None, "chat_poster": bool(chat_lm),
         "chats_to_ended_rooms": stats.get("chat_gone", 0),
         "chat_unstarted_skips": stats.get("chat_unstarted_skips", 0), "decode_launches": d_launches,
+        "decode_launches_by_program": d_programs,
         "k2_launches": launches, "k2_by_route": by_route, "search_launches": s_launches,
         "search_host_s_in_window": search_s,
         "search_share_of_step": search_s / step_s if step_s else None, "gpu": gpu}
@@ -2115,6 +2165,7 @@ def multidevice_phase(lowered, gpu: str) -> dict:
 # -- the chat LM's decode kernel (LM) -------------------------------------------
 
 CHAT_SOURCE = "game_engine_tpu_torch/csrc/chat_decode.cu"
+CHAT_KERNELS = ("cd_prefill_rows_kernel", "cd_prefill_attn_kernel", "cd_decode_kernel")
 # LM is the counterpart of an XLA scan, not of a pallas_call site
 CHAT_REPLACES = "game_engine_tpu/policies/chat_lm.py:439"
 CHAT_CKPT = "docs/checkpoints/chat_lm.npz"
@@ -2224,8 +2275,10 @@ def compare_chat(gpu: str) -> dict:
     t0 = time.perf_counter()
     launches = CD.kernel_decode.launches
     (got, lg), ms = timed_ms(lambda: CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW, logits=True))
-    if CD.kernel_decode.launches != launches + 1:
-        raise AssertionError("kernel_decode did not launch the kernel once")
+    want = CD.launches_per_call(n0, cfg.max_len, cfg.n_layers)
+    if CD.kernel_decode.launches != launches + want:
+        raise AssertionError(f"kernel_decode made {CD.kernel_decode.launches - launches} "
+                             f"launches, not {want}")
     ref, lr = CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW, logits=True)
     _, l64 = CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW, logits=True, f64_sums=True)
     greedy = compare_replies(got, ref, lg, lr, n0)
@@ -2239,7 +2292,11 @@ def compare_chat(gpu: str) -> dict:
     top_p = float(np.float32(CHAT_TOP_P))
     sb, sn = np.concatenate([sbufs] * len(CHAT_SALTS)), sn0 * len(CHAT_SALTS)
     kw = dict(u=np.stack(us), inv_temp=inv_temp, top_p=top_p, logits=True)
+    launches = CD.kernel_decode.launches
     sgot, slg = CD.kernel_decode(pk, sb, sn, CHAT_MAX_NEW, **kw)
+    if CD.kernel_decode.launches != launches + want:
+        raise AssertionError("kernel_decode's sampled call made "
+                             f"{CD.kernel_decode.launches - launches} launches, not {want}")
     sref, slr = CD.decode_plain(params, cfg, sb, sn, CHAT_MAX_NEW, **kw)
     sampled = compare_replies(sgot, sref, slg, slr, sn, us, inv_temp, top_p)
     check("chat decode logits (sampled)", sampled["max_abs_err"],
@@ -2249,12 +2306,15 @@ def compare_chat(gpu: str) -> dict:
             "max_len": cfg.max_len, "seeds_from": CHAT_SEED0, "greedy": greedy,
             "sampled": {**sampled, "temperature": CHAT_TEMP, "top_p": CHAT_TOP_P,
                         "salts": list(CHAT_SALTS)},
-            "batch_kernel_ms": ms, "prompt_tokens_mean": float(np.mean(n0)),
+            "ties": len(greedy["tie_divergences"]) + len(sampled["tie_divergences"]),
+            "launches_per_call": want, "batch_kernel_ms": ms,
+            "prompt_tokens_mean": float(np.mean(n0)),
             "reply_tokens_mean": float(np.mean(gen)), "tolerance_of_max_ref": CHAT_TOL,
             "tie_gap": CHAT_GAP, "seconds": time.perf_counter() - t0, "gpu": gpu}
     emit(line)
     return {"max_abs_err": max(greedy["max_abs_err"], sampled["max_abs_err"]),
-            "ctx": ctxs[0], "bufs": bufs[:1], "n0": n0[:1], "params": params, "cfg": cfg}
+            "ctx": ctxs[0], "bufs": bufs[:1], "n0": n0[:1], "params": params, "cfg": cfg,
+            "batch": (bufs, n0)}
 
 
 def chat_bound(cfg, n0: int, n_gen: int) -> tuple:
@@ -2275,11 +2335,14 @@ def chat_bound(cfg, n0: int, n_gen: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def chat_timing(gpu: str, cmp: dict) -> dict:
-    """One reply of the first compared context: the kernel's ms (CUDA events,
-    median of 5 after a warm-up) and launches a reply; the plain decode's
-    ms and kernel launches a reply (torch.profiler); reply tokens a second;
-    the bound."""
+def chat_timing(gpu: str, cmp: dict, profiled: bool = False) -> dict:
+    """One reply of the first compared context: the prefill's and the
+    decode's ms and their sum (CUDA events around each part, median of 5
+    after a warm-up), us a generated position, launches a reply; the
+    64-context batch's ms (median of 3); the plain decode's ms and kernel
+    launches a reply (torch.profiler); reply tokens a second; the bound.
+    With `profiled`, also the decode's clock cycles a generated position by
+    stage (the -DCD_PROFILE build, rank 0 of the cluster)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2289,37 +2352,60 @@ def chat_timing(gpu: str, cmp: dict) -> dict:
     params, cfg, bufs, n0 = cmp["params"], cmp["cfg"], cmp["bufs"], cmp["n0"]
     pk = CD.packed(params, cfg)
     out, _ = CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW)
-    times = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    pre, dec = [], []
     launches = CD.kernel_decode.launches
     for _ in range(5):
-        (out, _), ms = timed_ms(lambda: CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW))
-        times.append(ms)
+        out, _ = CD.kernel_decode(pk, bufs, n0, CHAT_MAX_NEW, events=ev)
+        torch.cuda.synchronize()
+        pre.append(ev[0].elapsed_time(ev[1]))
+        dec.append(ev[1].elapsed_time(ev[2]))
     per_reply = (CD.kernel_decode.launches - launches) / 5
     # generated tokens: the reply's, and the stop token unless max_new ended it
     gen = min(int(((out[0, n0[0]:] >= 4).cumprod(0)).sum()) + 1, CHAT_MAX_NEW,
               cfg.max_len - n0[0])
+    batch = []
+    for _ in range(3):
+        _, bms = timed_ms(lambda: CD.kernel_decode(pk, *cmp["batch"], CHAT_MAX_NEW))
+        batch.append(bms)
     (pref, _), plain_ms = timed_ms(lambda: CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW))
     if not torch.equal(pref, out):
-        raise AssertionError("chat_timing: the kernel's reply differs from plain")
+        raise AssertionError("chat_timing: the kernels' reply differs from plain")
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         CD.decode_plain(params, cfg, bufs, n0, CHAT_MAX_NEW)
         torch.cuda.synchronize()
     plain_kernels = sum(ev.count for ev in prof.key_averages()
                         if (getattr(ev, "device_time_total", None)
                             or getattr(ev, "cuda_time_total", 0)) > 0)
-    ms = statistics.median(times)
+    total = [a + b for a, b in zip(pre, dec)]
+    ms = statistics.median(total)
+    want = CD.launches_per_call(n0, cfg.max_len, cfg.n_layers)
     b = chat_bound(cfg, n0[0], gen)
+    sz = CD.sizes(cfg, "cuda")
     line = {"phase": "chat_timing", "prompt_tokens": n0[0], "reply_tokens": gen,
-            "kernel_ms_per_reply": times, "kernel_ms_median": ms,
-            "kernel_launches_per_reply": per_reply, "plain_ms_per_reply": plain_ms,
-            "plain_kernel_launches_per_reply": plain_kernels,
+            "prefill_ms": pre, "decode_ms": dec, "kernel_ms_per_reply": total,
+            "prefill_ms_median": statistics.median(pre),
+            "decode_ms_median": statistics.median(dec), "kernel_ms_median": ms,
+            "us_per_generated_position": statistics.median(dec) * 1e3 / gen,
+            "kernel_launches_per_reply": per_reply, "launches_expected": want,
+            "batch_contexts": len(cmp["batch"][1]), "batch_ms": batch,
+            "batch_ms_median": statistics.median(batch),
+            "plain_ms_per_reply": plain_ms, "plain_kernel_launches_per_reply": plain_kernels,
             "reply_tokens_per_s": gen / (ms / 1e3), "bound_ms": b[0], "bound_by": b[1],
-            "shared_bytes_per_block": CD.sizes(cfg, "cuda")["shared_bytes"],
-            "threads_per_block": CD.THREADS, "gpu": gpu}
+            "cluster": CD.cluster_plan(cfg),
+            "shared_bytes_per_block": {k: sz[k] for k in sz if k.endswith("shared_bytes")},
+            "gpu": gpu}
+    if profiled:
+        CD.profile_decode(pk, bufs, n0, CHAT_MAX_NEW)  # warm-up
+        cycles = CD.profile_decode(pk, bufs, n0, CHAT_MAX_NEW)
+        line["decode_cycles_per_position_by_stage"] = {k: v / gen for k, v in cycles.items()}
     emit(line)
-    if per_reply != 1:
-        raise AssertionError(f"a reply took {per_reply} launches, not 1")
-    return {"ms": ms, "plain_ms": plain_ms, "bound": b}
+    if per_reply != want:
+        raise AssertionError(f"a reply took {per_reply} launches, not {want}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": b, "prefill_ms": line["prefill_ms_median"],
+            "decode_ms": line["decode_ms_median"], "launches_per_reply": want,
+            "us_per_position": line["us_per_generated_position"],
+            "batch_ms": line["batch_ms_median"]}
 
 
 class PlainOnCard:
@@ -2377,7 +2463,7 @@ def chat_probes_phase(gpu: str) -> int:
 def serve_chat_phase(gpu: str) -> tuple:
     """The server with --chat-lm and the attn policy bots: load_test's shape
     for SERVE_SECONDS; decode launches > 0, 0 errors. Returns the
-    decode launches and K2's."""
+    decode launches, K2's and the decode's by program."""
     import shutil
     import tempfile
 
@@ -2392,7 +2478,7 @@ def serve_chat_phase(gpu: str) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     if line["decode_launches"] <= 0 or not line["requests_by_endpoint"]["chat"]:
         raise AssertionError("serve_chat: no chat answered or no chat decode launched")
-    return line["decode_launches"], line["k2_launches"]
+    return line["decode_launches"], line["k2_launches"], line["decode_launches_by_program"]
 
 
 def train_chat_phase(gpu: str) -> int:
@@ -2490,7 +2576,7 @@ def main(argv=()) -> int:
           "search_ptxas": ptxas_report(_build.search_lib()),
           "search_kernel": ptxas_numbers(_build.search_lib()),
           "chat_decode_ptxas": ptxas_report(_build.chat_decode_lib()),
-          "chat_decode_kernel": ptxas_numbers(_build.chat_decode_lib())})
+          "chat_decode_kernels": ptxas_by_kernel(_build.chat_decode_lib(), CHAT_KERNELS)})
 
     ww = lower(compile_game(load_builtin("werewolf")))
     tt = lower(compile_game(load_builtin("two-truths-and-a-lie"), GameConfig()))
@@ -2642,11 +2728,16 @@ def main(argv=()) -> int:
     judged = arena_phase(gpu)
     multi = multidevice_phase(ww, gpu)
     c_compare = compare_chat(gpu)
-    c_line = chat_timing(gpu, c_compare)
+    c_line = chat_timing(gpu, c_compare, profiled)
     zero_launches()
     c_by_path = {"chat_probes": chat_probes_phase(gpu)}
-    c_by_path["serving"], k2_serve_chat = serve_chat_phase(gpu)
+    c_by_program = decode_programs()
+    c_by_path["serving"], k2_serve_chat, served = serve_chat_phase(gpu)  # zeroes the counts
+    zero_launches()
     c_by_path["train_chat_lm"] = train_chat_phase(gpu)
+    c_by_program = {k: v + served[k] + decode_programs()[k] for k, v in c_by_program.items()}
+    if sum(c_by_program.values()) != sum(c_by_path.values()):
+        raise AssertionError(f"decode launches {c_by_path} and by program {c_by_program} differ")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
@@ -2691,10 +2782,17 @@ def main(argv=()) -> int:
         "name": "chat_decode", "route": "cuda", "source": CHAT_SOURCE, "replaces": CHAT_REPLACES,
         "replaces_kind": "XLA lax.scan (_make_decoder), no pallas_call site",
         "launches": sum(c_by_path.values()), "launches_by_path": c_by_path,
+        "launches_by_program": c_by_program,
         "max_abs_err": c_compare["max_abs_err"], "ms": c_line["ms"],
+        "prefill_ms": c_line["prefill_ms"], "decode_ms": c_line["decode_ms"],
+        "us_per_generated_position": c_line["us_per_position"],
+        "batch64_ms": c_line["batch_ms"],
         "plain_ms": c_line["plain_ms"], "bound_ms": c_line["bound"][0],
         "bound_by": c_line["bound"][1], "library_ms": None,
-        "shape": {"checkpoint": CHAT_CKPT, "replies_a_launch": 1, "max_new": CHAT_MAX_NEW}}]})
+        "library_ms_none_because": "no single PyTorch call decodes with a KV cache and a "
+                                   "nucleus draw",
+        "shape": {"checkpoint": CHAT_CKPT, "launches_per_reply": c_line["launches_per_reply"],
+                  "cluster": 8, "max_new": CHAT_MAX_NEW}}]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

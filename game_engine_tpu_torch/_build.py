@@ -51,8 +51,10 @@ _LG_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _P, _P]
 _LG_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _I, _P]
 # meta, obs, nrows, rowin, clip_eps, ent_coef, prm, weights, scratch, chunk, nsplit, out
 _LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _P, _I64, _I, _P]
-# wb, wf, dims, io, kv, u, inv_temp, top_p, max_new, logits, n_ctx, threads
-_CD_ARGS = [_P, _P, _P, _P, _P, _P, _F, _F, _I, _P, _I, _I]
+# wb, wf, dims, io, kv, u, inv_temp, top_p, max_new, logits, n_ctx
+_CD_ARGS = [_P, _P, _P, _P, _P, _P, _F, _F, _I, _P, _I]
+# wb, wf, dims, io, kv, rows, n_rows, scratch
+_CD_PREFILL_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P]
 
 
 def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
@@ -328,30 +330,52 @@ def search_count_lib() -> ctypes.CDLL:
 
 
 def _chat_decode_common(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.cd_sizes.restype = None
-    lib.cd_sizes.argtypes = [_P, _I, _P]  # dims, threads, out
+    lib.cd_sizes.restype = _I
+    lib.cd_sizes.argtypes = [_P, _I64, _P]  # dims, shared bytes a block, out
+    return lib
+
+
+def _chat_decode_cuda(profile: bool) -> ctypes.CDLL:
+    job = _cuda_jobs()[4]
+    if profile:
+        job = (job[0], "libchat_decode_profile", job[2] + ["-DCD_PROFILE"])
+    lib = _chat_decode_common(ctypes.CDLL(_compile_all([job])[0]))
+    if profile:
+        lib.cd_profile_read.restype = _I
+        lib.cd_profile_read.argtypes = [_P, _I]  # out, reset
+    lib.cd_error_string.restype = ctypes.c_char_p
+    lib.cd_error_string.argtypes = [_I]
+    lib.cd_prefill.restype = _I
+    lib.cd_prefill.argtypes = _CD_PREFILL_ARGS + [_P, _P]  # launches, stream
+    lib.cd_decode.restype = _I
+    lib.cd_decode.argtypes = _CD_ARGS + [_P, _P]  # launches, stream
+    lib.cd_cluster_plan.restype = _I
+    lib.cd_cluster_plan.argtypes = [_P, _P]  # dims, out
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def chat_decode_lib() -> ctypes.CDLL:
-    """csrc/chat_decode.cu (the chat LM's decode, one launch a batch of
-    replies) built with nvcc for sm_90a, loaded."""
-    lib = _chat_decode_common(ctypes.CDLL(_compile_all([_cuda_jobs()[4]])[0]))
-    lib.cd_error_string.restype = ctypes.c_char_p
-    lib.cd_error_string.argtypes = [_I]
-    lib.cd_decode.restype = _I
-    lib.cd_decode.argtypes = _CD_ARGS + [_P]  # stream
-    return lib
+    """csrc/chat_decode.cu (the chat LM's decode: the tensor-core prefill
+    and the cluster decode) built with nvcc for sm_90a, loaded."""
+    return _chat_decode_cuda(False)
+
+
+@functools.lru_cache(maxsize=None)
+def chat_decode_profile_lib() -> ctypes.CDLL:
+    """csrc/chat_decode.cu built with -DCD_PROFILE: the decode also sums
+    its stages' clock cycles (cd_profile_read). A measuring tool; the
+    decode runs chat_decode_lib()."""
+    return _chat_decode_cuda(True)
 
 
 @functools.lru_cache(maxsize=None)
 def chat_decode_host_lib() -> ctypes.CDLL:
-    """csrc/chat_decode_host.cpp (the decode kernel's body) built with g++."""
+    """csrc/chat_decode_host.cpp (the decode programs' twin) built with g++."""
     lib = _chat_decode_common(ctypes.CDLL(_compile_all([(
         os.path.join(_CSRC, "chat_decode_host.cpp"), "libchat_decode_host", _GXX_CMD)])[0]))
     lib.cd_decode_host.restype = _I
-    lib.cd_decode_host.argtypes = _CD_ARGS
+    lib.cd_decode_host.argtypes = _CD_ARGS + [_P, _I, _P]  # rows, n_rows, scratch
     return lib
 
 

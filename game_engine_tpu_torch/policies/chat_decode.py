@@ -1,15 +1,22 @@
-"""Host side of the chat LM's decode kernel (csrc/chat_decode.cu).
+"""Host side of the chat LM's decode kernels (csrc/chat_decode.cu).
 
 The JAX package decodes a reply in one jitted ``lax.scan`` over the
 positions (game_engine_tpu/policies/chat_lm.py ``_make_decoder``): one
-device dispatch a reply. Its counterpart here is one launch of a CUDA kernel
-written for it, a block a context (csrc/chat_decode.cuh says what a position
-computes and how the block shares it).
+device dispatch a reply. Its counterpart here is two device programs
+written for Hopper (csrc/chat_decode.cuh says what each computes and in
+which order):
 
-- ``kernel_decode`` launches it over a batch of contexts on the card (CUDA
-  tensors only; counts ``kernel_decode.launches``; a failed build or launch
-  raises);
-- ``host_decode`` runs the kernel's body, built by g++
+- the prefill: the prompts' teacher-forced positions of every context of
+  the batch, stacked as rows, a layer at a time through the tensor cores
+  (2 * layers - 1 launches, none when no prompt has a row to force);
+- the decode: the generated positions of a context on a cluster of 8
+  thread blocks, each owning an eighth of every product (one launch).
+
+- ``kernel_decode`` launches them over a batch of contexts on the card (CUDA
+  tensors only; counts ``kernel_decode.launches``, split into
+  ``prefill_launches`` and ``decode_launches``; a failed build or launch
+  raises, and so does a card that cannot place the cluster);
+- ``host_decode`` runs their twin, built by g++
   (csrc/chat_decode_host.cpp), on CPU tensors;
 - ``decode_plain`` is the plain version: the same KV-cache loop in eager
   torch, on whatever device the parameters live.
@@ -23,7 +30,7 @@ the nucleus of the temperature-scaled softmax exactly as the JAX decoder
 does. With ``logits=True`` they also return the head's row at every
 position whose next token was generated (NaN elsewhere).
 
-``packed`` keeps the kernel's weight blobs for the last ``PACK_SLOTS``
+``packed`` keeps the kernels' weight blobs for the last ``PACK_SLOTS``
 parameter states (the dict's identity and each tensor's address and
 version), as the JAX module's decoder cache keeps its last four
 executables; ``plain_weights`` does the same for the plain version's
@@ -52,13 +59,13 @@ from game_engine_tpu_torch.policies.chat_lm import (
     rope_tables,
 )
 
-THREADS = 768   # a block's threads: four to a model column at d_model 192
 PACK_SLOTS = 4  # parameter states kept packed (the JAX decoder cache's size)
+SMEM_LIMIT = 232448  # shared bytes an H100 block can opt in to: sizes()' resident layers
 
 
 class Packed(NamedTuple):
-    """The kernel's weights for one parameter state, on its device."""
-    wb: torch.Tensor    # bf16 blob as int16 (chat_decode.cuh's order)
+    """The kernels' weights for one parameter state, on its device."""
+    wb: torch.Tensor    # bf16 blob as int16 (chat_decode.cuh's order, products transposed)
     wf: torch.Tensor    # float32 blob
     dims: np.ndarray    # int32 {D, H, L, V, layers, heads} on the host
     cfg: LMConfig
@@ -69,27 +76,51 @@ def dims_of(cfg: LMConfig) -> np.ndarray:
                      cfg.n_heads], np.int32)
 
 
-def _lib(device: torch.device):
-    return _build.chat_decode_lib() if device.type == "cuda" else _build.chat_decode_host_lib()
+def _lib(device: torch.device, profile: bool = False):
+    if device.type != "cuda":
+        return _build.chat_decode_host_lib()
+    return _build.chat_decode_profile_lib() if profile else _build.chat_decode_lib()
 
 
-def sizes(cfg: LMConfig, device, threads: int = THREADS) -> dict:
-    """The blobs', a block's shared memory's and a context's caches' sizes,
-    as the library computes them."""
-    out = np.zeros(4, np.int64)
-    _lib(torch.device(device)).cd_sizes(dims_of(cfg).ctypes.data, threads, out.ctypes.data)
-    return {"wb": int(out[0]), "wf": int(out[1]), "shared_bytes": int(out[2]),
-            "kv_floats": int(out[3])}
+_SIZE_KEYS = ("wb", "wf", "kv_floats", "prefill_rows_shared_bytes",
+              "prefill_attn_shared_bytes", "decode_shared_bytes", "resident_layers",
+              "cluster", "scratch_bytes_per_row")
+
+
+def sizes(cfg: LMConfig, device) -> dict:
+    """The blobs', a context's caches', each program's shared memory a block
+    and a prefill row's scratch sizes, as the library computes them for an
+    H100's blocks (SMEM_LIMIT); raises for a net the kernels do not take
+    (d_model a multiple of 16, a head width a multiple of 4)."""
+    out = np.zeros(len(_SIZE_KEYS), np.int64)
+    if _lib(torch.device(device)).cd_sizes(dims_of(cfg).ctypes.data, SMEM_LIMIT,
+                                           out.ctypes.data):
+        raise ValueError(f"the decode kernels do not take {cfg}: d_model must be a multiple "
+                         "of 16 and the head width a multiple of 4")
+    return dict(zip(_SIZE_KEYS, (int(v) for v in out)))
+
+
+def cluster_plan(cfg: LMConfig) -> dict:
+    """On the card: the decode's clusters it holds at once
+    (cudaOccupancyMaxActiveClusters), its resident layers and shared bytes
+    a block."""
+    out = np.zeros(3, np.int32)
+    lib = _build.chat_decode_lib()
+    err = lib.cd_cluster_plan(dims_of(cfg).ctypes.data, out.ctypes.data)
+    if err != 0:
+        raise RuntimeError("chat decode cluster plan failed: " + lib.cd_error_string(err).decode())
+    return {"clusters_at_once": int(out[0]), "resident_layers": int(out[1]),
+            "decode_shared_bytes": int(out[2])}
 
 
 def pack(params: dict, cfg: LMConfig) -> Packed:
-    """The kernel's two weight blobs from the parameters, on their device;
+    """The kernels' two weight blobs from the parameters, on their device;
     checked against the library's sizes (building it now)."""
     dev = params["tok"].device
-    bf = [params["tok"], params["tok"].T]
+    bf = [params["tok"]]
     f32 = [params["pos"], *rope_tables(cfg, dev), params["lnf_s"], params["lnf_b"]]
     for i in range(cfg.n_layers):
-        bf += [params[f"wqkv{i}"], params[f"wo{i}"], params[f"w1{i}"], params[f"w2{i}"]]
+        bf += [params[f"{w}{i}"].T for w in ("wqkv", "wo", "w1", "w2")]
         f32 += [params[f"ln{j}_{s}{i}"] for j in (1, 2) for s in "sb"]
         f32 += [params[f"b1{i}"], params[f"b2{i}"]]
     with torch.no_grad():
@@ -168,12 +199,30 @@ def _io(bufs, n0, cfg: LMConfig, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kv_floats(cfg: LMConfig, device_type: str) -> int:
-    return sizes(cfg, device_type)["kv_floats"]
+def _sizes(cfg: LMConfig, device_type: str) -> dict:
+    return sizes(cfg, device_type)
+
+
+def prompt_rows(n0, max_len: int) -> np.ndarray:
+    """The prefill's rows, (R, 2) int32: (context, position) for positions
+    0 .. n0-2 of each context that generates (n0 < max_len), in order."""
+    n0 = np.asarray(n0, np.int64).reshape(-1)
+    runs = [(c, k - 1) for c, k in enumerate(n0) if 1 < k < max_len]
+    if not runs:
+        return np.zeros((0, 2), np.int32)
+    ctx = np.concatenate([np.full(m, c) for c, m in runs])
+    pos = np.concatenate([np.arange(m) for _, m in runs])
+    return np.stack([ctx, pos], 1).astype(np.int32)
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"chat {what} kernel launch failed: "
+                           + lib.cd_error_string(err).decode())
 
 
 def _run(pk: Packed, bufs, n0, max_new: int, u, inv_temp: float, top_p: float,
-         logits: bool, device_type: str):
+         logits: bool, device_type: str, events=None, profile: bool = False):
     dev = pk.wb.device
     if dev.type != device_type:
         raise ValueError(f"expected {device_type} weights, got {dev}")
@@ -186,41 +235,94 @@ def _run(pk: Packed, bufs, n0, max_new: int, u, inv_temp: float, top_p: float,
         u = torch.as_tensor(u, dtype=torch.float32, device=dev).contiguous()
         if tuple(u.shape) != (n, cfg.max_len):
             raise ValueError(f"u has shape {tuple(u.shape)}, expected ({n}, {cfg.max_len})")
-    kv = torch.empty(n * _kv_floats(cfg, dev.type), dtype=torch.float32, device=dev)
+    sz = _sizes(cfg, dev.type)
+    kv = torch.empty(n * sz["kv_floats"], dtype=torch.float32, device=dev)
     lg = (torch.full((n, cfg.max_len, VOCAB), float("nan"), device=dev) if logits else None)
+    rows = prompt_rows(n0, cfg.max_len)
+    scratch = torch.empty(len(rows) * sz["scratch_bytes_per_row"], dtype=torch.uint8, device=dev)
+    rows_t = torch.as_tensor(rows, device=dev) if len(rows) else None
     args = [pk.wb.data_ptr(), pk.wf.data_ptr(), pk.dims.ctypes.data, io.data_ptr(), kv.data_ptr(),
             None if u is None else u.data_ptr(), inv_temp, top_p, int(max_new),
-            None if lg is None else lg.data_ptr(), n, THREADS]
-    lib = _lib(dev)
-    if device_type == "cuda":
-        with torch.cuda.device(dev):
-            err = lib.cd_decode(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError("chat decode kernel launch failed: "
-                               + lib.cd_error_string(err).decode())
-        kernel_decode.launches += 1
-    else:
-        err = lib.cd_decode_host(*args)
-        if err != 0:
-            raise RuntimeError(f"host chat decode failed ({err})")
+            None if lg is None else lg.data_ptr(), n]
+    prefill = [None if rows_t is None else rows_t.data_ptr(), len(rows), scratch.data_ptr()]
+    lib = _lib(dev, profile)
+    if device_type == "cpu":
+        if lib.cd_decode_host(*args, *prefill) != 0:
+            raise RuntimeError("host chat decode refused its arguments")
+        return io[:, 1:], lg
+    got = np.zeros(1, np.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            events[0].record(stream)
+        if len(rows):
+            err = lib.cd_prefill(*args[:5], *prefill, got.ctypes.data, stream.cuda_stream)
+            kernel_decode.prefill_launches += int(got[0])
+            kernel_decode.launches += int(got[0])
+            _check(lib, err, "prefill")
+        if events is not None:
+            events[1].record(stream)
+        err = lib.cd_decode(*args, got.ctypes.data, stream.cuda_stream)
+        kernel_decode.decode_launches += int(got[0])
+        kernel_decode.launches += int(got[0])
+        _check(lib, err, "decode")
+        if events is not None:
+            events[2].record(stream)
     return io[:, 1:], lg
 
 
+def launches_per_call(n0, max_len: int, n_layers: int) -> int:
+    """kernel_decode's launches for prompts of lengths n0: 2 * layers - 1
+    for the prefill when a context has a prompt row, and the decode's one."""
+    return (2 * n_layers - 1 if len(prompt_rows(n0, max_len)) else 0) + 1
+
+
 def kernel_decode(pk: Packed, bufs, n0, max_new: int, u=None,
-                  inv_temp: float = 1.0, top_p: float = 1.0, logits: bool = False):
-    """Decode every context in ONE launch of the CUDA kernel -> (tokens
-    (n, max_len) int32, logits or None) on the card. The weights are on the
+                  inv_temp: float = 1.0, top_p: float = 1.0, logits: bool = False,
+                  events=None):
+    """Decode every context on the card: the prefill of every prompt row,
+    then the cluster decode of every context (launches_per_call launches)
+    -> (tokens (n, max_len) int32, logits or None). The weights are on the
     card; the buffers and uniforms are CUDA tensors or numpy arrays (sent in
-    one copy each). Raises on bad input or a refused launch."""
-    return _run(pk, bufs, n0, max_new, u, inv_temp, top_p, logits, "cuda")
+    one copy each). `events`, three timing torch.cuda.Events, are recorded
+    before the prefill, between the two and after the decode. Raises on bad
+    input or a refused launch."""
+    return _run(pk, bufs, n0, max_new, u, inv_temp, top_p, logits, "cuda", events)
 
 
 kernel_decode.launches = 0
+kernel_decode.prefill_launches = 0
+kernel_decode.decode_launches = 0
+
+
+PROFILE_STAGES = ("embed", "ln1", "qkv", "wait_qkv", "attention", "wait_attention", "merge",
+                  "wo", "wait_wo", "ln2", "w1", "wait_w1", "w2", "wait_w2", "head", "wait_head",
+                  "token", "wait_token")
+
+
+def profile_decode(pk: Packed, bufs, n0, max_new: int) -> dict:
+    """A greedy decode through the -DCD_PROFILE build -> the clock cycles of
+    each stage of a generated position (PROFILE_STAGES), summed over the
+    positions of every context's rank 0. Not counted in kernel_decode's
+    launches: a measuring tool."""
+    lib = _build.chat_decode_profile_lib()
+    counts = (kernel_decode.launches, kernel_decode.prefill_launches,
+              kernel_decode.decode_launches)
+    out = np.zeros(len(PROFILE_STAGES), np.uint64)
+    _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
+    try:
+        _run(pk, bufs, n0, max_new, None, 1.0, 1.0, False, "cuda", profile=True)
+        torch.cuda.synchronize(pk.wb.device)
+        _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
+    finally:
+        (kernel_decode.launches, kernel_decode.prefill_launches,
+         kernel_decode.decode_launches) = counts
+    return dict(zip(PROFILE_STAGES, (int(v) for v in out)))
 
 
 def host_decode(pk: Packed, bufs, n0, max_new: int, u=None,
                 inv_temp: float = 1.0, top_p: float = 1.0, logits: bool = False):
-    """The kernel's body built with g++, on CPU tensors -> as kernel_decode."""
+    """The kernels' twin built with g++, on CPU tensors -> as kernel_decode."""
     return _run(pk, bufs, n0, max_new, u, inv_temp, top_p, logits, "cpu")
 
 

@@ -26,9 +26,10 @@ The arithmetic is the JAX module's:
 - attention scores and the mix in plain float32.
 
 Decoding (``greedy_reply``, ``sampled_reply``) picks its route by where the
-parameters live: CUDA tensors run the hand-written decode kernel
-(policies/chat_decode.py, csrc/chat_decode.cu: one launch a reply), CPU
-tensors its plain version, an eager KV-cache loop (``chat_decode.decode_plain``).
+parameters live: CUDA tensors run the hand-written decode kernels
+(policies/chat_decode.py, csrc/chat_decode.cu: the prefill, then the
+cluster decode), CPU tensors their plain version, an eager KV-cache loop
+(``chat_decode.decode_plain``).
 There is no fallback: a kernel that fails to build or launch raises.
 """
 
@@ -473,12 +474,12 @@ DECODE_CHUNK = 64  # contexts a decode call: the caches of 64 are 330 MB at the 
 
 def _decode(params, cfg: LMConfig, ctxs: list, max_new: int, us=None,
             inv_temp: float = 1.0, top_p: float = 1.0) -> list:
-    """Replies for a batch of contexts: the decode kernel for CUDA params
-    (one launch a chunk of DECODE_CHUNK contexts), its plain version for
-    CPU params. Both stop a context at its first generated token below
-    _NSPECIAL or after max_new tokens, which is all _finish_reply reads of
-    the JAX decoder's full-length buffer; a context's reply does not depend
-    on the others in its batch."""
+    """Replies for a batch of contexts: the decode kernels for CUDA params
+    (one kernel_decode call a chunk of DECODE_CHUNK contexts), their plain
+    version for CPU params. Both stop a context at its first generated
+    token below _NSPECIAL or after max_new tokens, which is all
+    _finish_reply reads of the JAX decoder's full-length buffer; a
+    context's reply does not depend on the others in its batch."""
     from game_engine_tpu_torch.policies import chat_decode as CD
 
     dev = params["tok"].device

@@ -263,9 +263,35 @@ def bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def _bf16_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+class _BfSumOverData(torch.autograd.Function):
+    """bf(w) forward. Backward: the f32 cotangent summed over the mesh's
+    data group, then rounded to bf16 once, as one process rounds the whole
+    batch's (JAX's GSPMD program sums before it rounds too). Data rank 0
+    returns it and the others zero, since make_grad_fn sums every gradient
+    over the data group once more after the backward."""
+
+    @staticmethod
+    def forward(ctx, w, mesh):
+        ctx.mesh = mesh
+        return bf(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = bf(ctx.mesh.data_sum(g.contiguous().clone()))
+        return (g if ctx.mesh.data_index == 0 else torch.zeros_like(g)), None
+
+
+def _weight(w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A weight as a product's bf16 operand; over a data group of more than
+    one rank its cotangent is rounded after the group's sum, not before."""
+    if mesh is not None and mesh.data_size > 1:
+        return _BfSumOverData.apply(w, mesh)
+    return bf(w)
+
+
+def _bf16_dot(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     """bf16 operands, f32 accumulation: the rounded values multiplied in f32."""
-    return bf(x) @ bf(w)
+    return bf(x) @ _weight(w, mesh)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -339,28 +365,28 @@ def _trunk_and_heads(params, x, n_targets: int, ptr=None, mesh=None):
     i = 0
     while f"w{i}" in params:
         if not tp:
-            x = bf(gelu(_bf16_dot(x, params[f"w{i}"]) + params[f"b{i}"]))
+            x = bf(gelu(_bf16_dot(x, params[f"w{i}"], mesh) + params[f"b{i}"]))
         elif i % 2 == 0:
             # the copy after the operand's bf16 cast, so the summed f32
             # cotangent is rounded to bf16 once, as in the unsharded trunk
-            x = bf(gelu(TP.copy_to_model(bf(x), mesh) @ bf(params[f"w{i}"])
+            x = bf(gelu(TP.copy_to_model(bf(x), mesh) @ _weight(params[f"w{i}"], mesh)
                         + params[f"b{i}"]))
         else:
-            x = bf(gelu(TP.reduce_from_model(_bf16_dot(x, params[f"w{i}"]), mesh)
+            x = bf(gelu(TP.reduce_from_model(_bf16_dot(x, params[f"w{i}"], mesh), mesh)
                         + params[f"b{i}"]))
         i += 1
     if tp and i % 2 == 1:
         x = TP.gather_from_model(x, mesh)
-    logits = _bf16_dot(x, params["w_pi"]) + params["b_pi"]
+    logits = _bf16_dot(x, params["w_pi"], mesh) + params["b_pi"]
     if ptr is not None:
         # pointer scores for the first P actions: the product rounds to bf16
         # (the JAX net multiplies in bf16), the sum is f32
-        g = bf(_bf16_dot(x, params["w_ptr"]))
+        g = bf(_bf16_dot(x, params["w_ptr"], mesh))
         scores = bf(ptr * g[..., None, :]).sum(-1)  # (..., P)
         a = max(n_targets, logits.shape[-1])
         logits = (F.pad(logits, (0, a - logits.shape[-1]))
                   + F.pad(scores, (0, a - scores.shape[-1])))
-    value = (_bf16_dot(x, params["w_v"]) + params["b_v"])[..., 0]
+    value = (_bf16_dot(x, params["w_v"], mesh) + params["b_v"])[..., 0]
     return logits, value
 
 
@@ -379,8 +405,8 @@ def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
     room = x[..., : P * F0].reshape(lead + (P, F0))  # (..., target, F0)
     viewer_oh = x[..., P * F0: P * F0 + P]
     globals_ = x[..., P * F0 + P:]  # phase one-hot + n_alive
-    phi = gelu(_bf16_dot(room, params["w_phi0"]) + params["b_phi0"])
-    phi = bf(gelu(_bf16_dot(phi, params["w_phi1"]) + params["b_phi1"]))  # (..., P, hp)
+    phi = gelu(_bf16_dot(room, params["w_phi0"], mesh) + params["b_phi0"])
+    phi = bf(gelu(_bf16_dot(phi, params["w_phi1"], mesh) + params["b_phi1"]))  # (..., P, hp)
     if cfg.arch == "attn":
         hp = phi.shape[-1]
         nh = cfg.attn_heads
@@ -388,12 +414,12 @@ def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
         m = phi.mean(-1, keepdim=True)
         v = (phi - m).square().mean(-1, keepdim=True)
         h = bf((phi - m) * torch.rsqrt(v + 1e-5) * params["ln_s"] + params["ln_b"])
-        qkv = _bf16_dot(h, params["w_qkv"]).reshape(lead + (P, 3, nh, hd))
+        qkv = _bf16_dot(h, params["w_qkv"], mesh).reshape(lead + (P, 3, nh, hd))
         q, k, w = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         att = torch.einsum("...qhd,...khd->...hqk", q, k) / np.sqrt(hd)
         att = bf(torch.softmax(att, dim=-1))
         o = torch.einsum("...hqk,...khd->...qhd", att, w).reshape(lead + (P, hp))
-        phi = bf(phi + _bf16_dot(o, params["w_ao"]))
+        phi = bf(phi + _bf16_dot(o, params["w_ao"], mesh))
     pooled = phi.mean(-2)
     self_phi = (phi * viewer_oh[..., None]).sum(-2)
     trunk_in = bf(torch.cat([pooled, self_phi, globals_], dim=-1))

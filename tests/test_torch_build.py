@@ -39,6 +39,8 @@ def csrc(tmp_path, monkeypatch):
     ("chat_decode.cuh", "chat_decode_host.cpp"),
     ("chat_decode.cu", "rollout.cu"),
     ("room_step.cuh", "chat_decode.cu"),
+    ("chat_decode.cu", "chat_decode_host.cpp"),
+    ("chat_decode_host.cpp", "chat_decode.cu"),
 ])
 def test_header_edit_renames_the_library(csrc, header, src):
     cmd = ["nvcc", "-O3"]
