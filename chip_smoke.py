@@ -100,20 +100,29 @@ Phases, one JSON line each:
                   on the card's clock (CUDA events) and host time to
                   enqueue, kept apart
 
-  compare_search  the search kernel (S, csrc/search.cu) against its plain
-                  version on the card (search_scores_plain) and against the
-                  port's C++ search on the host (CppRoom.search_scores and
-                  search): werewolf, cult-of-the-depths, two-truths-and-a-
-                  lie, 64 live rooms each at several depths of a scripted
-                  rollout, every seat, rollouts 32 x horizon 200, at D = 0
-                  and D = 8 determinizations; 0 differences in totals and in
-                  choices, and the decisions checked
+  compare_search  the search kernels (S, csrc/search.cu) against their
+                  plain versions on the card and against the port's C++
+                  search on the host (CppRoom.search_scores and search):
+                  werewolf, cult-of-the-depths, two-truths-and-a-lie, 64
+                  live rooms each at several depths of a scripted rollout,
+                  every seat, rollouts 32 x horizon 200. D = 0: the decide
+                  entry's choices (the bots' route) against the plain
+                  _decide's and the C++ search's, its totals and the
+                  request entry's on the same decisions against
+                  search_scores_plain and C++; D = 8: the request entry's
+                  totals and choices; 0 differences
   search_timing   S by decisions a launch (1, 8, 64, 512, 4096 at D = 0;
-                  1, 8, 64 at D = 8) on werewolf rooms: the kernel's ms, the
-                  host ms of actions_for_slots with its copies, launches a
-                  call, the bound by operations (the -DGE_COUNT host build)
-                  and the port's C++ search of the same decisions on one
-                  host core
+                  1, 8, 64 at D = 8) on werewolf rooms: the host ms of
+                  actions_for_slots, launches a call (one decide launch at
+                  D = 0, one request launch at D = 8), the decide kernel's
+                  ms and the request kernel's on the same decisions, the
+                  bound by operations and the rollouts' steps (the
+                  -DGE_COUNT host build) and the port's C++ search of the
+                  same decisions on one host core; with --profile, at 512
+                  and 4096 decisions, the decide kernel by lanes a rollout
+                  (8, 16, 32) and its share of groups busy (the
+                  -DGE_PROFILE build), and the rollouts' steps against a
+                  static grid
   serve_search    the serving shape with --bot-search all on the torch
                   backend: the search's launches and its share of a step;
                   8 rooms restored from their journals bit for bit
@@ -724,11 +733,11 @@ def decode_programs() -> dict:
 
 def zero_launches() -> None:
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
-    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    from game_engine_tpu_torch.core.search_kernel import kernel_decide, kernel_search
     from game_engine_tpu_torch.policies.chat_decode import kernel_decode
 
     kernel_rollout.launches = 0
-    kernel_search.launches = 0
+    kernel_search.launches = kernel_decide.launches = 0
     kernel_decode.launches = kernel_decode.prefill_launches = kernel_decode.decode_launches = 0
     for fn in policy_wrappers().values():
         fn.launches = 0
@@ -973,7 +982,8 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         setattr(PS.SearchBots, search_meth, search_fn)
         srv.shutdown()
         srv.server_close()
-    s_launches = SK.kernel_search.launches
+    s_launches = {"search": SK.kernel_search.launches,
+                  "search_decide": SK.kernel_decide.launches}
     d_launches = CD.kernel_decode.launches
     d_programs = decode_programs()
     launches = FZ.kernel_forward.launches
@@ -1035,7 +1045,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
             raise AssertionError(f"{name}: K2 launches {by_route}, expected > 0, all tensor_core")
     elif launches != 0:
         raise AssertionError(f"{name}: the scripted run launched K2 {launches} times")
-    if bool(bot_search) != (s_launches > 0):
+    if bool(bot_search) != (sum(s_launches.values()) > 0):
         raise AssertionError(f"{name}: {s_launches} search launches with bot_search={bot_search}")
     if bool(chat_lm) != (d_launches > 0):
         raise AssertionError(f"{name}: {d_launches} chat decode launches with chat_lm={chat_lm}")
@@ -1253,12 +1263,17 @@ def serve_phase(gpu: str) -> dict:
 # -- the search kernel (S) ------------------------------------------------------
 
 SEARCH_SOURCE = "game_engine_tpu_torch/csrc/search.cu"
+# the kernels line's S rows: the decide entry (D = 0) and the request table (D > 0)
+SEARCH_ENTRIES = {"search_decide": "ge_search_decide", "search": "ge_search"}
+SEARCH_KERNELS = {"search_decide": "ge_decide_kernel", "search": "ge_search_kernel"}
 # S is the counterpart of C++ host code, not of a pallas_call site
 SEARCH_REPLACES = "game_engine_tpu/native/gamesim.cpp:707"
 SEARCH_GAMES = ("werewolf", "cult-of-the-depths", "two-truths-and-a-lie")
 SEARCH_ROOMS = 64                # live rooms a game in compare_search
 SEARCH_R, SEARCH_H = 32, 200     # rollouts x horizon: the serving default
 SEARCH_SIZES = ((0, (1, 8, 64, 512, 4096)), (8, (1, 8, 64)))  # decisions a launch by D
+SEARCH_PROFILE_SIZES = (512, 4096)  # --profile: lanes a rollout and share busy at these
+SEARCH_LANES = (8, 16, 32)
 SEARCH_LINE_SIZE = 512           # the kernels line's S: werewolf, 512 decisions, D = 0
 SEARCH_PLAIN_CHUNK = 8192        # requests a call of the plain version
 EVAL_RUNS = (("werewolf", 200, 32, 200, 0), ("werewolf", 100, 32, 200, 8))
@@ -1375,13 +1390,31 @@ def plain_totals(sb, source, table):
                       for a in range(0, len(table), SEARCH_PLAIN_CHUNK)]).cpu().numpy()
 
 
-def compare_search(gpu: str) -> dict:
-    """S against the plain version on the card and against the C++ search on
-    the host: totals and choices, the three games, D = 0 and 8. Returns the
-    worst total difference and the decisions checked."""
+def decided_flat(dec, table_len: int) -> "np.ndarray":
+    """A Decided's totals in request-table order (decisions ascending, each
+    one's candidates ascending), for the decisions that rolled out."""
     import numpy as np
 
-    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    counts = dec.counts.reshape(-1).cpu().numpy()
+    totals = dec.totals.cpu().numpy()
+    flat = np.concatenate([totals[d, :c] for d, c in enumerate(counts) if c >= 2] or
+                          [np.zeros(0, np.int64)])
+    if len(flat) != table_len:
+        raise AssertionError(f"the decide entry rolled out {len(flat)} candidates, "
+                             f"the request table holds {table_len}")
+    return flat
+
+
+def compare_search(gpu: str) -> dict:
+    """S against the plain version on the card and against the C++ search on
+    the host, the three games. D = 0: the decide entry's choices (the bots'
+    route) against the plain _decide's and the C++ search's, its totals and
+    the request entry's on the same decisions against plain and C++. D = 8:
+    the request entry's totals and choices. Returns the worst total
+    difference and the decisions checked."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core import search_kernel as SK
     from game_engine_tpu_torch.gamespec.compile import compile_game
     from game_engine_tpu_torch.gamespec.parser import load_builtin
     from game_engine_tpu_torch.gamespec.tables import lower
@@ -1396,56 +1429,214 @@ def compare_search(gpu: str) -> dict:
         for det in (0, 8):
             t0 = time.perf_counter()
             sb = SearchBots(lw, SEARCH_R, SEARCH_H, determinize=det, device="cuda")
-            launches = kernel_search.launches
-            got = sb.actions(source)
-            if kernel_search.launches != launches + 1 or sb.last_launch() is None:
-                raise AssertionError(f"{game} D={det}: {kernel_search.launches - launches} launches")
-            src, table, totals = sb.last_launch()
-            plain = plain_totals(sb, src, table)
-            host = host_totals(sb, src, table)
-            want = cpp_decisions(sb, reads, n)
+            before = (SK.kernel_search.launches, SK.kernel_decide.launches)
+            got = sb.actions(source)  # the bots' route: decide entry at D = 0
+            want_launches = (before[0], before[1] + 1) if det == 0 else (before[0] + 1, before[1])
+            if (SK.kernel_search.launches, SK.kernel_decide.launches) != want_launches:
+                raise AssertionError(f"{game} D={det}: launches {before} -> "
+                                     f"{(SK.kernel_search.launches, SK.kernel_decide.launches)}")
+            decisions = sb.last_call["decisions"]
             line = {"phase": "compare_search", "game": game, "det": det, "rooms": len(reads),
                     "seats": n, "rollouts": SEARCH_R, "horizon": SEARCH_H,
-                    "decisions": sb.last_call["decisions"], "requests": len(table),
-                    "worlds": sb.last_call["worlds"], "seats_checked": int(got.size),
+                    "decisions": decisions, "seats_checked": int(got.size)}
+            want = cpp_decisions(sb, reads, n)
+            if det == 0:
+                dec = SK.kernel_decide(lw, source, SEARCH_R, SEARCH_H, sb.scoring, sb.salt)
+                plain_got = sb.request_actions(source, plain=True).cpu().numpy()
+                src, table, plain = sb.last_launch()
+                req_got = sb.request_actions(source).cpu().numpy()
+                _, table2, totals = sb.last_launch()
+                if not torch_equal(table, table2):
+                    raise AssertionError(f"{game}: the two request routes built other tables")
+                host = host_totals(sb, src, table)
+                flat = decided_flat(dec, len(table))
+                line.update({
+                    "requests": len(table), "worlds": 0,
+                    "choice_diffs_decide_vs_plain_decide": int((got != plain_got).sum()),
+                    "choice_diffs_decide_vs_cpp": int((got != want).sum()),
+                    "choice_diffs_request_entry_vs_cpp": int((req_got != want).sum()),
+                    "decide_total_diffs_vs_plain": int((flat != plain).sum()),
+                    "decide_total_diffs_vs_cpp": int((flat != host).sum()),
+                    "total_diffs_vs_plain": int((totals != plain).sum()),
+                    "total_diffs_vs_cpp": int((totals != host).sum()),
+                    "decide_stats": dict(zip(SK.STATS, dec.stats.tolist())),
+                    "max_abs_err": int(max(np.abs(totals - plain).max(initial=0),
+                                           np.abs(totals - host).max(initial=0),
+                                           np.abs(flat - plain).max(initial=0)))})
+            else:
+                src, table, totals = sb.last_launch()
+                plain = plain_totals(sb, src, table)
+                host = host_totals(sb, src, table)
+                line.update({
+                    "requests": len(table), "worlds": sb.last_call["worlds"],
                     "total_diffs_vs_plain": int((totals != plain).sum()),
                     "total_diffs_vs_cpp": int((totals != host).sum()),
                     "choice_diffs_vs_cpp": int((got != want).sum()),
                     "max_abs_err": int(max(np.abs(totals - plain).max(initial=0),
-                                           np.abs(totals - host).max(initial=0))),
-                    "seconds": time.perf_counter() - t0, "gpu": gpu}
+                                           np.abs(totals - host).max(initial=0)))})
+            line.update(seconds=time.perf_counter() - t0, gpu=gpu)
             emit(line)
-            if line["total_diffs_vs_plain"] or line["total_diffs_vs_cpp"] \
-                    or line["choice_diffs_vs_cpp"]:
+            if any(v for k, v in line.items() if "diffs" in k):
                 raise AssertionError(f"compare_search {game} D={det}: {line}")
             if not line["requests"]:
                 raise AssertionError(f"compare_search {game} D={det}: nothing was searched")
             worst = max(worst, line["max_abs_err"])
-            checked += line["decisions"]
+            checked += decisions
             requests += line["requests"]
     emit({"phase": "compare_search_done", "decisions_checked": checked,
           "requests_checked": requests, "max_abs_err": worst})
     return {"max_abs_err": worst, "decisions": checked}
 
 
-def search_timing(gpu: str, int32_rate: float) -> dict:
-    """S by decisions a launch on werewolf rooms on the card: the kernel's
-    ms (CUDA events, median of 5), the host ms of actions_for_slots with its
-    copies (median of 5), launches a call, the bound by operations (the
-    -DGE_COUNT host build over the call's requests) and the port's C++
-    search of the same decisions on one host core. Returns the kernels
-    line's S fields (SEARCH_LINE_SIZE decisions at D = 0)."""
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def step_counts(steps, rollouts_a_block: int, resident_groups: int) -> dict:
+    """The rollouts' engine steps (request-table order) and the time in steps
+    they predict on `resident_groups` groups: for a static grid of
+    `rollouts_a_block` consecutive rollouts a block (the kernel before the
+    persistent grid: a block holds its groups until its longest rollout ends,
+    blocks start in order as slots free up) and for the pulled grid (each
+    group takes the next rollout when it is free)."""
+    import heapq
+
+    import numpy as np
+
+    def makespan(durations, slots: int) -> int:
+        free = [0] * slots
+        for d in durations.tolist():
+            heapq.heapreplace(free, free[0] + d)
+        return max(free)
+
+    steps = np.asarray(steps, np.int64)
+    pad = -len(steps) % rollouts_a_block
+    longest = np.pad(steps, (0, pad)).reshape(-1, rollouts_a_block).max(1)
+    static = makespan(longest, max(1, resident_groups // rollouts_a_block))
+    pulled = makespan(steps, resident_groups)
+    return {"rollouts": len(steps), "mean": float(steps.mean()), "max": int(steps.max()),
+            "sum": int(steps.sum()), "static_block_longest_sum": int(longest.sum()),
+            "rollouts_a_static_block": rollouts_a_block, "resident_groups": resident_groups,
+            "static_makespan_steps": static, "pulled_makespan_steps": pulled,
+            "predicted_static_over_pulled": static / pulled}
+
+
+def search_timing(gpu: str, int32_rate: float, profiled: bool = False) -> dict:
+    """S by decisions a launch on werewolf rooms on the card. D = 0: the host
+    ms of actions_for_slots with its copies and selection (median of 5),
+    launches a call (one decide launch), the decide kernel's ms (CUDA
+    events, median of 5) and the request kernel's ms on the same decisions;
+    D = 8: the request kernel's. Each with the bound by operations (the
+    -DGE_COUNT host build over the call's requests), the rollouts' steps and
+    the port's C++ search of the same decisions on one host core. With
+    `profiled`, at SEARCH_PROFILE_SIZES also the decide kernel by lanes a
+    rollout and its share of groups busy (the -DGE_PROFILE build). Returns
+    the kernels line's fields of both entries (SEARCH_LINE_SIZE decisions
+    at D = 0)."""
     import numpy as np
     import torch
 
     from game_engine_tpu_torch.core import search_kernel as SK
-    from game_engine_tpu_torch.core.engine import BatchedEngine
     from game_engine_tpu_torch.core.state import GameState, state_to_numpy
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    lw, pool, cum = search_timing_pool()
+    pool_np = state_to_numpy(pool)
+    out, line = {}, None
+    for det, sizes in SEARCH_SIZES:
+        sb = SearchBots(lw, SEARCH_R, SEARCH_H, determinize=det, device="cuda")
+        args = (SEARCH_R, SEARCH_H, sb.scoring)
+        for size in sizes:
+            slots = list(range(int(np.searchsorted(cum, size)) + 1))
+            host_ms = []
+            before = (SK.kernel_search.launches, SK.kernel_decide.launches)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sb.actions_for_slots(pool, slots)
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            per_call = ((SK.kernel_search.launches - before[0]) / 5,
+                        (SK.kernel_decide.launches - before[1]) / 5)
+            decisions = sb.last_call["decisions"]
+            idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+            sub = GameState(*(f.index_select(0, idx) for f in pool))
+            if det == 0:
+                sb.request_actions(pool, slots)  # the same decisions as a request table
+            src, table, _ = sb.last_launch()
+            req_times = [timed_ms(lambda: SK.kernel_search(lw, src, table, *args))[1]
+                         for _ in range(5)]
+            row = {"phase": "search_timing", "det": det, "decisions": decisions,
+                   "rooms": len(slots), "requests": len(table),
+                   "rollouts_a_launch": len(table) * SEARCH_R,
+                   "plan": SK.search_plan(lw, len(table) * SEARCH_R),
+                   "host_ms": statistics.median(host_ms), "host_ms_all": host_ms,
+                   "launches_a_call": {"search": per_call[0], "search_decide": per_call[1]},
+                   "request_kernel_ms": statistics.median(req_times),
+                   "request_kernel_ms_all": req_times}
+            if det == 0:
+                times = [timed_ms(lambda: SK.kernel_decide(lw, sub, *args, sb.salt))[1]
+                         for _ in range(5)]
+                row.update(decide_kernel_ms=statistics.median(times), decide_kernel_ms_all=times)
+            t0 = time.perf_counter()
+            counts, row["steps"] = search_counts(lw, sb, src, table)
+            row["count_seconds"] = time.perf_counter() - t0
+            row.update(bound_ms=counts["int_ops"] / int32_rate * 1e3, bound_by="operations",
+                       int_ops=counts["int_ops"])
+            t0 = time.perf_counter()
+            cpp_decisions(sb, [(read_of(pool_np, i), int(pool_np["seed"][i])) for i in slots], 6)
+            row.update(cpp_one_core_ms=(time.perf_counter() - t0) * 1e3, gpu=gpu)
+            if profiled and det == 0 and size in SEARCH_PROFILE_SIZES:
+                want = SK.kernel_decide(lw, sub, *args, sb.salt).actions
+                sweep = {}
+                for lanes in SEARCH_LANES:
+                    got, ms = None, []
+                    for _ in range(3):
+                        got, t = timed_ms(lambda: SK.kernel_decide(lw, sub, *args, sb.salt,
+                                                                   lanes=lanes))
+                        ms.append(t)
+                    if not torch.equal(got.actions, want):
+                        raise AssertionError(f"decide at {lanes} lanes: other choices")
+                    sweep[lanes] = statistics.median(ms)
+                row["decide_ms_by_lanes"] = sweep
+                row["profile"] = SK.profile_decide(lw, sub, *args, sb.salt)
+            emit(row)
+            if per_call != ((0, 1) if det == 0 else (1, 0)):
+                raise AssertionError(f"actions_for_slots launched {per_call} (search, "
+                                     "search_decide) a call")
+            out[(det, size)] = row
+            if det == 0 and size == SEARCH_LINE_SIZE:
+                _, plain_ms = timed_ms(lambda: SK.search_scores_plain(lw, src, table, *args))
+                t0 = time.perf_counter()
+                sb.request_actions(pool, slots, plain=True)
+                torch.cuda.synchronize()
+                decide_plain_ms = (time.perf_counter() - t0) * 1e3
+                line = {"search": {"ms": row["request_kernel_ms"], "plain_ms": plain_ms},
+                        "search_decide": {"ms": row["decide_kernel_ms"],
+                                          "plain_ms": decide_plain_ms},
+                        "bound": (row["bound_ms"], "operations"), "requests": len(table),
+                        "decisions": decisions}
+    cross = [f"{s}" for (d, s), r in sorted(out.items()) if d == 0
+             and r["host_ms"] < r["cpp_one_core_ms"]]
+    emit({"phase": "search_timing_done", "card_wins_from_decisions_d0": cross[:1] or None,
+          "gpu": gpu})
+    return line
+
+
+def search_timing_pool():
+    """search_timing's werewolf rooms: 8192 live rooms of 6 seats at four
+    depths of a scripted rollout on the card -> (lowered, the rooms as one
+    GameState, the running count of their waiting seats)."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.core.state import GameState
     from game_engine_tpu_torch.core.step import waiting_seats
     from game_engine_tpu_torch.gamespec.compile import compile_game
     from game_engine_tpu_torch.gamespec.parser import load_builtin
     from game_engine_tpu_torch.gamespec.tables import lower
-    from game_engine_tpu_torch.policies.search import SearchBots
 
     lw = lower(compile_game(load_builtin("werewolf")))
     eng = BatchedEngine(lw, "cuda")
@@ -1456,56 +1647,103 @@ def search_timing(gpu: str, int32_rate: float) -> dict:
             st = eng.step(st, eng.bot_actions(st))
         parts.append(st)
     pool = GameState(*(torch.cat(f) for f in zip(*parts)))
-    waiting = waiting_seats(lw, pool).sum(1).cpu().numpy()
-    cum = np.cumsum(waiting)
-    pool_np = state_to_numpy(pool)
-    out, line = {}, None
-    for det, sizes in SEARCH_SIZES:
-        sb = SearchBots(lw, SEARCH_R, SEARCH_H, determinize=det, device="cuda")
-        for size in sizes:
-            slots = list(range(int(np.searchsorted(cum, size)) + 1))
-            host_ms, launches = [], SK.kernel_search.launches
-            for _ in range(5):
-                t0 = time.perf_counter()
-                sb.actions_for_slots(pool, slots)
-                torch.cuda.synchronize()
-                host_ms.append((time.perf_counter() - t0) * 1e3)
-            per_call = (SK.kernel_search.launches - launches) / 5
-            decisions = sb.last_call["decisions"]
-            src, table, _ = sb.last_launch()
-            times = [timed_ms(lambda: SK.kernel_search(lw, src, table, SEARCH_R, SEARCH_H,
-                                                       sb.scoring))[1] for _ in range(5)]
-            t0 = time.perf_counter()
-            counts = SK.count_search(lw, GameState(*(f.cpu() for f in src)), table.cpu(),
-                                     SEARCH_R, SEARCH_H, sb.scoring)
-            count_s = time.perf_counter() - t0
-            by_ops = counts["int_ops"] / int32_rate * 1e3
-            t0 = time.perf_counter()
-            cpp_decisions(sb, [(read_of(pool_np, i), int(pool_np["seed"][i])) for i in slots], 6)
-            cpp_ms = (time.perf_counter() - t0) * 1e3
-            row = {"phase": "search_timing", "det": det, "decisions": decisions,
-                   "rooms": len(slots), "requests": len(table),
-                   "rollouts_a_launch": len(table) * SEARCH_R,
-                   "plan": SK.search_plan(lw, len(table) * SEARCH_R),
-                   "kernel_ms": statistics.median(times), "kernel_ms_all": times,
-                   "host_ms": statistics.median(host_ms), "launches_a_call": per_call,
-                   "bound_ms": by_ops, "bound_by": "operations", "int_ops": counts["int_ops"],
-                   "count_seconds": count_s, "cpp_one_core_ms": cpp_ms, "gpu": gpu}
-            emit(row)
-            if per_call != 1:
-                raise AssertionError(f"actions_for_slots launched {per_call} times a call")
-            out[(det, size)] = row
-            if det == 0 and size == SEARCH_LINE_SIZE:
-                _, plain_ms = timed_ms(lambda: SK.search_scores_plain(
-                    lw, src, table, SEARCH_R, SEARCH_H, sb.scoring))
-                line = {"ms": row["kernel_ms"], "plain_ms": plain_ms,
-                        "bound": (by_ops, "operations"), "requests": len(table),
-                        "decisions": decisions}
-    cross = [f"{s}" for (d, s), r in sorted(out.items()) if d == 0
-             and r["host_ms"] < r["cpp_one_core_ms"]]
-    emit({"phase": "search_timing_done", "card_wins_from_decisions_d0": cross[:1] or None,
-          "gpu": gpu})
-    return line
+    return lw, pool, np.cumsum(waiting_seats(lw, pool).sum(1).cpu().numpy())
+
+
+def search_counts(lw, sb, src, table) -> tuple:
+    """The -DGE_COUNT host build over a request table: (its counts, the
+    rollouts' steps by step_counts at the grid's plan)."""
+    import torch
+
+    from game_engine_tpu_torch.core import search_kernel as SK
+    from game_engine_tpu_torch.core.state import GameState
+
+    counts = SK.count_search(lw, GameState(*(f.cpu() for f in src)), table.cpu(), sb.rollouts,
+                             sb.horizon, sb.scoring)
+    n = len(table) * sb.rollouts
+    plan = SK.search_plan(lw, n)
+    warp_slots = torch.cuda.get_device_properties(0).multi_processor_count * plan["warps_per_sm"]
+    old = widen_lanes(lw.P, n, warp_slots)  # the static grid's lanes
+    return counts, step_counts(counts.pop("steps"), plan["threads_per_block"] // old,
+                               warp_slots * 32 // old)
+
+
+def search_steps(gpu: str) -> dict:
+    """The steps of every rollout of search_timing's SEARCH_PROFILE_SIZES
+    decision tables (D = 0, werewolf; the -DGE_COUNT host build), and what
+    they predict for a static grid against the pulled one. No timing."""
+    import numpy as np
+
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    lw, pool, cum = search_timing_pool()
+    sb = SearchBots(lw, SEARCH_R, SEARCH_H, device="cuda")
+    out = {}
+    for size in SEARCH_PROFILE_SIZES:
+        slots = list(range(int(np.searchsorted(cum, size)) + 1))
+        sb.request_actions(pool, slots)
+        src, table, _ = sb.last_launch()
+        _, out[size] = search_counts(lw, sb, src, table)
+        emit({"phase": "search_steps", "decisions": sb.last_call["decisions"],
+              "requests": len(table), **out[size], "gpu": gpu})
+    return out
+
+
+def widen_lanes(P: int, n: int, warp_slots: int) -> int:
+    """room_step.cuh widen_lanes: lanes a rollout's room."""
+    G = 1
+    while G < P:
+        G *= 2
+    while G < 32 and n * 2 * G // 32 <= warp_slots:
+        G *= 2
+    return G
+
+
+SEARCH_BUCKETS = ((0, 0), (1, 8), (9, 64), (65, 512), (513, None))  # decisions a launch
+
+
+class SearchLaunchSizes:
+    """While entered, counts each launch of S's entries made through
+    SearchBots (actions_for_slots, native_actions) by the decisions it made
+    (SEARCH_BUCKETS; the bots' last_call, read after the call, which waits
+    for a decide launch's count): .counts = {entry: {bucket: launches}}."""
+
+    def __init__(self):
+        self.counts = {e: {self.name(b): 0 for b in SEARCH_BUCKETS} for e in SEARCH_ENTRIES}
+
+    @staticmethod
+    def name(bucket) -> str:
+        lo, hi = bucket
+        return str(lo) if lo == hi else f"{lo}-{hi}" if hi else f">{lo - 1}"
+
+    def __enter__(self):
+        from game_engine_tpu_torch.core import search_kernel as SK
+        from game_engine_tpu_torch.policies import search as PS
+
+        self.saved = {m: getattr(PS.SearchBots, m) for m in ("actions_for_slots", "native_actions")}
+
+        def wrap(fn):
+            def counted(bots, *args, **kwargs):
+                before = (SK.kernel_decide.launches, SK.kernel_search.launches)
+                out = fn(bots, *args, **kwargs)
+                for entry, now, was in zip(("search_decide", "search"), (
+                        SK.kernel_decide.launches, SK.kernel_search.launches), before):
+                    if now > was:
+                        n = bots.last_call["decisions"]
+                        bucket = next(b for b in SEARCH_BUCKETS if b[1] is None or n <= b[1])
+                        self.counts[entry][self.name(bucket)] += now - was
+                return out
+            return counted
+
+        for m, fn in self.saved.items():
+            setattr(PS.SearchBots, m, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from game_engine_tpu_torch.policies import search as PS
+
+        for m, fn in self.saved.items():
+            setattr(PS.SearchBots, m, fn)
 
 
 def serve_search_phase(gpu: str) -> dict:
@@ -1534,13 +1772,13 @@ def serve_search_phase(gpu: str) -> dict:
     return out
 
 
-def eval_phase(gpu: str) -> int:
+def eval_phase(gpu: str) -> dict:
     """utils/eval_search on the card at EVAL_RUNS: win rates and
-    s_per_decision; returns the search launches."""
-    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    s_per_decision; returns the launches of S's entries."""
+    from game_engine_tpu_torch.core.search_kernel import kernel_decide, kernel_search
     from game_engine_tpu_torch.utils.eval_search import eval_game
 
-    launches = kernel_search.launches
+    before = (kernel_search.launches, kernel_decide.launches)
     for game, rooms, rollouts, horizon, det in EVAL_RUNS:
         t0 = time.perf_counter()
         line = eval_game(game, rooms, rollouts, horizon, det, device="cuda")
@@ -1551,7 +1789,8 @@ def eval_phase(gpu: str) -> int:
               "equals_jax_script": got == want, "gpu": gpu})
         if got != want:
             raise AssertionError(f"eval_search {game} D={det}: {got}, the JAX script's {want}")
-    return kernel_search.launches - launches
+    return {"search": kernel_search.launches - before[0],
+            "search_decide": kernel_decide.launches - before[1]}
 
 
 # -- the league, the pipelined learner, the matchup evaluator, the arena ------
@@ -1866,14 +2105,14 @@ def matchup_phase(lowered, gpu: str) -> dict:
 
 
 def kernel_counts() -> dict:
-    """Every policy kernel's launches and S's since zero_launches, and K2's
-    on the tensor cores."""
-    from game_engine_tpu_torch.core.search_kernel import kernel_search
+    """Every policy kernel's launches and S's entries' since zero_launches,
+    and K2's on the tensor cores."""
+    from game_engine_tpu_torch.core.search_kernel import kernel_decide, kernel_search
     from game_engine_tpu_torch.policies import fused as FZ
 
     return {**policy_launches(),
             "policy_forward_tensor_core": FZ.kernel_forward.by_route["tensor_core"],
-            "search": kernel_search.launches}
+            "search": kernel_search.launches, "search_decide": kernel_decide.launches}
 
 
 def arena_phase(gpu: str) -> dict:
@@ -1912,7 +2151,7 @@ def arena_phase(gpu: str) -> dict:
     seconds = time.perf_counter() - t0
     ex_got = kernel_counts()
     rates = [v for k, v in ex.items() if k.endswith(("_scripted", "_search", "_learned"))]
-    if not ex_got["policy_forward"] or not ex_got["search"] \
+    if not ex_got["policy_forward"] or not ex_got["search_decide"] \
             or ex_got["policy_forward_tensor_core"] != ex_got["policy_forward"] \
             or not all(0.0 <= r <= 1.0 for r in rates):
         raise AssertionError(f"eval_exploit: {ex}, launches {ex_got}")
@@ -2569,12 +2808,15 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     _build.build_cuda()  # one nvcc per source, all at once
     lib = _build.cuda_lib()
+    search_ptxas = ptxas_by_kernel(_build.search_lib(), SEARCH_KERNELS.values())
+    if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in search_ptxas.values()):
+        raise AssertionError(f"the search kernels spill: {search_ptxas}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           "rollout_kernel": ptxas_numbers(lib),
           "policy_net_ptxas": ptxas_report(_build.policy_lib()),
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "search_ptxas": ptxas_report(_build.search_lib()),
-          "search_kernel": ptxas_numbers(_build.search_lib()),
+          "search_kernels": search_ptxas,
           "chat_decode_ptxas": ptxas_report(_build.chat_decode_lib()),
           "chat_decode_kernels": ptxas_by_kernel(_build.chat_decode_lib(), CHAT_KERNELS)})
 
@@ -2719,13 +2961,14 @@ def main(argv=()) -> int:
     launches = train_phase(ww, gpu)
     serving = serve_phase(gpu)
     s_compare = compare_search(gpu)
-    s_line = search_timing(gpu, int32_ops_per_s())
-    s_serving = serve_search_phase(gpu)
-    s_eval = eval_phase(gpu)
-    league = league_phase(ww, gpu)
-    piped = pipeline_phase(ww, gpu)
-    matchup = matchup_phase(ww, gpu)
-    judged = arena_phase(gpu)
+    s_line = search_timing(gpu, int32_ops_per_s(), profiled)
+    with SearchLaunchSizes() as s_sizes:  # S's launches on its paths, by decisions
+        s_serving = serve_search_phase(gpu)
+        s_eval = eval_phase(gpu)
+        league = league_phase(ww, gpu)
+        piped = pipeline_phase(ww, gpu)
+        matchup = matchup_phase(ww, gpu)
+        judged = arena_phase(gpu)
     multi = multidevice_phase(ww, gpu)
     c_compare = compare_chat(gpu)
     c_line = chat_timing(gpu, c_compare, profiled)
@@ -2749,8 +2992,9 @@ def main(argv=()) -> int:
     by_path["policy_forward"]["serving"] = serving["launches"]
     by_path["policy_forward"]["serve_chat"] = k2_serve_chat
     launches = {k: sum(v.values()) for k, v in by_path.items()}
-    s_by_path = {**s_serving, "eval_search": s_eval, "arena": judged["arena"]["search"],
-                 "exploit": judged["exploit"]["search"]}
+    s_paths = {**s_serving, "eval_search": s_eval, "arena": judged["arena"],
+               "exploit": judged["exploit"]}
+    s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": main_launches + multi["rollout"],
@@ -2771,14 +3015,19 @@ def main(argv=()) -> int:
                              **{e: v for e, v in narrow[k].items() if e != "bound"}}}
            if k in narrow else {})}
         for k in POLICY_REPLACES] + [{
-        "name": "search", "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
-        "replaces_kind": "C++ host code (search_scores_core), no pallas_call site",
-        "launches": sum(s_by_path.values()), "launches_by_path": s_by_path,
+        "name": e, "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
+        "replaces_kind": "C++ host code (search_scores_core, gs_room_search), no pallas_call "
+                         "site", "entry": SEARCH_ENTRIES[e],
+        "launches": sum(s_by_path[e].values()), "launches_by_path": s_by_path[e],
+        "launches_by_decisions": s_sizes.counts[e],  # also the journal replays' and the
+        # arena's second run, which launches_by_path leaves out
         "max_abs_err": s_compare["max_abs_err"], "decisions_checked": s_compare["decisions"],
-        "ms": s_line["ms"], "plain_ms": s_line["plain_ms"], "bound_ms": s_line["bound"][0],
+        "ms": s_line[e]["ms"], "plain_ms": s_line[e]["plain_ms"], "bound_ms": s_line["bound"][0],
         "bound_by": s_line["bound"][1], "library_ms": None,
+        "ptxas": search_ptxas[SEARCH_KERNELS[e]],
         "shape": {"game": "werewolf", "decisions": s_line["decisions"],
-                  "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}, {
+                  "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}
+        for e in SEARCH_ENTRIES] + [{
         "name": "chat_decode", "route": "cuda", "source": CHAT_SOURCE, "replaces": CHAT_REPLACES,
         "replaces_kind": "XLA lax.scan (_make_decoder), no pallas_call site",
         "launches": sum(c_by_path.values()), "launches_by_path": c_by_path,

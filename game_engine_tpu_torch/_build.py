@@ -39,6 +39,9 @@ _ROLLOUT_ARGS = [_P] * 9 + [_I64, _I, _I]
 # bools, nums, strs, pdict, odict, present, regs, scal, B, req, n_req, rollouts,
 # horizon, mode, team_slot, team_codes, n_codes, totals
 _SEARCH_ARGS = [_P] * 8 + [_I64, _P, _I64, _I, _I, _I, _I, _P, _I, _P]
+# bools, nums, strs, pdict, odict, present, regs, scal, B, rollouts, horizon, mode,
+# team_slot, team_codes, n_codes, salt, C, actions
+_DECIDE_ARGS = [_P] * 8 + [_I64, _I, _I, _I, _I, _P, _I, ctypes.c_uint32, _I, _P]
 # meta, obs, nrows, prm, prmB, logits, value
 _PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
 # meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
@@ -286,26 +289,50 @@ def policy_host_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def search_lib() -> ctypes.CDLL:
-    """csrc/search.cu (the lookahead search's rollouts) built with nvcc for
-    sm_90a, loaded."""
-    lib = _rollout_common(ctypes.CDLL(_compile_all([_cuda_jobs()[3]])[0]))
+def _search_cuda(profile: bool) -> ctypes.CDLL:
+    job = _cuda_jobs()[3]
+    if profile:
+        job = (job[0], "libsearch_profile", job[2] + ["-DGE_PROFILE"])
+    lib = _rollout_common(ctypes.CDLL(_compile_all([job])[0]))
+    # game on the host, len, N, threads, out
     lib.ge_search_plan.restype = _I
-    lib.ge_search_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, len, N, threads, out
+    lib.ge_search_plan.argtypes = [_P, _I, _I64, _I, _P]
+    lib.ge_decide_scratch.restype = _I64
+    lib.ge_decide_scratch.argtypes = [_I64, _I, _I]  # B, P, C
     lib.ge_error_string.restype = ctypes.c_char_p
     lib.ge_error_string.argtypes = [_I]
+    # game on the device, game on the host, game_len, ..., counter or scratch, threads,
+    # [lanes,] prof, stream
     lib.ge_search.restype = _I
-    # game on the device, game on the host, game_len, ..., threads, stream
-    lib.ge_search.argtypes = [_P, _P, _I] + _SEARCH_ARGS + [_I, _P]
+    lib.ge_search.argtypes = [_P, _P, _I] + _SEARCH_ARGS + [_P, _I, _P, _P]
+    lib.ge_search_decide.restype = _I
+    lib.ge_search_decide.argtypes = [_P, _P, _I] + _DECIDE_ARGS + [_P, _I, _I, _P, _P]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def search_lib() -> ctypes.CDLL:
+    """csrc/search.cu (the lookahead search's rollouts and decisions) built
+    with nvcc for sm_90a, loaded."""
+    return _search_cuda(False)
+
+
+@functools.lru_cache(maxsize=None)
+def search_profile_lib() -> ctypes.CDLL:
+    """csrc/search.cu built with -DGE_PROFILE: the same entries, whose `prof`
+    (5 int64 on the device) receives the groups' time in rollouts and their
+    span. A measuring tool; the bots run search_lib()."""
+    return _search_cuda(True)
 
 
 def _host_search_lib(stem: str, flags: list) -> ctypes.CDLL:
     lib = _rollout_common(ctypes.CDLL(_compile_all([(
         os.path.join(_CSRC, "search_host.cpp"), stem, _GXX_CMD + flags)])[0]))
     lib.ge_search_host.restype = _I
-    lib.ge_search_host.argtypes = [_P, _I] + _SEARCH_ARGS  # game, game_len, ...
+    lib.ge_search_host.argtypes = [_P, _I] + _SEARCH_ARGS + [_P]  # game, game_len, ..., steps
+    lib.ge_search_decide_host.restype = _I
+    # game, game_len, ..., totals, stats, counts, shuffle
+    lib.ge_search_decide_host.argtypes = [_P, _I] + _DECIDE_ARGS + [_P, _P, _P, ctypes.c_uint32]
     return lib
 
 

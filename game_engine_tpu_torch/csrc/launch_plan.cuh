@@ -1,7 +1,7 @@
 // launch_plan.cuh — how a launch of a room kernel is sized: the rollout
 // kernel (csrc/rollout.cu, K1: a room a group) and the search kernel
-// (csrc/search.cu, S: a rollout a group). Host code only; the kernel to size
-// is a parameter, so both share one plan and neither kernel's code changes.
+// (csrc/search.cu, S: a rollout a group, on a persistent grid). Host code
+// only; the kernel to size is a parameter, so both share one block plan.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +45,33 @@ inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int
   const int64_t warp_slots = (int64_t)sms * p.held * (threads / 32);
   while (p.G < MAX_GROUP && n * (2 * p.G) / 32 <= warp_slots) p.G *= 2;
   return p;
+}
+
+// The search kernel's (csrc/search.cu, S) persistent grid over n rollouts:
+// plan's block and lanes (`lanes` instead when asked), on as many blocks as
+// the card holds at once, and no more than n rollouts need at those lanes.
+struct Grid {
+  Plan p;
+  int64_t blocks;
+};
+
+inline Grid persistent_grid(const void* kernel, const Game& g, int game_len, int64_t n,
+                            int threads, int lanes) {
+  Grid out{plan(kernel, g, game_len, n, threads), 0};
+  Plan& p = out.p;
+  int dev = 0, sms = 0;
+  if (p.err == cudaSuccess) p.err = cudaGetDevice(&dev);
+  if (p.err == cudaSuccess)
+    p.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (p.err != cudaSuccess) return out;
+  if (p.held < 1) {
+    p.err = cudaErrorInvalidConfiguration;
+    return out;
+  }
+  if (lanes) p.G = lanes;
+  const int64_t resident = (int64_t)sms * p.held, need = (n * p.G + p.threads - 1) / p.threads;
+  out.blocks = need < resident ? need : resident;
+  return out;
 }
 
 // Whether a launch over n rooms of lanes `threads` a block may be asked for.

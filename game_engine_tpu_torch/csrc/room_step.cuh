@@ -4,8 +4,9 @@
 // rollout kernel (csrc/rollout.cu), which replaces the TPU kernel
 // game_engine_tpu/core/pallas_rollout.py::make_pallas_rollout, and of the g++
 // host harness (csrc/rollout_host.cpp) that the CPU tests run. Its search
-// rollout (room_search_rollout) is the body of the search kernel
-// (csrc/search.cu, host harness csrc/search_host.cpp).
+// rollout (room_search_rollout) and the full-information decisions around it
+// (seat_candidates, decide_room, decide_rollout, decide_argmax) are the body
+// of the search kernel (csrc/search.cu, host harness csrc/search_host.cpp).
 //
 // The game is interpreted from the packed table blob of
 // game_engine_tpu_torch/native/pack.py behind a directory of section offsets
@@ -844,31 +845,6 @@ GE_HD bool search_request_ok(const Game& g, const int32_t* q, int64_t B) {
   return q[0] >= 0 && q[0] < B && q[1] >= 0 && q[1] < g.P;
 }
 
-// The source room of rollout x (request x / rollouts, its k = x % rollouts)
-// of n_req requests: -1 past the end or for a request out of range.
-GE_HD int64_t search_source(const Game& g, const int32_t* req, int64_t n_req, int rollouts,
-                            int64_t B, int64_t x) {
-  if (x < 0 || x >= n_req * rollouts) return -1;
-  const int32_t* q = req + (x / rollouts) * REQ_INTS;
-  return search_request_ok(g, q, B) ? q[0] : -1;
-}
-
-// Loads the state words of the rooms of rollouts [x0, x0 + R) into w, R rooms
-// of G columns each as rooms_copy does, each from its request's source room
-// by index: the rollouts of one source room read its words where they are,
-// with no copy of the room per rollout in global memory.
-GE_HD void rooms_load(const Game& g, const MinorState& m, int32_t* w, int stride, int G, int R,
-                      int64_t B, const int32_t* req, int64_t n_req, int rollouts, int64_t x0,
-                      int tid, int n) {
-  const int total = g.L.state * g.P * R;
-  for (int x = tid; x < total; x += n) {
-    const int rr = x % R, p = (x / R) % g.P, slot = x / (R * g.P);
-    const int64_t i = search_source(g, req, n_req, rollouts, B, x0 + rr);
-    if (i < 0) continue;
-    w[slot * stride + rr * G + p] = state_value(g, slot, *state_word(g, m, slot, p, i, B));
-  }
-}
-
 // One rollout of a search decision on a room opened from its source: up to
 // `horizon` steps of the scripted bots and the engine step, seat p's action
 // word set to c after the bots' first emission (only p's own lane writes it,
@@ -898,6 +874,178 @@ GE_HD bool search_spec_ok(const Game& g, const SearchSpec& s) {
   return s.rollouts >= 1 && s.horizon >= 0 &&
          (s.mode == SEARCH_SCORE ||
           (s.mode == SEARCH_TEAM && s.team_slot >= 0 && s.team_slot < g.NS && s.n_codes > 0));
+}
+
+
+// -- the search's rooms, pulled one at a time ----------------------------------
+
+// The group's own copy of room i: lane p loads seat p's state words into its
+// column of w (lanes P..G-1 none), then the group barrier and room_open. A
+// group loads its rollout's source room itself, so groups of one block (and
+// of one warp) may run unrelated rollouts and take new ones at any time.
+GE_HD Room room_fetch(const Game& g, const MinorState& m, int32_t* w, int stride, int lane,
+                      uint32_t mask, int shift, int64_t i, int64_t B) {
+  Room r;
+  r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
+  GE_SYNC(r);  // the group is done with the words of its last rollout
+  GE_EACH_SEAT(g, r, p)
+    for (int slot = 0; slot < g.L.state; ++slot)
+      r.at(slot, p) = state_value(g, slot, *state_word(g, m, slot, p, i, B));
+  GE_SYNC(r);
+  return room_open(g, m, w, stride, lane, mask, shift, i, B);
+}
+
+// Lanes a rollout's room: a lane a seat, doubled while n rollouts would all
+// still hold a warp slot of `warp_slots` at twice the lanes (the rollout
+// kernel's widening rule, launch_plan.cuh).
+GE_HD int widen_lanes(int P, int64_t n, int64_t warp_slots) {
+  int G = group_lanes(P);
+  while (G < MAX_GROUP && n * (2 * G) / 32 <= warp_slots) G *= 2;
+  return G;
+}
+
+// -- full-information decisions (native/gamesim.cpp gs_room_search) -----------
+
+// The base salt of a room's decisions: policies/search.py _mix(seed, salt)
+// in 32-bit arithmetic.
+GE_HD uint32_t search_base(uint32_t seed, uint32_t salt) { return seed * GOLDEN + salt * MIX; }
+
+// What the C++ search decides for seat p of an opened room whose alive seats
+// are `alive` (search_scores_core before its rollouts): -1 when the seat is
+// not waiting (room done, seat absent, no action phase, acted, or not
+// targeted by the phase's predicate: room_step's acceptance test), else its
+// number of candidates: the alive seats for a target phase, 1..(choice max
+// or the seats present) for an option phase, one (the answer 1) for a
+// submit phase, none for another kind.
+GE_HD int seat_candidates(const Game& g, const Room& r, int p, uint32_t alive) {
+  const int32_t* ph = g.gm + g.phase + r.phase * PHASE_ROW;
+  if (r.done || !has_bit(r.present, p) || !ph[0] || r.at(g.L.acted, p) ||
+      !pred_eval(g, r, ph[1], p))
+    return -1;
+  switch (ph[4]) {
+    case K_TARGET: return popc(alive);
+    case K_OPTION: return ph[5] > 0 ? ph[5] : popc(r.present);
+    case K_SUBMIT: return 1;
+    default: return 0;
+  }
+}
+
+// Candidate j (from 0, in ascending order) of a decision in `phase`.
+GE_HD int32_t candidate(const Game& g, int32_t phase, uint32_t alive, int j) {
+  const int kind = g.gm[g.phase + phase * PHASE_ROW + 4];
+  if (kind == K_TARGET) return nth_set_bit(alive, j) + 1;
+  return kind == K_SUBMIT ? 1 : j + 1;
+}
+
+// The first strictly greatest of n totals (ascending candidates: ties go to
+// the lowest choice, the C++ argmax).
+GE_HD int first_best(const int64_t* totals, int n) {
+  int best = 0;
+  for (int j = 1; j < n; ++j)
+    if (totals[j] > totals[best]) best = j;
+  return best;
+}
+
+// *at += v, returning the old value: one atomic add on the device.
+GE_HD unsigned long long fetch_add(unsigned long long* at, unsigned long long v) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(at, v);
+#else
+  const unsigned long long old = *at;
+  *at += v;
+  return old;
+#endif
+}
+
+// The decisions of a call over B rooms, decision d = room * P + seat: its
+// candidates cnt[d] (seat_candidates), the room's alive seats, and
+// totals[d * C + j] for candidate j (C: the most candidates a seat of the
+// game can have). A decision with rollouts claims a run of the flat rollout
+// index and an entry: entry e's run starts at starts[e], for decision
+// decision[e]; *claim counts the entries (above CLAIM_SHIFT) and the
+// rollouts claimed. One add to *claim takes both, so the runs follow in
+// entry order whatever the order of the claims, and no pass over the
+// decisions is needed to sum them. stats: {waiting seats, candidates
+// searched, rollouts}.
+constexpr int CLAIM_SHIFT = 40;
+constexpr unsigned long long CLAIM_ROLLOUTS = (1ull << CLAIM_SHIFT) - 1;
+
+struct DecideTable {
+  int32_t* cnt;
+  int32_t* alive;
+  int64_t* totals;
+  int64_t* starts;
+  int64_t* decision;
+  unsigned long long* claim;
+  unsigned long long* stats;
+  int C;
+};
+
+// Stage 1 for room i on a group: every seat's candidates, its action when it
+// needs no rollout (1 for a submit, the one candidate, 0 for none), the
+// room's alive seats, and a claim for each decision with a choice.
+GE_HD void decide_room(const Game& g, const MinorState& m, int64_t B, const DecideTable& tab,
+                       int rollouts, int32_t* actions, int32_t* w, int stride, int lane,
+                       uint32_t mask, int shift, int64_t i) {
+  const Room r = room_fetch(g, m, w, stride, lane, mask, shift, i, B);
+  const uint32_t alive = alive_mask(g, r);
+  GE_EACH_SEAT(g, r, p) {
+    const int64_t d = i * g.P + p;
+    const int n = seat_candidates(g, r, p, alive);
+    tab.cnt[d] = n;
+    actions[d] = n == 1 ? candidate(g, r.phase, alive, 0) : 0;
+    if (n >= 2) {
+      fetch_add(tab.stats + 1, (unsigned long long)n);
+      const unsigned long long old =
+          fetch_add(tab.claim, (1ull << CLAIM_SHIFT) + (unsigned long long)n * rollouts);
+      tab.starts[old >> CLAIM_SHIFT] = (int64_t)(old & CLAIM_ROLLOUTS);
+      tab.decision[old >> CLAIM_SHIFT] = d;
+    }
+  }
+  const uint32_t waiting = seats_where(g, r, [&](int p) { return tab.cnt[i * g.P + p] >= 0; });
+  if (lane == 0) {
+    tab.alive[i] = (int32_t)alive;
+    if (waiting) fetch_add(tab.stats, (unsigned long long)popc(waiting));
+  }
+}
+
+// The entry of flat rollout x among n entries: the last e with starts[e] <= x.
+GE_HD int64_t entry_of(const int64_t* starts, int64_t n, int64_t x) {
+  int64_t lo = 0, hi = n;  // the first e with starts[e] > x
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (starts[mid] <= x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo - 1;
+}
+
+// Stage 2, flat rollout x of n_entries claims on a group: rollout k of
+// candidate j of the entry's decision d, in that order (the k of one
+// candidate are consecutive, as in a request table). Returns its score;
+// *slot receives its total's index.
+GE_HD int32_t decide_rollout(const Game& g, const MinorState& m, int64_t B,
+                             const DecideTable& tab, int64_t n_entries, const SearchSpec& s,
+                             uint32_t salt, int64_t x, int32_t* w, int stride, int lane,
+                             uint32_t mask, int shift, int64_t* slot) {
+  const int64_t e = entry_of(tab.starts, n_entries, x), d = tab.decision[e];
+  const int64_t i = d / g.P, off = x - tab.starts[e];
+  const int j = (int)(off / s.rollouts), k = (int)(off % s.rollouts), p = (int)(d % g.P);
+  Room r = room_fetch(g, m, w, stride, lane, mask, shift, i, B);
+  r.seed = search_seed(search_base(r.seed, salt), r.t, k);
+  *slot = d * tab.C + j;
+  return room_search_rollout(g, r, p, candidate(g, r.phase, (uint32_t)tab.alive[i], j), s);
+}
+
+// Stage 3 for decision d of room i: the candidate of the first strictly
+// greatest total, where rollouts decided.
+GE_HD void decide_argmax(const Game& g, const MinorState& m, const DecideTable& tab,
+                         int32_t* actions, int64_t d) {
+  const int32_t n = tab.cnt[d];
+  if (n < 2) return;
+  const int64_t i = d / g.P;
+  const int j = first_best(tab.totals + d * tab.C, n);
+  actions[d] = candidate(g, m.scal[i], (uint32_t)tab.alive[i], j);
 }
 
 }  // namespace ge

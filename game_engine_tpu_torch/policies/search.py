@@ -11,15 +11,19 @@ seat. Rollout k replays the same opponent stream for every candidate (common
 random numbers), so every decision is a pure function of (room state, seed,
 config) and journal replay reproduces search-bot rooms bit for bit.
 
-Here every decision of a call — each (room, seat, world, candidate) — goes
-into ONE request table and one launch of the search kernel
-(core/search_kernel.py, csrc/search.cu) on a CUDA device, or into its plain
-version (``search_scores_plain``) on the CPU. The host reproduces the rest
-of the C++ search exactly, in numpy: the candidate list, the no-decision,
-forced-submit and single-candidate rules, the ascending strictly-greater
-argmax (ties to the lowest choice), the salts, and the determinized tier's
-world loop. The totals are exact integers, so the decisions equal the C++
-search's whatever the order of the launch.
+On a CUDA device the full-information decisions (D = 0) of a call are made
+on the card in one launch of the decide kernel (core/search_kernel.py
+``kernel_decide``, csrc/search.cu), from the rooms where they are: which
+seats wait, their candidates, the rollouts and the argmax, the same C++
+rules as room_step.cuh code. The determinized tier (D > 0) samples its
+worlds on the host: every (seat, world, candidate) goes into ONE request
+table and one launch of the request kernel (``kernel_search_arrays``), and
+the host reproduces the rest of the C++ search in numpy: the candidate
+list, the no-decision, forced-submit and single-candidate rules, the
+ascending strictly-greater argmax (ties to the lowest choice), the salts
+and the world loop. On the CPU both tiers take that host route with the
+plain version (``search_scores_plain``). The totals are exact integers, so
+the decisions equal the C++ search's whatever the order of the launch.
 
 Served via ``server.api --bot-search`` (server/manager.py).
 """
@@ -216,7 +220,8 @@ class SearchBots:
         det_tag = f",det={self.determinize}" if self.determinize > 0 else ""
         self.ckpt_path = (f"search(rollouts={self.rollouts},"
                           f"horizon={self.horizon},salt={self.salt}{det_tag})")
-        self.last_call = {"decisions": 0, "requests": 0, "worlds": 0}
+        self._last_call = {"decisions": 0, "requests": 0, "worlds": 0}
+        self._stats = None  # the decide launch's Decided.stats on the card, read when asked
         self._last = None  # the last scoring's (sources, requests, totals), for checks
         self._cpp_game = None  # the native simulator's game and scratch rooms by seat
         self._cpp_rooms: dict = {}  # count, for native_actions' C++ rule
@@ -275,16 +280,26 @@ class SearchBots:
             at += width
         return out
 
-    def _scores(self, sources: dict, requests: list) -> np.ndarray:
+    @property
+    def last_call(self) -> dict:
+        """What the last call decided: {"decisions": waiting seats,
+        "requests": candidates scored, "worlds": sampled worlds}; after a
+        decide launch, read from the card when asked."""
+        if self._stats is not None:
+            decisions, requests, _ = self._stats.tolist()
+            self._last_call = {"decisions": decisions, "requests": requests, "worlds": 0}
+            self._stats = None
+        return self._last_call
+
+    def _scores(self, sources: dict, requests: list, plain: bool) -> np.ndarray:
         """Every request's total, its rooms `sources` (GameState fields as
         numpy arrays, a room a request names by index): one copy to the card
-        and one launch of the search kernel there, the plain version on the
-        CPU."""
-        self.last_call["requests"] = len(requests)
+        and one launch of the request kernel there, or the plain version on
+        the bots' device."""
         if not requests:
             return np.zeros(0, np.int64)
         args = (self.rollouts, self.horizon, self.scoring)
-        if self.route == "kernel":
+        if not plain:
             totals = SK.kernel_search_arrays(self.lowered, sources, requests, *args,
                                              device=self.device)
         else:
@@ -305,7 +320,7 @@ class SearchBots:
         sources, requests, totals = self._last
         return self._state_of(sources), SK.request_table(requests, self.device), totals
 
-    def _decide(self, slots: list[int], rows: dict) -> np.ndarray:
+    def _decide(self, slots: list[int], rows: dict, plain: bool) -> np.ndarray:
         """(len(slots), P) choices, 0 where a seat has no decision, for the
         rooms of `rows` (see _rows). The rooms with something to search (D =
         0) or the sampled worlds (D > 0) are scored in one _scores call."""
@@ -362,13 +377,14 @@ class SearchBots:
                         requests.append((w, p, c, salt))
                 if decided:
                     pending.append((i, p, rows_by_c, fixed))
-        self.last_call = {"decisions": n_decisions, "requests": len(requests),
-                          "worlds": len(worlds)}
+        self._last_call = {"decisions": n_decisions, "requests": len(requests),
+                           "worlds": len(worlds)}
+        self._stats = None
         totals = np.zeros(0, np.int64)
         if requests:
             sources = (self._fields_of_reads(worlds) if self._det is not None
                        else {k: rows[k][rooms] for k in GameState._fields})
-            totals = self._scores(sources, requests)
+            totals = self._scores(sources, requests, plain)
         for i, p, rows_by_c, fixed in pending:
             tot = dict(fixed)
             for c, at in rows_by_c.items():
@@ -441,17 +457,52 @@ class SearchBots:
 
     # -- the serving interface ---------------------------------------------------
 
+    def _on_card(self) -> bool:
+        """Whether the decisions are the decide kernel's: full information on
+        a CUDA device."""
+        return self.determinize == 0 and self.route == "kernel"
+
     def actions_for_slots(self, state: GameState, slots=None, host=None) -> torch.Tensor:
         """(B, P) int32 choices on the state's device for the rooms `slots`
         (None: every room), 0 for a seat with no decision and for the other
         rooms. Every decision of the call goes into one launch. `host`: a
         numpy mirror of the state's fields and its "waiting" seats by slot
-        (server/manager.py _TorchSlots.host), read instead of the device."""
+        (server/manager.py _TorchSlots.host). At D = 0 on the card the rooms
+        are selected where they lie and decided there (kernel_decide), with
+        no launch when the mirror shows no seat waiting; else the mirror is
+        read instead of the device."""
+        if not self._on_card():
+            return self.request_actions(state, slots, host)
+        B, P = state.present.shape
+        dev = state.present.device
+        keep = list(range(B)) if slots is None else sorted({int(s) for s in slots})
+        if not keep or (host is not None and not np.asarray(host["waiting"])[keep].any()):
+            return torch.zeros((B, P), dtype=torch.int32, device=dev)
+        if slots is None:
+            sub, idx = state, None
+        else:
+            idx = torch.as_tensor(keep, dtype=torch.long, device=dev)
+            sub = GameState(*(f.index_select(0, idx) for f in state))
+        dec = SK.kernel_decide(self.lowered, sub, self.rollouts, self.horizon, self.scoring,
+                               self.salt)
+        self._stats = dec.stats
+        if idx is None:
+            return dec.actions
+        return torch.zeros((B, P), dtype=torch.int32, device=dev).index_copy_(0, idx, dec.actions)
+
+    def request_actions(self, state: GameState, slots=None, host=None,
+                        plain: Optional[bool] = None) -> torch.Tensor:
+        """actions_for_slots by the host's rules and one request table: the
+        route of D > 0 and of the CPU, and at D = 0 on the card the check
+        of the decide kernel. Scored by the request kernel on the card, or
+        by the plain version (plain=True, and always on the CPU);
+        last_launch() then gives what was scored."""
         B, P = state.present.shape
         slots = list(range(B)) if slots is None else sorted({int(s) for s in slots})
         out = np.zeros((B, P), np.int32)
         if slots:
-            out[slots] = self._decide(slots, self._rows(state, slots, host))
+            plain = self.route == "plain" or bool(plain)
+            out[slots] = self._decide(slots, self._rows(state, slots, host), plain)
         return torch.as_tensor(out, device=state.present.device)
 
     def actions(self, state: GameState) -> np.ndarray:
@@ -460,13 +511,25 @@ class SearchBots:
 
     def native_actions(self, read: dict[str, Any], n_players: int,
                        seed: int = 0) -> dict[int, int]:
-        """{pid: choice} for one room's CppRoom.read() state. The waiting
-        seats, candidates and requests are worked out on the host; the room
-        goes to the bots' device with the request table only when a seat
-        has something to search. Seats without a decision are omitted (the
-        host then clears their action, matching the scripted policy's
-        silence for those seats)."""
-        acts = self._decide([0], self._native_rows(read, n_players, seed))[0]
+        """{pid: choice} for one room's CppRoom.read() state. At D = 0 on the
+        card its fields go there in one copy and the decide kernel decides
+        (a done room or a phase without actions has no decision and no
+        launch); else the waiting seats, candidates and requests are worked
+        out on the host and the room goes to the bots' device with the
+        request table only when a seat has something to search. Seats
+        without a decision are omitted (the host then clears their action,
+        matching the scripted policy's silence for those seats)."""
+        if not self._on_card():
+            acts = self._decide([0], self._native_rows(read, n_players, seed),
+                                self.route == "plain")[0]
+        elif read["done"] or not self.lowered.phase_is_action[int(read["phase_index"])]:
+            return {}
+        else:
+            fields = self._fields_of_reads([dict(read, n=n_players, seed=seed)])
+            dec = SK.kernel_decide_arrays(self.lowered, fields, self.rollouts, self.horizon,
+                                          self.scoring, self.salt, self.device)
+            self._stats = dec.stats
+            acts = dec.actions[0].cpu().numpy()
         return {p + 1: int(acts[p]) for p in range(len(acts)) if acts[p] != 0}
 
     def native_room_actions(self, room, n_players: int, seed: int = 0) -> dict[int, int]:
