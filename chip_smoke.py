@@ -21,8 +21,8 @@ evaluator, the arena and the exploit probe are listed with the phases):
 Phases, one JSON line each:
 
   env             torch/CUDA versions and the GPU's name and power limit
-  build           nvcc builds of csrc/rollout.cu, policy_net.cu,
-                  lossgrad.cu, search.cu and chat_decode.cu, in parallel
+  build           nvcc builds of csrc/rollout.cu, lossgrad.cu, search.cu
+                  and chat_decode.cu, in parallel
                   (one nvcc each, started together): seconds and ptxas
                   reports (K1's and S's registers, stack and spill bytes
                   also as numbers, and each of LM's three kernels')
@@ -41,6 +41,11 @@ Phases, one JSON line each:
                   first call; K1's bound from the interpreter's integer
                   operations on these rooms, counted by the -DGE_COUNT host
                   build of the kernel's body (g++) over the first call
+  bench_games     utils/bench_games.py: K1 against the plain rollout on each
+                  of its DEFAULT_GAMES (256 rooms x 64 steps, all 15 fields
+                  and the episode count, exact; bench_games_check), then
+                  each game's rate at the module's defaults (4096 rooms x
+                  1024 steps, the median of 5 calls), one line a game
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256
@@ -60,9 +65,11 @@ Phases, one JSON line each:
                   rows and one K4 call at 131,072, and K2's time by rows
                   per chunk; and in `main` K1's clock cycles by section of
                   the step (the -DGE_PROFILE build of the kernel)
-  compare_narrow  the CUDA-core K2 and K3 (csrc/policy_net.cu), the route of
-                  the widths the pipeline does not cover, once on the same
-                  32,768 rows for an attn net at hidden 48, same tolerances
+  compare_narrow  K2, K3 and K4 at widths whose storage the pipelines pad
+                  (hidden 48: the trunk; hidden 96: the encoder's hp 48 too),
+                  attn and deepsets nets, on the trajectory's first step
+                  (32,768 rows) against their plain versions, same
+                  tolerances; ms beside plain_ms
   packed_weights  the packed-weight cache across an optimizer step: K2
                   before and after one K4 update of the attn checkpoint must
                   differ, each must match plain on the parameters of that
@@ -72,6 +79,8 @@ Phases, one JSON line each:
                   checkpoint; steps/s and the unroll/update split by CUDA
                   events; 33 tensor-core K2 and 4 K4 launches an update
   train_k3        one more update with fused_loss=False (K2 + K3)
+  train_narrow    one update of run.main --hidden 48 (attn): its fused_net
+                  event names K4, and it launches 33 K2 and 4 K4
   train_plain     one update of run.main with --no-fused (no kernel), for
                   the end-to-end comparison
   serve_scripted  the server: the port's HTTP game host (server/api.py on
@@ -188,6 +197,9 @@ Phases, one JSON line each:
                   K2 + K4, with the split of a step into unroll, update,
                   collectives and host waits. Ranks that share one card
                   share its time: the curve measures what sharding costs
+  policy_bench    bench.py --policy at its defaults (16,384 werewolf rooms x
+                  128 steps x 4 iters, the mlp at hidden 256): the
+                  learned-policy self-play rate; no kernel on this path
 
   compare_chat    the chat LM's decode kernels (LM, csrc/chat_decode.cu: the
                   tensor-core prefill of every prompt row, then a cluster of
@@ -248,7 +260,7 @@ REPLACES = "game_engine_tpu/core/pallas_rollout.py:658"
 POLICY_SOURCE = {"policy_forward": "game_engine_tpu_torch/csrc/lossgrad.cu",
                  "policy_backward": "game_engine_tpu_torch/csrc/lossgrad.cu",
                  "ppo_loss_grad": "game_engine_tpu_torch/csrc/lossgrad.cu"}
-NARROW_SOURCE = "game_engine_tpu_torch/csrc/policy_net.cu"  # K2/K3 at uncovered widths
+NARROW = (48, 96)  # widths whose storage the pipelines pad: the trunk (48), the encoder too (96)
 K2_PER_UPDATE = 33   # the unroll's 32 steps and the bootstrap value
 POLICY_REPLACES = {"policy_forward": "game_engine_tpu/policies/fused.py:299",
                    "policy_backward": "game_engine_tpu/policies/fused.py:468",
@@ -420,9 +432,9 @@ def collect_trajectory(lowered, params, cfg):
     return traj, adv, ret
 
 
-def compare_k2_k3(d, rows, params, name: str, route: str, reps: int = 3) -> tuple:
+def compare_k2_k3(d, rows, params, name: str, reps: int = 3) -> tuple:
     """K2 and K3 (seeded dl, dv) on `rows` against their plain versions;
-    raises past the tolerances or when another route than `route` ran.
+    raises past the tolerances or when a call did not launch its kernel.
     -> (fields of the phase's line, {kernel: {"max_abs_err", "max_rel_err",
     "ms", "plain_ms", "bound": (bound_ms, bound_by)}})."""
     import torch
@@ -432,8 +444,7 @@ def compare_k2_k3(d, rows, params, name: str, route: str, reps: int = 3) -> tupl
     gen = torch.Generator(device="cuda").manual_seed(11)
     n = rows.shape[0]
     out, line = {}, {}
-    ran = {k: dict(fn.by_route) for k, fn in (("k2", FZ.kernel_forward),
-                                              ("k3", FZ.kernel_grads))}
+    ran = {k: fn.launches for k, fn in (("k2", FZ.kernel_forward), ("k3", FZ.kernel_grads))}
 
     (lk, vk), ms = mean_ms(lambda: FZ.kernel_forward(d, rows, params), reps)
     (lp, vp), plain_ms = mean_ms(lambda: FZ.fused_forward_plain(d, rows, params), reps)
@@ -469,10 +480,10 @@ def compare_k2_k3(d, rows, params, name: str, route: str, reps: int = 3) -> tupl
                               "max_rel_err": max(errs.values()), "ms": ms,
                               "plain_ms": plain_ms, "bound": b3}
     for k, fn in (("k2", FZ.kernel_forward), ("k3", FZ.kernel_grads)):
-        got = {r: fn.by_route[r] - ran[k][r] for r in fn.by_route}
-        if got != {r: (reps + 1 if r == route else 0) for r in got}:
-            raise AssertionError(f"{k} {name}: expected {reps + 1} {route} launches, got {got}")
-    line.update(route=route, bounds_ms={"k2": b2[0], "k3": b3[0]})
+        if fn.launches - ran[k] != reps + 1:
+            raise AssertionError(f"{k} {name}: expected {reps + 1} launches, got "
+                                 f"{fn.launches - ran[k]}")
+    line.update(bounds_ms={"k2": b2[0], "k3": b3[0]})
     return line, out
 
 
@@ -492,7 +503,7 @@ def policy_compare(lowered, traj, adv, ret, name: str, params, cfg,
     rows = traj.obs[0].reshape(-1, d.F).contiguous()  # one step: 4096 rooms x 8 seats
     line = {"phase": "compare_policy", "arch": cfg.arch, "params": name,
             "hidden": cfg.hidden, "plan": FZ.kernel_plan(d), "rows_k2_k3": rows.shape[0]}
-    fields, out = compare_k2_k3(d, rows, params, name, "tensor_core")
+    fields, out = compare_k2_k3(d, rows, params, name)
     line.update(fields)
     fwd_mac, bwd_mac = policy_macs(d)
     prm_bytes = 4 * sum(v.numel() for v in params.values())
@@ -642,25 +653,77 @@ def k2_chunk_sweep(d, rows, params) -> dict:
     return out
 
 
-def compare_narrow(lowered, traj) -> dict:
-    """The CUDA-core K2 and K3, the route of the widths the pipeline does
-    not cover, once on the card: an attn net at hidden 48 on the
-    trajectory's first step."""
+def compare_narrow(lowered, traj, adv, ret) -> dict:
+    """K2, K3 and K4 at the widths whose storage the pipelines pad (NARROW:
+    hidden 48, the trunk padded from 48 to 64 columns; hidden 96, the
+    encoder's hp 48 too), for an attn and a deepsets net, on the
+    trajectory's first step (32,768 rows) against their plain versions
+    under the compare_policy tolerances. K4's logp_old is the net's own
+    log-prob of the taken action plus noise, so ratios fall on both sides
+    of the clip band. -> {kernel: {"hidden_<h>": {arch: {"ms", "plain_ms",
+    "max_rel_err", "max_abs_err", "bound_ms"}}}}."""
     import torch
 
     from game_engine_tpu_torch.policies import fused as FZ
     from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
 
-    cfg = N.NetConfig(hidden=48, arch="attn")
-    d = FZ.dims_for(lowered, cfg)
-    if FZ.pipeline_supports(d):
-        raise AssertionError("hidden 48 should be outside the pipeline's coverage")
-    params = N.init_params(torch.Generator().manual_seed(2), N.obs_dim(lowered),
-                           N.action_space(lowered), cfg, lowered, device="cuda")
-    rows = traj.obs[0].reshape(-1, d.F).contiguous()
-    fields, out = compare_k2_k3(d, rows, params, "attn_hidden48_seed2", "cuda_core", reps=1)
-    emit({"phase": "compare_narrow", "arch": cfg.arch, "hidden": cfg.hidden,
-          "rows": rows.shape[0], "plan": FZ.kernel_plan(d), "source": NARROW_SOURCE, **fields})
+    out = {k: {} for k in POLICY_REPLACES}
+    tr = P.Rollout(*(x[:1] for x in traj))
+    pcfg = P.PPOConfig()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for hidden in NARROW:
+        for arch in ("attn", "deepsets"):
+            cfg = N.NetConfig(hidden=hidden, arch=arch)
+            d = FZ.dims_for(lowered, cfg)
+            params = N.init_params(torch.Generator().manual_seed(2), N.obs_dim(lowered),
+                                   N.action_space(lowered), cfg, lowered, device="cuda")
+            rows = tr.obs.reshape(-1, d.F).contiguous()
+            name = f"{arch}_hidden{hidden}_seed2"
+            fields, got = compare_k2_k3(d, rows, params, name)
+
+            logits, _ = FZ.fused_forward_plain(d, rows, params)
+            legal = tr.legal.reshape(-1, d.A)
+            lp = torch.log_softmax(torch.where(legal, logits, torch.full_like(logits, -1e9)), -1)
+            taken = (tr.actions.reshape(-1, 1).long() - 1).clamp(0, d.A - 1)  # 0: no action
+            own = lp.gather(1, taken)[:, 0]
+            logp_old = own.reshape(tr.logp.shape) + 0.3 * torch.randn(
+                tr.logp.shape, generator=gen, device="cuda")
+            rowin = FZ._loss_rows(d, tr.legal, tr.actions, logp_old, adv[:1], ret[:1], tr.mask,
+                                  pcfg.vf_coef)
+            before = FZ.kernel_loss_grads.launches
+            (gk, sk), ms = mean_ms(lambda: FZ.kernel_loss_grads(d, rows, rowin, params,
+                                                                pcfg.clip, pcfg.ent_coef))
+            if FZ.kernel_loss_grads.launches - before != 4:
+                raise AssertionError(f"K4 {name}: expected 4 launches")
+            (gp, sp), plain_ms = mean_ms(lambda: FZ.loss_vg_plain(d, rows, rowin, params,
+                                                                  pcfg.clip, pcfg.ent_coef))
+            loss_k = float(sk[0] + sk[1] - pcfg.ent_coef * sk[2])
+            loss_p = float(sp[0] + sp[1] - pcfg.ent_coef * sp[2])
+            loss_err = abs(loss_k - loss_p) / (abs(loss_p) + 1e-6)
+            mk = (sk / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
+            mp = (sp / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
+            metric_err = max(abs(a - b) for a, b in zip(mk, mp))
+            errs = {k: rel_err(gk[k], gp[k]) for k in gp}
+            fwd_mac, bwd_mac = policy_macs(d)
+            prm_bytes = 4 * sum(v.numel() for v in params.values())
+            b4 = bound(2 * (fwd_mac + bwd_mac) * rows.shape[0], nbytes(rows, rowin) + 2 * prm_bytes)
+            got["ppo_loss_grad"] = {"max_abs_err": max(abs_err(gk[k], gp[k]) for k in gp),
+                                    "max_rel_err": max(errs.values()), "ms": ms,
+                                    "plain_ms": plain_ms, "bound": b4}
+            emit({"phase": "compare_narrow", "arch": arch, "hidden": hidden, "hp": d.hp,
+                  "rows": rows.shape[0], "plan": FZ.kernel_plan(d), **fields,
+                  "k4_ms": ms, "k4_plain_ms": plain_ms, "k4_loss_rel_err": loss_err,
+                  "k4_metric_abs_err": metric_err, "k4_grad_rel_err": errs,
+                  "bounds_ms": {**fields["bounds_ms"], "k4": b4[0]}})
+            check(f"K4 {name} loss", loss_err, TOL_LOSS)
+            check(f"K4 {name} metrics", metric_err, TOL_METRIC)
+            for k, e in errs.items():
+                check(f"K4 {name} d{k}", e, TOL_GRAD)
+            for k, v in got.items():
+                out[k].setdefault(f"hidden_{hidden}", {})[arch] = {
+                    "ms": v["ms"], "plain_ms": v["plain_ms"], "max_rel_err": v["max_rel_err"],
+                    "max_abs_err": v["max_abs_err"], "bound_ms": v["bound"][0]}
     return out
 
 
@@ -719,11 +782,6 @@ def policy_launches() -> dict:
     return {k: fn.launches for k, fn in policy_wrappers().items()}
 
 
-def tensor_core_launches() -> dict:
-    """The launches that went the tensor-core route (csrc/lossgrad.cu)."""
-    return {k: fn.by_route["tensor_core"] for k, fn in policy_wrappers().items()}
-
-
 def decode_programs() -> dict:
     """The chat decode's launches by program since the counts were zeroed."""
     from game_engine_tpu_torch.policies.chat_decode import kernel_decode
@@ -741,7 +799,6 @@ def zero_launches() -> None:
     kernel_decode.launches = kernel_decode.prefill_launches = kernel_decode.decode_launches = 0
     for fn in policy_wrappers().values():
         fn.launches = 0
-        fn.by_route = dict.fromkeys(fn.by_route, 0)
 
 
 def train_phase(lowered, gpu: str) -> dict:
@@ -783,9 +840,8 @@ def train_phase(lowered, gpu: str) -> dict:
     updates = int(dict(zip(argv[::2], argv[1::2]))["--updates"])
     want = {"policy_forward": K2_PER_UPDATE * updates, "policy_backward": 0,
             "ppo_loss_grad": 4 * updates}  # K2: 32 steps + the bootstrap; K4: one per epoch
-    if launches != want or tensor_core_launches() != want:
-        raise AssertionError(f"the train path launched {launches} ({tensor_core_launches()} on "
-                             f"the tensor cores), expected {want} on the tensor cores")
+    if launches != want:
+        raise AssertionError(f"the train path launched {launches}, expected {want}")
     if not any(ev["event"] == "fused_net" and ev["forward"] == "tensor_core"
                and ev["loss"] == "k4" for ev in events):
         raise AssertionError("run.main did not announce the tensor-core forward and K4")
@@ -808,9 +864,8 @@ def train_phase(lowered, gpu: str) -> dict:
         raise AssertionError("fused_loss=False update: loss is not finite")
     # K2: the unroll, the bootstrap and ppo_loss's forward; K3: its backward
     want = {"policy_forward": K2_PER_UPDATE + 1, "policy_backward": 1, "ppo_loss_grad": 0}
-    if k3 != want or tensor_core_launches() != want:
-        raise AssertionError(f"the fused_loss=False update launched {k3} "
-                             f"({tensor_core_launches()} on the tensor cores), expected {want}")
+    if k3 != want:
+        raise AssertionError(f"the fused_loss=False update launched {k3}, expected {want}")
     moved = max(float((params[k].detach() - before[k]).abs().max()) for k in before)
     emit({"phase": "train_k3", "loss": float(metrics["loss"]),
           "unroll_ms": metrics["unroll_ms"], "update_ms": metrics["update_ms"],
@@ -836,6 +891,113 @@ def train_phase(lowered, gpu: str) -> dict:
     return {"policy_forward": launches["policy_forward"] + k3["policy_forward"],
             "policy_backward": k3["policy_backward"],
             "ppo_loss_grad": launches["ppo_loss_grad"]}
+
+
+def train_narrow_phase(gpu: str) -> dict:
+    """One update of run.main --hidden 48 on the card (the attn net, the
+    train path's rooms, seats, horizon and epochs): a width whose storage
+    the pipelines pad. Its fused_net event must name K4, and the update must
+    launch 33 K2 and 4 K4. Returns the launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from game_engine_tpu_torch.train import run as R
+
+    argv = ["--device", "cuda", "--arch", "attn", "--hidden", "48", "--batch", str(ROOMS),
+            "--players", "6", "--horizon", str(HORIZON), "--epochs", "4", "--updates", "1",
+            "--eval-batch", "0"]
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        R.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = policy_launches()
+    events = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    fused = [ev for ev in events if ev["event"] == "fused_net"]
+    train = [ev for ev in events if ev["event"] == "train"][-1]
+    emit({"phase": "train_narrow", "argv": argv, "fused_net": fused, "seconds": seconds,
+          "steps_per_sec": train["steps_per_sec"], "unroll_ms": train["unroll_ms"],
+          "update_ms": train["update_ms"], "loss": train["loss"], "launches": launches,
+          "gpu": gpu})
+    if [(ev["mode"], ev["loss"]) for ev in fused] != [("auto", "k4")]:
+        raise AssertionError(f"run.main --hidden 48 announced {fused}, expected K4 (auto)")
+    want = {"policy_forward": K2_PER_UPDATE, "policy_backward": 0, "ppo_loss_grad": 4}
+    if launches != want:
+        raise AssertionError(f"run.main --hidden 48 launched {launches}, expected {want}")
+    if not np.isfinite(train["loss"]):
+        raise AssertionError("run.main --hidden 48: loss is not finite")
+    return launches
+
+
+BENCH_GAMES_CHECK = (256, 64)       # rooms, steps of the kernel-vs-plain check a game
+BENCH_GAMES_SHAPE = (4096, 1024, 5)  # utils/bench_games.py's defaults: rooms, steps, iters
+
+
+def bench_games_phase(gpu: str) -> int:
+    """utils/bench_games.py on the card: K1 held equal to the plain rollout
+    on every DEFAULT_GAMES entry (BENCH_GAMES_CHECK rooms x steps, all 15
+    GameState fields and the episode count, exact), then each game timed at
+    the module's defaults through bench_game. Returns K1's launches on the
+    timed path."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.engine import make_rollout
+    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.utils import bench_games as BG
+
+    B, steps = BENCH_GAMES_CHECK
+    checked = {}
+    for game in BG.DEFAULT_GAMES:
+        lowered, n_players, _ = BG.game_setup(game)
+        start = init_state(lowered, B, n_players, np.arange(B, dtype=np.uint32), device="cuda")
+        got, eps = kernel_rollout(lowered, start, steps)
+        ref, ref_eps = make_rollout(lowered, steps)(start)
+        err = max_abs_err(got, ref, eps, ref_eps)
+        checked[game] = {"n_players": n_players, "episodes": int(eps),
+                         "plain_episodes": int(ref_eps), "max_abs_err": err}
+        if err != 0:
+            bad = [f for f, x, y in zip(got._fields, got, ref) if not bool((x == y).all())]
+            raise AssertionError(f"bench_games {game}: kernel != plain in {bad}")
+    emit({"phase": "bench_games_check", "rooms": B, "steps": steps, "games": checked})
+
+    batch, steps, iters = BENCH_GAMES_SHAPE
+    zero_launches()
+    rows = [BG.bench_game(g, batch, steps, iters, gpu) for g in BG.DEFAULT_GAMES]
+    launches = kernel_rollout.launches
+    anchor = rows[0]["msteps_per_s"]
+    for row in rows:
+        emit({"phase": "bench_games", **row, "rel_to_anchor": row["msteps_per_s"] / anchor})
+        if not row["msteps_per_s"] > 0:
+            raise AssertionError(f"bench_games {row['game']}: no rate")
+    if launches != len(rows) * (iters + 1):
+        raise AssertionError(f"bench_games launched K1 {launches} times, expected "
+                             f"{len(rows) * (iters + 1)}")
+    return launches
+
+
+POLICY_BENCH_SHAPE = (16384, 128, 4)  # bench.py --policy's defaults: rooms, steps, iters
+
+
+def policy_bench_phase(gpu: str) -> None:
+    """bench.py --policy at its defaults: the learned-policy self-play loop
+    (the mlp at hidden 256, eager torch a step; no kernel on this path)."""
+    from game_engine_tpu_torch.bench import policy_rollout_bench
+    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
+
+    zero_launches()
+    t0 = time.perf_counter()
+    line = policy_rollout_bench(*POLICY_BENCH_SHAPE)
+    seconds = time.perf_counter() - t0
+    launches = {**policy_launches(), "rollout": kernel_rollout.launches}
+    emit({"phase": "policy_bench", **line, "seconds": seconds, "launches": launches})
+    if not line["value"] > 0 or line["detail"]["episodes_completed"] <= 0:
+        raise AssertionError(f"bench.py --policy: {line}")
+    if any(launches.values()):
+        raise AssertionError(f"bench.py --policy launched a kernel: {launches}")
 
 
 WW_KEY = "werewolf-(mafia)#r1"  # the host's slots key of the catalog's werewolf
@@ -987,7 +1149,6 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
     d_launches = CD.kernel_decode.launches
     d_programs = decode_programs()
     launches = FZ.kernel_forward.launches
-    by_route = dict(FZ.kernel_forward.by_route)
     host = srv.ctx.host
     gs = host._slots[WW_KEY]
     wall = end[4] - begin[4]
@@ -1027,7 +1188,7 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         "chats_to_ended_rooms": stats.get("chat_gone", 0),
         "chat_unstarted_skips": stats.get("chat_unstarted_skips", 0), "decode_launches": d_launches,
         "decode_launches_by_program": d_programs,
-        "k2_launches": launches, "k2_by_route": by_route, "search_launches": s_launches,
+        "k2_launches": launches, "search_launches": s_launches,
         "search_host_s_in_window": search_s,
         "search_share_of_step": search_s / step_s if step_s else None, "gpu": gpu}
     if bot_ckpts:
@@ -1041,8 +1202,8 @@ def serve_run(name: str, bots_per_room: int, bot_ckpts, storage: str, gpu: str,
         raise AssertionError(f"{name}: the slot pool stayed at {gs.capacity} slots "
                              f"for {SERVE_ROOMS} rooms")
     if bot_ckpts:
-        if launches <= 0 or by_route != {"tensor_core": launches, "cuda_core": 0}:
-            raise AssertionError(f"{name}: K2 launches {by_route}, expected > 0, all tensor_core")
+        if launches <= 0:
+            raise AssertionError(f"{name}: K2 launched {launches} times, expected > 0")
     elif launches != 0:
         raise AssertionError(f"{name}: the scripted run launched K2 {launches} times")
     if bool(bot_search) != (sum(s_launches.values()) > 0):
@@ -1825,12 +1986,10 @@ def max_change(params: dict, before: dict) -> float:
 
 
 def check_launches(what: str, want: dict) -> dict:
-    """The policy kernels' launches since zero_launches, all on the tensor
-    cores, against `want`."""
+    """The policy kernels' launches since zero_launches against `want`."""
     got = policy_launches()
-    if got != want or tensor_core_launches() != want:
-        raise AssertionError(f"{what} launched {got} ({tensor_core_launches()} on the tensor "
-                             f"cores), expected {want} on the tensor cores")
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
     return got
 
 
@@ -1844,13 +2003,12 @@ def check_packs(what: str, packs: int, states: int) -> int:
 def check_league_main(updates: int) -> tuple:
     """(launches, snapshot-arm updates) of run.main --league since
     zero_launches: per update 33 K2 (anchor arm) or 65 (snapshot arm) and 4
-    K4, all on the tensor cores."""
+    K4."""
     got = policy_launches()
     k2_extra = got["policy_forward"] - updates * (HORIZON + 1)  # 32 more a snapshot arm
     if got["ppo_loss_grad"] != 4 * updates or got["policy_backward"] or k2_extra % HORIZON \
-            or not 0 <= k2_extra <= updates * HORIZON or tensor_core_launches() != got:
-        raise AssertionError(f"run.main --league launched {got} "
-                             f"({tensor_core_launches()} on the tensor cores)")
+            or not 0 <= k2_extra <= updates * HORIZON:
+        raise AssertionError(f"run.main --league launched {got}")
     return got, k2_extra // HORIZON
 
 
@@ -2105,14 +2263,11 @@ def matchup_phase(lowered, gpu: str) -> dict:
 
 
 def kernel_counts() -> dict:
-    """Every policy kernel's launches and S's entries' since zero_launches,
-    and K2's on the tensor cores."""
+    """Every policy kernel's launches and S's entries' since zero_launches."""
     from game_engine_tpu_torch.core.search_kernel import kernel_decide, kernel_search
-    from game_engine_tpu_torch.policies import fused as FZ
 
-    return {**policy_launches(),
-            "policy_forward_tensor_core": FZ.kernel_forward.by_route["tensor_core"],
-            "search": kernel_search.launches, "search_decide": kernel_decide.launches}
+    return {**policy_launches(), "search": kernel_search.launches,
+            "search_decide": kernel_decide.launches}
 
 
 def arena_phase(gpu: str) -> dict:
@@ -2138,8 +2293,7 @@ def arena_phase(gpu: str) -> dict:
     (out, seconds, got), (again, again_s, _) = runs
     if again != out:
         raise AssertionError("the arena gave another table the second time")
-    if not got["policy_forward"] or not got["search"] \
-            or got["policy_forward_tensor_core"] != got["policy_forward"]:
+    if not got["policy_forward"] or not got["search"]:
         raise AssertionError(f"the arena launched {got}")
     emit({"phase": "arena", **out, "seconds": [seconds, again_s], "repeat_equal": True,
           "errors": 0, "launches": got, "gpu": gpu})
@@ -2152,7 +2306,6 @@ def arena_phase(gpu: str) -> dict:
     ex_got = kernel_counts()
     rates = [v for k, v in ex.items() if k.endswith(("_scripted", "_search", "_learned"))]
     if not ex_got["policy_forward"] or not ex_got["search_decide"] \
-            or ex_got["policy_forward_tensor_core"] != ex_got["policy_forward"] \
             or not all(0.0 <= r <= 1.0 for r in rates):
         raise AssertionError(f"eval_exploit: {ex}, launches {ex_got}")
     emit({"phase": "exploit", **{k: v for k, v in ex.items() if k != "ckpt"}, "ckpt": CKPT,
@@ -2264,8 +2417,8 @@ def md_data_parallel(cfg, gpu: str) -> dict:
     for n in MD_DP:
         ranks = [r[f"{n}x1"] for r in out[:n]]
         for r in ranks:  # every rank: 32 K2 a step + the bootstrap, one K4
-            if (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"],
-                    r["launches"]["policy_forward_tensor_core"]) != (HORIZON + 1, 1, HORIZON + 1):
+            if (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"]) \
+                    != (HORIZON + 1, 1):
                 raise AssertionError(f"dp={n}: a rank launched {r['launches']}")
             add_launches(total, r["launches"])
         state_equal = {f: bool(np.array_equal(np.concatenate([r["state"][i] for r in ranks]),
@@ -2368,8 +2521,7 @@ def md_dryrun(gpu: str) -> dict:
     emit({"phase": "multidevice_scaling", **curve, "gpu": gpu})
     train = curve["launches"]["train"]
     if not (curve["launches"]["rollout"] > 0 and train["policy_forward"] > 0
-            and train["ppo_loss_grad"] > 0
-            and train["policy_forward_tensor_core"] == train["policy_forward"]):
+            and train["ppo_loss_grad"] > 0):
         raise AssertionError(f"the curve did not run K1, K2 and K4: {curve['launches']}")
     total = dict.fromkeys(MD_KERNELS, 0)
     add_launches(total, {**train, "rollout": curve["launches"]["rollout"]})
@@ -2813,7 +2965,6 @@ def main(argv=()) -> int:
         raise AssertionError(f"the search kernels spill: {search_ptxas}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           "rollout_kernel": ptxas_numbers(lib),
-          "policy_net_ptxas": ptxas_report(_build.policy_lib()),
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "search_ptxas": ptxas_report(_build.search_lib()),
           "search_kernels": search_ptxas,
@@ -2936,6 +3087,8 @@ def main(argv=()) -> int:
               "episodes_completed": episodes[B], "episodes_completed_ok": episodes[B] > 0,
               "first_call_max_abs_err_vs_plain": err, "gpu": gpu})
 
+    bg_launches = bench_games_phase(gpu)
+
     # -- the learner: K2-K4 vs plain at full width, then its main path -------
     from game_engine_tpu_torch.policies import net as N
 
@@ -2954,11 +3107,12 @@ def main(argv=()) -> int:
                 policy[k] = v  # times at the shipped attn net
             else:  # the larger error of the two nets
                 policy[k].update({e: max(policy[k][e], v[e]) for e in v if "err" in e})
-    narrow = compare_narrow(ww, traj)
+    narrow = compare_narrow(ww, traj, adv, ret)
     packed_weights_check(ww, traj, adv, ret, attn, attn_cfg)
     del traj, adv, ret
     torch.cuda.empty_cache()
     launches = train_phase(ww, gpu)
+    narrow_train = train_narrow_phase(gpu)
     serving = serve_phase(gpu)
     s_compare = compare_search(gpu)
     s_line = search_timing(gpu, int32_ops_per_s(), profiled)
@@ -2970,6 +3124,7 @@ def main(argv=()) -> int:
         matchup = matchup_phase(ww, gpu)
         judged = arena_phase(gpu)
     multi = multidevice_phase(ww, gpu)
+    policy_bench_phase(gpu)
     c_compare = compare_chat(gpu)
     c_line = chat_timing(gpu, c_compare, profiled)
     zero_launches()
@@ -2985,7 +3140,8 @@ def main(argv=()) -> int:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "game_engine_tpu"))
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
-    by_path = {k: {"learner": launches[k], "league": league[k], "pipeline": piped[k],
+    by_path = {k: {"learner": launches[k], "train_narrow": narrow_train[k],
+                   "league": league[k], "pipeline": piped[k],
                    "matchup": matchup[k], "arena": judged["arena"][k],
                    "exploit": judged["exploit"][k], "multidevice": multi[k]}
                for k in POLICY_REPLACES}
@@ -2997,8 +3153,9 @@ def main(argv=()) -> int:
     s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches + multi["rollout"],
-        "launches_by_path": {"engine": main_launches, "multidevice": multi["rollout"]},
+        "replaces": REPLACES, "launches": main_launches + bg_launches + multi["rollout"],
+        "launches_by_path": {"engine": main_launches, "bench_games": bg_launches,
+                             "multidevice": multi["rollout"]},
         "max_abs_err": worst,
         "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1], "library_ms": None}] + [{
@@ -3010,10 +3167,7 @@ def main(argv=()) -> int:
         **{e: v for e, v in policy[k].items() if e not in ("ms", "plain_ms", "bound")},
         **({"serving_route": "tensor_core", "serving_ms_by_rows": serving["k2"]}
            if k == "policy_forward" else {}),
-        **({"narrow_route": {"ran": "cuda_core", "source": NARROW_SOURCE, "hidden": 48,
-                             "launches_on_main_path": 0,
-                             **{e: v for e, v in narrow[k].items() if e != "bound"}}}
-           if k in narrow else {})}
+        "widths": {"ran": "tensor_core", **narrow[k]}}
         for k in POLICY_REPLACES] + [{
         "name": e, "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
         "replaces_kind": "C++ host code (search_scores_core, gs_room_search), no pallas_call "

@@ -1,13 +1,13 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA kernels (csrc/rollout.cu, policy_net.cu, lossgrad.cu, search.cu,
-chat_decode.cu) are
-compiled by nvcc for sm_90a into shared libraries with a plain C interface;
-the host harnesses (the kernels' per-room and per-tile bodies, compiled by
+The CUDA kernels (csrc/rollout.cu, lossgrad.cu, search.cu, chat_decode.cu)
+are compiled by nvcc for sm_90a into shared libraries with a plain C
+interface; the host harnesses (the kernels' bodies and stages, compiled by
 g++) serve the CPU tests, and csrc/gamesim.cpp (the native per-room
-simulator) is built by g++ -O3 for the native backend. All land in build/kernels/ at the repository root,
-named by a hash of every source in csrc/ and the compiler command, so an
-unchanged tree is built once and an edit to any source or header rebuilds.
+simulator) is built by g++ -O3 for the native backend. All land in
+build/kernels/ at the repository root, named by a hash of every source in
+csrc/ and the compiler command, so an unchanged tree is built once and an
+edit to any source or header rebuilds.
 A failed build raises with the compiler's output. Builds are serialised
 within a process (threads of the HTTP server may ask for the same library
 at once) and written to a per-process temporary file across processes.
@@ -42,10 +42,6 @@ _SEARCH_ARGS = [_P] * 8 + [_I64, _P, _I64, _I, _I, _I, _I, _P, _I, _P]
 # bools, nums, strs, pdict, odict, present, regs, scal, B, rollouts, horizon, mode,
 # team_slot, team_codes, n_codes, salt, C, actions
 _DECIDE_ARGS = [_P] * 8 + [_I64, _I, _I, _I, _I, _P, _I, ctypes.c_uint32, _I, _P]
-# meta, obs, nrows, prm, prmB, logits, value
-_PN_FWD_ARGS = [_P, _P, _I64, _P, _P, _P, _P]
-# meta, obs, nrows, rowin, prm, prmB, prmT, slabs, max_blocks, out
-_PN_GRAD_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _P, _I, _P]
 # meta, prm, weights
 _LG_PACK_ARGS = [_P, _P, _P]
 # meta, obs, nrows, prm, weights, scratch, chunk, logits, value
@@ -144,7 +140,6 @@ _GXX_CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
 
 def _cuda_jobs() -> list:
     return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
-            (os.path.join(_CSRC, "policy_net.cu"), "libpolicy_net", _nvcc_cmd()),
             (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd()),
             (os.path.join(_CSRC, "search.cu"), "libsearch", _nvcc_cmd()),
             (os.path.join(_CSRC, "chat_decode.cu"), "libchat_decode", _nvcc_cmd())]
@@ -152,8 +147,8 @@ def _cuda_jobs() -> list:
 
 def build_cuda() -> list:
     """Build every CUDA library at once (one nvcc per source, in parallel);
-    returns their paths. cuda_lib(), policy_lib(), lossgrad_lib(),
-    search_lib() and chat_decode_lib() then load them."""
+    returns their paths. cuda_lib(), lossgrad_lib(), search_lib() and
+    chat_decode_lib() then load them."""
     return _compile_all(_cuda_jobs())
 
 
@@ -221,24 +216,6 @@ def host_count_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def policy_lib() -> ctypes.CDLL:
-    """csrc/policy_net.cu (the CUDA-core K2 and K3, for the widths the
-    pipeline does not cover) built with nvcc for sm_90a, loaded."""
-    lib = ctypes.CDLL(_compile_all([_cuda_jobs()[1]])[0])
-    lib.pn_forward.restype = _I
-    lib.pn_forward.argtypes = _PN_FWD_ARGS + [_P]  # stream
-    lib.pn_grad.restype = _I
-    lib.pn_grad.argtypes = _PN_GRAD_ARGS + [_P]  # stream
-    lib.pn_plan.restype = _I
-    lib.pn_plan.argtypes = [_P, _I, _P]
-    lib.pn_meta_ints.restype = _I
-    lib.pn_meta_ints.argtypes = []
-    lib.pn_error_string.restype = ctypes.c_char_p
-    lib.pn_error_string.argtypes = [_I]
-    return lib
-
-
 def _lossgrad_common(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
     """The entries of the pipeline library: lg_pack, lg_forward (K2), lg_grad
     (K3) and lg_lossgrad (K4), named with `suffix` and taking `tail` last."""
@@ -260,7 +237,7 @@ def _lossgrad_common(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
 def lossgrad_lib() -> ctypes.CDLL:
     """csrc/lossgrad.cu (the tensor-core pipelines of K2, K3 and K4) built
     with nvcc for sm_90a, loaded."""
-    lib = _lossgrad_common(ctypes.CDLL(_compile_all([_cuda_jobs()[2]])[0]), "", [_P])  # stream
+    lib = _lossgrad_common(ctypes.CDLL(_compile_all([_cuda_jobs()[1]])[0]), "", [_P])  # stream
     lib.lg_error_string.restype = ctypes.c_char_p
     lib.lg_error_string.argtypes = [_I]
     return lib
@@ -275,22 +252,8 @@ def lossgrad_host_lib() -> ctypes.CDLL:
                             "_host", [])
 
 
-@functools.lru_cache(maxsize=None)
-def policy_host_lib() -> ctypes.CDLL:
-    """csrc/policy_net_host.cpp (the policy kernels' tile code) built with g++."""
-    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "policy_net_host.cpp"),
-                                     "libpolicy_net_host", _GXX_CMD)])[0])
-    lib.pn_forward_host.restype = _I
-    lib.pn_forward_host.argtypes = _PN_FWD_ARGS + [_I]  # rows per tile
-    lib.pn_grad_host.restype = _I
-    lib.pn_grad_host.argtypes = _PN_GRAD_ARGS + [_I]  # rows per tile
-    lib.pn_meta_ints.restype = _I
-    lib.pn_meta_ints.argtypes = []
-    return lib
-
-
 def _search_cuda(profile: bool) -> ctypes.CDLL:
-    job = _cuda_jobs()[3]
+    job = _cuda_jobs()[2]
     if profile:
         job = (job[0], "libsearch_profile", job[2] + ["-DGE_PROFILE"])
     lib = _rollout_common(ctypes.CDLL(_compile_all([job])[0]))
@@ -363,7 +326,7 @@ def _chat_decode_common(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _chat_decode_cuda(profile: bool) -> ctypes.CDLL:
-    job = _cuda_jobs()[4]
+    job = _cuda_jobs()[3]
     if profile:
         job = (job[0], "libchat_decode_profile", job[2] + ["-DCD_PROFILE"])
     lib = _chat_decode_common(ctypes.CDLL(_compile_all([job])[0]))

@@ -2,13 +2,19 @@
 rollout on one NVIDIA GPU, through the CUDA rollout kernel.
 
     python -m game_engine_tpu_torch.bench [rooms=4096] [steps=1024] [iters=16]
+    python -m game_engine_tpu_torch.bench --policy [rooms=16384] [steps=128] [iters=4]
 
 Prints one JSON line with the keys of the JAX package's bench.py:
   {"metric": ..., "value": N, "unit": "steps/s", "vs_baseline": N,
    "detail": {"hard_sync_steps_per_s": ..., "episodes_completed": ...,
               "device": ..., ...}}
-vs_baseline is against BASELINE.json's 1,000,000 env-steps/s target. Exits 2
-when no CUDA device is present: the measurement never falls back to the CPU.
+vs_baseline is against BASELINE.json's 1,000,000 env-steps/s target.
+--policy measures the learned-policy self-play loop instead (the twin of
+the root bench.py's policy_rollout_bench): observe, the mlp net's forward,
+legal-masked sampling, the engine step and a reset where done, eager torch
+a step (no kernel: the JAX loop runs these outside any Pallas kernel too).
+Exits 2 when no CUDA device is present: the measurement never falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -42,6 +48,75 @@ def int32_ops_per_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
 
 
+POLICY_SEED = 7  # the sampling generator's seed (jax.random.PRNGKey(7) in the JAX loop)
+
+
+def policy_steps(lowered, params, cfg, state, n_steps: int, generator=None, gumbel=None):
+    """n_steps of the learned-policy self-play loop -> (state, episodes, an
+    int64 scalar tensor): each step observes, runs the net, samples legal
+    actions (argmax of logits + Gumbel noise, jax.random.categorical's
+    draw), keeps the actors' (actor_mask), steps the engine, counts fresh
+    completions (nxt.done & ~st.done) and restarts the rooms that are done.
+    The noise is gumbel[t] at step t when given (JAX's own draws in a
+    test), else drawn from `generator`."""
+    import torch
+
+    from game_engine_tpu_torch.core.step import make_step
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train.ppo import actor_mask, reset_done
+
+    step = make_step(lowered)
+    episodes = torch.zeros((), dtype=torch.int64, device=state.present.device)
+    with torch.no_grad():
+        for t in range(n_steps):
+            a, _, _, _ = N.sample_actions(lowered, params, state, cfg, generator=generator,
+                                          gumbel=None if gumbel is None else gumbel[t])
+            nxt = step(state, torch.where(actor_mask(lowered, state), a, 0))
+            episodes = episodes + (nxt.done & ~state.done).sum()
+            state = reset_done(lowered, nxt)
+    return state, episodes
+
+
+def policy_rollout_bench(batch: int, inner_steps: int, iters: int) -> dict:
+    """The root bench.py's policy_rollout_bench on the card: werewolf, 8
+    seats, seeds arange(batch), NetConfig(hidden=256, layers=2) (the mlp),
+    `iters` timed calls of `inner_steps` steps after one warm-up call."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.policies import net as N
+
+    lowered = lower(compile_game(load_builtin("werewolf")))
+    cfg = N.NetConfig(hidden=256, layers=2)
+    params = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(lowered),
+                           N.action_space(lowered), cfg, lowered, device="cuda")
+    state = init_state(lowered, batch, 8, np.arange(batch, dtype=np.uint32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(POLICY_SEED)
+    state, eps = policy_steps(lowered, params, cfg, state, inner_steps, gen)
+    int(eps)
+    t0 = time.perf_counter()
+    total = 0
+    for _ in range(iters):
+        state, eps = policy_steps(lowered, params, cfg, state, inner_steps, gen)
+        total += int(eps)  # synchronises
+    dt = time.perf_counter() - t0
+    steps = batch * inner_steps * iters
+    return {
+        "metric": "policy_env_steps_per_sec_per_chip_werewolf",
+        "value": steps / dt,
+        "unit": "steps/s",
+        "vs_baseline": steps / dt / 1_000_000,
+        "detail": {"batch_rooms": batch, "inner_steps": inner_steps, "iters": iters,
+                   "wall_s": dt, "episodes_completed": total, "hidden": cfg.hidden,
+                   "arch": cfg.arch, "device": torch.cuda.get_device_name(0),
+                   "gpu": gpu_line()},
+    }
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch
@@ -50,6 +125,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"error": "no CUDA device: this benchmark runs on the GPU only"}),
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--policy"]:
+        argv = argv[1:]
+        print(json.dumps(policy_rollout_bench(int(argv[0]) if len(argv) > 0 else 16384,
+                                              int(argv[1]) if len(argv) > 1 else 128,
+                                              int(argv[2]) if len(argv) > 2 else 4)))
+        return 0
     from game_engine_tpu_torch.gamespec.compile import compile_game
     from game_engine_tpu_torch.gamespec.parser import load_builtin
     from game_engine_tpu_torch.gamespec.tables import lower

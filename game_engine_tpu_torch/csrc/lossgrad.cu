@@ -298,8 +298,8 @@ __global__ void __launch_bounds__(THREADS) wgrad_kernel(lg::Wgrad w) {
     if (bias && tid < WBN) {
       float part = 0.0f;
       for (int m = 0; m < WBM; ++m)
-        part += pn::bf16_bits_to_float(sm.y[st][0][m * YST + tid]) +
-                pn::bf16_bits_to_float(sm.y[st][1][m * YST + tid]);
+        part += lg::bf16_bits_to_float(sm.y[st][0][m * YST + tid]) +
+                lg::bf16_bits_to_float(sm.y[st][1][m * YST + tid]);
       kahan_add(bsum, bcomp, part);
     }
     __syncthreads();
@@ -419,17 +419,17 @@ struct DevBE {
 
 extern "C" {
 
-int lg_meta_ints() { return pn::META_INTS; }
+int lg_meta_ints() { return lg::META_INTS; }
 
 // bytes of the packed-weight buffer of lg_pack
 int64_t lg_weights_bytes(const int32_t* meta) {
-  return lg::layout(pn::net_from_meta(meta), 1, 1, true).w_end;
+  return lg::layout(lg::net_from_meta(meta), 1, 1, true).w_end;
 }
 
 // bytes of the scratch of a call with `chunk` rows per chunk: of lg_forward
 // (fwd_only, nsplit ignored) or of lg_grad / lg_lossgrad
 int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit, int fwd_only) {
-  return lg::layout(pn::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
+  return lg::layout(lg::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
 }
 
 const char* lg_error_string(int code) {
@@ -437,7 +437,7 @@ const char* lg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-static int prepare(const pn::Net& n, int64_t chunk, int nsplit) {
+static int prepare(const lg::Net& n, int64_t chunk, int nsplit) {
   if (!lg::supported(n) || chunk < 1 || nsplit < 1) return ERR_UNSUPPORTED;
   return (int)cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)sizeof(GemmSmem));
@@ -448,7 +448,7 @@ static int prepare(const pn::Net& n, int64_t chunk, int nsplit) {
 // read, valid while the parameters are unchanged. Each entry returns 0 once
 // every stage is launched on `stream`, else the first error.
 int lg_pack(const int32_t* meta, const float* prm, void* weights, void* stream) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   if (!lg::supported(n)) return ERR_UNSUPPORTED;
   DevBE be{(cudaStream_t)stream};
   return lg::pack_weights(be, n, lg::layout(n, 1, 1, true), prm, (char*)weights);
@@ -459,7 +459,7 @@ int lg_pack(const int32_t* meta, const float* prm, void* weights, void* stream) 
 int lg_forward(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* prm,
                const void* weights, void* scratch, int64_t chunk, float* logits, float* value,
                void* stream) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   LG_TRY(prepare(n, chunk, 1));
   DevBE be{(cudaStream_t)stream};
   return lg::run_forward(be, n, lg::layout(n, chunk, 1, true), (const char*)weights,
@@ -472,7 +472,7 @@ int lg_forward(const int32_t* meta, const uint16_t* obs, int64_t nrows, const fl
 int lg_grad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
             const float* prm, const void* weights, void* scratch, int64_t chunk, int nsplit,
             float* out, void* stream) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   LG_TRY(prepare(n, chunk, nsplit));
   DevBE be{(cudaStream_t)stream};
   return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
@@ -485,7 +485,7 @@ int lg_grad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float
 int lg_lossgrad(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
                 float clip_eps, float ent_coef, const float* prm, const void* weights,
                 void* scratch, int64_t chunk, int nsplit, float* out, void* stream) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   LG_TRY(prepare(n, chunk, nsplit));
   DevBE be{(cudaStream_t)stream};
   return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,

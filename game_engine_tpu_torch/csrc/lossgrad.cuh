@@ -43,25 +43,122 @@
 // - The small per-room products of the attention (8 x 8 scores, the mixing
 //   and their backward) have no bf16-rounded operand and stay in f32 on the
 //   CUDA cores, one thread per seat-row.
+// - Any width. The products, the packed weights and the scratch hold the
+//   encoder and trunk widths padded to multiples of 32 (Net::hpp, Hp): a
+//   padded weight row or column, bias and LayerNorm affine is zero, so a
+//   padded activation is zero too. The true widths hp and H stay where
+//   they enter the arithmetic (the LayerNorm's sums and divisors, forward
+//   and backward, and the attention scale 1/sqrt(hp), as in _fwd_body and
+//   _grad_body), bound every read of the flat parameters, and shape every
+//   gradient (Target, Colsum).
 #pragma once
 
-#include "policy_net.cuh"
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+// LG_HD marks functions compiled for both the device (nvcc) and the host
+// harness (g++, csrc/lossgrad_host.cpp).
+#ifdef __CUDACC__
+#define LG_HD __host__ __device__ inline
+#else
+#define LG_HD inline
+#endif
 
 namespace lg {
 
-using pn::Net;
-using pn::bfr;
-using pn::bf16_bits_to_float;
-using pn::gelu;
-using pn::dgelu;
+constexpr int MAX_LAYERS = 32;  // trunk depth: sizes Net::off and Lay::wt, wtt
+constexpr int N_STATS = 4;  // K4's sums: pg*w, 0.5 (v-ret)^2 vrow, ent*w, ratio*w
+
+// parameter slots; the trunk's layer i is W_TRUNK + 2i (weight), + 1 (bias)
+enum { W_PHI0, B_PHI0, W_PHI1, B_PHI1, LN_S, LN_B, W_QKV, W_AO, W_PTR,
+       W_PI, B_PI, W_V, B_V, W_TRUNK };
+constexpr int N_SLOTS = W_TRUNK + 2 * MAX_LAYERS;
+constexpr int META_INTS = 10 + N_SLOTS;
+
+LG_HD int rup(int x, int m) { return (x + m - 1) / m * m; }
+
+// The net's true dims, its storage widths and the float offset of each
+// parameter in the flat parameter buffer (and in the gradient slab, which
+// has the same layout). hp and H are the widths of the arithmetic (the
+// LayerNorm's divisor, the attention scale); every product, packed weight
+// and scratch buffer holds the encoder and trunk columns padded with zeros
+// to hpp = rup(hp, 32) and Hp = rup(H, 32).
+struct Net {
+  int P, F0, NP, hp, H, L, n_opt, A, attn, n_params;
+  int hpp, Hp;
+  int off[N_SLOTS];
+  LG_HD int G() const { return P + NP + 1; }
+  LG_HD int F() const { return P * F0 + G(); }
+  LG_HD int T() const { return 2 * hp + NP + 1; }   // trunk input width
+};
+
+// meta = [P, F0, NP, hp, H, L, n_opt, A, attn, n_params, off[0..N_SLOTS)]
+LG_HD Net net_from_meta(const int32_t* m) {
+  Net n;
+  n.P = m[0]; n.F0 = m[1]; n.NP = m[2]; n.hp = m[3]; n.H = m[4]; n.L = m[5];
+  n.n_opt = m[6]; n.A = m[7]; n.attn = m[8]; n.n_params = m[9];
+  n.hpp = rup(n.hp, 32);
+  n.Hp = rup(n.H, 32);
+  for (int i = 0; i < N_SLOTS; ++i) n.off[i] = m[10 + i];
+  return n;
+}
+
+// round to the nearest bf16 (ties to even), returned as f32
+LG_HD float bfr(float x) {
+  uint32_t u;
+#ifdef __CUDA_ARCH__
+  u = __float_as_uint(x);
+#else
+  memcpy(&u, &x, 4);
+#endif
+  if ((u & 0x7fffffffu) > 0x7f800000u) {
+    u |= 0x00400000u;  // NaN stays a (quiet) NaN
+  } else {
+    u += 0x7fffu + ((u >> 16) & 1u);
+  }
+  u &= 0xffff0000u;
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float y;
+  memcpy(&y, &u, 4);
+  return y;
+#endif
+}
+
+LG_HD float bf16_bits_to_float(uint16_t b) {
+  const uint32_t u = (uint32_t)b << 16;
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float y;
+  memcpy(&y, &u, 4);
+  return y;
+#endif
+}
+
+// tanh gelu and its derivative, fused.py:53-63
+constexpr float SQRT2OPI = 0.7978845608028654f;
+constexpr float GELU_C = 0.044715f;
+
+LG_HD float gelu(float x) {
+  const float u = SQRT2OPI * (x + GELU_C * x * x * x);
+  return 0.5f * x * (1.0f + tanhf(u));
+}
+
+LG_HD float dgelu(float x) {
+  const float u = SQRT2OPI * (x + GELU_C * x * x * x);
+  const float t = tanhf(u);
+  const float du = SQRT2OPI * (1.0f + 3.0f * GELU_C * x * x);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+}
 
 constexpr int MAX_A = 64;   // action width the loss stage holds in registers
 constexpr int MAX_P = 32;   // seats the attention stages hold in registers
 constexpr int BK = 32;      // K of every product is padded to this multiple
 
-PN_HD int rup(int x, int m) { return (x + m - 1) / m * m; }
-
-PN_HD uint16_t bf16_bits(float x) {
+LG_HD uint16_t bf16_bits(float x) {
   const float y = bfr(x);
   uint32_t u;
 #ifdef __CUDA_ARCH__
@@ -74,7 +171,7 @@ PN_HD uint16_t bf16_bits(float x) {
 
 // v = p[0..4): one 16-byte load on the device (p 16-byte aligned, as every
 // row of the scratch buffers is), four loads on the host
-PN_HD void ld4(const float* p, float v[4]) {
+LG_HD void ld4(const float* p, float v[4]) {
 #ifdef __CUDA_ARCH__
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
@@ -87,7 +184,7 @@ PN_HD void ld4(const float* p, float v[4]) {
 }
 
 // sum_k a[k] b[k] over k < n (n a multiple of 4), added in k order
-PN_HD float dot4(const float* a, const float* b, int n) {
+LG_HD float dot4(const float* a, const float* b, int n) {
   float d = 0.0f;
   for (int k = 0; k < n; k += 4) {
     float x[4], y[4];
@@ -99,7 +196,7 @@ PN_HD float dot4(const float* a, const float* b, int n) {
 }
 
 // x as hi + lo, two bf16 values (hi = bf16(x), lo = bf16(x - hi))
-PN_HD void split_store(float x, uint16_t* hi, uint16_t* lo, int64_t i) {
+LG_HD void split_store(float x, uint16_t* hi, uint16_t* lo, int64_t i) {
   const uint16_t h = bf16_bits(x);
   hi[i] = h;
   lo[i] = bf16_bits(x - bf16_bits_to_float(h));
@@ -118,7 +215,7 @@ struct Lay {
   int F0p, Tp, Nh, ng;    // padded widths; gradient floats (params + stats)
   // packed weights: forward (K x N) and transposed (N x K), bf16
   int64_t w0, w1, w1t, wqkv, wqkvt, wao, waot, wh, wht;
-  int64_t wt[pn::MAX_LAYERS], wtt[pn::MAX_LAYERS];
+  int64_t wt[MAX_LAYERS], wtt[MAX_LAYERS];
   int64_t w_end;          // bytes of the weight buffer
   int64_t slabs;          // nsplit x ng f32
   // chunk buffers
@@ -128,15 +225,15 @@ struct Lay {
   int64_t total;          // bytes of the scratch
 };
 
-PN_HD int64_t take(int64_t& at, int64_t bytes) {
+LG_HD int64_t take(int64_t& at, int64_t bytes) {
   const int64_t o = at;
   at += (bytes + 255) / 256 * 256;
   return o;
 }
 
-PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
+LG_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   Lay g;
-  const int hp = n.hp, H = n.H, P = n.P;
+  const int hp = n.hpp, H = n.Hp, P = n.P;  // storage widths
   const int64_t R = chunk, S = (int64_t)P * chunk;
   const int64_t a = n.attn ? 1 : 0;
   const int64_t b = fwd_only ? 0 : 1;  // buffers of the backward
@@ -146,7 +243,7 @@ PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   g.F0p = rup(n.F0, BK);
   g.Tp = rup(n.T(), BK);
   g.Nh = rup(hp + n.n_opt + 1, BK);
-  g.ng = n.n_params + pn::N_STATS;
+  g.ng = n.n_params + N_STATS;
   int64_t at = 0;
   g.w0 = take(at, B2 * g.F0p * hp);
   g.w1 = take(at, B2 * hp * hp);
@@ -157,7 +254,7 @@ PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   g.waot = take(at, a * B2 * hp * hp);
   g.wh = take(at, B2 * H * g.Nh);
   g.wht = take(at, B2 * H * g.Nh);
-  for (int i = 0; i < pn::MAX_LAYERS; ++i) {
+  for (int i = 0; i < MAX_LAYERS; ++i) {
     const int64_t kin = i == 0 ? g.Tp : H;
     const int64_t on = i < n.L ? 1 : 0;
     g.wt[i] = take(at, on * B2 * kin * H);
@@ -188,7 +285,7 @@ PN_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   g.heads = take(at, F4 * R * g.Nh);
   g.dHh = take(at, b * B2 * R * g.Nh);
   g.dHl = take(at, b * B2 * R * g.Nh);
-  g.stats = take(at, b * F4 * R * pn::N_STATS);
+  g.stats = take(at, b * F4 * R * N_STATS);
   g.dphi = take(at, b * F4 * S * hp);
   g.dphh = take(at, b * a * B2 * S * hp);
   g.dphl = take(at, b * a * B2 * S * hp);
@@ -248,7 +345,8 @@ enum EpiMode {
 
 struct Epi {
   int mode, ld;
-  const float* bias;
+  const float* bias;  // nb floats: the product's true columns
+  int nb;
   const float* aux;
   float* zf;
   float* actf;
@@ -259,12 +357,12 @@ struct Epi {
 
 // 8 consecutive floats at p (16-byte aligned): two 16-byte accesses on the
 // device, eight on the host
-PN_HD void ld8(const float* p, float v[8]) {
+LG_HD void ld8(const float* p, float v[8]) {
   ld4(p, v);
   ld4(p + 4, v + 4);
 }
 
-PN_HD void st8(float* p, const float v[8]) {
+LG_HD void st8(float* p, const float v[8]) {
 #ifdef __CUDA_ARCH__
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
@@ -273,7 +371,7 @@ PN_HD void st8(float* p, const float v[8]) {
 #endif
 }
 
-PN_HD void st8_bf16(uint16_t* p, const uint16_t h[8]) {
+LG_HD void st8_bf16(uint16_t* p, const uint16_t h[8]) {
 #ifdef __CUDA_ARCH__
   uint4 u;
   u.x = h[0] | ((unsigned)h[1] << 16);
@@ -288,11 +386,11 @@ PN_HD void st8_bf16(uint16_t* p, const uint16_t h[8]) {
 
 // the epilogue of C[row][col + j] = v[j], j < 8 (N and every leading
 // dimension are multiples of 8, so the 8 columns are in or out together)
-PN_HD void epi_apply8(const Epi& e, int64_t row, int col, float v[8]) {
+LG_HD void epi_apply8(const Epi& e, int64_t row, int col, float v[8]) {
   const int64_t i = row * e.ld + col;
   uint16_t h[8], l[8];
   if (e.mode == E_ACT) {
-    for (int j = 0; j < 8; ++j) v[j] += e.bias ? e.bias[col + j] : 0.0f;
+    for (int j = 0; j < 8; ++j) v[j] += e.bias && col + j < e.nb ? e.bias[col + j] : 0.0f;
     if (e.zf) st8(e.zf + i, v);
     float a[8];
     for (int j = 0; j < 8; ++j) a[j] = gelu(v[j]);
@@ -357,7 +455,7 @@ struct Wgrad {
 };
 
 // rows [r0, r1) of split s of M rows: whole multiples of BK per split
-PN_HD void split_rows(int64_t M, int nsplit, int s, int64_t* r0, int64_t* r1) {
+LG_HD void split_rows(int64_t M, int nsplit, int s, int64_t* r0, int64_t* r1) {
   int64_t per = (M + nsplit - 1) / nsplit;
   per = (per + BK - 1) / BK * BK;
   *r0 = s * per < M ? s * per : M;
@@ -365,14 +463,14 @@ PN_HD void split_rows(int64_t M, int nsplit, int s, int64_t* r0, int64_t* r1) {
 }
 
 // the slab index of product element (k, c), or -1
-PN_HD int target_index(const Target& t, int k, int c) {
+LG_HD int target_index(const Target& t, int k, int c) {
   if (k >= t.Kr) return -1;
   for (int s = 0; s < t.nseg; ++s)
     if (c >= t.c0[s] && c < t.c1[s]) return t.w_off[s] + k * t.w_ld[s] + (c - t.c0[s]);
   return -1;
 }
 
-PN_HD int target_bias(const Target& t, int c) {
+LG_HD int target_bias(const Target& t, int c) {
   for (int s = 0; s < t.nseg; ++s)
     if (c >= t.c0[s] && c < t.c1[s]) return t.b_off[s] < 0 ? -1 : t.b_off[s] + (c - t.c0[s]);
   return -1;
@@ -394,17 +492,17 @@ struct Colsum {
 // per-item stages (one call per row r or seat-row s of the chunk)
 // ---------------------------------------------------------------------------
 
-// a weight matrix (K x N f32 at prm + src) into its bf16 forward (dst,
-// row stride ldd, from column col0) and transposed (dstT, row stride ldt,
-// from row col0) packings; item = one element
+// a weight matrix (K x N f32 at prm + src, row stride lds) into its bf16
+// forward (dst, row stride ldd, from column col0) and transposed (dstT, row
+// stride ldt, from row col0) packings; item = one element
 struct PackW {
   const float* prm;
-  int src, K, N, col0, ldd, ldt;
+  int src, lds, K, N, col0, ldd, ldt;
   uint16_t* dst;
   uint16_t* dstT;
-  PN_HD void operator()(int64_t i) const {
+  LG_HD void operator()(int64_t i) const {
     const int k = (int)(i / N), c = (int)(i % N);
-    const uint16_t v = bf16_bits(prm[src + i]);
+    const uint16_t v = bf16_bits(prm[src + (int64_t)k * lds + c]);
     dst[(int64_t)k * ldd + col0 + c] = v;
     if (dstT) dstT[(int64_t)(col0 + c) * ldt + k] = v;
   }
@@ -416,7 +514,7 @@ struct Prep {
   const uint16_t* obs;
   uint16_t* x0;
   int F0p;
-  PN_HD void operator()(int64_t s) const {
+  LG_HD void operator()(int64_t s) const {
     const int64_t r = s / n.P;
     const int i = (int)(s % n.P);
     const uint16_t* src = obs + r * n.F() + i * n.F0;
@@ -431,18 +529,20 @@ struct LnStats {
   const float* e;
   float* mu;
   float* inv;
-  PN_HD void operator()(int64_t s) const {
-    const int hp = n.hp;
-    const float* es = e + s * hp;
+  LG_HD void operator()(int64_t s) const {
+    const int hp = n.hp;  // the true width: a padded column would add m^2 to var
+    const float* es = e + s * n.hpp;
     float m = 0.0f;
-    for (int k = 0; k < hp; k += 4) {
+    int k = 0;
+    for (; k + 4 <= hp; k += 4) {
       float x[4];
       ld4(es + k, x);
       for (int j = 0; j < 4; ++j) m += bfr(x[j]);
     }
+    for (; k < hp; ++k) m += bfr(es[k]);
     m /= hp;
     float var = 0.0f;
-    for (int k = 0; k < hp; k += 4) {
+    for (k = 0; k + 4 <= hp; k += 4) {
       float x[4];
       ld4(es + k, x);
       for (int j = 0; j < 4; ++j) {
@@ -450,14 +550,18 @@ struct LnStats {
         var += d * d;
       }
     }
+    for (; k < hp; ++k) {
+      const float d = bfr(es[k]) - m;
+      var += d * d;
+    }
     var /= hp;
     mu[s] = m;
     inv[s] = 1.0f / sqrtf(var + 1e-5f);
   }
 };
 
-// second half, item = one element (s, k): hn (if set: only the backward
-// reads it) and hb = bf16(hn ln_s + ln_b)
+// second half, item = one element (s, k) of the padded width: hn (if set:
+// only the backward reads it) and hb = bf16(hn ln_s + ln_b), zero past hp
 struct LnApply {
   Net n;
   const float* prm;
@@ -466,12 +570,13 @@ struct LnApply {
   const float* inv;
   float* hn;
   uint16_t* hb;
-  PN_HD void operator()(int64_t i) const {
-    const int64_t s = i / n.hp;
-    const int k = (int)(i % n.hp);
-    const float h = (bfr(e[i]) - mu[s]) * inv[s];
+  LG_HD void operator()(int64_t i) const {
+    const int64_t s = i / n.hpp;
+    const int k = (int)(i % n.hpp);
+    const bool in = k < n.hp;
+    const float h = in ? (bfr(e[i]) - mu[s]) * inv[s] : 0.0f;
     if (hn) hn[i] = h;
-    hb[i] = bf16_bits(h * prm[n.off[pn::LN_S] + k] + prm[n.off[pn::LN_B] + k]);
+    hb[i] = in ? bf16_bits(h * prm[n.off[LN_S] + k] + prm[n.off[LN_B] + k]) : (uint16_t)0;
   }
 };
 
@@ -481,10 +586,10 @@ struct AttnScore {
   Net n;
   const float* qkv;
   float* att;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp, W = 3 * hp;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp, W = 3 * hp;  // padded columns are zero
     const int64_t s = it / P, j = s / P * P + it % P;
-    att[it] = dot4(qkv + s * W, qkv + j * W + hp, hp) * (1.0f / sqrtf((float)hp));
+    att[it] = dot4(qkv + s * W, qkv + j * W + hp, hp) * (1.0f / sqrtf((float)n.hp));
   }
 };
 
@@ -492,7 +597,7 @@ struct AttnScore {
 struct AttnSoftmax {
   Net n;
   float* att;
-  PN_HD void operator()(int64_t s) const {
+  LG_HD void operator()(int64_t s) const {
     float* a = att + s * n.P;
     float m = a[0];
     for (int j = 1; j < n.P; ++j) m = a[j] > m ? a[j] : m;
@@ -512,8 +617,8 @@ struct AttnMix {
   const float* qkv;
   const float* att;
   uint16_t* ob;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp, W = 3 * hp;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp, W = 3 * hp;
     const int64_t r0 = it / hp * P;
     const int k = (int)(it % hp);
     float w[MAX_P];
@@ -526,7 +631,7 @@ struct AttnMix {
   }
 };
 
-PN_HD float obs_at(const uint16_t* obs, const Net& n, int64_t r, int f) {
+LG_HD float obs_at(const uint16_t* obs, const Net& n, int64_t r, int f) {
   return bf16_bits_to_float(obs[r * n.F() + f]);
 }
 
@@ -538,18 +643,18 @@ struct Pool {
   const uint16_t* phib;
   uint16_t* tb;
   int Tp;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp, T = n.T(), base = P * n.F0;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hp, ld = n.hpp, T = n.T(), base = P * n.F0;
     const int64_t r = it / Tp;
     const int col = (int)(it % Tp);
-    const uint16_t* ph = phib + r * P * hp;
+    const uint16_t* ph = phib + r * P * ld;
     float v = 0.0f;
     if (col < hp) {
-      for (int i = 0; i < P; ++i) v += bf16_bits_to_float(ph[i * hp + col]);
+      for (int i = 0; i < P; ++i) v += bf16_bits_to_float(ph[i * ld + col]);
       v = v * (1.0f / P);
     } else if (col < 2 * hp) {
       for (int i = 0; i < P; ++i)
-        v += obs_at(obs, n, r, base + i) * bf16_bits_to_float(ph[i * hp + col - hp]);
+        v += obs_at(obs, n, r, base + i) * bf16_bits_to_float(ph[i * ld + col - hp]);
     } else if (col < T) {
       v = obs_at(obs, n, r, base + P + col - 2 * hp);
     }
@@ -558,14 +663,15 @@ struct Pool {
 };
 
 // The outputs of a row from its head products hd = [xb W_ptr | xb W_pi |
-// xb W_v] (biases not yet added) and its seats' phi (P x hp, bf16):
+// xb W_v] (biases not yet added; W_ptr's hpp columns, zero past hp) and its
+// seats' phi (P x hpp, bf16):
 // logit a = opt_a + b_pi[a] (a < n_opt) + the pointer score of seat a
 // (a < P), sum_k bf16(phi_a[k] g[k]) with g = bf16(xb W_ptr), added in k
 // order; value = v + b_v. K2's output stage and K4's loss both call these.
-PN_HD float head_logit(const Net& n, const float* prm, const float* hd, const uint16_t* ph,
+LG_HD float head_logit(const Net& n, const float* prm, const float* hd, const uint16_t* ph,
                        int a) {
-  const int hp = n.hp;
-  float v = a < n.n_opt ? hd[hp + a] + prm[n.off[pn::B_PI] + a] : 0.0f;
+  const int hp = n.hpp;
+  float v = a < n.n_opt ? hd[hp + a] + prm[n.off[B_PI] + a] : 0.0f;
   if (a < n.P) {
     float d = 0.0f;
     for (int k = 0; k < hp; k += 4) {
@@ -579,16 +685,16 @@ PN_HD float head_logit(const Net& n, const float* prm, const float* hd, const ui
   return v;
 }
 
-PN_HD float head_value(const Net& n, const float* prm, const float* hd) {
-  return hd[n.hp + n.n_opt] + prm[n.off[pn::B_V]];
+LG_HD float head_value(const Net& n, const float* prm, const float* hd) {
+  return hd[n.hpp + n.n_opt] + prm[n.off[B_V]];
 }
 
 // the head cotangent dH = [dg | d_opt | dv | 0] of row r past the pointer
 // head, as hi/lo: d_opt = the logits' cotangent dl, dv the value's.
 // LossHead does the pointer head's columns.
-PN_HD void head_cot(const Net& n, int Nh, const float* dl, float dv, uint16_t* dHh,
+LG_HD void head_cot(const Net& n, int Nh, const float* dl, float dv, uint16_t* dHh,
                     uint16_t* dHl, int64_t r) {
-  const int hp = n.hp, no = n.n_opt;
+  const int hp = n.hpp, no = n.n_opt;
   const int64_t h0 = r * Nh;
   for (int a = 0; a < no; ++a) split_store(dl[a], dHh, dHl, h0 + hp + a);
   split_store(dv, dHh, dHl, h0 + hp + no);
@@ -608,11 +714,11 @@ struct HeadOut {
   int Nh;
   float* logits;  // the chunk's first row
   float* value;
-  PN_HD void operator()(int64_t it) const {
+  LG_HD void operator()(int64_t it) const {
     const int64_t r = it / n.A;
     const int a = (int)(it % n.A);
     const float* hd = heads + r * Nh;
-    logits[it] = head_logit(n, prm, hd, phib + r * n.P * n.hp, a);
+    logits[it] = head_logit(n, prm, hd, phib + r * n.P * n.hpp, a);
     if (a == 0) value[r] = head_value(n, prm, hd);
   }
 };
@@ -626,7 +732,7 @@ struct GradIn {
   float* dlo;  // (rows, A)
   uint16_t* dHh;
   uint16_t* dHl;
-  PN_HD void operator()(int64_t r) const {
+  LG_HD void operator()(int64_t r) const {
     const int A = n.A;
     const float* in = rowin + r * (A + 1);
     float* dl = dlo + r * A;
@@ -652,10 +758,10 @@ struct Loss {
   float* dlo;  // (rows, A)
   uint16_t* dHh;
   uint16_t* dHl;
-  PN_HD void operator()(int64_t r) const {
+  LG_HD void operator()(int64_t r) const {
     const int A = n.A, RD = 2 * A + 5;
     const float* hd = heads + r * Nh;
-    const uint16_t* ph = phib + r * n.P * n.hp;
+    const uint16_t* ph = phib + r * n.P * n.hpp;
     const float* in = rowin + r * RD;
     const float* legal = in;
     const float* aoh = in + A;
@@ -695,7 +801,7 @@ struct Loss {
       dl[a] = wrow * (dpg * (aoh[a] - p) + ent_coef * p * (lp + ent)) * legal[a];
     }
     const float dvv = value - ret;
-    float* st = stats + r * pn::N_STATS;
+    float* st = stats + r * N_STATS;
     st[0] = pg * wrow;
     st[1] = 0.5f * dvv * dvv * vrow;
     st[2] = ent * wrow;
@@ -715,8 +821,8 @@ struct LossHead {
   uint16_t* dHh;
   uint16_t* dHl;
   float* dphi;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp;
     const int64_t r = it / hp;
     const int k = (int)(it % hp);
     const float g = bfr(heads[r * Nh + k]);
@@ -743,13 +849,14 @@ struct PoolBwd {
   uint16_t* hi;
   uint16_t* lo;
   const float* z1;  // deepsets only
-  PN_HD void operator()(int64_t at) const {
-    const int P = n.P, hp = n.hp;
+  LG_HD void operator()(int64_t at) const {
+    const int P = n.P, hp = n.hpp;
     const int64_t s = at / hp, r = s / P;
     const int i = (int)(s % P), k = (int)(at % hp);
     const float view = obs_at(obs, n, r, P * n.F0 + i);
     const float* d = dt + r * Tp;
-    const float v = dphi[at] + d[k] * (1.0f / P) + view * d[hp + k];
+    // past the true width dt holds the next segment: the padded columns stay 0
+    const float v = k < n.hp ? dphi[at] + d[k] * (1.0f / P) + view * d[n.hp + k] : 0.0f;
     if (n.attn) {
       dphi[at] = v;
       split_store(v, hi, lo, at);
@@ -765,8 +872,8 @@ struct AttnDA {
   const float* qkv;
   const float* d_o;
   float* dS;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp;
     const int64_t s = it / P, m = s / P * P + it % P;
     dS[it] = dot4(d_o + s * hp, qkv + m * 3 * hp + 2 * hp, hp);
   }
@@ -777,7 +884,7 @@ struct AttnSoftmaxBwd {
   Net n;
   const float* att;
   float* dS;
-  PN_HD void operator()(int64_t s) const {
+  LG_HD void operator()(int64_t s) const {
     const float* a = att + s * n.P;
     float* d = dS + s * n.P;
     float inner = 0.0f;
@@ -797,11 +904,11 @@ struct AttnBwd2 {
   const float* dS;
   uint16_t* hi;
   uint16_t* lo;
-  PN_HD void operator()(int64_t it) const {
-    const int P = n.P, hp = n.hp, W = 3 * hp;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp, W = 3 * hp;
     const int64_t r0 = it / hp * P;
     const int k = (int)(it % hp);
-    const float scale = 1.0f / sqrtf((float)hp);
+    const float scale = 1.0f / sqrtf((float)n.hp);
     float q[MAX_P], kk[MAX_P], dd[MAX_P];
     for (int m = 0; m < P; ++m) {
       q[m] = qkv[(r0 + m) * W + k];
@@ -832,19 +939,27 @@ struct LnBwdStats {
   const float* dh;
   const float* hn;
   float* m12;
-  PN_HD void operator()(int64_t s) const {
-    const int hp = n.hp;
-    const float* ln_s = prm + n.off[pn::LN_S];
+  LG_HD void operator()(int64_t s) const {
+    const int hp = n.hp;  // the true width, as in LnStats
+    const float* ln_s = prm + n.off[LN_S];
+    const float* ds = dh + s * n.hpp;
+    const float* hs = hn + s * n.hpp;
     float m1 = 0.0f, m2 = 0.0f;
-    for (int k = 0; k < hp; k += 4) {
+    int k = 0;
+    for (; k + 4 <= hp; k += 4) {
       float x[4], h[4];
-      ld4(dh + s * hp + k, x);
-      ld4(hn + s * hp + k, h);
+      ld4(ds + k, x);
+      ld4(hs + k, h);
       for (int j = 0; j < 4; ++j) {
         const float dhn = x[j] * ln_s[k + j];
         m1 += dhn;
         m2 += dhn * h[j];
       }
+    }
+    for (; k < hp; ++k) {
+      const float dhn = ds[k] * ln_s[k];
+      m1 += dhn;
+      m2 += dhn * hs[k];
     }
     m12[2 * s] = m1 / hp;
     m12[2 * s + 1] = m2 / hp;
@@ -864,10 +979,14 @@ struct LnBwdApply {
   const float* z1;
   uint16_t* hi;
   uint16_t* lo;
-  PN_HD void operator()(int64_t at) const {
-    const int64_t s = at / n.hp;
-    const int k = (int)(at % n.hp);
-    const float dhn = dh[at] * prm[n.off[pn::LN_S] + k];
+  LG_HD void operator()(int64_t at) const {
+    const int64_t s = at / n.hpp;
+    const int k = (int)(at % n.hpp);
+    if (k >= n.hp) {  // a padded column: its cotangent is 0, not -inv m1
+      split_store(0.0f, hi, lo, at);
+      return;
+    }
+    const float dhn = dh[at] * prm[n.off[LN_S] + k];
     const float de = dphi[at] + inv[s] * (dhn - m12[2 * s] - hn[at] * m12[2 * s + 1]);
     split_store(de * dgelu(z1[at]), hi, lo, at);
   }
@@ -880,17 +999,17 @@ struct LnBwdApply {
 // out) sums the slabs in split order. Each returns 0 or an error code.
 // ---------------------------------------------------------------------------
 
-inline Epi epi_act(int ld, const float* bias, float* zf, float* actf, uint16_t* actb) {
-  return Epi{E_ACT, ld, bias, nullptr, zf, actf, actb, nullptr, nullptr};
+inline Epi epi_act(int ld, const float* bias, int nb, float* zf, float* actf, uint16_t* actb) {
+  return Epi{E_ACT, ld, bias, nb, nullptr, zf, actf, actb, nullptr, nullptr};
 }
 inline Epi epi_f32(int ld, float* out) {
-  return Epi{E_F32, ld, nullptr, nullptr, out, nullptr, nullptr, nullptr, nullptr};
+  return Epi{E_F32, ld, nullptr, 0, nullptr, out, nullptr, nullptr, nullptr, nullptr};
 }
 inline Epi epi_phi(int ld, const float* e, uint16_t* phib) {
-  return Epi{E_PHI, ld, nullptr, e, nullptr, nullptr, phib, nullptr, nullptr};
+  return Epi{E_PHI, ld, nullptr, 0, e, nullptr, nullptr, phib, nullptr, nullptr};
 }
 inline Epi epi_dgelu(int ld, const float* z, uint16_t* hi, uint16_t* lo) {
-  return Epi{E_DGELU, ld, nullptr, z, nullptr, nullptr, nullptr, hi, lo};
+  return Epi{E_DGELU, ld, nullptr, 0, z, nullptr, nullptr, nullptr, hi, lo};
 }
 
 // a forward product (one bf16 A) and a backward one (A = hi, lo)
@@ -922,49 +1041,57 @@ inline Target whole(int Kr, int N, int w_off, int b_off) {
     if (e_ != 0) return e_;   \
   } while (0)
 
-// the packed weights: bf16, forward and transposed, zero-padded, into the
-// weight buffer at wbase (g.w_end bytes). Valid until a parameter changes.
+// the packed weights: bf16, forward and transposed, into the weight buffer
+// at wbase (g.w_end bytes), every row and column past the true widths zero
+// (W_qkv's q, k and w blocks each padded to hpp columns). Valid until a
+// parameter changes.
 template <class BE>
 int pack_weights(BE& be, const Net& n, const Lay& g, const float* prm, char* wbase) {
-  const int hp = n.hp, H = n.H, T = n.T(), no = n.n_opt, Nh = g.Nh;
+  const int hp = n.hp, H = n.H, T = n.T(), no = n.n_opt, Nh = g.Nh;  // true widths
+  const int hq = n.hpp, Hq = n.Hp;  // storage widths
   const int* off = n.off;
   auto W = [&](int64_t o) { return (uint16_t*)(wbase + o); };
   LG_TRY(be.memset(wbase, g.w_end));
-  auto pack = [&](int slot, int K, int N, int col0, uint16_t* dst, int ldd, uint16_t* dstT,
-                  int ldt) {
-    return be.each(PackW{prm, off[slot], K, N, col0, ldd, ldt, dst, dstT}, (int64_t)K * N);
+  // the K x N block at off[slot] + src0 (source row stride lds)
+  auto pack = [&](int slot, int src0, int lds, int K, int N, int col0, uint16_t* dst, int ldd,
+                  uint16_t* dstT, int ldt) {
+    return be.each(PackW{prm, off[slot] + src0, lds, K, N, col0, ldd, ldt, dst, dstT},
+                   (int64_t)K * N);
   };
-  LG_TRY(pack(pn::W_PHI0, n.F0, hp, 0, W(g.w0), hp, nullptr, 0));
-  LG_TRY(pack(pn::W_PHI1, hp, hp, 0, W(g.w1), hp, W(g.w1t), hp));
+  LG_TRY(pack(W_PHI0, 0, hp, n.F0, hp, 0, W(g.w0), hq, nullptr, 0));
+  LG_TRY(pack(W_PHI1, 0, hp, hp, hp, 0, W(g.w1), hq, W(g.w1t), hq));
   if (n.attn) {
-    LG_TRY(pack(pn::W_QKV, hp, 3 * hp, 0, W(g.wqkv), 3 * hp, W(g.wqkvt), hp));
-    LG_TRY(pack(pn::W_AO, hp, hp, 0, W(g.wao), hp, W(g.waot), hp));
+    for (int j = 0; j < 3; ++j)
+      LG_TRY(pack(W_QKV, j * hp, 3 * hp, hp, hp, j * hq, W(g.wqkv), 3 * hq, W(g.wqkvt), hq));
+    LG_TRY(pack(W_AO, 0, hp, hp, hp, 0, W(g.wao), hq, W(g.waot), hq));
   }
   for (int i = 0; i < n.L; ++i)
-    LG_TRY(pack(pn::W_TRUNK + 2 * i, i ? H : T, H, 0, W(g.wt[i]), H, W(g.wtt[i]),
-                i ? H : g.Tp));
-  LG_TRY(pack(pn::W_PTR, H, hp, 0, W(g.wh), Nh, W(g.wht), H));
-  LG_TRY(pack(pn::W_PI, H, no, hp, W(g.wh), Nh, W(g.wht), H));
-  return pack(pn::W_V, H, 1, hp + no, W(g.wh), Nh, W(g.wht), H);
+    LG_TRY(pack(W_TRUNK + 2 * i, 0, H, i ? H : T, H, 0, W(g.wt[i]), Hq, W(g.wtt[i]),
+                i ? Hq : g.Tp));
+  LG_TRY(pack(W_PTR, 0, hp, H, hp, 0, W(g.wh), Nh, W(g.wht), Hq));
+  LG_TRY(pack(W_PI, 0, no, H, no, hq, W(g.wh), Nh, W(g.wht), Hq));
+  return pack(W_V, 0, 1, H, 1, hq + no, W(g.wh), Nh, W(g.wht), Hq);
 }
 
 // the forward of R rows (obs oc) into the chunk's buffers: seat encoder,
 // attention, pool, trunk, heads. keep: also what only the backward reads
-// (the pre-activations z0, z1, zt and the LayerNorm's hn).
+// (the pre-activations z0, z1, zt and the LayerNorm's hn). Every product
+// runs at the storage widths; a padded column has zero weights and bias,
+// so it stays 0 through gelu (gelu(0) = 0) and adds nothing downstream.
 template <class BE>
 int forward_chunk(BE& be, const Net& n, const Lay& g, const Bufs& b, const char* wbase,
                   const uint16_t* oc, int64_t R, const float* prm, bool keep) {
-  const int P = n.P, hp = n.hp, H = n.H, L = n.L, Tp = g.Tp, Nh = g.Nh;
+  const int P = n.P, hp = n.hpp, H = n.Hp, L = n.L, Tp = g.Tp, Nh = g.Nh;  // storage widths
   const int* off = n.off;
   const int64_t S = R * P;
   auto W = [&](int64_t o) { return (const uint16_t*)(wbase + o); };
   auto xb = [&](int i) { return b.xb + (int64_t)i * g.chunk * H; };
   LG_TRY(be.each(Prep{n, oc, b.x0, g.F0p}, S));
   LG_TRY(be.gemm(fwd_gemm(b.x0, g.F0p, W(g.w0), hp, S, hp, g.F0p,
-                          epi_act(hp, prm + off[pn::B_PHI0], keep ? b.z0 : nullptr, nullptr,
+                          epi_act(hp, prm + off[B_PHI0], n.hp, keep ? b.z0 : nullptr, nullptr,
                                   b.p0))));
   LG_TRY(be.gemm(fwd_gemm(b.p0, hp, W(g.w1), hp, S, hp, hp,
-                          epi_act(hp, prm + off[pn::B_PHI1], keep ? b.z1 : nullptr,
+                          epi_act(hp, prm + off[B_PHI1], n.hp, keep ? b.z1 : nullptr,
                                   n.attn ? b.e : nullptr, n.attn ? nullptr : b.phib))));
   if (n.attn) {
     LG_TRY(be.each(LnStats{n, b.e, b.mu, b.inv}, S));
@@ -981,7 +1108,7 @@ int forward_chunk(BE& be, const Net& n, const Lay& g, const Bufs& b, const char*
     const int kin = i ? H : Tp;
     float* zt = keep ? b.zt + (int64_t)i * g.chunk * H : nullptr;
     LG_TRY(be.gemm(fwd_gemm(i ? xb(i - 1) : b.tb, kin, W(g.wt[i]), H, R, H, kin,
-                            epi_act(H, prm + off[pn::W_TRUNK + 2 * i + 1], zt, nullptr,
+                            epi_act(H, prm + off[W_TRUNK + 2 * i + 1], n.H, zt, nullptr,
                                     xb(i)))));
   }
   return be.gemm(fwd_gemm(xb(L - 1), H, W(g.wh), Nh, R, Nh, H, epi_f32(Nh, b.heads)));
@@ -1011,26 +1138,37 @@ template <class BE>
 int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
              const uint16_t* obs, int64_t nrows, const float* rowin, bool ppo, float clip_eps,
              float ent_coef, const float* prm, float* out) {
-  const int P = n.P, hp = n.hp, H = n.H, L = n.L, T = n.T(), no = n.n_opt;
+  // storage widths; the gradients land in the true shapes (the Targets)
+  const int P = n.P, hp = n.hpp, H = n.Hp, L = n.L, T = n.T(), no = n.n_opt;
   const int Tp = g.Tp, Nh = g.Nh, RD = ppo ? 2 * n.A + 5 : n.A + 1;
   const int* off = n.off;
   auto W = [&](int64_t o) { return (const uint16_t*)(wbase + o); };
   float* slabs = (float*)(base + g.slabs);
   LG_TRY(be.memset(slabs, (int64_t)sizeof(float) * g.nsplit * g.ng));
 
+  // the head product's columns [W_ptr (hp of hpp) | W_pi | W_v]
   Target head{};
-  head.Kr = H;
+  head.Kr = n.H;
   head.nseg = 3;
-  const int hc[4] = {0, hp, hp + no, hp + no + 1};
-  const int hw[3] = {off[pn::W_PTR], off[pn::W_PI], off[pn::W_V]};
-  const int hl[3] = {hp, no, 1};
-  const int hb_[3] = {-1, off[pn::B_PI], off[pn::B_V]};
+  const int hc0[3] = {0, hp, hp + no}, hc1[3] = {n.hp, hp + no, hp + no + 1};
+  const int hw[3] = {off[W_PTR], off[W_PI], off[W_V]};
+  const int hl[3] = {n.hp, no, 1};
+  const int hb_[3] = {-1, off[B_PI], off[B_V]};
+  // W_qkv's q, k and w blocks, each hp of hpp columns
+  Target qkv{};
+  qkv.Kr = n.hp;
+  qkv.nseg = 3;
   for (int s = 0; s < 3; ++s) {
-    head.c0[s] = hc[s];
-    head.c1[s] = hc[s + 1];
+    head.c0[s] = hc0[s];
+    head.c1[s] = hc1[s];
     head.w_off[s] = hw[s];
     head.w_ld[s] = hl[s];
     head.b_off[s] = hb_[s];
+    qkv.c0[s] = s * hp;
+    qkv.c1[s] = s * hp + n.hp;
+    qkv.w_off[s] = off[W_QKV] + s * n.hp;
+    qkv.w_ld[s] = 3 * n.hp;
+    qkv.b_off[s] = -1;
   }
 
   const Bufs b = bufs(g, base);
@@ -1052,7 +1190,7 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
     if (ppo) {
       LG_TRY(be.each(Loss{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef, Nh, b.stats, b.dl,
                           b.dHh, b.dHl}, R));
-      LG_TRY(be.colsum(Colsum{b.stats, nullptr, pn::N_STATS, pn::N_STATS, R, -1, n.n_params,
+      LG_TRY(be.colsum(Colsum{b.stats, nullptr, N_STATS, N_STATS, R, -1, n.n_params,
                               slabs, g.ng, g.nsplit}));
     } else {
       LG_TRY(be.each(GradIn{n, rc, Nh, b.dl, b.dHh, b.dHl}, R));
@@ -1067,7 +1205,7 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
     for (int i = L - 1; i >= 0; --i) {
       const int kin = i ? H : Tp;
       LG_TRY(wgrad(i ? xb(i - 1) : b.tb, kin, b.dzh[cur], b.dzl[cur], H, R,
-                   whole(i ? H : T, H, off[pn::W_TRUNK + 2 * i], off[pn::W_TRUNK + 2 * i + 1])));
+                   whole(i ? n.H : T, n.H, off[W_TRUNK + 2 * i], off[W_TRUNK + 2 * i + 1])));
       if (i > 0) {
         LG_TRY(be.gemm(bwd_gemm(b.dzh[cur], b.dzl[cur], H, W(g.wtt[i]), H, R, H, H,
                                 epi_dgelu(H, zt(i - 1), b.dzh[1 - cur], b.dzl[1 - cur]))));
@@ -1083,16 +1221,16 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
 
     // attention backward
     if (n.attn) {
-      LG_TRY(wgrad(b.ob, hp, b.dphh, b.dphl, hp, S, whole(hp, hp, off[pn::W_AO], -1)));
+      LG_TRY(wgrad(b.ob, hp, b.dphh, b.dphl, hp, S, whole(n.hp, n.hp, off[W_AO], -1)));
       LG_TRY(be.gemm(bwd_gemm(b.dphh, b.dphl, hp, W(g.waot), hp, S, hp, hp,
                               epi_f32(hp, b.d_o))));
       LG_TRY(be.each(AttnDA{n, b.qkv, b.d_o, b.dS}, S * P));
       LG_TRY(be.each(AttnSoftmaxBwd{n, b.att, b.dS}, S));
       LG_TRY(be.each(AttnBwd2{n, b.qkv, b.att, b.d_o, b.dS, b.dqh, b.dql}, R * hp));
-      LG_TRY(wgrad(b.hb, hp, b.dqh, b.dql, 3 * hp, S, whole(hp, 3 * hp, off[pn::W_QKV], -1)));
+      LG_TRY(wgrad(b.hb, hp, b.dqh, b.dql, 3 * hp, S, qkv));
       LG_TRY(be.gemm(bwd_gemm(b.dqh, b.dql, 3 * hp, W(g.wqkvt), hp, S, hp, 3 * hp,
                               epi_f32(hp, b.dh))));
-      LG_TRY(be.colsum(Colsum{b.dh, b.hn, hp, hp, S, off[pn::LN_S], off[pn::LN_B], slabs,
+      LG_TRY(be.colsum(Colsum{b.dh, b.hn, hp, n.hp, S, off[LN_S], off[LN_B], slabs,
                               g.ng, g.nsplit}));
       LG_TRY(be.each(LnBwdStats{n, prm, b.dh, b.hn, b.m12}, S));
       LG_TRY(be.each(LnBwdApply{n, prm, b.dh, b.hn, b.inv, b.m12, b.dphi, b.z1, b.dz1h,
@@ -1100,21 +1238,21 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
     }
 
     // seat encoder
-    LG_TRY(wgrad(b.p0, hp, b.dz1h, b.dz1l, hp, S, whole(hp, hp, off[pn::W_PHI1],
-                                                          off[pn::B_PHI1])));
+    LG_TRY(wgrad(b.p0, hp, b.dz1h, b.dz1l, hp, S, whole(n.hp, n.hp, off[W_PHI1],
+                                                          off[B_PHI1])));
     LG_TRY(be.gemm(bwd_gemm(b.dz1h, b.dz1l, hp, W(g.w1t), hp, S, hp, hp,
                             epi_dgelu(hp, b.z0, b.dz0h, b.dz0l))));
-    LG_TRY(wgrad(b.x0, g.F0p, b.dz0h, b.dz0l, hp, S, whole(n.F0, hp, off[pn::W_PHI0],
-                                                             off[pn::B_PHI0])));
+    LG_TRY(wgrad(b.x0, g.F0p, b.dz0h, b.dz0l, hp, S, whole(n.F0, n.hp, off[W_PHI0],
+                                                             off[B_PHI0])));
   }
   return be.reduce(slabs, g.nsplit, g.ng, out);
 }
 
-// what the pipeline supports (the wrapper checks the same before a launch)
-PN_HD bool supported(const Net& n) {
+// what the pipeline supports (the wrapper checks the same before a launch):
+// any width, MAX_P seats, MAX_A actions and MAX_LAYERS trunk layers
+LG_HD bool supported(const Net& n) {
   return n.P > 0 && n.P <= MAX_P && n.A <= MAX_A && n.A >= n.P && n.A >= n.n_opt &&
-         n.n_opt >= 1 && n.F0 > 0 && n.hp % BK == 0 && n.H % BK == 0 && n.L >= 1 &&
-         n.L <= pn::MAX_LAYERS;
+         n.n_opt >= 1 && n.F0 > 0 && n.hp > 0 && n.H > 0 && n.L >= 1 && n.L <= MAX_LAYERS;
 }
 
 }  // namespace lg

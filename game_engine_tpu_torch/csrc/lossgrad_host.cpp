@@ -13,7 +13,7 @@
 
 namespace {
 
-float f(uint16_t b) { return pn::bf16_bits_to_float(b); }
+float f(uint16_t b) { return lg::bf16_bits_to_float(b); }
 
 struct HostBE {
   template <class F>
@@ -103,20 +103,20 @@ struct HostBE {
 
 extern "C" {
 
-int lg_meta_ints() { return pn::META_INTS; }
+int lg_meta_ints() { return lg::META_INTS; }
 
 // the sizes and the entries of lossgrad.cu, on host memory (the same
 // layouts); each entry returns 0, or 1 for a net or chunking it refuses
 int64_t lg_weights_bytes(const int32_t* meta) {
-  return lg::layout(pn::net_from_meta(meta), 1, 1, true).w_end;
+  return lg::layout(lg::net_from_meta(meta), 1, 1, true).w_end;
 }
 
 int64_t lg_scratch_bytes(const int32_t* meta, int64_t chunk, int nsplit, int fwd_only) {
-  return lg::layout(pn::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
+  return lg::layout(lg::net_from_meta(meta), chunk, nsplit, fwd_only != 0).total;
 }
 
 int lg_pack_host(const int32_t* meta, const float* prm, void* weights) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   if (!lg::supported(n)) return 1;
   HostBE be;
   return lg::pack_weights(be, n, lg::layout(n, 1, 1, true), prm, (char*)weights);
@@ -125,7 +125,7 @@ int lg_pack_host(const int32_t* meta, const float* prm, void* weights) {
 int lg_forward_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* prm,
                     const void* weights, void* scratch, int64_t chunk, float* logits,
                     float* value) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   if (!lg::supported(n) || chunk < 1) return 1;
   HostBE be;
   return lg::run_forward(be, n, lg::layout(n, chunk, 1, true), (const char*)weights,
@@ -135,7 +135,7 @@ int lg_forward_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, con
 int lg_grad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
                  const float* prm, const void* weights, void* scratch, int64_t chunk,
                  int nsplit, float* out) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   if (!lg::supported(n) || chunk < 1 || nsplit < 1) return 1;
   HostBE be;
   return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,
@@ -145,7 +145,7 @@ int lg_grad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const 
 int lg_lossgrad_host(const int32_t* meta, const uint16_t* obs, int64_t nrows, const float* rowin,
                      float clip_eps, float ent_coef, const float* prm, const void* weights,
                      void* scratch, int64_t chunk, int nsplit, float* out) {
-  const pn::Net n = pn::net_from_meta(meta);
+  const lg::Net n = lg::net_from_meta(meta);
   if (!lg::supported(n) || chunk < 1 || nsplit < 1) return 1;
   HostBE be;
   return lg::run_grad(be, n, lg::layout(n, chunk, nsplit, false), (const char*)weights,

@@ -59,16 +59,14 @@ def start_of(spec: dict, device="cpu"):
 
 
 def launches() -> dict:
-    """This process's kernel launches so far: K1, K2, K3, K4 (and K2 on the
-    tensor cores)."""
+    """This process's kernel launches so far: K1, K2, K3, K4."""
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
     from game_engine_tpu_torch.policies import fused as FZ
 
     return {"rollout": kernel_rollout.launches,
             "policy_forward": FZ.kernel_forward.launches,
             "policy_backward": FZ.kernel_grads.launches,
-            "ppo_loss_grad": FZ.kernel_loss_grads.launches,
-            "policy_forward_tensor_core": FZ.kernel_forward.by_route["tensor_core"]}
+            "ppo_loss_grad": FZ.kernel_loss_grads.launches}
 
 
 def since(before: dict) -> dict:

@@ -15,27 +15,24 @@ Counterpart of game_engine_tpu/policies/fused.py for the deepsets/attn net:
                 one-hot actions and the wrow/vrow row weights. The kernels
                 mask the ragged edges themselves, so no row padding.
 
-Two routes, chosen by one predicate, ``pipeline_supports`` (encoder and
-trunk widths multiples of 32, at most 32 seats and 64 actions):
-
-  tensor_core   csrc/lossgrad.cu + lossgrad.cuh: K2 (lg_forward), K3
-                (lg_grad) and K4 (lg_lossgrad) as pipelines of bf16
-                tensor-core products and elementwise stages over chunks of
-                rows, sharing one set of forward stages. The weights are
-                packed to bf16 once per parameter state (``_packed``).
-  cuda_core     csrc/policy_net.cu: K2 (pn_forward) and K3 (pn_grad) over
-                tiles of a few rows in shared memory, for the widths the
-                pipeline does not cover (e.g. hidden 48). No K4: such a net
-                trains through K2 + K3.
+The kernels are csrc/lossgrad.cu + lossgrad.cuh: K2 (lg_forward), K3
+(lg_grad) and K4 (lg_lossgrad) as pipelines of bf16 tensor-core products and
+elementwise stages over chunks of rows, sharing one set of forward stages.
+The weights are packed to bf16 once per parameter state (``_packed``). They
+cover every net ``supports`` accepts: the deepsets/attn archs with one
+attention head at any encoder and trunk width (the products run on the
+widths padded to multiples of 32, the LayerNorm and the attention scale on
+the true ones), up to MAX_LAYERS trunk layers, MAX_P seats and MAX_A
+actions. The JAX kernels have no such bounds; ``unsupported`` names the one
+a net passes, and every entry that would launch a kernel for it raises.
 
 Each kernel has its plain-torch version here: ``fused_forward_plain``
 follows _fwd_body's cast points (K2), autograd through it is K3's, and
 ``loss_vg_plain`` is K4's. A wrapper given CUDA tensors launches its kernel
 or raises; ``host_forward``, ``host_grads`` and ``host_loss_grads`` run the
-kernels' own code built with g++ on CPU tensors (the pipelines with
-plain-loop products, csrc/lossgrad_host.cpp). Each kernel wrapper counts
-its launches in ``<wrapper>.launches`` (and by route in ``.by_route``);
-``kernel_plan`` reports which route runs and its resources.
+kernels' own stages built with g++ on CPU tensors (plain-loop products,
+csrc/lossgrad_host.cpp). Each kernel wrapper counts its launches in
+``<wrapper>.launches``; ``kernel_plan`` reports their chunks and scratch.
 """
 
 from __future__ import annotations
@@ -54,13 +51,14 @@ from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies.net import bf, gelu
 
 _F32 = torch.float32
-MAX_LAYERS = 8  # policy_net.cuh
+MAX_LAYERS = 32  # lossgrad.cuh: trunk layers (Net::off and the packed weights' offsets)
+MAX_P = 32       # seats the attention stages hold in registers
+MAX_A = 64       # actions the loss stage holds in registers
 N_STATS = 4
 CHUNK_ROWS = 32768  # K3's and K4's rows per chunk: about 2.6 GB of scratch at the attn net's width
 NSPLIT = 32         # their row ranges per weight-gradient product (one slab each)
 FWD_CHUNK_ROWS = 32768  # K2's rows per chunk: about 0.9 GB of scratch at the attn net's width
-ROUTES = ("tensor_core", "cuda_core")
-# policy_net.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
+# lossgrad.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
 _SLOT = {"w_phi0": 0, "b_phi0": 1, "w_phi1": 2, "b_phi1": 3, "ln_s": 4, "ln_b": 5,
          "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12}
 _N_SLOTS = 13 + 2 * MAX_LAYERS
@@ -100,11 +98,32 @@ def dims_for(lowered: Lowered, cfg: N.NetConfig) -> Dims:
                 n_opt=n_opt, A=max(lowered.P, n_opt), has_attn=cfg.arch == "attn")
 
 
+def _bound(d: Dims) -> str | None:
+    """The pipelines' bound that the net passes, or None."""
+    if not 1 <= d.layers <= MAX_LAYERS:
+        return f"the kernels hold 1 to MAX_LAYERS = {MAX_LAYERS} trunk layers, not {d.layers}"
+    if d.P > MAX_P:
+        return f"the kernels hold at most MAX_P = {MAX_P} seats, not {d.P}"
+    if d.A > MAX_A:
+        return f"the kernels hold at most MAX_A = {MAX_A} actions, not {d.A}"
+    return None
+
+
+def unsupported(lowered: Lowered, cfg: N.NetConfig) -> str | None:
+    """Why the kernels do not cover the net, or None when they do."""
+    if cfg.arch not in ("deepsets", "attn") or cfg.attn_heads != 1:
+        return (f"the kernels cover deepsets/attn with one attention head, not "
+                f"arch={cfg.arch!r} with {cfg.attn_heads} heads")
+    return _bound(dims_for(lowered, cfg))
+
+
 def supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
-    """The kernels cover deepsets/attn with one attention head and 1 to
-    MAX_LAYERS trunk layers."""
-    return (cfg.arch in ("deepsets", "attn") and cfg.attn_heads == 1
-            and 1 <= cfg.layers <= MAX_LAYERS)
+    """Whether K2, K3 and K4 cover the net: deepsets/attn with one attention
+    head, any width, and the bounds of _bound."""
+    return unsupported(lowered, cfg) is None
+
+
+loss_supports = supports  # K4 covers every net K2 and K3 cover
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +161,8 @@ def _slot(name: str) -> int:
 
 
 def _meta(d: Dims) -> np.ndarray:
-    """policy_net.cuh's Net as int32: the dims, then each parameter's float
-    offset in the flat buffers (in _param_names order)."""
+    """lossgrad.cuh's Net as int32: the true dims, then each parameter's
+    float offset in the flat buffers (in _param_names order)."""
     off = np.zeros(_N_SLOTS, np.int32)
     at = 0
     for name, shape in _param_shapes(d).items():
@@ -168,34 +187,10 @@ def _flat_params(params: dict, d: Dims, device) -> list:
     return out
 
 
-def _pack_params(params: dict, d: Dims, device) -> tuple:
-    """-> (prm f32, prmB bf16-rounded f32, prmT with every weight transposed,
-    meta int32 numpy) for the CUDA-core kernels."""
-    flat = _flat_params(params, d, device)
-    prm = torch.cat([p.reshape(-1) for p in flat]).contiguous()
-    prm_t = torch.cat([(p.t() if p.dim() == 2 else p).reshape(-1) for p in flat]).contiguous()
-    return prm, bf(prm).contiguous(), prm_t, _meta(d)
-
-
-def pipeline_supports(d: Dims) -> bool:
-    """Whether the tensor-core pipelines cover the net (csrc/lossgrad.cuh
-    lg::supported, which checks the same before a launch): encoder and trunk
-    widths multiples of 32, at most 32 seats and 64 actions. The one routing
-    predicate of K2, K3 and K4. Zero padding of hp would change the
-    LayerNorm and the attention scale, so narrower nets are not padded:
-    they run K2 and K3 on the CUDA cores and have no K4."""
-    return d.hp % 32 == 0 and d.hidden % 32 == 0 and d.P <= 32 and d.A <= 64
-
-
-def route_of(d: Dims) -> str:
-    """Which of ROUTES runs K2 and K3 for the net."""
-    return "tensor_core" if pipeline_supports(d) else "cuda_core"
-
-
 def _require_pipeline(d: Dims, what: str) -> None:
-    if not pipeline_supports(d):
-        raise ValueError(f"{what} needs pipeline_supports(d): hp and hidden multiples of 32, "
-                         f"P <= 32, A <= 64; not {d}")
+    bound = _bound(d)
+    if bound is not None:
+        raise ValueError(f"{what}: {bound}")
 
 
 @dataclasses.dataclass
@@ -292,38 +287,22 @@ def _lg_call(name: str, args: tuple, device, what: str) -> None:
 
 
 def kernel_plan(d: Dims) -> dict:
-    """How the kernels run the net on the current CUDA device. "route" says
-    which forward (K2) and gradient (K3) run. tensor_core: rows per chunk
-    and scratch bytes (in all and a row) of K2, K3 and K4. cuda_core: rows
-    per tile, shared bytes per block and registers per thread of K2 and K3;
-    no K4."""
+    """How the kernels run the net on the current CUDA device: rows per
+    chunk and scratch bytes (in all and a row) of K2, K3 and K4."""
+    _require_pipeline(d, "kernel_plan")
     meta = _meta(d)
-    out = {"route": route_of(d)}
-    if pipeline_supports(d):
-        lib = _build.lossgrad_lib()
-        if len(meta) != lib.lg_meta_ints():
-            raise RuntimeError("policy_net.cuh's Net layout differs from fused.py's")
+    lib = _build.lossgrad_lib()
+    if len(meta) != lib.lg_meta_ints():
+        raise RuntimeError("lossgrad.cuh's Net layout differs from fused.py's")
 
-        def scratch(chunk, nsplit, fwd_only):
-            one, two = (int(lib.lg_scratch_bytes(meta.ctypes.data, c, nsplit, fwd_only))
-                        for c in (chunk, 2 * chunk))
-            return {"chunk_rows": chunk, "scratch_bytes": one,
-                    "scratch_bytes_per_row": (two - one) // chunk}
+    def scratch(chunk, nsplit, fwd_only):
+        one, two = (int(lib.lg_scratch_bytes(meta.ctypes.data, c, nsplit, fwd_only))
+                    for c in (chunk, 2 * chunk))
+        return {"chunk_rows": chunk, "scratch_bytes": one,
+                "scratch_bytes_per_row": (two - one) // chunk}
 
-        out["forward"] = scratch(FWD_CHUNK_ROWS, 1, 1)
-        out["gradient"] = {**scratch(CHUNK_ROWS, NSPLIT, 0), "nsplit": NSPLIT}
-        out["loss_grad"] = out["gradient"]
-        return out
-    lib = _build.policy_lib()
-    if len(meta) != lib.pn_meta_ints():
-        raise RuntimeError("policy_net.cuh's Net layout differs from fused.py's")
-    for bwd, name in ((0, "forward"), (1, "gradient")):
-        got = np.zeros(3, np.int32)
-        _raise_on(lib.pn_plan(meta.ctypes.data, bwd, got.ctypes.data), lib, "plan")
-        out[name] = {"rows_per_tile": int(got[0]), "shared_bytes": int(got[1]),
-                     "registers": int(got[2])}
-    out["loss_grad"] = None
-    return out
+    grad = {**scratch(CHUNK_ROWS, NSPLIT, 0), "nsplit": NSPLIT}
+    return {"forward": scratch(FWD_CHUNK_ROWS, 1, 1), "gradient": grad, "loss_grad": grad}
 
 
 def _unpack(flat: torch.Tensor, d: Dims) -> dict[str, torch.Tensor]:
@@ -432,18 +411,13 @@ def _check_f32(t: torch.Tensor, shape: tuple, device, name: str) -> None:
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _raise_on(err: int, lib, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.pn_error_string(err).decode()}")
-
-
 def _stream(device) -> int:
     with torch.cuda.device(device):
         return torch.cuda.current_stream(device).cuda_stream
 
 
 def _pipeline_forward(d: Dims, rows, params, chunk_rows: int):
-    _require_pipeline(d, "the tensor-core forward")
+    _require_pipeline(d, "K2 (policy forward)")
     dev = rows.device
     lib = _pipeline_lib(dev)
     pk = _packed(d, params, dev)
@@ -463,7 +437,7 @@ def _pipeline_forward(d: Dims, rows, params, chunk_rows: int):
 def _pipeline_grads(d: Dims, rows, rowin, params, ppo, chunk_rows: int, nsplit: int):
     """K3 (ppo None: rowin = dl | dv) or K4 (ppo = (clip_eps, ent_coef)) ->
     (grads, the four sums)."""
-    _require_pipeline(d, "the tensor-core gradient" if ppo is None else "K4")
+    _require_pipeline(d, "K3 (policy backward)" if ppo is None else "K4 (PPO loss-grad)")
     dev = rows.device
     lib = _pipeline_lib(dev)
     pk = _packed(d, params, dev)
@@ -482,64 +456,25 @@ def _pipeline_grads(d: Dims, rows, rowin, params, ppo, chunk_rows: int, nsplit: 
     return _unpack(out[:-N_STATS], d), out[-N_STATS:]
 
 
-def _count(fn, route: str) -> None:
-    fn.launches += 1
-    fn.by_route[route] += 1
-
-
 def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
-    """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32, by
-    the route route_of(d) names."""
+    """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32."""
     _check_rows(d, rows, "cuda")
-    route = route_of(d)
-    if route == "tensor_core":
-        out = _pipeline_forward(d, rows, params, FWD_CHUNK_ROWS)
-    else:
-        dev = rows.device
-        prm, prm_b, _, meta = _pack_params(params, d, dev)
-        n = rows.shape[0]
-        out = (torch.empty((n, d.A), dtype=_F32, device=dev),
-               torch.empty((n,), dtype=_F32, device=dev))
-        lib = _build.policy_lib()
-        err = lib.pn_forward(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
-                             prm_b.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                             _stream(dev))
-        _raise_on(err, lib, "K2 (policy forward)")
-    _count(kernel_forward, route)
+    out = _pipeline_forward(d, rows, params, FWD_CHUNK_ROWS)
+    kernel_forward.launches += 1
     return out
 
 
 def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor,
                  params: dict) -> dict:
     """K3: the parameter gradient of sum(dl * logits) + sum(dv * value) over
-    CUDA rows, recomputing the forward, by the route route_of(d) names."""
+    CUDA rows, recomputing the forward."""
     _check_rows(d, rows, "cuda")
     n = rows.shape[0]
     rowin = torch.cat([dl.to(_F32).reshape(n, d.A), dv.to(_F32).reshape(n, 1)], 1).contiguous()
     _check_f32(rowin, (n, d.A + 1), rows.device, "dl | dv")
-    route = route_of(d)
-    if route == "tensor_core":
-        grads, _ = _pipeline_grads(d, rows, rowin, params, None, CHUNK_ROWS, NSPLIT)
-    else:
-        dev = rows.device
-        prm, prm_b, prm_t, meta = _pack_params(params, d, dev)
-        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-        slabs = torch.empty((blocks * prm.numel(),), dtype=_F32, device=dev)
-        out = torch.empty((prm.numel(),), dtype=_F32, device=dev)
-        lib = _build.policy_lib()
-        err = lib.pn_grad(meta.ctypes.data, rows.data_ptr(), n, rowin.data_ptr(),
-                          prm.data_ptr(), prm_b.data_ptr(), prm_t.data_ptr(), slabs.data_ptr(),
-                          blocks, out.data_ptr(), _stream(dev))
-        _raise_on(err, lib, "K3 (policy backward)")
-        grads = _unpack(out, d)
-    _count(kernel_grads, route)
+    grads, _ = _pipeline_grads(d, rows, rowin, params, None, CHUNK_ROWS, NSPLIT)
+    kernel_grads.launches += 1
     return grads
-
-
-def loss_supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
-    """Whether K4 covers the net: the one routing decision for the fused
-    loss. Nets the pipeline does not cover train through K2 + K3."""
-    return supports(lowered, cfg) and pipeline_supports(dims_for(lowered, cfg))
 
 
 def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
@@ -549,58 +484,30 @@ def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: 
     _check_rows(d, rows, "cuda")
     _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
     out = _pipeline_grads(d, rows, rowin, params, (clip_eps, ent_coef), CHUNK_ROWS, NSPLIT)
-    _count(kernel_loss_grads, "tensor_core")
+    kernel_loss_grads.launches += 1
     return out
 
 
 for _fn in (kernel_forward, kernel_grads, kernel_loss_grads):
     _fn.launches = 0
-    _fn.by_route = dict.fromkeys(ROUTES, 0)
 
 
-def host_forward(d: Dims, rows: torch.Tensor, params: dict, rows_per_tile: int = 3,
+def host_forward(d: Dims, rows: torch.Tensor, params: dict,
                  chunk_rows: int = FWD_CHUNK_ROWS):
-    """K2's own code built with g++, on CPU rows -> (logits, value), by the
-    route route_of(d) names. tensor_core: the pipeline's stages, layout and
-    chunks of chunk_rows (csrc/lossgrad_host.cpp); cuda_core: the tile code
-    over tiles of rows_per_tile (csrc/policy_net_host.cpp)."""
+    """K2's pipeline built with g++ (csrc/lossgrad_host.cpp: the stages,
+    layout and chunks of chunk_rows), on CPU rows -> (logits, value)."""
     _check_rows(d, rows, "cpu")
-    if pipeline_supports(d):
-        return _pipeline_forward(d, rows, params, chunk_rows)
-    prm, prm_b, _, meta = _pack_params(params, d, rows.device)
-    n = rows.shape[0]
-    logits = torch.empty((n, d.A), dtype=_F32)
-    value = torch.empty((n,), dtype=_F32)
-    lib = _build.policy_host_lib()
-    err = lib.pn_forward_host(meta.ctypes.data, rows.data_ptr(), n, prm.data_ptr(),
-                              prm_b.data_ptr(), logits.data_ptr(), value.data_ptr(),
-                              rows_per_tile)
-    if err != 0:
-        raise RuntimeError(f"host forward failed ({err})")
-    return logits, value
+    return _pipeline_forward(d, rows, params, chunk_rows)
 
 
 def host_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
-               blocks: int = 3, rows_per_tile: int = 2, chunk_rows: int = CHUNK_ROWS,
-               nsplit: int = 3) -> dict:
-    """K3's own code built with g++, on CPU rows and rowin = dl | dv ->
-    grads, by route as host_forward: the pipeline over chunks and nsplit row
-    splits, or the tile code and its reduction over `blocks` slabs."""
+               chunk_rows: int = CHUNK_ROWS, nsplit: int = 3) -> dict:
+    """K3's pipeline built with g++, on CPU rows and rowin = dl | dv ->
+    grads, over chunks of chunk_rows and nsplit row splits."""
     _check_rows(d, rows, "cpu")
     rowin = rowin.to(_F32).contiguous()
     _check_f32(rowin, (rows.shape[0], d.A + 1), rows.device, "dl | dv")
-    if pipeline_supports(d):
-        return _pipeline_grads(d, rows, rowin, params, None, chunk_rows, nsplit)[0]
-    prm, prm_b, prm_t, meta = _pack_params(params, d, rows.device)
-    slabs = torch.empty((blocks * prm.numel(),), dtype=_F32)
-    out = torch.empty((prm.numel(),), dtype=_F32)
-    lib = _build.policy_host_lib()
-    err = lib.pn_grad_host(meta.ctypes.data, rows.data_ptr(), rows.shape[0], rowin.data_ptr(),
-                           prm.data_ptr(), prm_b.data_ptr(), prm_t.data_ptr(),
-                           slabs.data_ptr(), blocks, out.data_ptr(), rows_per_tile)
-    if err != 0:
-        raise RuntimeError(f"host gradient failed ({err})")
-    return _unpack(out, d)
+    return _pipeline_grads(d, rows, rowin, params, None, chunk_rows, nsplit)[0]
 
 
 def host_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: dict,
@@ -647,10 +554,11 @@ def _as_rows(d: Dims, obs: torch.Tensor) -> torch.Tensor:
 def make_apply(lowered: Lowered, cfg: N.NetConfig):
     """(params, obs (..., F)) -> (logits (..., A), value (...)), a drop-in for
     net.apply_net on the deepsets/attn archs: K2 forward / K3 backward on
-    CUDA tensors (by the route route_of names), the plain version on CPU
-    tensors."""
-    if not supports(lowered, cfg):
-        raise ValueError("fused kernels cover deepsets/attn with 1 head")
+    CUDA tensors, the plain version on CPU tensors. Raises for a net the
+    kernels do not cover (see unsupported)."""
+    why = unsupported(lowered, cfg)
+    if why is not None:
+        raise ValueError(why)
     d = dims_for(lowered, cfg)
     names = _param_names(d)
 
@@ -705,13 +613,12 @@ def make_loss_vg(lowered: Lowered, cfg: N.NetConfig, clip_eps: float, vf_coef: f
     ((loss, metrics), grads): the fused train path's replacement for
     value_and_grad(ppo_loss), one K4 pass on CUDA tensors, the plain
     version on CPU tensors. Raises for a net K4 does not cover (see
-    loss_supports). With a mesh, the rows are this rank's rooms and every
+    unsupported). With a mesh, the rows are this rank's rooms and every
     returned value is its share of the data group's whole batch (see
     _loss_rows): their sum over the group is the batch's."""
-    if not loss_supports(lowered, cfg):
-        raise ValueError(f"K4 covers deepsets/attn with 1 head, encoder and trunk widths "
-                         f"multiples of 32, at most 32 seats and 64 actions; not {cfg} "
-                         f"(train it with fused_loss=False: K2 + K3)")
+    why = unsupported(lowered, cfg)
+    if why is not None:
+        raise ValueError(f"K4: {why}")
     d = dims_for(lowered, cfg)
 
     def loss_vg(params, obs, legal, actions, logp_old, adv, ret, mask):

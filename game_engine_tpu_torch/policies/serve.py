@@ -9,8 +9,8 @@ The forward is chosen once, when the bots are built:
 
   fused   ``fused.make_apply`` under ``torch.inference_mode()`` when
           ``fused.supports(lowered, cfg)``: the policy-forward kernel (K2)
-          on CUDA tensors, by the route ``fused.route_of`` names; its plain
-          version (``fused_forward_plain``) on CPU tensors.
+          on CUDA tensors; its plain version (``fused_forward_plain``) on
+          CPU tensors.
   plain   ``net.apply_net``, for every other net (mlp, multi-head attn).
 
 The choice is logged once and never changes afterwards: a K2 that fails to
@@ -47,14 +47,12 @@ _log = logging.getLogger(__name__)
 
 
 def forward_route(lowered: Lowered, cfg: N.NetConfig, device) -> str:
-    """Which forward PolicyBots runs for this net on `device`: a K2 route
-    ("tensor_core" or "cuda_core") on the card, "fused_plain" (K2's plain
-    version) on the CPU, or "apply_net" for nets K2 does not cover."""
+    """Which forward PolicyBots runs for this net on `device`: K2
+    ("tensor_core") on the card, "fused_plain" (K2's plain version) on the
+    CPU, or "apply_net" for nets K2 does not cover."""
     if not FZ.supports(lowered, cfg):
         return "apply_net"
-    if torch.device(device).type == "cpu":
-        return "fused_plain"
-    return FZ.route_of(FZ.dims_for(lowered, cfg))
+    return "fused_plain" if torch.device(device).type == "cpu" else "tensor_core"
 
 
 class PolicyBots:

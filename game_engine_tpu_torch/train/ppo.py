@@ -12,7 +12,7 @@ computes GAE, then runs `epochs` full-batch clipped-PPO updates with
 torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
 deepsets/attn net runs through the policy-net kernels (policies/fused.py):
 K2 in the unroll and the bootstrap value, K4 in each update (or K2 + K3
-with ``fused_loss=False``, and for the widths K4 does not cover).
+with ``fused_loss=False``).
 
 Randomness comes from an explicit torch.Generator; it does not reproduce
 jax.random's draws (sample_actions takes given noise for that).
@@ -74,7 +74,7 @@ class PPOConfig:
     # route the deepsets/attn net through the policy-net kernels
     fused_net: bool = False
     # with fused_net: one K4 pass per update instead of K2 forward + K3
-    # backward through ppo_loss, where K4 covers the net (fused.loss_supports)
+    # backward through ppo_loss, where K4 covers the net (fused.supports)
     fused_loss: bool = True
     net: N.NetConfig = dataclasses.field(default_factory=N.NetConfig)
 
@@ -272,7 +272,7 @@ def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
         return None
     from game_engine_tpu_torch.policies import fused as FZ
 
-    if not FZ.loss_supports(lowered, cfg.net):
+    if not FZ.supports(lowered, cfg.net):
         return None
     mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef, mesh)
 

@@ -113,13 +113,13 @@ def main(argv=None):
         from game_engine_tpu_torch.policies import fused as FZ
 
         mode = "forced" if fused else "auto"
-        fused = fused or (device.type == "cuda" and FZ.supports(lowered, net_cfg))
-        if fused and FZ.supports(lowered, net_cfg):
-            # which K2/K3 run (tensor_core or cuda_core), and whether K4 does
+        why = FZ.unsupported(lowered, net_cfg)
+        if fused and why is not None:
+            raise ValueError(f"--fused: {why}")
+        fused = fused or (device.type == "cuda" and why is None)
+        if fused:
             print(json.dumps({"event": "fused_net", "mode": mode, "disable_with": "--no-fused",
-                              "forward": FZ.route_of(FZ.dims_for(lowered, net_cfg)),
-                              "loss": "k4" if FZ.loss_supports(lowered, net_cfg) else "k2_k3"}),
-                  flush=True)
+                              "forward": "tensor_core", "loss": "k4"}), flush=True)
     cfg = PPOConfig(horizon=args.horizon, epochs=args.epochs, lr=args.lr,
                     loss_chunk=args.loss_chunk, fused_net=fused, net=net_cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

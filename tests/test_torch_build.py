@@ -22,13 +22,13 @@ def csrc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("header,src", [
-    ("policy_net.cuh", "policy_net.cu"),
-    ("policy_net.cuh", "policy_net_host.cpp"),
     ("room_step.cuh", "rollout.cu"),
     ("room_step.cuh", "rollout_host.cpp"),
     ("lossgrad.cuh", "lossgrad.cu"),
     ("lossgrad.cuh", "lossgrad_host.cpp"),
-    ("policy_net.cuh", "lossgrad.cu"),
+    ("lossgrad.cu", "lossgrad_host.cpp"),
+    ("lossgrad_host.cpp", "lossgrad.cu"),
+    ("lossgrad.cuh", "search.cu"),
     ("room_step.cuh", "search.cu"),
     ("room_step.cuh", "search_host.cpp"),
     ("gamesim.cpp", "gamesim.cpp"),
@@ -55,11 +55,11 @@ def test_header_edit_renames_the_library(csrc, header, src):
 
 
 def test_header_edit_rebuilds_the_host_harness(csrc):
-    job = (str(csrc / "policy_net_host.cpp"), "libpolicy_net_host", _build._GXX_CMD)
+    job = (str(csrc / "lossgrad_host.cpp"), "liblossgrad_host", _build._GXX_CMD)
     (first,) = _build._compile_all([job])
     assert os.path.exists(first)
     assert _build._compile_all([job]) == [first]  # unchanged: built once
-    with open(csrc / "policy_net.cuh", "a") as f:
+    with open(csrc / "lossgrad.cuh", "a") as f:
         f.write("\n// edited\n")
     (second,) = _build._compile_all([job])
     assert second != first and os.path.exists(second)
@@ -87,7 +87,7 @@ def test_threads_asking_at_once_build_the_library_once(csrc, monkeypatch):
         return popen(cmd, *args, **kwargs)
 
     monkeypatch.setattr(subprocess, "Popen", counting_popen)
-    job = (str(csrc / "policy_net_host.cpp"), "libpolicy_net_host", _build._GXX_CMD)
+    job = (str(csrc / "lossgrad_host.cpp"), "liblossgrad_host", _build._GXX_CMD)
     paths, errors = [], []
 
     def build():

@@ -11,14 +11,17 @@ observations of a werewolf scripted rollout at hidden 64:
 
 Tolerances are those of tests/test_fused_net.py, relative to the max |ref|:
 bf16 rounding points differ between XLA, the Pallas kernels and torch.
-The CUDA kernels' own code, built with g++ into host harnesses, is held
-against the plain versions at the same tolerances: the CUDA-core K2's and
-K3's tile code (csrc/policy_net.cuh) over ragged tiles and several gradient
-slabs, and the pipelines of K2, K3 and K4 (csrc/lossgrad.cuh, the stages,
-buffer layouts, chunks and slab order of the tensor-core versions, with
-plain-loop products) over ragged chunks and several row splits, within
-5e-3 (forward) and 1e-3 (gradients); the pipelines of K2 and K3 also against the JAX kernels.
+The CUDA kernels' own code, built with g++ into a host harness, is held
+against the plain versions: the pipelines of K2, K3 and K4
+(csrc/lossgrad.cuh, the stages, buffer layouts, chunks and slab order of
+the tensor-core versions, with plain-loop products) over ragged chunks and
+several row splits, within 5e-3 (forward) and 1e-3 (gradients) at hidden
+64, and at the test_fused_net.py tolerances at widths whose storage is
+padded (hidden 48: the trunk; 96 and 160: the encoder too) and at 9 trunk
+layers, where they are also held against the JAX kernels.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -122,7 +125,6 @@ def test_forward_plain_matches_jax_kernel(ww, pww, traj, arch):
     assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
     assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
     # the tensor-core K2's own stages (host pipeline) against the JAX kernel
-    assert FZ.route_of(d) == "tensor_core"
     l3, v3 = FZ.host_forward(d, rows_of(traj, d), params, chunk_rows=40)
     assert rel_err(l3.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
     assert rel_err(v3.numpy(), to_np(v0).reshape(-1)) < 2e-2
@@ -189,25 +191,26 @@ def test_loss_vg_plain_matches_jax(ww, pww, traj):
 
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
 def test_kernel_tile_code_matches_plain(ww, pww, traj, arch):
-    """The kernels' code built with g++: the CUDA-core K2's forward over
-    ragged tiles and K3's gradient summed over three slabs, at a width that
-    takes that route (hidden 48), and K4's pipeline over ragged chunks and
-    three row splits (hidden 64), against the plain versions."""
+    """The kernels' code built with g++: K2's pipeline over chunks of 1 and
+    5 rows and K3's over chunks of 2 rows and three row splits at hidden
+    48 (the trunk's storage padded from 48 to 64 columns), and K4's over
+    ragged chunks and three row splits (hidden 64), against the plain
+    versions."""
     jcfg, jp = jax_params(ww, arch, hidden=48)
     d = FZ.dims_for(pww, port_cfg(jcfg))
-    assert FZ.route_of(d) == "cuda_core"
+    assert d.hidden % 32 and FZ.supports(pww, port_cfg(jcfg))
     rows, params = rows_of(traj, d), port_params(jp)
-    assert len(FZ._meta(d)) == _build.policy_host_lib().pn_meta_ints()
+    assert len(FZ._meta(d)) == _build.lossgrad_host_lib().lg_meta_ints()
     l0, v0 = FZ.fused_forward_plain(d, rows, params)
-    for rpt in (1, 5):
-        l1, v1 = FZ.host_forward(d, rows, params, rows_per_tile=rpt)
+    for chunk in (1, 5):
+        l1, v1 = FZ.host_forward(d, rows, params, chunk_rows=chunk)
         assert rel_err(l1.numpy(), l0.numpy()) < 2e-2
         assert rel_err(v1.numpy(), v0.numpy()) < 2e-2
 
     dl, dv = torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])
     want = plain_vjp(d, rows, params, dl, dv)
-    got = FZ.host_grads(d, rows, torch.cat([dl, dv[:, None]], 1), params,
-                        blocks=3, rows_per_tile=2)
+    got = FZ.host_grads(d, rows, torch.cat([dl, dv[:, None]], 1), params, chunk_rows=2,
+                        nsplit=3)
     grads_close({k: v.numpy() for k, v in got.items()}, {k: v.numpy() for k, v in want.items()})
 
     jcfg, jp = jax_params(ww, arch)
@@ -225,6 +228,58 @@ def test_kernel_tile_code_matches_plain(ww, pww, traj, arch):
     g_again, _ = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=50,
                                     nsplit=3)
     assert all(torch.equal(g_k[k], g_again[k]) for k in g_k)
+
+
+# widths whose storage the pipelines pad (hidden 48: the trunk to 64; 96:
+# hp 48 to 64 and the trunk; 160: hp 80 to 96 and the trunk to 192), and a
+# trunk deeper than the earlier bound of 8 layers
+PADDED = [(48, 2), (96, 2), (160, 2), (64, 9)]
+
+
+@pytest.mark.parametrize("arch", ["attn", "deepsets"])
+@pytest.mark.parametrize("hidden,layers", PADDED)
+def test_padded_pipelines_match_jax_kernels(ww, pww, traj, arch, hidden, layers):
+    """K2, K3 and K4's pipelines (host_forward, host_grads, host_loss_grads)
+    against the JAX package's Pallas kernels in interpret mode: make_apply's
+    forward, its custom VJP for seeded dl/dv, and make_loss_vg at logp_old =
+    the policy's own log-probs + noise, at the test_fused_net.py
+    tolerances."""
+    jcfg = JN.NetConfig(hidden=hidden, layers=layers, arch=arch)
+    jp = JN.init_params(jax.random.PRNGKey(0), JN.obs_dim(ww), JN.action_space(ww), jcfg, ww)
+    rng = np.random.default_rng(0)  # non-trivial biases and LayerNorm affine
+    jp = {k: (v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+              if k.startswith(("b", "ln")) else v) for k, v in jp.items()}
+    d = FZ.dims_for(pww, port_cfg(jcfg))
+    assert FZ.supports(pww, port_cfg(jcfg))
+    obs = jnp.asarray(traj["obs"], jnp.bfloat16)
+    lead = obs.shape[:-1]
+    apply = JFZ.make_apply(ww, jcfg)
+    (l0, v0), vjp = jax.vjp(lambda p: apply(p, obs), jp)
+    (want,) = vjp((jnp.asarray(traj["dl"]).reshape(lead + (d.A,)),
+                   jnp.asarray(traj["dv"]).reshape(lead)))
+    rows, params = rows_of(traj, d), port_params(jp)
+    l1, v1 = FZ.host_forward(d, rows, params, chunk_rows=40)
+    assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
+    assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
+    rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)
+    got = FZ.host_grads(d, rows, rowin, params, chunk_rows=40, nsplit=3)
+    grads_close({k: v.numpy() for k, v in got.items()}, {k: np.asarray(v) for k, v in want.items()})
+
+    lp_old = logp_old(traj, jp, jcfg, ww)
+    j_in = (obs, jnp.asarray(traj["legal"]), jnp.asarray(traj["actions"]), jnp.asarray(lp_old),
+            jnp.asarray(traj["adv"]), jnp.asarray(traj["ret"]), jnp.asarray(traj["mask"]))
+    (l_k, m_k), g_k = JFZ.make_loss_vg(ww, jcfg, CLIP, VF, ENT)(jp, *j_in)
+    rowin = FZ._loss_rows(d, torch.as_tensor(traj["legal"]), torch.as_tensor(traj["actions"]),
+                          torch.as_tensor(lp_old), torch.as_tensor(traj["adv"]),
+                          torch.as_tensor(traj["ret"]), torch.as_tensor(traj["mask"]), VF)
+    grads, stats = FZ.host_loss_grads(d, rows, rowin, params, CLIP, ENT, chunk_rows=50, nsplit=3)
+    pg, v_loss, ent, ratio = (float(x) for x in stats)
+    loss = pg + v_loss - ENT * ent
+    assert abs(loss - float(l_k)) / (abs(float(l_k)) + 1e-6) < 2e-2
+    for k, got_m in (("pg_loss", pg), ("v_loss", v_loss / VF), ("entropy", ent),
+                     ("ratio_mean", ratio)):
+        assert abs(got_m - float(m_k[k])) < 5e-2, k
+    grads_close(grads, {k: np.asarray(v) for k, v in g_k.items()})
 
 
 def test_loss_rows_pre_kernel_steps(ww, pww, traj):
@@ -266,7 +321,7 @@ def test_kernel_wrappers_refuse_cpu_rows_and_count_launches(ww, pww, traj):
     with pytest.raises(ValueError, match="bf16"):
         FZ.host_forward(d, rows.float(), params)
     with pytest.raises(ValueError, match="w_qkv"):
-        FZ._pack_params({**params, "w_qkv": params["w_qkv"][:, :5]}, d, rows.device)
+        FZ._flat_params({**params, "w_qkv": params["w_qkv"][:, :5]}, d, rows.device)
     FZ.make_apply(pww, cfg)(params, torch.as_tensor(traj["obs"]))
     after = (FZ.kernel_forward.launches, FZ.kernel_grads.launches,
              FZ.kernel_loss_grads.launches)
@@ -368,38 +423,31 @@ def test_k2_and_k4_share_one_forward(ww, pww, traj):
     assert abs(float(stats[1]) - want) < 1e-5 * max(1.0, abs(want))
 
 
-@pytest.mark.parametrize("hidden,route", [(64, "tensor_core"), (256, "tensor_core"),
-                                          (48, "cuda_core"), (96, "cuda_core")])
+@pytest.mark.parametrize("hidden", [64, 256, 48, 96])
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
-def test_k2_k3_route_by_pipeline_coverage(pww, traj, arch, hidden, route):
-    """One predicate, pipeline_supports, routes K2 and K3: widths it covers
-    take the tensor-core pipeline, the others (hidden 48: trunk not a
-    multiple of 32; hidden 96: hp 48) the CUDA-core tile code; a net the
-    pipeline does not cover never reaches it, and the refusal names the
-    predicate."""
+def test_k2_k3_route_by_pipeline_coverage(pww, traj, arch, hidden):
+    """The pipelines cover every width: K2, K3 and K4 run the tensor-core
+    route at multiples of 32 and at widths whose storage they pad (hidden
+    48: trunk; hidden 96: hp 48 too), each packing its weights once, and
+    agree with the plain versions."""
     cfg = N.NetConfig(hidden=hidden, arch=arch)
     d = FZ.dims_for(pww, cfg)
-    assert FZ.route_of(d) == route
-    assert FZ.pipeline_supports(d) == (route == "tensor_core")
-    assert FZ.loss_supports(pww, cfg) == (route == "tensor_core")
+    assert FZ.supports(pww, cfg) and FZ.loss_supports(pww, cfg) == FZ.supports(pww, cfg)
     params = N.init_params(torch.Generator().manual_seed(1), d.F, d.A, cfg, pww, device="cpu")
     rows = rows_of(traj, d)[:9]
     rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)[:9]
     packs = FZ._packed.packs
-    l1, v1 = FZ.host_forward(d, rows, params)  # the route route_of names
+    l1, v1 = FZ.host_forward(d, rows, params)
     g1 = FZ.host_grads(d, rows, rowin, params)
-    assert (FZ._packed.packs > packs) == (route == "tensor_core")  # only the pipeline packs
+    g4, s4 = FZ.host_loss_grads(d, rows, loss_rowin(traj, d)[:9], params, CLIP, ENT)
+    assert FZ._packed.packs == packs + 1  # one packing for the three
     l0, v0 = FZ.fused_forward_plain(d, rows, params)
     assert rel_err(l1.numpy(), l0.numpy()) < 2e-2 and rel_err(v1.numpy(), v0.numpy()) < 2e-2
     want = plain_vjp(d, rows, params, rowin[:, :-1], rowin[:, -1])
     grads_close({k: v.numpy() for k, v in g1.items()}, {k: v.numpy() for k, v in want.items()})
-    if route == "cuda_core":  # the pipeline's own entries refuse the net
-        with pytest.raises(ValueError, match="pipeline_supports"):
-            FZ._pipeline_forward(d, rows, params, 64)
-        with pytest.raises(ValueError, match="pipeline_supports"):
-            FZ._pipeline_grads(d, rows, rowin, params, None, 64, 2)
-        with pytest.raises(ValueError, match="pipeline_supports"):
-            FZ.host_loss_grads(d, rows, loss_rowin(traj, d)[:9], params, CLIP, ENT)
+    g_ref, s_ref = FZ.loss_vg_plain(d, rows, loss_rowin(traj, d)[:9], params, CLIP, ENT)
+    grads_close({k: v.numpy() for k, v in g4.items()}, {k: v.numpy() for k, v in g_ref.items()})
+    np.testing.assert_allclose(s4.numpy(), s_ref.numpy(), rtol=0, atol=5e-2)
 
 
 def test_k2_scratch_is_forward_only(pww):
@@ -450,17 +498,33 @@ def test_k4_pipeline_ratios_on_both_sides_of_the_clip(ww, pww, traj):
 
 
 def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
+    """K4 covers hidden 48 (built and run); what the pipelines refuse is a
+    net past their seat, action or depth bounds, and every entry names the
+    bound."""
     cfg = N.NetConfig(hidden=48, arch="attn")  # hp = 32, hidden not a multiple of 32
     d = FZ.dims_for(pww, cfg)
-    assert not FZ.pipeline_supports(d)
     params = N.init_params(torch.Generator().manual_seed(0), d.F, d.A, cfg, pww, device="cpu")
-    with pytest.raises(ValueError, match="K4 needs"):
-        FZ.host_loss_grads(d, rows_of(traj, d), loss_rowin(traj, d), params, CLIP, ENT)
-    assert FZ.supports(pww, cfg) and not FZ.loss_supports(pww, cfg)
-    with pytest.raises(ValueError, match="K4 covers"):  # refused when built, not when run
-        FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
-    assert FZ.pipeline_supports(FZ.dims_for(pww, N.NetConfig(hidden=256, arch="attn")))
-    assert FZ.loss_supports(pww, N.NetConfig(hidden=256, arch="attn"))
+    rowin = loss_rowin(traj, d)
+    g_k, s_k = FZ.host_loss_grads(d, rows_of(traj, d), rowin, params, CLIP, ENT, chunk_rows=50)
+    g_ref, s_ref = FZ.loss_vg_plain(d, rows_of(traj, d), rowin, params, CLIP, ENT)
+    grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()})
+    assert FZ.supports(pww, cfg) and FZ.loss_supports(pww, cfg)
+    FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
+    for field, value, bound in (("P", 33, "MAX_P = 32"), ("A", 65, "MAX_A = 64"),
+                                ("layers", 33, "MAX_LAYERS = 32")):
+        assert bound in FZ._bound(dataclasses.replace(d, **{field: value}))
+    with pytest.raises(ValueError, match="K4 .*MAX_LAYERS = 32"):
+        FZ.host_loss_grads(dataclasses.replace(d, layers=33), rows_of(traj, d), rowin, params,
+                           CLIP, ENT)
+    big = builtin_pair("werewolf", {"max_players": 40}).port
+    deep = N.NetConfig(hidden=48, arch="attn", layers=33)
+    for lw, c, bound in ((big, cfg, "MAX_P = 32 seats, not 40"),
+                         (pww, deep, "MAX_LAYERS = 32 trunk layers, not 33")):
+        assert not FZ.supports(lw, c) and bound in FZ.unsupported(lw, c)
+        with pytest.raises(ValueError, match=bound):  # refused when built, not when run
+            FZ.make_loss_vg(lw, c, CLIP, VF, ENT)
+        with pytest.raises(ValueError, match=bound):
+            FZ.make_apply(lw, c)
 
 
 def test_k4_scratch_at_the_main_path_width(pww):

@@ -267,7 +267,7 @@ def test_league_unroll_packs_once_per_state(ww_pair):
     pw = ww_pair.port
     cfg = P.PPOConfig(horizon=T, epochs=1, net=N.NetConfig(hidden=64, arch="attn"))
     d = FZ.dims_for(pw, cfg.net)
-    assert FZ.pipeline_supports(d)
+    assert FZ.supports(pw, cfg.net)
     gen = torch.Generator().manual_seed(0)
     mk = lambda: N.init_params(gen, N.obs_dim(pw), N.action_space(pw), cfg.net, pw,  # noqa: E731
                                device="cpu")

@@ -204,14 +204,14 @@ def test_train_run_main_on_cpu(pww, arch):
     assert not any(e["event"] == "fused_net" for e in events)  # auto: off on the CPU
 
 
-@pytest.mark.parametrize("hidden,forward,loss", [(48, "cuda_core", "k2_k3"),
-                                                 (96, "cuda_core", "k2_k3"),
+@pytest.mark.parametrize("hidden,forward,loss", [(48, "tensor_core", "k4"),
+                                                 (96, "tensor_core", "k4"),
                                                  (64, "tensor_core", "k4")])
 def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, forward, loss):
-    """The fused train path at widths the pipeline does not cover (hidden
-    48: trunk not a multiple of 32; hidden 96: hp 48) trains through the
-    CUDA-core K2 + K3 instead of failing in its first update; run.main says
-    which forward and which loss it runs."""
+    """The fused train path takes K4 at every width, also where the
+    pipelines pad the storage (hidden 48: trunk not a multiple of 32;
+    hidden 96: hp 48); run.main says which forward and which loss it
+    runs."""
     cfg = P.PPOConfig(horizon=2, epochs=1, fused_net=True,
                       net=N.NetConfig(hidden=hidden, arch="attn"))
     assert (P.make_loss_vg_fn(pww, cfg) is not None) == (loss == "k4")
@@ -225,6 +225,15 @@ def test_fused_train_step_routes_the_loss_by_k4_coverage(pww, hidden, forward, l
                          cfg.net, pww, device="cpu")
     assert any(float((params[k].detach() - init[k]).abs().max()) > 0 for k in init)
     assert np.isfinite([e for e in events if e["event"] == "train"][0]["loss"])
+
+
+def test_forced_fused_refuses_a_net_the_kernels_do_not_cover():
+    """--fused on a net the kernels do not cover raises, naming why, before
+    any training; it does not train through apply_net instead."""
+    argv = ["--device", "cpu", "--arch", "mlp", "--hidden", "32", "--batch", "4",
+            "--horizon", "2", "--updates", "1", "--eval-batch", "0", "--fused"]
+    with pytest.raises(ValueError, match="--fused: the kernels cover deepsets/attn"):
+        run_main(argv)
 
 
 def _cache_setup(pww, arch="attn"):

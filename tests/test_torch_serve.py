@@ -90,7 +90,7 @@ def test_forward_route_by_net_and_device():
     attn = N.NetConfig(hidden=256, arch="attn")
     assert S.forward_route(pair.port, attn, "cpu") == "fused_plain"
     assert S.forward_route(pair.port, attn, "cuda") == "tensor_core"
-    assert S.forward_route(pair.port, N.NetConfig(hidden=48, arch="attn"), "cuda") == "cuda_core"
+    assert S.forward_route(pair.port, N.NetConfig(hidden=48, arch="attn"), "cuda") == "tensor_core"
     assert S.forward_route(pair.port, N.NetConfig(hidden=64, arch="mlp"), "cuda") == "apply_net"
     assert S.forward_route(pair.port, N.NetConfig(hidden=64, arch="attn", attn_heads=2),
                            "cpu") == "apply_net"

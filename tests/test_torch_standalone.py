@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from game_engine_tpu_torch import bench as BN
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch import graft_entry as G
 from game_engine_tpu_torch.core import engine as E
@@ -35,6 +36,7 @@ from game_engine_tpu_torch.parallel import parity
 from game_engine_tpu_torch.parallel.launch import run_ranks
 from game_engine_tpu_torch.train.pipeline import run_pipelined, submeshes
 from game_engine_tpu_torch.utils import arena as AR
+from game_engine_tpu_torch.utils import bench_games as BG
 from game_engine_tpu_torch.utils import eval_exploit as EX
 from game_engine_tpu_torch.utils import checkpoint as CK
 from game_engine_tpu_torch.utils import eval_chat_probes as ECP
@@ -72,7 +74,7 @@ def test_importing_the_whole_port_loads_no_jax_package():
     for mod in ("oracle.interp", "policies.scripted", "policies.chat_lm",
                 "policies.chat_decode", "train.chat_lm", "utils.eval_chat_probes",
                 "parallel.mesh", "parallel.tp", "parallel.launch", "parallel.parity",
-                "graft_entry", "utils.eval_heldout"):
+                "graft_entry", "utils.eval_heldout", "utils.bench_games", "bench"):
         assert f"game_engine_tpu_torch.{mod}" in names.split(), mod
 
 
@@ -180,10 +182,14 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: G.entry(),
         lambda: G.dryrun_multichip(2),
         lambda: G._scaling_curve(2),
+        lambda: BG.main(["8", "2", "1"]),
+        lambda: BG.bench_game("werewolf", 8, 2, 1),
+        lambda: BN.policy_rollout_bench(8, 2, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert BN.main(["--policy", "8", "2", "1"]) == 2 and BN.main([]) == 2
 
 
 def test_resolve_refuses_other_devices():
