@@ -42,10 +42,12 @@ Phases, one JSON line each:
                   operations on these rooms, counted by the -DGE_COUNT host
                   build of the kernel's body (g++) over the first call
   bench_games     utils/bench_games.py: K1 against the plain rollout on each
-                  of its DEFAULT_GAMES (256 rooms x 64 steps, all 15 fields
-                  and the episode count, exact; bench_games_check), then
-                  each game's rate at the module's defaults (4096 rooms x
-                  1024 steps, the median of 5 calls), one line a game
+                  of its DEFAULT_GAMES at the timed rooms and seeds (4096
+                  rooms x 128 steps, all 15 fields and the episode count,
+                  exact; bench_games_check, with the launch's lanes a room,
+                  which the timed call must share), then each game's rate
+                  at the module's defaults (4096 rooms x 1024 steps, the
+                  median of 5 calls), one line a game
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256
@@ -932,39 +934,43 @@ def train_narrow_phase(gpu: str) -> dict:
     return launches
 
 
-BENCH_GAMES_CHECK = (256, 64)       # rooms, steps of the kernel-vs-plain check a game
 BENCH_GAMES_SHAPE = (4096, 1024, 5)  # utils/bench_games.py's defaults: rooms, steps, iters
+BENCH_GAMES_CHECK_STEPS = 128  # steps of the kernel-vs-plain check a game, at the timed rooms
 
 
 def bench_games_phase(gpu: str) -> int:
     """utils/bench_games.py on the card: K1 held equal to the plain rollout
-    on every DEFAULT_GAMES entry (BENCH_GAMES_CHECK rooms x steps, all 15
-    GameState fields and the episode count, exact), then each game timed at
-    the module's defaults through bench_game. Returns K1's launches on the
-    timed path."""
+    on every DEFAULT_GAMES entry from the timed path's own start (its rooms,
+    seats and seeds; BENCH_GAMES_CHECK_STEPS steps, all 15 GameState fields
+    and the episode count, exact), so the check's launch has the timed
+    launch's lanes a room; then each game timed at the module's defaults
+    through bench_game, whose lanes a room must equal the check's. Returns
+    K1's launches on the timed path."""
     import numpy as np
 
-    from game_engine_tpu_torch.core.engine import make_rollout
-    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
-    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout
+    from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout, launch_plan
     from game_engine_tpu_torch.utils import bench_games as BG
 
-    B, steps = BENCH_GAMES_CHECK
+    batch, steps, iters = BENCH_GAMES_SHAPE
     checked = {}
     for game in BG.DEFAULT_GAMES:
         lowered, n_players, _ = BG.game_setup(game)
-        start = init_state(lowered, B, n_players, np.arange(B, dtype=np.uint32), device="cuda")
-        got, eps = kernel_rollout(lowered, start, steps)
-        ref, ref_eps = make_rollout(lowered, steps)(start)
+        eng = BatchedEngine(lowered, "cuda")
+        start = eng.init(batch, n_players, np.arange(batch, dtype=np.uint32))
+        got, eps = eng.rollout(start, BENCH_GAMES_CHECK_STEPS)
+        ref, ref_eps = make_rollout(lowered, BENCH_GAMES_CHECK_STEPS)(start)
         err = max_abs_err(got, ref, eps, ref_eps)
-        checked[game] = {"n_players": n_players, "episodes": int(eps),
-                         "plain_episodes": int(ref_eps), "max_abs_err": err}
+        checked[game] = {"n_players": n_players,
+                         "lanes_per_room": launch_plan(lowered, batch)["lanes_per_room"],
+                         "episodes": int(eps), "plain_episodes": int(ref_eps),
+                         "max_abs_err": err}
         if err != 0:
             bad = [f for f, x, y in zip(got._fields, got, ref) if not bool((x == y).all())]
             raise AssertionError(f"bench_games {game}: kernel != plain in {bad}")
-    emit({"phase": "bench_games_check", "rooms": B, "steps": steps, "games": checked})
+    emit({"phase": "bench_games_check", "rooms": batch, "steps": BENCH_GAMES_CHECK_STEPS,
+          "games": checked})
 
-    batch, steps, iters = BENCH_GAMES_SHAPE
     zero_launches()
     rows = [BG.bench_game(g, batch, steps, iters, gpu) for g in BG.DEFAULT_GAMES]
     launches = kernel_rollout.launches
@@ -973,6 +979,10 @@ def bench_games_phase(gpu: str) -> int:
         emit({"phase": "bench_games", **row, "rel_to_anchor": row["msteps_per_s"] / anchor})
         if not row["msteps_per_s"] > 0:
             raise AssertionError(f"bench_games {row['game']}: no rate")
+        if row["lanes_per_room"] != checked[row["game"]]["lanes_per_room"]:
+            raise AssertionError(f"bench_games {row['game']}: timed at {row['lanes_per_room']} "
+                                 f"lanes a room, checked at "
+                                 f"{checked[row['game']]['lanes_per_room']}")
     if launches != len(rows) * (iters + 1):
         raise AssertionError(f"bench_games launched K1 {launches} times, expected "
                              f"{len(rows) * (iters + 1)}")

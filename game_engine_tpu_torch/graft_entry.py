@@ -86,7 +86,7 @@ def _config(device, horizon: int, net: dict, epochs: int = 4):
     from game_engine_tpu_torch.train.ppo import PPOConfig
 
     net_cfg = N.NetConfig(**net)
-    fused = torch.device(device).type == "cuda" and FZ.supports(_lowered(), net_cfg)
+    fused = FZ.runs_on_card(_lowered(), net_cfg, device)
     return PPOConfig(horizon=horizon, epochs=epochs, fused_net=fused, net=net_cfg)
 
 

@@ -24,7 +24,8 @@ attention head at any encoder and trunk width (the products run on the
 widths padded to multiples of 32, the LayerNorm and the attention scale on
 the true ones), up to MAX_LAYERS trunk layers, MAX_P seats and MAX_A
 actions. The JAX kernels have no such bounds; ``unsupported`` names the one
-a net passes, and every entry that would launch a kernel for it raises.
+a net passes, and every entry that would launch a kernel for it raises
+(``runs_on_card`` where the port picks the route itself).
 
 Each kernel has its plain-torch version here: ``fused_forward_plain``
 follows _fwd_body's cast points (K2), autograd through it is K3's, and
@@ -109,9 +110,15 @@ def _bound(d: Dims) -> str | None:
     return None
 
 
+def covers_arch(cfg: N.NetConfig) -> bool:
+    """The JAX kernels' own test (its fused.supports): deepsets/attn with one
+    attention head. A net of another arch runs net.apply_net, as in JAX."""
+    return cfg.arch in ("deepsets", "attn") and cfg.attn_heads == 1
+
+
 def unsupported(lowered: Lowered, cfg: N.NetConfig) -> str | None:
     """Why the kernels do not cover the net, or None when they do."""
-    if cfg.arch not in ("deepsets", "attn") or cfg.attn_heads != 1:
+    if not covers_arch(cfg):
         return (f"the kernels cover deepsets/attn with one attention head, not "
                 f"arch={cfg.arch!r} with {cfg.attn_heads} heads")
     return _bound(dims_for(lowered, cfg))
@@ -123,7 +130,16 @@ def supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
     return unsupported(lowered, cfg) is None
 
 
-loss_supports = supports  # K4 covers every net K2 and K3 cover
+def runs_on_card(lowered: Lowered, cfg: N.NetConfig, device) -> bool:
+    """Whether the kernels run the net on `device` where the caller leaves
+    the choice to the port: on a CUDA device, for a net of an arch they
+    cover. Such a net past one of the bounds of _bound raises there, naming
+    it: the JAX kernels run it, so the plain version does not take their
+    place unasked."""
+    if torch.device(device).type != "cuda" or not covers_arch(cfg):
+        return False
+    _require_pipeline(dims_for(lowered, cfg), "the policy-net kernels")
+    return True
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,11 @@ bit-identically on the route that wrote the journal.
 
 The forward is chosen once, when the bots are built:
 
-  fused   ``fused.make_apply`` under ``torch.inference_mode()`` when
-          ``fused.supports(lowered, cfg)``: the policy-forward kernel (K2)
-          on CUDA tensors; its plain version (``fused_forward_plain``) on
-          CPU tensors.
+  fused   ``fused.make_apply`` under ``torch.inference_mode()`` for a
+          net of an arch the kernels cover: the policy-forward kernel (K2)
+          on CUDA tensors, where a net past K2's seat, action or depth
+          bounds raises; its plain version (``fused_forward_plain``) on
+          CPU tensors, for nets within those bounds.
   plain   ``net.apply_net``, for every other net (mlp, multi-head attn).
 
 The choice is logged once and never changes afterwards: a K2 that fails to
@@ -49,10 +50,11 @@ _log = logging.getLogger(__name__)
 def forward_route(lowered: Lowered, cfg: N.NetConfig, device) -> str:
     """Which forward PolicyBots runs for this net on `device`: K2
     ("tensor_core") on the card, "fused_plain" (K2's plain version) on the
-    CPU, or "apply_net" for nets K2 does not cover."""
-    if not FZ.supports(lowered, cfg):
-        return "apply_net"
-    return "fused_plain" if torch.device(device).type == "cpu" else "tensor_core"
+    CPU, or "apply_net" for nets of an arch K2 does not cover. On the card
+    a net past K2's bounds raises (fused.runs_on_card)."""
+    if torch.device(device).type == "cuda":
+        return "tensor_core" if FZ.runs_on_card(lowered, cfg, device) else "apply_net"
+    return "fused_plain" if FZ.supports(lowered, cfg) else "apply_net"
 
 
 class PolicyBots:

@@ -88,15 +88,16 @@ def _tensor_parallel(mesh) -> bool:
 
 
 def make_apply_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
-    """(params, obs) -> (logits, value): the fused kernels when enabled and
-    supported, else the plain apply_net; the tensor-parallel plain net on a
-    mesh with a model axis wider than 1."""
+    """(params, obs) -> (logits, value): the fused kernels when enabled for
+    a net of an arch they cover (raising for one past their bounds, see
+    fused.unsupported), else the plain apply_net; the tensor-parallel plain
+    net on a mesh with a model axis wider than 1."""
     if _tensor_parallel(mesh):
         return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered, mesh)
     if cfg.fused_net:
         from game_engine_tpu_torch.policies import fused as FZ
 
-        if FZ.supports(lowered, cfg.net):
+        if FZ.covers_arch(cfg.net):
             return FZ.make_apply(lowered, cfg.net)
     return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered)
 
@@ -264,15 +265,16 @@ def team_masks(lowered: Lowered, state: GameState) -> torch.Tensor:
 
 def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """((loss, metrics), grads) through K4 (one pass over the rows), or None
-    when the config does not ask for it, K4 does not cover the net or the
-    trunk is split over a model axis; the update then runs ppo_loss through
-    make_apply_fn (K2 + K3 with fused_net). With a mesh, this rank's
+    when the config does not ask for it, the net's arch is not one K4
+    covers or the trunk is split over a model axis; the update then runs
+    ppo_loss through make_apply_fn (K2 + K3 with fused_net). A net past
+    K4's bounds raises (see fused.unsupported). With a mesh, this rank's
     shares (see ppo_loss)."""
     if not (cfg.fused_net and cfg.fused_loss) or _tensor_parallel(mesh):
         return None
     from game_engine_tpu_torch.policies import fused as FZ
 
-    if not FZ.supports(lowered, cfg.net):
+    if not FZ.covers_arch(cfg.net):
         return None
     mono = FZ.make_loss_vg(lowered, cfg.net, cfg.clip, cfg.vf_coef, cfg.ent_coef, mesh)
 

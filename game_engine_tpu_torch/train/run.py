@@ -116,7 +116,7 @@ def main(argv=None):
         why = FZ.unsupported(lowered, net_cfg)
         if fused and why is not None:
             raise ValueError(f"--fused: {why}")
-        fused = fused or (device.type == "cuda" and why is None)
+        fused = fused or FZ.runs_on_card(lowered, net_cfg, device)
         if fused:
             print(json.dumps({"event": "fused_net", "mode": mode, "disable_with": "--no-fused",
                               "forward": "tensor_core", "loss": "k4"}), flush=True)

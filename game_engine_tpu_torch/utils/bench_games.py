@@ -11,7 +11,8 @@ interpreter hardest.
 Prints one JSON line a game with the JAX rows' fields (msteps_per_s and
 us_per_step from the median of `iters` calls timed by CUDA events;
 compile_s is the first call's host seconds, the kernel's build at first
-use included) and the card's name and power limit as `gpu`, then a summary
+use included), the launch's lanes a room (the kernel picks them from the
+room count) and the card's name and power limit as `gpu`, then a summary
 line with rel_to_anchor. Needs a card: without one it raises.
 """
 
@@ -59,6 +60,7 @@ def bench_game(game: str, batch: int, steps: int, iters: int, gpu: str = "") -> 
     import torch
 
     from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.core.rollout_kernel import launch_plan
 
     lowered, n_players, n_phases = game_setup(game)
     eng = BatchedEngine(lowered, "cuda")  # raises without a card
@@ -86,6 +88,7 @@ def bench_game(game: str, batch: int, steps: int, iters: int, gpu: str = "") -> 
         "us_per_step": med / steps * 1e6,
         "episodes": total_eps,
         "compile_s": compile_s,
+        "lanes_per_room": launch_plan(lowered, batch)["lanes_per_room"],
         "gpu": gpu,
     }
 

@@ -432,7 +432,7 @@ def test_k2_k3_route_by_pipeline_coverage(pww, traj, arch, hidden):
     agree with the plain versions."""
     cfg = N.NetConfig(hidden=hidden, arch=arch)
     d = FZ.dims_for(pww, cfg)
-    assert FZ.supports(pww, cfg) and FZ.loss_supports(pww, cfg) == FZ.supports(pww, cfg)
+    assert FZ.supports(pww, cfg)
     params = N.init_params(torch.Generator().manual_seed(1), d.F, d.A, cfg, pww, device="cpu")
     rows = rows_of(traj, d)[:9]
     rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)[:9]
@@ -508,7 +508,7 @@ def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
     g_k, s_k = FZ.host_loss_grads(d, rows_of(traj, d), rowin, params, CLIP, ENT, chunk_rows=50)
     g_ref, s_ref = FZ.loss_vg_plain(d, rows_of(traj, d), rowin, params, CLIP, ENT)
     grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()})
-    assert FZ.supports(pww, cfg) and FZ.loss_supports(pww, cfg)
+    assert FZ.supports(pww, cfg)
     FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
     for field, value, bound in (("P", 33, "MAX_P = 32"), ("A", 65, "MAX_A = 64"),
                                 ("layers", 33, "MAX_LAYERS = 32")):

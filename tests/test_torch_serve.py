@@ -94,6 +94,13 @@ def test_forward_route_by_net_and_device():
     assert S.forward_route(pair.port, N.NetConfig(hidden=64, arch="mlp"), "cuda") == "apply_net"
     assert S.forward_route(pair.port, N.NetConfig(hidden=64, arch="attn", attn_heads=2),
                            "cpu") == "apply_net"
+    # past the kernels' 32 seats: a raise on the card, naming the bound, not
+    # apply_net in K2's place; apply_net on the CPU, where no kernel runs
+    big = builtin_pair("werewolf", {"max_players": 40}).port
+    with pytest.raises(ValueError, match="MAX_P = 32 seats, not 40"):
+        S.forward_route(big, attn, "cuda")
+    assert S.forward_route(big, attn, "cpu") == "apply_net"
+    assert S.forward_route(big, N.NetConfig(hidden=64, arch="mlp"), "cuda") == "apply_net"
 
 
 def test_mlp_policy_bots_run_apply_net():
