@@ -25,7 +25,8 @@ Phases, one JSON line each:
                   and chat_decode.cu, in parallel
                   (one nvcc each, started together): seconds and ptxas
                   reports (K1's and S's registers, stack and spill bytes
-                  also as numbers, and each of LM's three kernels')
+                  also as numbers, for the builds of rooms of up to 32
+                  seats and of wider ones, and each of LM's three kernels')
   compare         K1 vs the plain-torch rollout on the same CUDA inputs, all
                   15 GameState fields and the episode count, exact: werewolf
                   4096x8 (256 steps) at 128, 64 and 256 lanes a block,
@@ -76,6 +77,25 @@ Phases, one JSON line each:
                   before and after one K4 update of the attn checkpoint must
                   differ, each must match plain on the parameters of that
                   moment, and repeated calls in between must pack nothing
+  large_rooms     past the bounds the kernels had (32 seats, 63 phases, 16
+                  condition nodes, 64 actions, 32 trunk layers), each case
+                  on the kernels' own route: large_rooms_k1, K1 on werewolf
+                  compiled for 40 and 72 seats (full rooms: the wide build,
+                  a room on 32 lanes) and on bench_games.long_game (78
+                  phases, a 20-node branch condition), exact against plain
+                  at 1024 rooms x 128 steps (both timed, and the bound by
+                  the -DGE_COUNT host build there), then BatchedEngine at
+                  4096 x 1024 (3 timed calls); large_rooms_search, S's
+                  decide entry on 40-seat rooms of 37 holding 512
+                  decisions (rollouts 2 x horizon 40): the bots' route
+                  against the plain route's choices and totals and the C++
+                  search's, exact, and the kernel at the serving default
+                  (32 x 200); large_rooms_policy, K2, K3 and K4 on 32,768
+                  rows of the attn net at hidden 256 on rooms of 40 and 72
+                  seats (A = 72) and of a 33-layer attn net at hidden 48,
+                  against plain at the compare_policy tolerances;
+                  large_rooms_train, one make_train_step update at 40
+                  seats (512 rooms, horizon 8, one epoch) through K2 and K4
   train           the learner path: 3 updates of run.main at its defaults
                   (4096 rooms, 6 players, horizon 32, 4 epochs) from the attn
                   checkpoint; steps/s and the unroll/update split by CUDA
@@ -317,17 +337,6 @@ def ptxas_report(lib) -> list:
 
     return [ln.strip() for ln in _build.build_log(lib).splitlines()
             if "registers" in ln or "stack frame" in ln]
-
-
-def ptxas_numbers(lib) -> dict:
-    """Registers, stack and spill bytes of a library's one kernel."""
-    import re
-
-    text = " ".join(ptxas_report(lib))
-    found = {"registers": r"Used (\d+) registers", "stack_bytes": r"(\d+) bytes stack frame",
-             "spill_store_bytes": r"(\d+) bytes spill stores",
-             "spill_load_bytes": r"(\d+) bytes spill loads"}
-    return {k: int(re.search(pat, text).group(1)) for k, pat in found.items()}
 
 
 def ptxas_by_kernel(lib, names) -> dict:
@@ -655,6 +664,54 @@ def k2_chunk_sweep(d, rows, params) -> dict:
     return out
 
 
+def compare_k4(d, tr, adv, ret, rows, params, name: str, gen) -> tuple:
+    """K4 on a one-step Rollout `tr` (rows: its observations) against its
+    plain version under the compare_policy tolerances, with logp_old the
+    net's own log-prob of the taken action plus noise, so ratios fall on
+    both sides of the clip band; raises past them or unless each call
+    launched K4 once. -> ({"max_abs_err", "max_rel_err", "ms", "plain_ms",
+    "bound"}, fields of the phase's line)."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.train import ppo as P
+
+    pcfg = P.PPOConfig()
+    logits, _ = FZ.fused_forward_plain(d, rows, params)
+    legal = tr.legal.reshape(-1, d.A)
+    lp = torch.log_softmax(torch.where(legal, logits, torch.full_like(logits, -1e9)), -1)
+    taken = (tr.actions.reshape(-1, 1).long() - 1).clamp(0, d.A - 1)  # 0: no action
+    own = lp.gather(1, taken)[:, 0]
+    logp_old = own.reshape(tr.logp.shape) + 0.3 * torch.randn(
+        tr.logp.shape, generator=gen, device="cuda")
+    rowin = FZ._loss_rows(d, tr.legal, tr.actions, logp_old, adv, ret, tr.mask, pcfg.vf_coef)
+    before = FZ.kernel_loss_grads.launches
+    (gk, sk), ms = mean_ms(lambda: FZ.kernel_loss_grads(d, rows, rowin, params,
+                                                        pcfg.clip, pcfg.ent_coef))
+    if FZ.kernel_loss_grads.launches - before != 4:
+        raise AssertionError(f"K4 {name}: expected 4 launches")
+    (gp, sp), plain_ms = mean_ms(lambda: FZ.loss_vg_plain(d, rows, rowin, params,
+                                                          pcfg.clip, pcfg.ent_coef))
+    loss_k = float(sk[0] + sk[1] - pcfg.ent_coef * sk[2])
+    loss_p = float(sp[0] + sp[1] - pcfg.ent_coef * sp[2])
+    loss_err = abs(loss_k - loss_p) / (abs(loss_p) + 1e-6)
+    mk = (sk / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
+    mp = (sp / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
+    metric_err = max(abs(a - b) for a, b in zip(mk, mp))
+    errs = {k: rel_err(gk[k], gp[k]) for k in gp}
+    fwd_mac, bwd_mac = policy_macs(d)
+    prm_bytes = 4 * sum(v.numel() for v in params.values())
+    b4 = bound(2 * (fwd_mac + bwd_mac) * rows.shape[0], nbytes(rows, rowin) + 2 * prm_bytes)
+    check(f"K4 {name} loss", loss_err, TOL_LOSS)
+    check(f"K4 {name} metrics", metric_err, TOL_METRIC)
+    for k, e in errs.items():
+        check(f"K4 {name} d{k}", e, TOL_GRAD)
+    return ({"max_abs_err": max(abs_err(gk[k], gp[k]) for k in gp),
+             "max_rel_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, "bound": b4},
+            {"k4_ms": ms, "k4_plain_ms": plain_ms, "k4_loss_rel_err": loss_err,
+             "k4_metric_abs_err": metric_err, "k4_grad_rel_err": errs})
+
+
 def compare_narrow(lowered, traj, adv, ret) -> dict:
     """K2, K3 and K4 at the widths whose storage the pipelines pad (NARROW:
     hidden 48, the trunk padded from 48 to 64 columns; hidden 96, the
@@ -672,7 +729,6 @@ def compare_narrow(lowered, traj, adv, ret) -> dict:
 
     out = {k: {} for k in POLICY_REPLACES}
     tr = P.Rollout(*(x[:1] for x in traj))
-    pcfg = P.PPOConfig()
     gen = torch.Generator(device="cuda").manual_seed(13)
     for hidden in NARROW:
         for arch in ("attn", "deepsets"):
@@ -683,50 +739,315 @@ def compare_narrow(lowered, traj, adv, ret) -> dict:
             rows = tr.obs.reshape(-1, d.F).contiguous()
             name = f"{arch}_hidden{hidden}_seed2"
             fields, got = compare_k2_k3(d, rows, params, name)
-
-            logits, _ = FZ.fused_forward_plain(d, rows, params)
-            legal = tr.legal.reshape(-1, d.A)
-            lp = torch.log_softmax(torch.where(legal, logits, torch.full_like(logits, -1e9)), -1)
-            taken = (tr.actions.reshape(-1, 1).long() - 1).clamp(0, d.A - 1)  # 0: no action
-            own = lp.gather(1, taken)[:, 0]
-            logp_old = own.reshape(tr.logp.shape) + 0.3 * torch.randn(
-                tr.logp.shape, generator=gen, device="cuda")
-            rowin = FZ._loss_rows(d, tr.legal, tr.actions, logp_old, adv[:1], ret[:1], tr.mask,
-                                  pcfg.vf_coef)
-            before = FZ.kernel_loss_grads.launches
-            (gk, sk), ms = mean_ms(lambda: FZ.kernel_loss_grads(d, rows, rowin, params,
-                                                                pcfg.clip, pcfg.ent_coef))
-            if FZ.kernel_loss_grads.launches - before != 4:
-                raise AssertionError(f"K4 {name}: expected 4 launches")
-            (gp, sp), plain_ms = mean_ms(lambda: FZ.loss_vg_plain(d, rows, rowin, params,
-                                                                  pcfg.clip, pcfg.ent_coef))
-            loss_k = float(sk[0] + sk[1] - pcfg.ent_coef * sk[2])
-            loss_p = float(sp[0] + sp[1] - pcfg.ent_coef * sp[2])
-            loss_err = abs(loss_k - loss_p) / (abs(loss_p) + 1e-6)
-            mk = (sk / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
-            mp = (sp / torch.tensor([1, pcfg.vf_coef, 1, 1], device="cuda")).tolist()
-            metric_err = max(abs(a - b) for a, b in zip(mk, mp))
-            errs = {k: rel_err(gk[k], gp[k]) for k in gp}
-            fwd_mac, bwd_mac = policy_macs(d)
-            prm_bytes = 4 * sum(v.numel() for v in params.values())
-            b4 = bound(2 * (fwd_mac + bwd_mac) * rows.shape[0], nbytes(rows, rowin) + 2 * prm_bytes)
-            got["ppo_loss_grad"] = {"max_abs_err": max(abs_err(gk[k], gp[k]) for k in gp),
-                                    "max_rel_err": max(errs.values()), "ms": ms,
-                                    "plain_ms": plain_ms, "bound": b4}
+            got["ppo_loss_grad"], k4 = compare_k4(d, tr, adv[:1], ret[:1], rows, params, name,
+                                                  gen)
             emit({"phase": "compare_narrow", "arch": arch, "hidden": hidden, "hp": d.hp,
-                  "rows": rows.shape[0], "plan": FZ.kernel_plan(d), **fields,
-                  "k4_ms": ms, "k4_plain_ms": plain_ms, "k4_loss_rel_err": loss_err,
-                  "k4_metric_abs_err": metric_err, "k4_grad_rel_err": errs,
-                  "bounds_ms": {**fields["bounds_ms"], "k4": b4[0]}})
-            check(f"K4 {name} loss", loss_err, TOL_LOSS)
-            check(f"K4 {name} metrics", metric_err, TOL_METRIC)
-            for k, e in errs.items():
-                check(f"K4 {name} d{k}", e, TOL_GRAD)
+                  "rows": rows.shape[0], "plan": FZ.kernel_plan(d), **fields, **k4,
+                  "bounds_ms": {**fields["bounds_ms"], "k4": got["ppo_loss_grad"]["bound"][0]}})
             for k, v in got.items():
                 out[k].setdefault(f"hidden_{hidden}", {})[arch] = {
                     "ms": v["ms"], "plain_ms": v["plain_ms"], "max_rel_err": v["max_rel_err"],
                     "max_abs_err": v["max_abs_err"], "bound_ms": v["bound"][0]}
     return out
+
+
+LARGE_SEATS = (40, 72)          # werewolf compiled for these seats, rooms full
+LARGE_K1_TIMED = (4096, 1024)   # K1 timed through BatchedEngine.rollout: rooms, steps
+LARGE_K1_CHECK_STEPS = 128      # K1 exact against plain from the timed start (also its ms, bound)
+LARGE_S = (512, 37, 2, 40)      # S decide: decisions, seats a room, rollouts, horizon
+LARGE_POLICY_ROWS = 32768       # K2-K4 rows: rooms of P seats, one step
+LARGE_DEEP = (48, 33)           # the deep net: hidden, trunk layers (attn, werewolf at 8)
+LARGE_TRAIN = (512, 8)          # make_train_step at 40 seats: rooms, horizon (1 epoch)
+
+
+def large_game(seats: int):
+    from game_engine_tpu_torch.gamespec.compile import GameConfig, compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+
+    return lower(compile_game(load_builtin("werewolf"), GameConfig(max_players=seats)))
+
+
+def large_k1(gpu: str, int32_rate: float) -> dict:
+    """K1 past 32 seats (werewolf at 40 and 72, full rooms: the kernel's
+    wide build, a room on 32 lanes) and past 63 phases (bench_games
+    long_game: 78 phases, a 20-node branch condition). Each: K1 through
+    BatchedEngine.rollout exact against plain for LARGE_K1_CHECK_STEPS from
+    the timed path's own start (its rooms and seeds, so the check's launch
+    has the timed launch's lanes a room; all fields, episodes), both timed
+    there, and the bound on those rooms by the -DGE_COUNT host build; then
+    the rollout at LARGE_K1_TIMED (a warm-up and 3 calls, the launches
+    counted from zero), whose lanes a room must equal the check's.
+    -> ({case: fields}, launches)."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout
+    from game_engine_tpu_torch.core.rollout_kernel import (count_rollout, kernel_rollout,
+                                                           launch_plan)
+    from game_engine_tpu_torch.utils.bench_games import long_game
+
+    cases = [(f"werewolf_{P}_seats", large_game(P), P) for P in LARGE_SEATS]
+    cases.append(("long_game_78_phases", long_game(), 8))
+    B, steps = LARGE_K1_TIMED
+    check_steps = LARGE_K1_CHECK_STEPS
+    out, launches = {}, 0
+    for name, lw, n in cases:
+        eng = BatchedEngine(lw, "cuda")
+        start = eng.init(B, n, np.arange(B, dtype=np.uint32))
+        eng.rollout(start, 1)  # the library and the game's tables, before timing
+        (got, eps), ms = timed_ms(lambda: eng.rollout(start, check_steps))
+        (ref, ref_eps), plain_ms = timed_ms(lambda: make_rollout(lw, check_steps)(start))
+        err = max_abs_err(got, ref, eps, ref_eps)
+        if err != 0:
+            bad = [f for f, x, y in zip(got._fields, got, ref) if not torch_equal(x, y)]
+            raise AssertionError(f"large_rooms {name}: K1 != plain in {bad}")
+        plan = launch_plan(lw, B)
+        counts = count_rollout(lw, type(start)(*(x.cpu() for x in start)), check_steps)
+        by_ops = counts["int_ops"] / int32_rate * 1e3
+        by_bytes = 2 * nbytes(*start) / PEAK_BYTES * 1e3
+        k1_bound = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+        st = start
+        zero_launches()
+        st, total = eng.rollout(st, steps)  # warm-up call
+        times = []
+        for _ in range(3):
+            (st, e), t = timed_ms(lambda: eng.rollout(st, steps))
+            times.append(t)
+            total = total + e
+        if kernel_rollout.launches != 4:
+            raise AssertionError(f"large_rooms {name}: {kernel_rollout.launches} K1 launches")
+        launches += kernel_rollout.launches
+        if int(total) <= 0 or int(eps) <= 0:
+            raise AssertionError(f"large_rooms {name}: no episode completed")
+        timed_plan = launch_plan(lw, st.phase.shape[0])
+        if timed_plan["lanes_per_room"] != plan["lanes_per_room"]:
+            raise AssertionError(f"large_rooms {name}: timed at {timed_plan['lanes_per_room']} "
+                                 f"lanes a room, checked at {plan['lanes_per_room']}")
+        timed = statistics.median(times)
+        out[name] = {"P": lw.P, "NP": lw.NP, "seats": n, "check_rooms": B,
+                     "check_steps": check_steps, "plan": plan,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound[0],
+                     "bound_by": k1_bound[1], "max_abs_err": err, "episodes": int(eps),
+                     "timed_rooms": B, "timed_steps": steps, "timed_plan": timed_plan,
+                     "timed_ms_per_call": times, "timed_ms": timed,
+                     "env_steps_per_s": B * steps / (timed / 1e3)}
+        emit({"phase": "large_rooms_k1", "case": name, **out[name], "gpu": gpu})
+    return out, launches
+
+
+def large_search(gpu: str, int32_rate: float) -> tuple:
+    """S's decide entry at 40 seats (rooms of 37, the wide build): live
+    rooms at four depths of a scripted rollout on the card, the first of
+    them that hold LARGE_S's decisions; the bots' route (actions_for_slots,
+    one decide launch, counted from zero) against the plain route's choices
+    and totals and the port's C++ search's on the host, exact; the decide
+    kernel's ms against the plain route's, the bound by operations (the
+    -DGE_COUNT host build), and the kernel at the serving default (32
+    rollouts x 200 steps) on the same decisions. -> (fields, launches)."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core import search_kernel as SK
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.core.state import GameState, state_to_numpy
+    from game_engine_tpu_torch.core.step import waiting_seats
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    want, n, R, H = LARGE_S
+    lw = large_game(40)
+    eng = BatchedEngine(lw, "cuda")
+    parts = []
+    for k, depth in enumerate((3, 7, 11, 15)):
+        st = eng.init(256, n, np.arange(256, dtype=np.uint32) + 4096 * k)
+        for _ in range(depth):
+            st = eng.step(st, eng.bot_actions(st))
+        parts.append(st)
+    pool = GameState(*(torch.cat(f) for f in zip(*parts)))
+    cum = np.cumsum(waiting_seats(lw, pool).sum(1).cpu().numpy())
+    slots = list(range(int(np.searchsorted(cum, want)) + 1))
+    sb = SearchBots(lw, R, H, device="cuda")
+    zero_launches()
+    got = sb.actions_for_slots(pool, slots).cpu().numpy()[slots]
+    launches = SK.kernel_decide.launches
+    if (launches, SK.kernel_search.launches) != (1, 0):
+        raise AssertionError(f"large_rooms S: launches {launches}, {SK.kernel_search.launches}")
+    decisions = sb.last_call["decisions"]
+    t0 = time.perf_counter()
+    plain_got = sb.request_actions(pool, slots, plain=True).cpu().numpy()[slots]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    src, table, plain = sb.last_launch()
+    idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+    sub = GameState(*(f.index_select(0, idx) for f in pool))
+    args = (R, H, sb.scoring)
+    dec = SK.kernel_decide(lw, sub, *args, sb.salt)
+    times = [timed_ms(lambda: SK.kernel_decide(lw, sub, *args, sb.salt))[1] for _ in range(3)]
+    flat = decided_flat(dec, len(table))
+    pool_np = state_to_numpy(pool)
+    cpp = cpp_decisions(sb, [(read_of(pool_np, i), int(pool_np["seed"][i])) for i in slots], n)
+    host = host_totals(sb, src, table)
+    counts, steps = search_counts(lw, sb, src, table)
+    serving = [timed_ms(lambda: SK.kernel_decide(lw, sub, SEARCH_R, SEARCH_H, sb.scoring,
+                                                 sb.salt))[1] for _ in range(3)]
+    line = {"P": lw.P, "seats": n, "rooms": len(slots), "decisions": decisions,
+            "requests": len(table), "rollouts": R, "horizon": H,
+            "max_candidates": int(dec.counts.max()),
+            "choice_diffs_vs_plain": int((got != plain_got).sum()),
+            "choice_diffs_vs_cpp": int((got != cpp).sum()),
+            "total_diffs_vs_plain": int((flat != plain).sum()),
+            "total_diffs_vs_cpp": int((flat != host).sum()),
+            "max_abs_err": int(max(np.abs(flat - plain).max(initial=0),
+                                   np.abs(flat - host).max(initial=0))),
+            "ms": statistics.median(times), "ms_all": times, "plain_ms": plain_ms,
+            "bound_ms": counts["int_ops"] / int32_rate * 1e3, "bound_by": "operations",
+            "int_ops": counts["int_ops"], "steps": steps,
+            "serving_rollouts": SEARCH_R, "serving_horizon": SEARCH_H,
+            "serving_ms": statistics.median(serving), "serving_ms_all": serving,
+            "plan": SK.search_plan(lw, len(table) * R)}
+    emit({"phase": "large_rooms_search", **line, "gpu": gpu})
+    if any(v for k, v in line.items() if "diffs" in k):
+        raise AssertionError(f"large_rooms S: {line}")
+    if decisions < want or line["max_candidates"] <= 32:
+        raise AssertionError(f"large_rooms S: {decisions} decisions, "
+                             f"{line['max_candidates']} candidates at most")
+    return line, launches
+
+
+def one_step(lw, cfg, rooms: int, seed: int):
+    """A one-step Rollout of the plain-policy unroll from `rooms` full rooms
+    after a few scripted steps, on the card, with GAE advantages and
+    returns, and fresh params of cfg -> (params, Rollout, adv, ret)."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    params = N.init_params(torch.Generator().manual_seed(seed), N.obs_dim(lw),
+                           N.action_space(lw), cfg, lw, device="cuda")
+    eng = BatchedEngine(lw, "cuda")
+    state = eng.init(rooms, lw.P, np.arange(rooms, dtype=np.uint32) + seed)
+    for _ in range(5):
+        state = eng.step(state, eng.bot_actions(state))
+    pcfg = P.PPOConfig(horizon=1, net=cfg)
+    state, traj = P.make_unroll(lw, pcfg)(params, state,
+                                          torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        _, last_v = N.apply_net(params, N.observe(lw, state), cfg, lw)
+    adv, ret = P.gae(traj, last_v, pcfg)
+    return params, traj, adv, ret
+
+
+def large_policy(gpu: str, profiled: bool = False) -> dict:
+    """K2, K3 and K4 past the bounds they had: the attn net at hidden 256 on
+    werewolf rooms of 40 and of 72 seats (the attention's seats past the 32
+    held in registers; at 72, 72 actions past the loss's 64), and an attn
+    net of LARGE_DEEP's 33 trunk layers at 8 seats, each on
+    LARGE_POLICY_ROWS rows of one step against its plain version under the
+    compare_policy tolerances, with the chunk the scratch budget gives.
+    With `profiled`, also each kernel's device time by stage
+    (large_rooms_stages). -> {kernel: {case: fields}}."""
+    import torch
+
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    out = {k: {} for k in POLICY_REPLACES}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    hidden, layers = LARGE_DEEP
+    cases = [(f"attn_hidden256_{P}_seats", large_game(P), N.NetConfig(hidden=256, arch="attn"))
+             for P in LARGE_SEATS]
+    cases.append((f"attn_hidden{hidden}_{layers}_layers", large_game(8),
+                  N.NetConfig(hidden=hidden, arch="attn", layers=layers)))
+    for name, lw, cfg in cases:
+        d = FZ.dims_for(lw, cfg)
+        params, tr, adv, ret = one_step(lw, cfg, LARGE_POLICY_ROWS // lw.P, 23)
+        rows = tr.obs.reshape(-1, d.F).contiguous()
+        fields, got = compare_k2_k3(d, rows, params, name)
+        got["ppo_loss_grad"], k4 = compare_k4(d, tr, adv, ret, rows, params, name, gen)
+        emit({"phase": "large_rooms_policy", "case": name, "P": d.P, "A": d.A,
+              "layers": d.layers, "hidden": d.hidden, "rows": rows.shape[0],
+              "plan": FZ.kernel_plan(d), **fields, **k4,
+              "bounds_ms": {**fields["bounds_ms"], "k4": got["ppo_loss_grad"]["bound"][0]},
+              "gpu": gpu})
+        if profiled:
+            pcfg = P.PPOConfig()
+            dl = torch.randn((rows.shape[0], d.A), generator=gen, device="cuda")
+            dv = torch.randn((rows.shape[0],), generator=gen, device="cuda")
+            rowin = FZ._loss_rows(d, tr.legal, tr.actions, tr.logp, adv, ret, tr.mask,
+                                  pcfg.vf_coef)
+            emit({"phase": "large_rooms_stages", "case": name, "rows": rows.shape[0],
+                  "plan": FZ.kernel_plan(d), "gpu": gpu, "by_stage_ms": {
+                      "k2": profile(lambda: FZ.kernel_forward(d, rows, params)),
+                      "k3": profile(lambda: FZ.kernel_grads(d, rows, dl, dv, params)),
+                      "k4": profile(lambda: FZ.kernel_loss_grads(d, rows, rowin, params,
+                                                                 pcfg.clip, pcfg.ent_coef))}})
+        for k, v in got.items():
+            out[k][name] = {"P": d.P, "A": d.A, "layers": d.layers, "rows": rows.shape[0],
+                            "ms": v["ms"], "plain_ms": v["plain_ms"],
+                            "max_rel_err": v["max_rel_err"], "max_abs_err": v["max_abs_err"],
+                            "bound_ms": v["bound"][0], "bound_by": v["bound"][1]}
+        del params, tr, adv, ret, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def large_train(gpu: str) -> dict:
+    """One make_train_step update (LARGE_TRAIN's rooms and horizon, one
+    epoch) of the attn net at hidden 256 on full 40-seat werewolf rooms,
+    the kernels forced (PPOConfig(fused_net=True)): horizon + 1 K2 and one
+    K4 launch (counted from zero), a finite loss, moved params. -> the
+    launches."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    rooms, horizon = LARGE_TRAIN
+    lw = large_game(40)
+    cfg = P.PPOConfig(horizon=horizon, epochs=1, fused_net=True,
+                      net=N.NetConfig(hidden=256, arch="attn"))
+    params, opt = P.init_training(lw, cfg, torch.Generator().manual_seed(29), device="cuda")
+    before = clone(params)
+    state = init_state(lw, rooms, lw.P, np.arange(rooms, dtype=np.uint32), device="cuda")
+    step = P.make_train_step(lw, cfg)
+    zero_launches()
+    t0 = time.perf_counter()
+    state, metrics = step(params, opt, state, torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = policy_launches()
+    loss, moved = float(metrics["loss"]), max_change(params, before)
+    emit({"phase": "large_rooms_train", "P": lw.P, "rooms": rooms, "horizon": horizon,
+          "epochs": 1, "seconds": seconds, "unroll_ms": metrics["unroll_ms"],
+          "update_ms": metrics["update_ms"], "loss": loss, "max_param_change": moved,
+          "launches": launches, "gpu": gpu})
+    want = {"policy_forward": horizon + 1, "policy_backward": 0, "ppo_loss_grad": 1}
+    if launches != want:
+        raise AssertionError(f"large_rooms train step launched {launches}, expected {want}")
+    if not np.isfinite(loss) or not moved > 0:
+        raise AssertionError(f"large_rooms train step: loss {loss}, params moved {moved}")
+    return launches
+
+
+def large_rooms_phase(gpu: str, int32_rate: float, profiled: bool = False) -> dict:
+    """Rooms past a warp of seats, games past 63 phases, nets past 64
+    actions and 32 trunk layers through K1, S and K2-K4 (large_k1,
+    large_search, large_policy, large_train). -> {"rollout", "search_decide",
+    policy kernels: {"cases", "launches"}}."""
+    t0 = time.perf_counter()
+    k1, k1_launches = large_k1(gpu, int32_rate)
+    s, s_launches = large_search(gpu, int32_rate)
+    policy = large_policy(gpu, profiled)
+    train = large_train(gpu)
+    emit({"phase": "large_rooms_done", "seconds": time.perf_counter() - t0, "gpu": gpu})
+    return {"rollout": {"cases": k1, "launches": k1_launches},
+            "search_decide": {"cases": {"werewolf_40_seats": s}, "launches": s_launches},
+            **{k: {"cases": policy[k], "launches": train[k]} for k in POLICY_REPLACES}}
 
 
 def packed_weights_check(lowered, traj, adv, ret, params, cfg) -> None:
@@ -1436,7 +1757,17 @@ def serve_phase(gpu: str) -> dict:
 SEARCH_SOURCE = "game_engine_tpu_torch/csrc/search.cu"
 # the kernels line's S rows: the decide entry (D = 0) and the request table (D > 0)
 SEARCH_ENTRIES = {"search_decide": "ge_search_decide", "search": "ge_search"}
-SEARCH_KERNELS = {"search_decide": "ge_decide_kernel", "search": "ge_search_kernel"}
+# the kernels' builds by the words of a seat set (template argument NW):
+# 1 for rooms of up to 32 seats, 8 past them
+SEARCH_KERNELS = {"search_decide": "ge_decide_kernelILi1E", "search": "ge_search_kernelILi1E"}
+SEARCH_KERNELS_WIDE = {"search_decide": "ge_decide_kernelILi8E",
+                       "search": "ge_search_kernelILi8E"}
+K1_KERNELS = {"rollout_kernel": "ge_rollout_kernelILi1E",
+              "rollout_kernel_wide": "ge_rollout_kernelILi8E"}
+# the pipelines' products and the stages whose rooms or rows past the
+# registers' bounds (32 seats, 64 actions) take stages of their own
+LG_KERNELS = ("gemm_kernel", "wgrad_kernel", "lg7AttnMixE", "lg11AttnMixWideE", "lg8AttnBwd2E",
+              "lg12AttnBwd2WideE", "lg4LossILb0E", "lg4LossILb1E")
 # S is the counterpart of C++ host code, not of a pallas_call site
 SEARCH_REPLACES = "game_engine_tpu/native/gamesim.cpp:707"
 SEARCH_GAMES = ("werewolf", "cult-of-the-depths", "two-truths-and-a-lie")
@@ -1863,7 +2194,7 @@ def search_steps(gpu: str) -> dict:
 def widen_lanes(P: int, n: int, warp_slots: int) -> int:
     """room_step.cuh widen_lanes: lanes a rollout's room."""
     G = 1
-    while G < P:
+    while G < P and G < 32:
         G *= 2
     while G < 32 and n * 2 * G // 32 <= warp_slots:
         G *= 2
@@ -2973,9 +3304,13 @@ def main(argv=()) -> int:
     search_ptxas = ptxas_by_kernel(_build.search_lib(), SEARCH_KERNELS.values())
     if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in search_ptxas.values()):
         raise AssertionError(f"the search kernels spill: {search_ptxas}")
+    wide_ptxas = ptxas_by_kernel(_build.search_lib(), SEARCH_KERNELS_WIDE.values())
+    k1_ptxas = ptxas_by_kernel(lib, K1_KERNELS.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
-          "rollout_kernel": ptxas_numbers(lib),
+          **{k: k1_ptxas[v] for k, v in K1_KERNELS.items()},
+          "search_kernels_wide": wide_ptxas,
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
+          "lossgrad_kernels": ptxas_by_kernel(_build.lossgrad_lib(), LG_KERNELS),
           "search_ptxas": ptxas_report(_build.search_lib()),
           "search_kernels": search_ptxas,
           "chat_decode_ptxas": ptxas_report(_build.chat_decode_lib()),
@@ -3121,6 +3456,7 @@ def main(argv=()) -> int:
     packed_weights_check(ww, traj, adv, ret, attn, attn_cfg)
     del traj, adv, ret
     torch.cuda.empty_cache()
+    large = large_rooms_phase(gpu, int32_ops_per_s(), profiled)
     launches = train_phase(ww, gpu)
     narrow_train = train_narrow_phase(gpu)
     serving = serve_phase(gpu)
@@ -3153,19 +3489,24 @@ def main(argv=()) -> int:
     by_path = {k: {"learner": launches[k], "train_narrow": narrow_train[k],
                    "league": league[k], "pipeline": piped[k],
                    "matchup": matchup[k], "arena": judged["arena"][k],
-                   "exploit": judged["exploit"][k], "multidevice": multi[k]}
+                   "exploit": judged["exploit"][k], "multidevice": multi[k],
+                   "large_rooms": large[k]["launches"]}
                for k in POLICY_REPLACES}
     by_path["policy_forward"]["serving"] = serving["launches"]
     by_path["policy_forward"]["serve_chat"] = k2_serve_chat
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     s_paths = {**s_serving, "eval_search": s_eval, "arena": judged["arena"],
-               "exploit": judged["exploit"]}
+               "exploit": judged["exploit"],
+               "large_rooms": {"search_decide": large["search_decide"]["launches"], "search": 0}}
     s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches + bg_launches + multi["rollout"],
+        "replaces": REPLACES,
+        "launches": main_launches + bg_launches + multi["rollout"] + large["rollout"]["launches"],
         "launches_by_path": {"engine": main_launches, "bench_games": bg_launches,
-                             "multidevice": multi["rollout"]},
+                             "multidevice": multi["rollout"],
+                             "large_rooms": large["rollout"]["launches"]},
+        "large_rooms": large["rollout"]["cases"], "ptxas": k1_ptxas,
         "max_abs_err": worst,
         "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1], "library_ms": None}] + [{
@@ -3177,7 +3518,7 @@ def main(argv=()) -> int:
         **{e: v for e, v in policy[k].items() if e not in ("ms", "plain_ms", "bound")},
         **({"serving_route": "tensor_core", "serving_ms_by_rows": serving["k2"]}
            if k == "policy_forward" else {}),
-        "widths": {"ran": "tensor_core", **narrow[k]}}
+        "widths": {"ran": "tensor_core", **narrow[k]}, "large_rooms": large[k]["cases"]}
         for k in POLICY_REPLACES] + [{
         "name": e, "route": "cuda", "source": SEARCH_SOURCE, "replaces": SEARCH_REPLACES,
         "replaces_kind": "C++ host code (search_scores_core, gs_room_search), no pallas_call "
@@ -3189,6 +3530,8 @@ def main(argv=()) -> int:
         "ms": s_line[e]["ms"], "plain_ms": s_line[e]["plain_ms"], "bound_ms": s_line["bound"][0],
         "bound_by": s_line["bound"][1], "library_ms": None,
         "ptxas": search_ptxas[SEARCH_KERNELS[e]],
+        "ptxas_wide": wide_ptxas[SEARCH_KERNELS_WIDE[e]],
+        **({"large_rooms": large["search_decide"]["cases"]} if e == "search_decide" else {}),
         "shape": {"game": "werewolf", "decisions": s_line["decisions"],
                   "requests": s_line["requests"], "rollouts": SEARCH_R, "horizon": SEARCH_H}}
         for e in SEARCH_ENTRIES] + [{

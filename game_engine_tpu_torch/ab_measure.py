@@ -1,0 +1,231 @@
+"""This checkout's kernels against another checkout's on the same NVIDIA
+GPU: K1 (rollout), S (search) or K2-K4 (policy), each checkout measured in
+its own process in the order other, this, this, other.
+
+    python -m game_engine_tpu_torch.ab_measure {rollout,search,policy} [--other DIR]
+
+DIR is another checkout of the repository, such as `git archive` of the
+parent commit unpacked; without it only this checkout is measured. Each
+process runs this file with DIR's (or this checkout's) package on its path,
+so DIR needs no copy of this module. One JSON line each, every line with the
+GPU's name and power limit:
+
+  env       the GPU and the torch version
+  ptxas     the kernels' library of the checkout: registers, stack, spills
+  rollout   werewolf, 8 seats, 1024 steps at 4096 and 65,536 rooms through
+            the checkout's `bench` module (median of 5 hard-synced calls),
+            and at 4096 rooms the cycles of each step section by the
+            -DGE_PROFILE build (profile_rollout)
+  search    S at D = 0, 32 rollouts x 200 steps, on the first of 8192 live
+            werewolf rooms of 6 players (depths 3, 7, 11 and 15 of a
+            scripted rollout) that hold 1, 8, 64, 512 and 4096 waiting
+            seats: the host ms of SearchBots.actions_for_slots and the
+            decide and request kernels' ms on the same decisions
+  policy    K2 (kernel_forward) and K3 (kernel_grads, seeded dl and dv) on
+            32,768 rows, K4 (kernel_loss_grads) on 131,072: the attn
+            checkpoint docs/checkpoints/attn_werewolf_u120.npz at hidden 256
+            on 4096 werewolf rooms of 6 players in 8 seats, 4 steps of a
+            scripted rollout
+
+Device times are medians of 5 calls after a warm-up, by CUDA events. Exits
+2 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if sys.path and sys.path[0] == os.path.dirname(os.path.abspath(__file__)):
+    del sys.path[0]  # run as a file (--child): the package's modules are not top-level names
+KINDS = ("rollout", "search", "policy")
+K1_ROOMS, K1_STEPS = (4096, 65536), 1024
+S_SIZES, S_R, S_H = (1, 8, 64, 512, 4096), 32, 200
+CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
+K2_ROOMS, K2_PLAYERS, K2_STEPS = 4096, 6, 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def ptxas(lib) -> list:
+    from game_engine_tpu_torch import _build
+
+    return [ln.strip() for ln in _build.build_log(lib).splitlines()
+            if "registers" in ln or "stack frame" in ln or "entry function" in ln]
+
+
+def werewolf():
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+
+    return lower(compile_game(load_builtin("werewolf")))
+
+
+def rollout(label: str) -> None:
+    import numpy as np
+
+    from game_engine_tpu_torch import _build
+    from game_engine_tpu_torch.core import rollout_kernel as RK
+    from game_engine_tpu_torch.core.state import init_state
+
+    emit({"line": "ptxas", "checkout": label, "report": ptxas(_build.cuda_lib())})
+    ww = werewolf()
+    B = K1_ROOMS[0]
+    cycles = RK.profile_rollout(ww, init_state(ww, B, 8, np.arange(B, dtype=np.uint32),
+                                               device="cuda"), K1_STEPS)
+    emit({"line": "rollout_sections", "checkout": label, "rooms": B, "steps": K1_STEPS,
+          "cycles_per_room_step": {k: v / (B * K1_STEPS) for k, v in
+                                   sorted(cycles.items(), key=lambda kv: -kv[1])}})
+    for rooms in K1_ROOMS:
+        out = subprocess.run([sys.executable, "-m", "game_engine_tpu_torch.bench", str(rooms),
+                              str(K1_STEPS), "5"], capture_output=True, text=True,
+                             timeout=900, check=True)
+        detail = json.loads(out.stdout.strip().splitlines()[-1])["detail"]
+        emit({"line": "rollout", "checkout": label, "rooms": rooms,
+              "ms": detail["hard_sync_median_iter_s"] * 1e3,
+              "env_steps_per_s": detail["hard_sync_steps_per_s"]})
+
+
+def search(label: str) -> None:
+    import time
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch import _build
+    from game_engine_tpu_torch.core import search_kernel as SK
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.core.step import waiting_seats
+    from game_engine_tpu_torch.policies.search import SearchBots
+
+    emit({"line": "ptxas", "checkout": label, "report": ptxas(_build.search_lib())})
+    lw = werewolf()
+    eng = BatchedEngine(lw, "cuda")
+    parts = []
+    for k, depth in enumerate((3, 7, 11, 15)):
+        st = eng.init(2048, 6, np.arange(2048, dtype=np.uint32) + 4096 * k)
+        for _ in range(depth):
+            st = eng.step(st, eng.bot_actions(st))
+        parts.append(st)
+    pool = GameState(*(torch.cat(f) for f in zip(*parts)))
+    cum = np.cumsum(waiting_seats(lw, pool).sum(1).cpu().numpy())
+    sb = SearchBots(lw, S_R, S_H, device="cuda")
+    for size in S_SIZES:
+        slots = list(range(int(np.searchsorted(cum, size)) + 1))
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sb.actions_for_slots(pool, slots)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        sb.request_actions(pool, slots)
+        src, table, _ = sb.last_launch()
+        idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+        sub = GameState(*(f.index_select(0, idx) for f in pool))
+        emit({"line": "search", "checkout": label, "decisions": size, "requests": len(table),
+              "host_ms": statistics.median(host),
+              "request_kernel_ms": median_ms(lambda: SK.kernel_search(lw, src, table, S_R, S_H,
+                                                                      sb.scoring)),
+              "decide_kernel_ms": median_ms(lambda: SK.kernel_decide(lw, sub, S_R, S_H,
+                                                                     sb.scoring, sb.salt))})
+
+
+def policy(label: str) -> None:
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch import _build
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.policies import fused as FZ
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    emit({"line": "ptxas", "checkout": label, "report": ptxas(_build.lossgrad_lib())})
+    lw = werewolf()
+    params, cfg = N.load_policy(os.path.join(ROOT, CKPT), device="cuda")
+    d = FZ.dims_for(lw, cfg)
+    eng = BatchedEngine(lw, "cuda")
+    state = eng.init(K2_ROOMS, K2_PLAYERS, np.arange(K2_ROOMS, dtype=np.uint32) + 99)
+    obs, legal, mask = [], [], []
+    for _ in range(K2_STEPS):
+        state = eng.step(state, eng.bot_actions(state))
+        obs.append(N.observe(lw, state))
+        legal.append(N.legal_action_mask(lw, state))
+        mask.append(P.actor_mask(lw, state))
+    obs, legal, mask = (torch.stack(x) for x in (obs, legal, mask))
+    rows = obs.reshape(-1, d.F).to(torch.bfloat16).contiguous()
+    one = rows[:K2_ROOMS * d.P]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dl = torch.randn((one.shape[0], d.A), generator=gen, device="cuda")
+    dv = torch.randn((one.shape[0],), generator=gen, device="cuda")
+    u = torch.rand(legal.shape, generator=gen, device="cuda") * legal
+    actions = (u.argmax(-1) + 1).to(torch.int32)
+    shape = mask.shape
+    logp = -torch.rand(shape, generator=gen, device="cuda")
+    adv = torch.randn(shape, generator=gen, device="cuda")
+    ret = torch.randn(shape, generator=gen, device="cuda")
+    pcfg = P.PPOConfig()
+    rowin = FZ._loss_rows(d, legal, actions, logp, adv, ret, mask, pcfg.vf_coef)
+    emit({"line": "policy", "checkout": label, "rows_k2_k3": one.shape[0],
+          "rows_k4": rows.shape[0],
+          "k2_ms": median_ms(lambda: FZ.kernel_forward(d, one, params)),
+          "k3_ms": median_ms(lambda: FZ.kernel_grads(d, one, dl, dv, params)),
+          "k4_ms": median_ms(lambda: FZ.kernel_loss_grads(d, rows, rowin, params, pcfg.clip,
+                                                          pcfg.ent_coef))})
+
+
+def main(argv: list) -> int:
+    import torch
+
+    if not argv or argv[0] not in KINDS + ("--child",):
+        print(f"usage: ab_measure {{{','.join(KINDS)}}} [--other DIR]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("ab_measure: no CUDA device", file=sys.stderr)
+        return 2
+    if argv[0] == "--child":  # --child KIND LABEL, from the checkout being measured
+        {"rollout": rollout, "search": search, "policy": policy}[argv[1]](argv[2])
+        return 0
+    from game_engine_tpu_torch.bench import gpu_line
+
+    gpu = gpu_line()
+    emit({"line": "env", "gpu": gpu, "torch": torch.__version__})
+    other = argv[argv.index("--other") + 1] if "--other" in argv else None
+    for root in (other, ROOT, ROOT, other) if other else (ROOT,):
+        root = os.path.abspath(root)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", argv[0],
+                              root], cwd=root, env={**os.environ, "PYTHONPATH": root},
+                             capture_output=True, text=True, timeout=1800)
+        if out.returncode != 0:
+            raise RuntimeError(f"ab_measure {argv[0]} in {root} failed:\n{out.stderr[-3000:]}")
+        for ln in out.stdout.splitlines():
+            if ln.startswith("{"):
+                emit({**json.loads(ln), "gpu": gpu})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

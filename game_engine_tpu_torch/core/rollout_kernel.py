@@ -4,10 +4,10 @@ Counterpart of game_engine_tpu/core/pallas_rollout.py: the state goes into
 the kernel in the same room-minor int32 layout — every bank as
 (bank, P, rooms), so one field of consecutive rooms is contiguous — and the
 game's tables as the native/pack.py blob behind a directory of section
-offsets. The kernel runs a room on a group of lanes, one seat a lane, with
-the room's words in shared memory sized to the game by the library itself
-(``block_size`` asks it); ``check_game`` refuses only what that design cannot
-hold.
+offsets. The kernel runs a room on a group of lanes, one seat a lane (a
+warp past 32 seats, a lane taking every 32nd seat), with the room's words in
+shared memory sized to the game by the library itself (``block_size`` asks
+it); ``check_game`` refuses only what that design cannot hold.
 ``kernel_rollout`` checks its inputs, launches on torch's current stream and
 counts its launches in ``kernel_rollout.launches``; ``host_rollout`` runs the
 kernel's per-room body compiled by g++ on CPU tensors (the CPU tests' view of
@@ -28,9 +28,8 @@ from game_engine_tpu_torch.core.state import _DTYPES, M32, GameState, tables
 
 _I32 = torch.int32
 _DIR_LEN = 16        # room_step.cuh DIR_LEN
-_COND_STACK = 16     # room_step.cuh COND_STACK
-MAX_SEATS = 32       # room_step.cuh MAX_GROUP: a room's seats are lanes of one warp
-MAX_PHASES = 63      # native/pack.py's two-word phase masks hold NP + 1 bits
+MAX_GROUP = 32       # room_step.cuh MAX_GROUP: a room's lanes are lanes of one warp
+MAX_SEATS = 256      # room_step.cuh MAX_SEATS: a seat set's words in a wide room's registers
 MIN_THREADS = 32     # room_step.cuh MIN_THREADS: the smallest block, one warp
 
 
@@ -80,13 +79,20 @@ def max_block_nodes(lowered: Lowered) -> int:
     return max([len(nodes) for m in lowered.mechanics for nodes, _ in m.blocks] or [0])
 
 
+def max_cond_nodes(lowered: Lowered) -> int:
+    """Nodes of the game's largest branch-condition tree."""
+    return max([_cond_nodes(c) for br in lowered.branches for c, _ in br] or [0])
+
+
 def game_array(lowered: Lowered) -> np.ndarray:
     """The pack.py blob behind a directory: dir[sid] = offset of section
     sid's data in the returned array, dir[16 + sid] = its length; dir[0] =
-    max_block_nodes, from which the kernel sizes a room's node values."""
+    max_block_nodes, from which the kernel sizes a room's node values, and
+    dir[16] = max_cond_nodes, from which it sizes a condition's stack."""
     blob = pack(lowered)
     directory = np.zeros(2 * _DIR_LEN, np.int32)
     directory[0] = max_block_nodes(lowered)
+    directory[_DIR_LEN] = max_cond_nodes(lowered)
     i = 1
     while i + 2 <= len(blob):
         sid, n = int(blob[i]), int(blob[i + 1])
@@ -98,8 +104,9 @@ def game_array(lowered: Lowered) -> np.ndarray:
 
 
 def group_lanes(P: int) -> int:
-    """Lanes that run one room: the smallest power of two >= P."""
-    return 1 << max(0, P - 1).bit_length()
+    """Lanes that run one room: the smallest power of two >= P, at most a
+    warp (a room of more seats runs on 32 lanes)."""
+    return min(MAX_GROUP, 1 << max(0, P - 1).bit_length())
 
 
 def block_size(lowered: Lowered, threads: int = 128, lib=None) -> dict:
@@ -125,20 +132,14 @@ def _cond_nodes(cond) -> int:
 
 def check_game(lowered: Lowered, lib=None) -> None:
     """Raise ValueError for a game the rollout kernel's design cannot hold:
-    more seats than a warp's lanes, more phases than the blob's masks, a
-    branch condition deeper than the kernel's stack, or rooms too large for a
-    one-warp block's shared memory (`lib`: the library whose sizing is asked,
-    see block_size)."""
+    more seats than a seat set's words hold, or rooms too large for a
+    one-warp block's shared memory (`lib`: the library whose sizing is
+    asked, see block_size). Phases and branch conditions are sized to the
+    game: the blob's phase masks take the words they need (pack.py), a
+    condition's stack the room's words (room_step.cuh)."""
     if lowered.P > MAX_SEATS:
-        raise ValueError(f"game needs P={lowered.P} seats; the rollout kernel runs a "
-                         f"room on the lanes of one warp, P <= {MAX_SEATS}")
-    if lowered.NP > MAX_PHASES:
-        raise ValueError(f"game needs NP={lowered.NP} phases; the table blob's phase "
-                         f"masks hold NP <= {MAX_PHASES}")
-    cond = max([_cond_nodes(c) for br in lowered.branches for c, _ in br] or [0])
-    if cond > _COND_STACK:
-        raise ValueError(f"game needs {cond} nodes in one branch condition; the rollout "
-                         f"kernel's stack holds <= {_COND_STACK}")
+        raise ValueError(f"game needs P={lowered.P} seats; the rollout kernel keeps a "
+                         f"room's seat sets in {MAX_SEATS // 32} words, P <= {MAX_SEATS}")
     size = block_size(lowered, MIN_THREADS, lib)
     if size["threads"] == 0:
         raise ValueError(f"game needs {size['shared_bytes']} bytes of shared memory for a "

@@ -1,4 +1,7 @@
-// Verbatim copy of game_engine_tpu/native/gamesim.cpp (the JAX package's native simulator), built by game_engine_tpu_torch/_build.py gamesim_lib().
+// Copy of game_engine_tpu/native/gamesim.cpp (the JAX package's native simulator), built by game_engine_tpu_torch/_build.py gamesim_lib().
+// One change: a game of more than 63 phases keeps its branch conditions'
+// phase masks in the pool (the port's native/pack.py), read by mask_has, where the
+// JAX package's two words drop every phase past 63.
 // gamesim — native C++ implementation of the table-driven room simulator.
 //
 // Third implementation of the pinned P1..P11 semantics (see
@@ -148,6 +151,17 @@ bool mask64_has(int32_t lo, int32_t hi, int idx_plus1) {
   return idx_plus1 >= 0 && idx_plus1 < 64 && ((bits >> idx_plus1) & 1);
 }
 
+// bit idx of a phase mask of n 32-bit words
+bool mask_has(const int32_t* words, int n, int idx) {
+  return idx >= 0 && idx < 32 * n && (((uint32_t)words[idx >> 5] >> (idx & 31)) & 1u);
+}
+
+// A branch condition's phase mask (pack.py): NP + 1 bits in the row's two
+// words, or past 64 bits in the pool at c[1], c[2] words.
+bool prev_in(const Game& g, const int32_t* c, int idx) {
+  return g.NP + 1 <= 64 ? mask_has(c + 1, 2, idx) : mask_has(&g.pool[c[1]], c[2], idx);
+}
+
 bool cond_eval(const Game& g, const Room& r, int ci, int32_t* memo = nullptr) {
   const int32_t* c = &g.conds[ci * 5];
   switch (c[0]) {
@@ -165,7 +179,7 @@ bool cond_eval(const Game& g, const Room& r, int ci, int32_t* memo = nullptr) {
       }
     }
     case COND_ALLPRESENT: return count_pred(g, r, c[1], memo) == r.n;
-    case COND_PREVIN: return mask64_has(c[1], c[2], r.prev + 1);
+    case COND_PREVIN: return prev_in(g, c, r.prev + 1);
     case COND_AND: {
       for (int k = 0; k < c[2]; ++k)
         if (!cond_eval(g, r, g.pool[c[1] + k], memo)) return false;

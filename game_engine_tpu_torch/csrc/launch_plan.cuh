@@ -20,9 +20,9 @@ struct Plan {
   cudaError_t err;
 };
 
-// A room gets at least a lane a seat. While every room would still hold a
-// warp slot of the card at once, its group is doubled and the spare lanes
-// idle: a warp of fewer rooms runs fewer phases one after another, and a
+// A room gets at least a lane a seat, a warp past 32 seats. While every
+// room would still hold a warp slot of the card at once, its group is
+// doubled and the spare lanes idle: a warp of fewer rooms runs fewer phases one after another, and a
 // call of few rooms is bound by that latency, not by lanes.
 inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int threads) {
   Plan p{fit_threads(g, game_len, threads), group_lanes(g.P), 0, 0, cudaSuccess};
@@ -77,7 +77,7 @@ inline Grid persistent_grid(const void* kernel, const Game& g, int game_len, int
 // Whether a launch over n rooms of lanes `threads` a block may be asked for.
 inline bool launchable(const Game& g, int game_len, int64_t n, int threads) {
   return threads >= 32 && threads <= 1024 && threads % 32 == 0 && n > 0 && game_len > 0 &&
-         g.P >= 1 && g.P <= MAX_GROUP;
+         g.P >= 1 && g.P <= MAX_SEATS;
 }
 
 }  // namespace ge

@@ -67,13 +67,13 @@
 
 namespace lg {
 
-constexpr int MAX_LAYERS = 32;  // trunk depth: sizes Net::off and Lay::wt, wtt
 constexpr int N_STATS = 4;  // K4's sums: pg*w, 0.5 (v-ret)^2 vrow, ent*w, ratio*w
 
-// parameter slots; the trunk's layer i is W_TRUNK + 2i (weight), + 1 (bias)
+// parameter slots; W_TRUNK is the trunk's first weight (Net::tw, tb give
+// every layer's weight and bias)
 enum { W_PHI0, B_PHI0, W_PHI1, B_PHI1, LN_S, LN_B, W_QKV, W_AO, W_PTR,
        W_PI, B_PI, W_V, B_V, W_TRUNK };
-constexpr int N_SLOTS = W_TRUNK + 2 * MAX_LAYERS;
+constexpr int N_SLOTS = W_TRUNK + 1;
 constexpr int META_INTS = 10 + N_SLOTS;
 
 LG_HD int rup(int x, int m) { return (x + m - 1) / m * m; }
@@ -83,7 +83,9 @@ LG_HD int rup(int x, int m) { return (x + m - 1) / m * m; }
 // has the same layout). hp and H are the widths of the arithmetic (the
 // LayerNorm's divisor, the attention scale); every product, packed weight
 // and scratch buffer holds the encoder and trunk columns padded with zeros
-// to hpp = rup(hp, 32) and Hp = rup(H, 32).
+// to hpp = rup(hp, 32) and Hp = rup(H, 32). The trunk's layers follow one
+// another in the flat buffer (w0 T x H, b0, then H x H and H a layer), so a
+// layer's offsets come from the first one's: any depth, no table.
 struct Net {
   int P, F0, NP, hp, H, L, n_opt, A, attn, n_params;
   int hpp, Hp;
@@ -91,6 +93,11 @@ struct Net {
   LG_HD int G() const { return P + NP + 1; }
   LG_HD int F() const { return P * F0 + G(); }
   LG_HD int T() const { return 2 * hp + NP + 1; }   // trunk input width
+  // the float offsets of trunk layer i's weight and bias
+  LG_HD int tw(int i) const {
+    return i == 0 ? off[W_TRUNK] : off[W_TRUNK] + (T() + 1) * H + (i - 1) * (H + 1) * H;
+  }
+  LG_HD int tb(int i) const { return tw(i) + (i ? H : T()) * H; }
 };
 
 // meta = [P, F0, NP, hp, H, L, n_opt, A, attn, n_params, off[0..N_SLOTS)]
@@ -154,8 +161,8 @@ LG_HD float dgelu(float x) {
   return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
 }
 
-constexpr int MAX_A = 64;   // action width the loss stage holds in registers
-constexpr int MAX_P = 32;   // seats the attention stages hold in registers
+constexpr int MAX_A = 64;   // actions Loss holds in registers (more: Loss<true>, in dl)
+constexpr int MAX_P = 32;   // seats AttnMix, AttnBwd2 hold in registers (more: the Wide stages)
 constexpr int BK = 32;      // K of every product is padded to this multiple
 
 LG_HD uint16_t bf16_bits(float x) {
@@ -215,8 +222,11 @@ struct Lay {
   int F0p, Tp, Nh, ng;    // padded widths; gradient floats (params + stats)
   // packed weights: forward (K x N) and transposed (N x K), bf16
   int64_t w0, w1, w1t, wqkv, wqkvt, wao, waot, wh, wht;
-  int64_t wt[MAX_LAYERS], wtt[MAX_LAYERS];
+  int64_t wt0, wtt0;      // the trunk's first layer (Tp x Hp)
+  int64_t wr, wstep;      // layer i >= 1 (Hp x Hp): at wr + (i - 1) wstep, then its transpose
   int64_t w_end;          // bytes of the weight buffer
+  LG_HD int64_t wt(int i) const { return i ? wr + (i - 1) * wstep : wt0; }
+  LG_HD int64_t wtt(int i) const { return i ? wr + (i - 1) * wstep + wstep / 2 : wtt0; }
   int64_t slabs;          // nsplit x ng f32
   // chunk buffers
   int64_t x0, z0, p0, z1, e, hn, mu, inv, m12, dl, hb, qkv, att, dS, ob, phib, tb, zt, xb, heads,
@@ -254,12 +264,11 @@ LG_HD Lay layout(const Net& n, int64_t chunk, int nsplit, bool fwd_only) {
   g.waot = take(at, a * B2 * hp * hp);
   g.wh = take(at, B2 * H * g.Nh);
   g.wht = take(at, B2 * H * g.Nh);
-  for (int i = 0; i < MAX_LAYERS; ++i) {
-    const int64_t kin = i == 0 ? g.Tp : H;
-    const int64_t on = i < n.L ? 1 : 0;
-    g.wt[i] = take(at, on * B2 * kin * H);
-    g.wtt[i] = take(at, on * B2 * kin * H);
-  }
+  g.wt0 = take(at, B2 * g.Tp * H);
+  g.wtt0 = take(at, B2 * g.Tp * H);
+  g.wstep = 2 * ((B2 * H * H + 255) / 256 * 256);
+  g.wr = at;
+  at += (int64_t)(n.L - 1) * g.wstep;
   g.w_end = at;
   at = 0;
   g.slabs = take(at, b * F4 * nsplit * g.ng);
@@ -611,7 +620,7 @@ struct AttnSoftmax {
 };
 
 // the mixing, item = (room r, k): ob[s][k] = bf16(sum_j bf16(att[s][j])
-// w_j[k]) for the room's P queries s, each w_j[k] loaded once
+// w_j[k]) for the room's P <= MAX_P queries s, each w_j[k] loaded once
 struct AttnMix {
   Net n;
   const float* qkv;
@@ -628,6 +637,24 @@ struct AttnMix {
       for (int j = 0; j < P; ++j) acc += bfr(att[s * P + j]) * w[j];
       ob[s * hp + k] = bf16_bits(acc);
     }
+  }
+};
+
+// AttnMix past MAX_P seats, item = (seat-row s, k): each w_j[k] loaded
+// where it is used, a thread a query, the same sums in the same order
+struct AttnMixWide {
+  Net n;
+  const float* qkv;
+  const float* att;
+  uint16_t* ob;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp, W = 3 * hp;
+    const int64_t s = it / hp, r0 = s / P * P;
+    const int k = (int)(it % hp);
+    const float* wk = qkv + r0 * W + 2 * hp + k;
+    float acc = 0.0f;
+    for (int j = 0; j < P; ++j) acc += bfr(att[s * P + j]) * wk[(int64_t)j * W];
+    ob[s * hp + k] = bf16_bits(acc);
   }
 };
 
@@ -745,7 +772,10 @@ struct GradIn {
 // products (head_logit, head_value). Writes the row's four stats, the
 // logits' cotangent dl and the head cotangent past the pointer head
 // (head_cot). rowin (rows, 2A + 5) = legal | one-hot action | logp_old,
-// advn, ret, wrow, vrow.
+// advn, ret, wrow, vrow. The row's logits are held in registers (A <=
+// MAX_A), or for Wide in the row's dl, which the last pass overwrites
+// element by element after reading it.
+template <bool Wide>
 struct Loss {
   Net n;
   const float* prm;
@@ -767,7 +797,8 @@ struct Loss {
     const float* aoh = in + A;
     const float logp_old = in[2 * A], adv = in[2 * A + 1], ret = in[2 * A + 2];
     const float wrow = in[2 * A + 3], vrow = in[2 * A + 4];
-    float lg[MAX_A];
+    float lgr[Wide ? 1 : MAX_A];
+    float* lg = Wide ? dlo + r * A : lgr;
     for (int a = 0; a < A; ++a) lg[a] = head_logit(n, prm, hd, ph, a);
     const float value = head_value(n, prm, hd);
     float mx = -INFINITY;
@@ -895,7 +926,7 @@ struct AttnSoftmaxBwd {
 
 // dq, dk and dw as hi/lo (S, 3 hp), item = (room r, k): for seat j of the
 // room, dq of query j, dk and dw of key j, from q, k and d_o at column k
-// of the room's P seat-rows, each loaded once
+// of the room's P <= MAX_P seat-rows, each loaded once
 struct AttnBwd2 {
   Net n;
   const float* qkv;
@@ -928,6 +959,35 @@ struct AttnBwd2 {
       split_store(dk * scale, hi, lo, s * W + hp + k);
       split_store(dw, hi, lo, s * W + 2 * hp + k);
     }
+  }
+};
+
+// AttnBwd2 past MAX_P seats, item = (seat-row s, k): seat j = s of its
+// room, q, k and d_o loaded where they are used, a thread a seat, the same
+// sums in the same order
+struct AttnBwd2Wide {
+  Net n;
+  const float* qkv;
+  const float* att;
+  const float* d_o;
+  const float* dS;
+  uint16_t* hi;
+  uint16_t* lo;
+  LG_HD void operator()(int64_t it) const {
+    const int P = n.P, hp = n.hpp, W = 3 * hp;
+    const int64_t s = it / hp, r0 = s / P * P;
+    const int j = (int)(s - r0), k = (int)(it % hp);
+    const float scale = 1.0f / sqrtf((float)n.hp);
+    float dq = 0.0f, dk = 0.0f, dw = 0.0f;
+    for (int m = 0; m < P; ++m) {
+      const int64_t sm = r0 + m;
+      dq += dS[s * P + m] * qkv[sm * W + hp + k];
+      dk += dS[sm * P + j] * qkv[sm * W + k];
+      dw += bfr(att[sm * P + j]) * d_o[sm * hp + k];
+    }
+    split_store(dq * scale, hi, lo, s * W + k);
+    split_store(dk * scale, hi, lo, s * W + hp + k);
+    split_store(dw, hi, lo, s * W + 2 * hp + k);
   }
 };
 
@@ -1066,8 +1126,8 @@ int pack_weights(BE& be, const Net& n, const Lay& g, const float* prm, char* wba
     LG_TRY(pack(W_AO, 0, hp, hp, hp, 0, W(g.wao), hq, W(g.waot), hq));
   }
   for (int i = 0; i < n.L; ++i)
-    LG_TRY(pack(W_TRUNK + 2 * i, 0, H, i ? H : T, H, 0, W(g.wt[i]), Hq, W(g.wtt[i]),
-                i ? Hq : g.Tp));
+    LG_TRY(be.each(PackW{prm, n.tw(i), H, i ? H : T, H, 0, Hq, i ? Hq : g.Tp, W(g.wt(i)),
+                         W(g.wtt(i))}, (int64_t)(i ? H : T) * H));
   LG_TRY(pack(W_PTR, 0, hp, H, hp, 0, W(g.wh), Nh, W(g.wht), Hq));
   LG_TRY(pack(W_PI, 0, no, H, no, hq, W(g.wh), Nh, W(g.wht), Hq));
   return pack(W_V, 0, 1, H, 1, hq + no, W(g.wh), Nh, W(g.wht), Hq);
@@ -1100,16 +1160,16 @@ int forward_chunk(BE& be, const Net& n, const Lay& g, const Bufs& b, const char*
                             epi_f32(3 * hp, b.qkv))));
     LG_TRY(be.each(AttnScore{n, b.qkv, b.att}, S * P));
     LG_TRY(be.each(AttnSoftmax{n, b.att}, S));
-    LG_TRY(be.each(AttnMix{n, b.qkv, b.att, b.ob}, R * hp));
+    LG_TRY(P > MAX_P ? be.each(AttnMixWide{n, b.qkv, b.att, b.ob}, S * hp)
+                     : be.each(AttnMix{n, b.qkv, b.att, b.ob}, R * hp));
     LG_TRY(be.gemm(fwd_gemm(b.ob, hp, W(g.wao), hp, S, hp, hp, epi_phi(hp, b.e, b.phib))));
   }
   LG_TRY(be.each(Pool{n, oc, b.phib, b.tb, Tp}, R * Tp));
   for (int i = 0; i < L; ++i) {
     const int kin = i ? H : Tp;
     float* zt = keep ? b.zt + (int64_t)i * g.chunk * H : nullptr;
-    LG_TRY(be.gemm(fwd_gemm(i ? xb(i - 1) : b.tb, kin, W(g.wt[i]), H, R, H, kin,
-                            epi_act(H, prm + off[W_TRUNK + 2 * i + 1], n.H, zt, nullptr,
-                                    xb(i)))));
+    LG_TRY(be.gemm(fwd_gemm(i ? xb(i - 1) : b.tb, kin, W(g.wt(i)), H, R, H, kin,
+                            epi_act(H, prm + n.tb(i), n.H, zt, nullptr, xb(i)))));
   }
   return be.gemm(fwd_gemm(xb(L - 1), H, W(g.wh), Nh, R, Nh, H, epi_f32(Nh, b.heads)));
 }
@@ -1188,8 +1248,10 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
     // the cotangents of the logits and the value: from the loss (with its
     // four sums) or from the caller
     if (ppo) {
-      LG_TRY(be.each(Loss{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef, Nh, b.stats, b.dl,
-                          b.dHh, b.dHl}, R));
+      LG_TRY(n.A > MAX_A ? be.each(Loss<true>{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef,
+                                              Nh, b.stats, b.dl, b.dHh, b.dHl}, R)
+                         : be.each(Loss<false>{n, prm, b.heads, b.phib, rc, clip_eps, ent_coef,
+                                               Nh, b.stats, b.dl, b.dHh, b.dHl}, R));
       LG_TRY(be.colsum(Colsum{b.stats, nullptr, N_STATS, N_STATS, R, -1, n.n_params,
                               slabs, g.ng, g.nsplit}));
     } else {
@@ -1205,13 +1267,13 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
     for (int i = L - 1; i >= 0; --i) {
       const int kin = i ? H : Tp;
       LG_TRY(wgrad(i ? xb(i - 1) : b.tb, kin, b.dzh[cur], b.dzl[cur], H, R,
-                   whole(i ? n.H : T, n.H, off[W_TRUNK + 2 * i], off[W_TRUNK + 2 * i + 1])));
+                   whole(i ? n.H : T, n.H, n.tw(i), n.tb(i))));
       if (i > 0) {
-        LG_TRY(be.gemm(bwd_gemm(b.dzh[cur], b.dzl[cur], H, W(g.wtt[i]), H, R, H, H,
+        LG_TRY(be.gemm(bwd_gemm(b.dzh[cur], b.dzl[cur], H, W(g.wtt(i)), H, R, H, H,
                                 epi_dgelu(H, zt(i - 1), b.dzh[1 - cur], b.dzl[1 - cur]))));
         cur = 1 - cur;
       } else {
-        LG_TRY(be.gemm(bwd_gemm(b.dzh[cur], b.dzl[cur], H, W(g.wtt[0]), Tp, R, Tp, H,
+        LG_TRY(be.gemm(bwd_gemm(b.dzh[cur], b.dzl[cur], H, W(g.wtt(0)), Tp, R, Tp, H,
                                 epi_f32(Tp, b.dt))));
       }
     }
@@ -1226,7 +1288,8 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
                               epi_f32(hp, b.d_o))));
       LG_TRY(be.each(AttnDA{n, b.qkv, b.d_o, b.dS}, S * P));
       LG_TRY(be.each(AttnSoftmaxBwd{n, b.att, b.dS}, S));
-      LG_TRY(be.each(AttnBwd2{n, b.qkv, b.att, b.d_o, b.dS, b.dqh, b.dql}, R * hp));
+      LG_TRY(P > MAX_P ? be.each(AttnBwd2Wide{n, b.qkv, b.att, b.d_o, b.dS, b.dqh, b.dql}, S * hp)
+                       : be.each(AttnBwd2{n, b.qkv, b.att, b.d_o, b.dS, b.dqh, b.dql}, R * hp));
       LG_TRY(wgrad(b.hb, hp, b.dqh, b.dql, 3 * hp, S, qkv));
       LG_TRY(be.gemm(bwd_gemm(b.dqh, b.dql, 3 * hp, W(g.wqkvt), hp, S, hp, 3 * hp,
                               epi_f32(hp, b.dh))));
@@ -1249,10 +1312,10 @@ int run_grad(BE& be, const Net& n, const Lay& g, const char* wbase, char* base,
 }
 
 // what the pipeline supports (the wrapper checks the same before a launch):
-// any width, MAX_P seats, MAX_A actions and MAX_LAYERS trunk layers
+// any width, seats, actions and depth of one or more trunk layers
 LG_HD bool supported(const Net& n) {
-  return n.P > 0 && n.P <= MAX_P && n.A <= MAX_A && n.A >= n.P && n.A >= n.n_opt &&
-         n.n_opt >= 1 && n.F0 > 0 && n.hp > 0 && n.H > 0 && n.L >= 1 && n.L <= MAX_LAYERS;
+  return n.P > 0 && n.A >= n.P && n.A >= n.n_opt && n.n_opt >= 1 && n.F0 > 0 && n.hp > 0 &&
+         n.H > 0 && n.L >= 1;
 }
 
 }  // namespace lg

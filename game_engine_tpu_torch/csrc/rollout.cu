@@ -22,10 +22,16 @@
 // the per-seat loops of the engine run side by side, a warp holds 32 / G
 // rooms to diverge, and the same rooms give G times the warps to hide
 // latency; a call of so few rooms that the card has warp slots to spare
-// widens the groups further (launch_plan.cuh). The room's words (state,
-// action, effect-IR node values) live in dynamic shared memory as [slot][thread], sized by the host to the game's
-// own banks and largest effect block, behind the game's tables (the pack.py
-// blob, copied in once per block, so one build serves every game). Groups
+// widens the groups further (launch_plan.cuh). A room of more than 32 seats
+// runs on a whole warp, a lane taking seats lane, lane + 32, ..., and its
+// seat sets in MAX_SEAT_WORDS words: the kernel's second build
+// (ge_rollout_kernel<MAX_SEAT_WORDS>), so the one-word build of the rooms
+// of up to 32 seats stays as it was. The room's words (state, action,
+// effect-IR node values, a branch condition's stack) live in dynamic shared
+// memory as [slot][column], SW = ceil(P / 32) columns a lane, sized by the
+// host to the game's own banks and largest effect block and condition,
+// behind the game's tables (the pack.py blob, copied in once per block, so
+// one build serves every game). Groups
 // meet only at their own lanes' __syncwarp and ballots inside the step loop.
 // The global state stays in the (bank, P, rooms) layout; the block copies
 // its rooms in and out with one loop over (slot, seat, room), so neighbouring
@@ -41,6 +47,8 @@
 
 namespace {
 
+// NW: words of a seat set, 1 for rooms of up to 32 seats
+template <int NW>
 __global__ void ge_rollout_kernel(const int32_t* __restrict__ game, int game_len,
                                   ge::MinorState ms, int32_t* __restrict__ eps,
                                   int64_t B, int num_steps, int auto_reset, int G,
@@ -50,16 +58,18 @@ __global__ void ge_rollout_kernel(const int32_t* __restrict__ game, int game_len
   for (int i = tid; i < game_len; i += T) smem[i] = game[i];
   __syncthreads();
   const ge::Game g = ge::game_view(smem);
+  const int K = NW == 1 ? 1 : g.SW;  // columns a lane
   int32_t* words = smem + game_len;
   const int R = T / G;  // rooms a block
   const int64_t room0 = (int64_t)blockIdx.x * R;
-  ge::rooms_copy(g, ms, words, T, G, R, room0, B, tid, T, false);
+  ge::rooms_copy(g, ms, words, T * K, G * K, R, room0, B, tid, T, false);
   __syncthreads();
   const int lane = tid & (G - 1), first = (tid & 31) & ~(G - 1);
   const int64_t room = room0 + tid / G;
   if (room < B) {  // whole groups take or leave this branch
     const uint32_t mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << first;
-    ge::Room r = ge::room_open(g, ms, words + (tid - lane), T, lane, mask, first, room, B);
+    ge::Room<NW> r =
+        ge::room_open<NW>(g, ms, words + (tid - lane) * K, T * K, lane, mask, first, room, B);
     const int32_t episodes = ge::room_rollout(g, r, num_steps, auto_reset);
     if (lane == 0) {
       eps[room] = episodes;
@@ -71,7 +81,13 @@ __global__ void ge_rollout_kernel(const int32_t* __restrict__ game, int game_len
     }
   }
   __syncthreads();
-  ge::rooms_copy(g, ms, words, T, G, R, room0, B, tid, T, true);
+  ge::rooms_copy(g, ms, words, T * K, G * K, R, room0, B, tid, T, true);
+}
+
+// the build of the kernel for the game's seats
+const void* rollout_kernel_for(const ge::Game& g) {
+  return g.P <= 32 ? (const void*)ge_rollout_kernel<1>
+                   : (const void*)ge_rollout_kernel<ge::MAX_SEAT_WORDS>;
 }
 
 int launch(const int32_t* game, const int32_t* game_host, int game_len,
@@ -79,12 +95,16 @@ int launch(const int32_t* game, const int32_t* game_host, int game_len,
            int auto_reset, int threads, long long* prof, cudaStream_t stream) {
   const ge::Game g = ge::game_view(game_host);
   if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
-  const ge::Plan p = ge::plan((const void*)ge_rollout_kernel, g, game_len, B, threads);
+  const ge::Plan p = ge::plan(rollout_kernel_for(g), g, game_len, B, threads);
   if (p.err != cudaSuccess) return (int)p.err;
   const int R = p.threads / p.G;
   const int64_t blocks = (B + R - 1) / R;
-  ge_rollout_kernel<<<(unsigned)blocks, p.threads, p.smem, stream>>>(
-      game, game_len, ms, eps, B, num_steps, auto_reset, p.G, prof);
+  if (g.P <= 32)
+    ge_rollout_kernel<1><<<(unsigned)blocks, p.threads, p.smem, stream>>>(
+        game, game_len, ms, eps, B, num_steps, auto_reset, p.G, prof);
+  else
+    ge_rollout_kernel<ge::MAX_SEAT_WORDS><<<(unsigned)blocks, p.threads, p.smem, stream>>>(
+        game, game_len, ms, eps, B, num_steps, auto_reset, p.G, prof);
   return (int)cudaGetLastError();
 }
 
@@ -106,7 +126,7 @@ void ge_size(const int32_t* game_host, int game_len, int threads, int64_t* out) 
 int ge_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int64_t* out) {
   const ge::Game g = ge::game_view(game_host);
   if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
-  const ge::Plan p = ge::plan((const void*)ge_rollout_kernel, g, game_len, B, threads);
+  const ge::Plan p = ge::plan(rollout_kernel_for(g), g, game_len, B, threads);
   out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
   return (int)p.err;
 }

@@ -1,7 +1,7 @@
 // rollout_host.cpp — the CUDA rollout kernel's per-room body (room_step.cuh),
 // compiled with g++ and looped over rooms on the host: each room's words in
-// the kernel's [slot][lane] layout (a block of one room), its seats run in
-// order. The same signature as ge_rollout in rollout.cu, minus the launch
+// the kernel's [slot][column] layout (a block of one room), its seats run in
+// order, its seat sets as many words as the kernel's build for its seats. The same signature as ge_rollout in rollout.cu, minus the launch
 // arguments; the CPU tests use it to run the kernel's own logic without a GPU.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC rollout_host.cpp -o librollout_host.so
@@ -13,6 +13,25 @@
 #include <vector>
 
 #include "room_step.cuh"
+
+namespace {
+
+// the rooms one after another, each in a block of its own G * SW columns
+template <int NW>
+void run_rooms(const ge::Game& g, const ge::MinorState& ms, int32_t* eps, int64_t B,
+               int num_steps, int auto_reset) {
+  const int cols = ge::group_lanes(g.P) * g.SW;
+  std::vector<int32_t> words((size_t)g.L.words * cols);
+  for (int64_t room = 0; room < B; ++room) {
+    ge::rooms_copy(g, ms, words.data(), cols, cols, 1, room, B, 0, 1, false);
+    ge::Room<NW> r = ge::room_open<NW>(g, ms, words.data(), cols, 0, 0, 0, room, B);
+    eps[room] = ge::room_rollout(g, r, num_steps, auto_reset);
+    ge::room_close(r, ms, room, B);
+    ge::rooms_copy(g, ms, words.data(), cols, cols, 1, room, B, 0, 1, true);
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -27,17 +46,10 @@ int ge_rollout_host(const int32_t* game, int game_len, int32_t* bools,
                     int64_t B, int num_steps, int auto_reset) {
   if (B <= 0 || game_len <= 0) return 1;
   const ge::Game g = ge::game_view(game);
-  if (g.P < 1 || g.P > ge::MAX_GROUP) return 2;
+  if (g.P < 1 || g.P > ge::MAX_SEATS) return 2;
   const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
-  const int G = ge::group_lanes(g.P);
-  std::vector<int32_t> words((size_t)g.L.words * G);
-  for (int64_t room = 0; room < B; ++room) {
-    ge::rooms_copy(g, ms, words.data(), G, G, 1, room, B, 0, 1, false);
-    ge::Room r = ge::room_open(g, ms, words.data(), G, 0, 0, 0, room, B);
-    eps[room] = ge::room_rollout(g, r, num_steps, auto_reset);
-    ge::room_close(r, ms, room, B);
-    ge::rooms_copy(g, ms, words.data(), G, G, 1, room, B, 0, 1, true);
-  }
+  if (g.P <= 32) run_rooms<1>(g, ms, eps, B, num_steps, auto_reset);
+  else run_rooms<ge::MAX_SEAT_WORDS>(g, ms, eps, B, num_steps, auto_reset);
   return 0;
 }
 

@@ -21,21 +21,30 @@
 // step (table reads, data-dependent branches, per-seat loops), not memory
 // traffic or arithmetic. So the step is laid out across seats, not rooms:
 //
-// - A room is run by G lanes of one warp, G a power of two >= P (so P <= 32;
-//   the launch picks G). Lane p owns seat p and lanes P..G-1 idle; every
-//   "for each seat" loop of the engine is the lane's own work
-//   (GE_EACH_SEAT). The room's scalars (phase, prev, done, winner, t, seed,
-//   the present mask) are registers, the same in every lane of the group.
+// - A room is run by G lanes of one warp, G a power of two: the fewest
+//   lanes >= P up to 32 (the launch may widen it), and 32 for a room of more
+//   seats. Seat p lives on lane p mod G: every "for each seat" loop of the
+//   engine is the lane's own work (GE_EACH_SEAT), one trip for P <= G, and
+//   lanes past P idle. The room's scalars (phase, prev, done, winner, t,
+//   seed, the present set) are registers, the same in every lane.
+// - A set of seats (present, alive, waiting) is Seats<NW>: NW 32-bit words,
+//   seat p bit p mod 32 of word p / 32. The kernels are built twice: NW = 1
+//   for rooms of up to 32 seats (one word, as a room a warp always was) and
+//   NW = MAX_SEAT_WORDS for wider rooms, so a narrow room pays nothing for
+//   the wide ones.
 // - Everything per seat is a word w[slot * stride + seat] of shared memory:
 //   the state banks, the action, a scratch word and the effect-IR node
-//   values. Consecutive lanes hold consecutive words, so a slot index known
-//   only at run time costs no bank conflict and no local memory, and the
-//   number of slots is the game's own (layout_of), not a compiled maximum.
+//   values. A room has G * SW columns (SW = ceil(P / 32), at least P), so
+//   consecutive seats hold consecutive words, a slot index known only at
+//   run time costs no bank conflict and no local memory, and the number of
+//   slots is the game's own (layout_of), not a compiled maximum. So is the
+//   branch condition's stack: slots of its own, each lane using its own
+//   column, as deep as the game's largest condition tree.
 // - What one seat needs of the others goes through a ballot over the group
-//   (seats_where: counts, the alive set, completion) or through the others'
-//   words after a group barrier (GE_SYNC: the effect IR's cross-seat nodes,
-//   the deal's keys, a target's string). Groups of one warp in different
-//   phases only ever wait for their own lanes.
+//   (seats_where: counts, the alive set, completion), one a 32 seats, or
+//   through the others' words after a group barrier (GE_SYNC: the effect
+//   IR's cross-seat nodes, the deal's keys, a target's string). Groups of
+//   one warp in different phases only ever wait for their own lanes.
 //
 // On the host the same source runs a room as a loop over its seats:
 // GE_EACH_SEAT iterates, seats_where loops, GE_SYNC is nothing, and the
@@ -57,14 +66,23 @@
 #endif
 
 #ifdef __CUDA_ARCH__
-// the body runs for this lane's seat (not at all on a padding lane)
-#define GE_EACH_SEAT(g, r, p) \
-  for (int p = (r).lane, ge_once = 1; ge_once && p < (g).P; ge_once = 0)
+// the body runs for this lane's seats: seat lane, then (wide rooms, on 32
+// lanes) lane + 32, ...; not at all on a padding lane
+#define GE_EACH_SEAT(g, r, p)                             \
+  for (int p = (r).lane, ge_more = 1; ge_more && p < (g).P; \
+       p += MAX_GROUP, ge_more = (r).NW > 1)
 // group barrier: the seats' earlier writes are visible to each other
 #define GE_SYNC(r) __syncwarp((r).mask)
 #else
 #define GE_EACH_SEAT(g, r, p) for (int p = 0; p < (g).P; ++p)
 #define GE_SYNC(r) ((void)0)
+#endif
+
+// a loop over a seat set's words, unrolled so that the words stay in registers
+#ifdef __CUDA_ARCH__
+#define GE_UNROLL _Pragma("unroll")
+#else
+#define GE_UNROLL
 #endif
 
 #if defined(GE_PROFILE) && defined(__CUDA_ARCH__)
@@ -77,8 +95,9 @@
 
 namespace ge {
 
-constexpr int MAX_GROUP = 32;   // a room's seats are lanes of one warp
-constexpr int COND_STACK = 16;  // nodes in one branch-condition tree (host-checked)
+constexpr int MAX_GROUP = 32;   // a room's lanes are lanes of one warp
+constexpr int MAX_SEAT_WORDS = 8;  // words of a seat set in a wide room's registers
+constexpr int MAX_SEATS = 32 * MAX_SEAT_WORDS;  // seats a room can have (host-checked)
 constexpr int MIN_THREADS = 32;       // the smallest block: one warp
 constexpr int64_t MAX_SHARED = 232448;  // bytes of dynamic shared memory an H100 block can ask for
 
@@ -97,7 +116,8 @@ inline int64_t counts[N_COUNTS];
 
 // directory prepended to the blob: dir[sid] = offset of section sid's data
 // in the game array, dir[DIR_LEN + sid] = its length; dir[0] = the effect-IR
-// nodes of the game's largest block
+// nodes of the game's largest block, dir[DIR_LEN] = the nodes of its largest
+// branch-condition tree
 constexpr int DIR_LEN = 16;
 constexpr int DIR_INTS = 2 * DIR_LEN;
 
@@ -190,21 +210,101 @@ GE_HD int nth_set_bit(uint32_t m, int k) {
 #endif
 }
 
-// the first n seats
-GE_HD uint32_t first_seats(int n) { return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u; }
+// A set of seats: seat p is bit p % 32 of word p / 32. Every operation runs
+// over the NW words in ascending order with constant indices, so the words
+// stay in registers; for NW = 1 each is the one word's.
+template <int NW>
+struct Seats {
+  uint32_t w[NW];
+};
 
-// smallest power of two >= P: the fewest lanes that run one room
+template <int NW>
+GE_HD int popc(const Seats<NW>& s) {
+  int n = 0;
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j) n += popc(s.w[j]);
+  return n;
+}
+
+template <int NW>
+GE_HD bool has_bit(const Seats<NW>& s, int i) {
+  if (NW == 1) return has_bit(s.w[0], i);
+  uint32_t x = 0;
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j)
+    if (i >> 5 == j) x = s.w[j];
+  return has_bit(x, i & 31);
+}
+
+template <int NW>
+GE_HD bool any(const Seats<NW>& s) {
+  uint32_t x = 0;
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j) x |= s.w[j];
+  return x != 0;
+}
+
+// the k-th (from 0) seat of s in ascending order; s has more than k seats
+template <int NW>
+GE_HD int nth_set_bit(const Seats<NW>& s, int k) {
+  if (NW == 1) return nth_set_bit(s.w[0], k);
+  int at = -1;
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j) {
+    const int c = popc(s.w[j]);
+    if (at < 0 && k < c) at = 32 * j + nth_set_bit(s.w[j], k);
+    k -= c;
+  }
+  return at;
+}
+
+// the first n seats
+template <int NW>
+GE_HD Seats<NW> first_seats(int n) {
+  Seats<NW> s;
+  if (NW == 1) {
+    s.w[0] = n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
+    return s;
+  }
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j) {
+    const int m = n - 32 * j;
+    s.w[j] = m >= 32 ? 0xFFFFFFFFu : m <= 0 ? 0u : (1u << m) - 1u;
+  }
+  return s;
+}
+
+// the first SW words of a set kept in memory (the rest empty)
+template <int NW>
+GE_HD Seats<NW> load_seats(const int32_t* words, int SW) {
+  Seats<NW> s;
+  GE_UNROLL
+  for (int j = 0; j < NW; ++j) s.w[j] = j < SW ? (uint32_t)words[j] : 0u;
+  return s;
+}
+
+// words of a set of P seats
+GE_HD int seat_words(int P) { return (P + 31) / 32; }
+
+// the fewest lanes that run one room: the smallest power of two >= P, at
+// most a warp
 GE_HD int group_lanes(int P) {
   int G = 1;
-  while (G < P) G *= 2;
+  while (G < P && G < MAX_GROUP) G *= 2;
   return G;
 }
 
 // bit idx_plus1 of the 64-bit phase mask (lo, hi): phase-set membership of a
-// dense phase index, -1 included (pack.py's masks hold NP + 1 <= 64 bits)
+// dense phase index, -1 included (the effect IR's chose(): the lowering
+// refuses phases past 63)
 GE_HD bool mask64_has(int32_t lo, int32_t hi, int idx_plus1) {
   uint64_t bits = (uint64_t)(uint32_t)lo | ((uint64_t)(uint32_t)hi << 32);
   return idx_plus1 >= 0 && idx_plus1 < 64 && ((bits >> idx_plus1) & 1);
+}
+
+// bit idx of a phase mask of n 32-bit words
+GE_HD bool mask_has(const int32_t* words, int n, int idx) {
+  return idx >= 0 && idx < 32 * n && (((uint32_t)words[idx >> 5] >> (idx & 31)) & 1u);
 }
 
 // The per-seat word slots of a room, sized to the game. [0, state) mirror
@@ -216,6 +316,7 @@ struct Layout {
   int act;    // the seat's action of this step
   int tmp;    // scratch of one stage
   int vals;   // effect-IR node values of the running block
+  int stack;  // a branch condition's pending nodes, in each lane's own column
   int words;  // slots in all
 };
 
@@ -224,7 +325,8 @@ struct Layout {
 struct Game {
   const int32_t* gm;
   int P, NP, NB, NN, NS, NPD, NOD;  // NPD/NOD: the state's (>= 1) widths
-  int alive_slot, start_index, maxv, n_mechs, max_nodes;
+  int SW;                           // words of a seat set: columns a lane holds
+  int alive_slot, start_index, maxv, n_mechs, max_nodes, max_cond;
   int atoms, pred_off, term_off, lits, phase, rec_true, rec_false, pdtrans,
       conds, branch_off, branches, mechs, pool, defaults;
   Layout L;
@@ -246,6 +348,7 @@ GE_HD Layout layout_of(const Game& g) {
   L.act = o++;
   L.tmp = o++;
   L.vals = o; o += g.max_nodes;
+  L.stack = o; o += g.max_cond > 1 ? g.max_cond - 1 : 0;  // the root is never pushed
   L.words = o;
   return L;
 }
@@ -257,8 +360,10 @@ GE_HD Game game_view(const int32_t* gm) {
   g.P = h[0]; g.NP = h[1]; g.NB = h[2]; g.NN = h[3]; g.NS = h[4];
   g.NPD = h[5] > 1 ? h[5] : 1;
   g.NOD = h[6] > 1 ? h[6] : 1;
+  g.SW = seat_words(g.P);
   g.alive_slot = h[7]; g.start_index = h[8]; g.maxv = h[12];
   g.max_nodes = gm[0];
+  g.max_cond = gm[DIR_LEN];
   g.atoms = gm[SEC_ATOMS];
   g.pred_off = gm[SEC_PRED_OFF];
   g.term_off = gm[SEC_TERM_OFF];
@@ -279,9 +384,9 @@ GE_HD Game game_view(const int32_t* gm) {
 }
 
 // bytes of dynamic shared memory of a block of `threads` lanes: the game's
-// tables and every lane's words
+// tables and every lane's words (SW columns a lane)
 GE_HD int64_t shared_bytes(const Game& g, int game_len, int threads) {
-  return ((int64_t)game_len + (int64_t)g.L.words * threads) * (int64_t)sizeof(int32_t);
+  return ((int64_t)game_len + (int64_t)g.L.words * threads * g.SW) * (int64_t)sizeof(int32_t);
 }
 
 // the largest of threads, threads / 2, ... (in whole warps) down to one warp
@@ -299,40 +404,53 @@ GE_HD int fit_threads(const Game& g, int game_len, int threads) {
 inline void size_report(const int32_t* game, int game_len, int threads, int64_t* out) {
   const Game g = game_view(game);
   const int fit = fit_threads(g, game_len, threads);
-  out[0] = g.L.words;
+  out[0] = (int64_t)g.L.words * g.SW;
   out[1] = fit;
   out[2] = shared_bytes(g, game_len, fit ? fit : MIN_THREADS);
   out[3] = MAX_SHARED;
 }
 
-// One room: its seats' words and its scalars. On the device every lane of
-// the group holds a copy with its own `lane`; the scalars agree across them.
+// One room: its seats' words and its scalars, its seat sets NW words. On
+// the device every lane of the group holds a copy with its own `lane`; the
+// scalars agree across them.
+template <int NW_>
 struct Room {
+  static constexpr int NW = NW_;
   int32_t* w;     // the room's words: w[slot * stride + seat]
-  int stride;     // words between slots: the block's threads (host: G)
-  int lane;       // device: this thread's seat; lanes P..G-1 own no seat
+  int stride;     // words between slots: the block's columns (host: the room's)
+  int lane;       // device: this thread's lane (seats lane, lane + 32, ...)
   uint32_t mask;  // device: the group's lanes within the warp
   int shift;      // device: the group's first lane within the warp
   int32_t phase, prev, done, winner, t;
   uint32_t seed;
-  uint32_t present;  // bit p: seat p is occupied (constant over a rollout)
+  Seats<NW> present;  // the occupied seats (constant over a rollout)
 #ifdef GE_PROFILE
   long long prof[N_PROF];
 #endif
   GE_HDM int32_t& at(int slot, int p) const { return w[slot * stride + p]; }
 };
 
-// Bit p of the result is f(p), for the seats p < P: a ballot over the group.
-template <class F>
-GE_HD uint32_t seats_where(const Game& g, const Room& r, F f) {
+// The seats p < P where f(p): a ballot over the group a word (a word of a
+// wide room is its 32 lanes' seats 32 j + lane).
+template <class R, class F>
+GE_HD Seats<R::NW> seats_where(const Game& g, const R& r, F f) {
+  Seats<R::NW> m;
 #ifdef __CUDA_ARCH__
-  const bool v = r.lane < g.P && f(r.lane);
-  return (__ballot_sync(r.mask, v) & r.mask) >> r.shift;
+  GE_UNROLL
+  for (int j = 0; j < R::NW; ++j) {
+    m.w[j] = 0u;
+    if (j == 0 || 32 * j < g.P) {  // the same in every lane of the group
+      const int p = 32 * j + r.lane;
+      const bool v = p < g.P && f(p);
+      m.w[j] = (__ballot_sync(r.mask, v) & r.mask) >> r.shift;
+    }
+  }
 #else
-  uint32_t m = 0;
-  for (int p = 0; p < g.P; ++p) m |= (f(p) ? 1u : 0u) << p;
-  return m;
+  for (int j = 0; j < R::NW; ++j) m.w[j] = 0u;
+  for (int p = 0; p < g.P; ++p)
+    if (f(p)) m.w[p >> 5] |= 1u << (p & 31);
 #endif
+  return m;
 }
 
 // Global state in the (bank, P, rooms) int32 layout of
@@ -368,28 +486,29 @@ GE_HD int32_t state_value(const Game& g, int slot, int32_t v) {
 }
 
 // Loads (store = false) or stores the state words of rooms [room0, room0 + R)
-// that exist, R rooms of G columns each in w; worker `tid` of `n` takes every
-// n-th word in (slot, seat, room) order, so neighbouring workers touch
+// that exist, R rooms of `cols` columns each in w; worker `tid` of `n` takes
+// every n-th word in (slot, seat, room) order, so neighbouring workers touch
 // neighbouring rooms of one field: contiguous global words.
 GE_HD void rooms_copy(const Game& g, const MinorState& m, int32_t* w, int stride,
-                      int G, int R, int64_t room0, int64_t B, int tid, int n,
+                      int cols, int R, int64_t room0, int64_t B, int tid, int n,
                       bool store) {
   const int total = g.L.state * g.P * R;
   for (int x = tid; x < total; x += n) {
     const int rr = x % R, p = (x / R) % g.P, slot = x / (R * g.P);
     if (room0 + rr >= B) continue;
     int32_t* gw = state_word(g, m, slot, p, room0 + rr, B);
-    int32_t& sw = w[slot * stride + rr * G + p];
+    int32_t& sw = w[slot * stride + rr * cols + p];
     if (store) *gw = sw;
     else sw = state_value(g, slot, *gw);
   }
 }
 
-// The room's scalars from global memory and the present mask from its words
+// The room's scalars from global memory and the present set from its words
 // (after rooms_copy and a barrier); w points at the room's first column.
-GE_HD Room room_open(const Game& g, const MinorState& m, int32_t* w, int stride,
-                     int lane, uint32_t mask, int shift, int64_t i, int64_t B) {
-  Room r;
+template <int NW>
+GE_HD Room<NW> room_open(const Game& g, const MinorState& m, int32_t* w, int stride,
+                         int lane, uint32_t mask, int shift, int64_t i, int64_t B) {
+  Room<NW> r;
   r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
   r.phase = m.scal[i];
   r.prev = m.scal[B + i];
@@ -405,7 +524,8 @@ GE_HD Room room_open(const Game& g, const MinorState& m, int32_t* w, int stride,
 }
 
 // The scalars back to global memory (one lane of the group calls it).
-GE_HD void room_close(const Room& r, const MinorState& m, int64_t i, int64_t B) {
+template <class R>
+GE_HD void room_close(const R& r, const MinorState& m, int64_t i, int64_t B) {
   m.scal[i] = r.phase;
   m.scal[B + i] = r.prev;
   m.scal[2 * B + i] = r.done;
@@ -417,7 +537,8 @@ GE_HD void room_close(const Room& r, const MinorState& m, int64_t i, int64_t B) 
 // -- predicates -------------------------------------------------------------
 
 // atom `field <op> const` for seat p
-GE_HD bool atom_eval(const Game& g, const Room& r, int ai, int p) {
+template <class R>
+GE_HD bool atom_eval(const Game& g, const R& r, int ai, int p) {
   GE_ADD(CNT_ATOMS, 1);
   const int32_t* a = g.gm + g.atoms + ai * 5;
   if (a[0] == AB_CONST) return a[4] == 1;
@@ -426,7 +547,8 @@ GE_HD bool atom_eval(const Game& g, const Room& r, int ai, int p) {
 }
 
 // DNF predicate: no terms = false; an empty term = true
-GE_HD bool pred_eval(const Game& g, const Room& r, int pi, int p) {
+template <class R>
+GE_HD bool pred_eval(const Game& g, const R& r, int pi, int p) {
   const int32_t* pred_off = g.gm + g.pred_off;
   const int32_t* term_off = g.gm + g.term_off;
   const int32_t* lits = g.gm + g.lits;
@@ -440,17 +562,20 @@ GE_HD bool pred_eval(const Game& g, const Room& r, int pi, int p) {
 }
 
 // is_alive if declared, else present, for the seat itself
-GE_HD bool alive_self(const Game& g, const Room& r, int p) {
+template <class R>
+GE_HD bool alive_self(const Game& g, const R& r, int p) {
   return has_bit(r.present, p) && (g.alive_slot < 0 || r.at(g.L.bools + g.alive_slot, p));
 }
 
-// the alive seats as a mask
-GE_HD uint32_t alive_mask(const Game& g, const Room& r) {
+// the alive seats
+template <class R>
+GE_HD Seats<R::NW> alive_mask(const Game& g, const R& r) {
   return seats_where(g, r, [&](int p) { return alive_self(g, r, p); });
 }
 
 // present players satisfying predicate pi
-GE_HD int count_pred(const Game& g, const Room& r, int pi) {
+template <class R>
+GE_HD int count_pred(const Game& g, const R& r, int pi) {
   return popc(seats_where(g, r, [&](int p) {
     return has_bit(r.present, p) && pred_eval(g, r, pi, p);
   }));
@@ -458,13 +583,15 @@ GE_HD int count_pred(const Game& g, const Room& r, int pi) {
 
 // Room-level branch condition, the same in every lane. An AND is the
 // conjunction of its children, so the tree is walked with an explicit stack
-// (no device recursion); the host checks that every tree fits in COND_STACK.
-GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
-  int stack[COND_STACK];
-  int sp = 0;
-  stack[sp++] = root;
-  while (sp > 0) {
-    const int32_t* c = g.gm + g.conds + stack[--sp] * 5;
+// (no device recursion): its children wait in the room's stack slots, each
+// lane in its own column, which the host sizes to the game's largest tree
+// (layout_of). A phase mask is the row's two words, or past 63 phases
+// words in the pool (pack.py).
+template <class R>
+GE_HD bool cond_eval(const Game& g, const R& r, int root) {
+  int sp = 0, node = root;
+  for (;;) {
+    const int32_t* c = g.gm + g.conds + node * 5;
     switch (c[0]) {
       case COND_ALWAYS: break;
       case COND_COUNTCMP: {
@@ -477,16 +604,18 @@ GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
         if (count_pred(g, r, c[1]) != popc(r.present)) return false;
         break;
       case COND_PREVIN:
-        if (!mask64_has(c[1], c[2], r.prev + 1)) return false;
+        if (!(g.NP + 1 <= 64 ? mask64_has(c[1], c[2], r.prev + 1)
+                             : mask_has(g.gm + g.pool + c[1], c[2], r.prev + 1)))
+          return false;
         break;
       case COND_AND:
-        for (int k = 0; k < c[2] && sp < COND_STACK; ++k)
-          stack[sp++] = g.gm[g.pool + c[1] + k];
+        for (int k = 0; k < c[2]; ++k) r.at(g.L.stack + sp++, r.lane) = g.gm[g.pool + c[1] + k];
         break;
       default: return false;
     }
+    if (sp == 0) return true;
+    node = r.at(g.L.stack + --sp, r.lane);
   }
-  return true;
 }
 
 // -- on-enter effect programs (P20) ------------------------------------------
@@ -494,7 +623,8 @@ GE_HD bool cond_eval(const Game& g, const Room& r, int root) {
 // One MECH_EFFECTS program. Per block, every node is evaluated before any
 // statement, so the nodes read the block-entry state from the live words;
 // statements then write the seat's own words in declared order.
-GE_HD void run_effects(const Game& g, Room& r, const int32_t* q) {
+template <class R>
+GE_HD void run_effects(const Game& g, R& r, const int32_t* q) {
   const int P = g.P;
   const Layout& L = g.L;
   const int32_t* pool = g.gm + g.pool;
@@ -658,7 +788,8 @@ GE_HD void run_effects(const Game& g, Room& r, const int32_t* q) {
 }
 
 // Every mechanic of the room's (just entered) phase, in declared order.
-GE_HD void apply_on_enter(const Game& g, Room& r) {
+template <class R>
+GE_HD void apply_on_enter(const Game& g, R& r) {
   for (int mi = 0; mi < g.n_mechs; ++mi) {
     const int32_t* m = g.gm + g.mechs + mi * MECH_ROW;
     if (m[0] == MECH_EFFECTS && m[1] == r.phase) {
@@ -674,12 +805,13 @@ GE_HD void apply_on_enter(const Game& g, Room& r) {
 // Scripted bots (engine.scripted_actions): one splitmix32 stream per
 // (seed, t, seat); every present seat emits into its action word,
 // acceptance filters.
-GE_HD void room_policy(const Game& g, Room& r) {
+template <class R>
+GE_HD void room_policy(const Game& g, R& r) {
   GE_TIC(r);
   const int32_t* ph = g.gm + g.phase + r.phase * PHASE_ROW;
   const int kind = ph[4], kmax = ph[5];
   const uint32_t h0 = splitmix32(r.seed * MIX + (uint32_t)r.t);
-  const uint32_t alive = alive_mask(g, r);
+  const auto alive = alive_mask(g, r);
   const int n_alive = popc(alive), np = popc(r.present);
   GE_EACH_SEAT(g, r, p) {
     const uint32_t h = splitmix32(h0 ^ ((uint32_t)(p + 1) * GOLDEN));
@@ -701,7 +833,8 @@ GE_HD void room_policy(const Game& g, Room& r) {
 // acceptance against the pre-step state, record writes, P3 completion, P4/P5
 // first-match branch, transition and on-enter mechanics. t counts every
 // step, done or not.
-GE_HD void room_step(const Game& g, Room& r) {
+template <class R>
+GE_HD void room_step(const Game& g, R& r) {
   const int P = g.P;
   const Layout& L = g.L;
   const int i = r.phase;
@@ -713,7 +846,7 @@ GE_HD void room_step(const Game& g, Room& r) {
   {
     GE_TIC(r);
     GE_SYNC(r);  // the strings the last step's effects or reset wrote
-    const uint32_t alive = alive_mask(g, r);
+    const auto alive = alive_mask(g, r);
     // a seat's records touch only its own words, and never a string or the
     // alive set another seat's acceptance reads
     GE_EACH_SEAT(g, r, p) {
@@ -752,7 +885,7 @@ GE_HD void room_step(const Game& g, Room& r) {
 
   GE_TIC(r);
   bool complete = !r.done;
-  if (is_action && seats_where(g, r, [&](int p) { return r.at(L.tmp, p) != 0; }) != 0)
+  if (is_action && any(seats_where(g, r, [&](int p) { return r.at(L.tmp, p) != 0; })))
     complete = false;
   int next = ph[3];
   if (complete) {  // the branch matters only to a room that moves on
@@ -776,7 +909,8 @@ GE_HD void room_step(const Game& g, Room& r) {
 }
 
 // A fresh room of n seats (init_state): defaults, start phase, on-enter.
-GE_HD void room_init(const Game& g, Room& r, int n, uint32_t seed) {
+template <class R>
+GE_HD void room_init(const Game& g, R& r, int n, uint32_t seed) {
   const Layout& L = g.L;
   const int32_t* defaults = g.gm + g.defaults;
   {
@@ -792,7 +926,7 @@ GE_HD void room_init(const Game& g, Room& r, int n, uint32_t seed) {
       r.at(L.choice, p) = 0;
       r.at(L.choice_phase, p) = -1;
     }
-    r.present = first_seats(n);
+    r.present = first_seats<R::NW>(n);
     r.phase = g.start_index;
     r.prev = -1;
     r.done = 0;
@@ -806,7 +940,8 @@ GE_HD void room_init(const Game& g, Room& r, int n, uint32_t seed) {
 
 // num_steps of bots -> step -> fresh-completion count -> auto-reset
 // (engine.make_rollout). Returns the episodes completed.
-GE_HD int32_t room_rollout(const Game& g, Room& r, int num_steps, int auto_reset) {
+template <class R>
+GE_HD int32_t room_rollout(const Game& g, R& r, int num_steps, int auto_reset) {
   int32_t episodes = 0;
   for (int s = 0; s < num_steps; ++s) {
     room_policy(g, r);
@@ -852,7 +987,8 @@ GE_HD bool search_request_ok(const Game& g, const int32_t* q, int64_t B) {
 // group's scalars agree, so its lanes leave together). Returns the rollout's
 // score for seat p: 0 unless done; team mode +1 when p's final team is the
 // winner's, else -1; score mode n - 1 when p won, else -1.
-GE_HD int32_t room_search_rollout(const Game& g, Room& r, int p, int32_t c, const SearchSpec& s) {
+template <class R>
+GE_HD int32_t room_search_rollout(const Game& g, R& r, int p, int32_t c, const SearchSpec& s) {
   for (int step = 0; step < s.horizon && !r.done; ++step) {
     room_policy(g, r);
     if (step == 0) GE_EACH_SEAT(g, r, q) if (q == p) r.at(g.L.act, q) = c;
@@ -879,25 +1015,26 @@ GE_HD bool search_spec_ok(const Game& g, const SearchSpec& s) {
 
 // -- the search's rooms, pulled one at a time ----------------------------------
 
-// The group's own copy of room i: lane p loads seat p's state words into its
-// column of w (lanes P..G-1 none), then the group barrier and room_open. A
-// group loads its rollout's source room itself, so groups of one block (and
-// of one warp) may run unrelated rollouts and take new ones at any time.
-GE_HD Room room_fetch(const Game& g, const MinorState& m, int32_t* w, int stride, int lane,
-                      uint32_t mask, int shift, int64_t i, int64_t B) {
-  Room r;
+// The group's own copy of room i: each lane loads its seats' state words
+// into their columns of w, then the group barrier and room_open. A group
+// loads its rollout's source room itself, so groups of one block (and of
+// one warp) may run unrelated rollouts and take new ones at any time.
+template <int NW>
+GE_HD Room<NW> room_fetch(const Game& g, const MinorState& m, int32_t* w, int stride, int lane,
+                          uint32_t mask, int shift, int64_t i, int64_t B) {
+  Room<NW> r;
   r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
   GE_SYNC(r);  // the group is done with the words of its last rollout
   GE_EACH_SEAT(g, r, p)
     for (int slot = 0; slot < g.L.state; ++slot)
       r.at(slot, p) = state_value(g, slot, *state_word(g, m, slot, p, i, B));
   GE_SYNC(r);
-  return room_open(g, m, w, stride, lane, mask, shift, i, B);
+  return room_open<NW>(g, m, w, stride, lane, mask, shift, i, B);
 }
 
-// Lanes a rollout's room: a lane a seat, doubled while n rollouts would all
-// still hold a warp slot of `warp_slots` at twice the lanes (the rollout
-// kernel's widening rule, launch_plan.cuh).
+// Lanes a rollout's room: a lane a seat (a warp for more than 32 seats),
+// doubled while n rollouts would all still hold a warp slot of `warp_slots`
+// at twice the lanes (the rollout kernel's widening rule, launch_plan.cuh).
 GE_HD int widen_lanes(int P, int64_t n, int64_t warp_slots) {
   int G = group_lanes(P);
   while (G < MAX_GROUP && n * (2 * G) / 32 <= warp_slots) G *= 2;
@@ -917,7 +1054,8 @@ GE_HD uint32_t search_base(uint32_t seed, uint32_t salt) { return seed * GOLDEN 
 // number of candidates: the alive seats for a target phase, 1..(choice max
 // or the seats present) for an option phase, one (the answer 1) for a
 // submit phase, none for another kind.
-GE_HD int seat_candidates(const Game& g, const Room& r, int p, uint32_t alive) {
+template <class R>
+GE_HD int seat_candidates(const Game& g, const R& r, int p, const Seats<R::NW>& alive) {
   const int32_t* ph = g.gm + g.phase + r.phase * PHASE_ROW;
   if (r.done || !has_bit(r.present, p) || !ph[0] || r.at(g.L.acted, p) ||
       !pred_eval(g, r, ph[1], p))
@@ -931,7 +1069,8 @@ GE_HD int seat_candidates(const Game& g, const Room& r, int p, uint32_t alive) {
 }
 
 // Candidate j (from 0, in ascending order) of a decision in `phase`.
-GE_HD int32_t candidate(const Game& g, int32_t phase, uint32_t alive, int j) {
+template <int NW>
+GE_HD int32_t candidate(const Game& g, int32_t phase, const Seats<NW>& alive, int j) {
   const int kind = g.gm[g.phase + phase * PHASE_ROW + 4];
   if (kind == K_TARGET) return nth_set_bit(alive, j) + 1;
   return kind == K_SUBMIT ? 1 : j + 1;
@@ -958,7 +1097,8 @@ GE_HD unsigned long long fetch_add(unsigned long long* at, unsigned long long v)
 }
 
 // The decisions of a call over B rooms, decision d = room * P + seat: its
-// candidates cnt[d] (seat_candidates), the room's alive seats, and
+// candidates cnt[d] (seat_candidates), the room's alive seats (SW words a
+// room), and
 // totals[d * C + j] for candidate j (C: the most candidates a seat of the
 // game can have). A decision with rollouts claims a run of the flat rollout
 // index and an entry: entry e's run starts at starts[e], for decision
@@ -984,11 +1124,12 @@ struct DecideTable {
 // Stage 1 for room i on a group: every seat's candidates, its action when it
 // needs no rollout (1 for a submit, the one candidate, 0 for none), the
 // room's alive seats, and a claim for each decision with a choice.
+template <int NW>
 GE_HD void decide_room(const Game& g, const MinorState& m, int64_t B, const DecideTable& tab,
                        int rollouts, int32_t* actions, int32_t* w, int stride, int lane,
                        uint32_t mask, int shift, int64_t i) {
-  const Room r = room_fetch(g, m, w, stride, lane, mask, shift, i, B);
-  const uint32_t alive = alive_mask(g, r);
+  const Room<NW> r = room_fetch<NW>(g, m, w, stride, lane, mask, shift, i, B);
+  const auto alive = alive_mask(g, r);
   GE_EACH_SEAT(g, r, p) {
     const int64_t d = i * g.P + p;
     const int n = seat_candidates(g, r, p, alive);
@@ -1002,10 +1143,12 @@ GE_HD void decide_room(const Game& g, const MinorState& m, int64_t B, const Deci
       tab.decision[old >> CLAIM_SHIFT] = d;
     }
   }
-  const uint32_t waiting = seats_where(g, r, [&](int p) { return tab.cnt[i * g.P + p] >= 0; });
+  const auto waiting = seats_where(g, r, [&](int p) { return tab.cnt[i * g.P + p] >= 0; });
   if (lane == 0) {
-    tab.alive[i] = (int32_t)alive;
-    if (waiting) fetch_add(tab.stats, (unsigned long long)popc(waiting));
+    GE_UNROLL
+    for (int j = 0; j < NW; ++j)
+      if (j < g.SW) tab.alive[i * g.SW + j] = (int32_t)alive.w[j];
+    if (any(waiting)) fetch_add(tab.stats, (unsigned long long)popc(waiting));
   }
 }
 
@@ -1024,6 +1167,7 @@ GE_HD int64_t entry_of(const int64_t* starts, int64_t n, int64_t x) {
 // candidate j of the entry's decision d, in that order (the k of one
 // candidate are consecutive, as in a request table). Returns its score;
 // *slot receives its total's index.
+template <int NW>
 GE_HD int32_t decide_rollout(const Game& g, const MinorState& m, int64_t B,
                              const DecideTable& tab, int64_t n_entries, const SearchSpec& s,
                              uint32_t salt, int64_t x, int32_t* w, int stride, int lane,
@@ -1031,21 +1175,23 @@ GE_HD int32_t decide_rollout(const Game& g, const MinorState& m, int64_t B,
   const int64_t e = entry_of(tab.starts, n_entries, x), d = tab.decision[e];
   const int64_t i = d / g.P, off = x - tab.starts[e];
   const int j = (int)(off / s.rollouts), k = (int)(off % s.rollouts), p = (int)(d % g.P);
-  Room r = room_fetch(g, m, w, stride, lane, mask, shift, i, B);
+  Room<NW> r = room_fetch<NW>(g, m, w, stride, lane, mask, shift, i, B);
   r.seed = search_seed(search_base(r.seed, salt), r.t, k);
   *slot = d * tab.C + j;
-  return room_search_rollout(g, r, p, candidate(g, r.phase, (uint32_t)tab.alive[i], j), s);
+  return room_search_rollout(
+      g, r, p, candidate(g, r.phase, load_seats<NW>(tab.alive + i * g.SW, g.SW), j), s);
 }
 
 // Stage 3 for decision d of room i: the candidate of the first strictly
 // greatest total, where rollouts decided.
+template <int NW>
 GE_HD void decide_argmax(const Game& g, const MinorState& m, const DecideTable& tab,
                          int32_t* actions, int64_t d) {
   const int32_t n = tab.cnt[d];
   if (n < 2) return;
   const int64_t i = d / g.P;
   const int j = first_best(tab.totals + d * tab.C, n);
-  actions[d] = candidate(g, m.scal[i], (uint32_t)tab.alive[i], j);
+  actions[d] = candidate(g, m.scal[i], load_seats<NW>(tab.alive + i * g.SW, g.SW), j);
 }
 
 }  // namespace ge

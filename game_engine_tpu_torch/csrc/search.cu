@@ -26,8 +26,10 @@
 //
 // What bounds it: as for the rollout kernel (csrc/rollout.cu), the serial
 // latency of a room's step through the table interpreter. So a rollout is a
-// room on a group of G lanes, a seat a lane, its words in dynamic shared
-// memory sized to the game behind the game's tables (room_step.cuh). A
+// room on a group of G lanes, a seat a lane (a warp, seats lane, lane + 32,
+// ... past 32 seats, in the kernels' MAX_SEAT_WORDS build), its words in
+// dynamic shared memory sized to the game behind the game's tables
+// (room_step.cuh). A
 // rollout's length varies from a few steps to the horizon, so the grid is
 // persistent: as many blocks as the card holds at once, whose groups pull
 // their next rollout from a device counter (one atomicAdd by the group's
@@ -128,20 +130,21 @@ __device__ inline ge::Game load_game(int32_t* smem, const int32_t* __restrict__ 
 }
 
 // The request table's rollouts: rollout x is rollout x % rollouts of request
-// x / rollouts; a request out of range scores 0.
+// x / rollouts; a request out of range scores 0. NW: words of a seat set.
+template <int NW>
 __global__ void ge_search_kernel(const int32_t* __restrict__ game, int game_len,
                                  ge::MinorState ms, int64_t B, const int32_t* __restrict__ req,
                                  int64_t n_req, ge::SearchSpec s, int64_t* __restrict__ totals,
                                  unsigned long long* counter, int G, long long* prof) {
   extern __shared__ int32_t smem[];
   const ge::Game g = load_game(smem, game, game_len);
-  const int tid = threadIdx.x, T = blockDim.x;
+  const int tid = threadIdx.x, T = blockDim.x, K = NW == 1 ? 1 : g.SW;
   const Lanes l = lanes_of(tid, G);
-  int32_t* w = smem + game_len + (tid - l.lane);
+  int32_t* w = smem + game_len + (tid - l.lane) * K;
   pull_rollouts(counter, n_req * s.rollouts, l, totals, prof, [&](int64_t x, int64_t* slot) {
     const int32_t* q = req + (x / s.rollouts) * ge::REQ_INTS;
     if (!ge::search_request_ok(g, q, B)) return 0;  // the same in the whole group
-    ge::Room r = ge::room_fetch(g, ms, w, T, l.lane, l.mask, l.first, q[0], B);
+    ge::Room<NW> r = ge::room_fetch<NW>(g, ms, w, T * K, l.lane, l.mask, l.first, q[0], B);
     r.seed = ge::search_seed((uint32_t)q[3], r.t, (int)(x % s.rollouts));
     *slot = x / s.rollouts;
     return (int)ge::room_search_rollout(g, r, q[1], q[2], s);
@@ -149,19 +152,22 @@ __global__ void ge_search_kernel(const int32_t* __restrict__ game, int game_len,
 }
 
 // 1. A room a group of the fewest lanes, the rooms strided over the grid.
+template <int NW>
 __device__ void decide_rooms(const ge::Game& g, const ge::MinorState& ms, int64_t B,
                              const ge::DecideTable& tab, int rollouts, int32_t* actions,
                              int32_t* words) {
   const int tid = threadIdx.x, T = blockDim.x, G = ge::group_lanes(g.P);
+  const int K = NW == 1 ? 1 : g.SW;
   const Lanes l = lanes_of(tid, G);
   const int64_t groups = (int64_t)gridDim.x * (T / G);
   for (int64_t i = (int64_t)blockIdx.x * (T / G) + tid / G; i < B; i += groups)
-    ge::decide_room(g, ms, B, tab, rollouts, actions, words + (tid - l.lane), T, l.lane, l.mask,
-                    l.first, i);
+    ge::decide_room<NW>(g, ms, B, tab, rollouts, actions, words + (tid - l.lane) * K, T * K,
+                        l.lane, l.mask, l.first, i);
 }
 
 // 2. The claimed rollouts, pulled by groups of G lanes (widen_lanes over the
 // grid's warp slots unless `lanes` asks).
+template <int NW>
 __device__ void decide_rollouts(const ge::Game& g, const ge::MinorState& ms, int64_t B,
                                 const ge::DecideTable& tab, const ge::SearchSpec& s,
                                 uint32_t salt, int32_t* words, unsigned long long* counter,
@@ -172,26 +178,29 @@ __device__ void decide_rollouts(const ge::Game& g, const ge::MinorState& ms, int
   const int64_t entries = (int64_t)(claim >> ge::CLAIM_SHIFT);
   if (blockIdx.x == 0 && tid == 0) tab.stats[2] = (unsigned long long)n;
   const int G = lanes ? lanes : ge::widen_lanes(g.P, n, (int64_t)gridDim.x * (T / 32));
+  const int K = NW == 1 ? 1 : g.SW;
   const Lanes l = lanes_of(tid, G);
-  int32_t* w = words + (tid - l.lane);
+  int32_t* w = words + (tid - l.lane) * K;
   pull_rollouts(counter, n, l, tab.totals, prof, [&](int64_t x, int64_t* slot) {
-    return ge::decide_rollout(g, ms, B, tab, entries, s, salt, x, w, T, l.lane, l.mask, l.first,
-                              slot);
+    return ge::decide_rollout<NW>(g, ms, B, tab, entries, s, salt, x, w, T * K, l.lane, l.mask,
+                                  l.first, slot);
   });
 }
 
 // 3. A decision a thread: the argmax.
+template <int NW>
 __device__ void decide_argmaxes(const ge::Game& g, const ge::MinorState& ms, int64_t B,
                                 const ge::DecideTable& tab, int32_t* actions) {
   const int64_t n_dec = B * g.P, T = blockDim.x;
   for (int64_t d = blockIdx.x * T + threadIdx.x; d < n_dec; d += (int64_t)gridDim.x * T)
-    ge::decide_argmax(g, ms, tab, actions, d);
+    ge::decide_argmax<NW>(g, ms, tab, actions, d);
 }
 
 // The full-information decisions of B rooms in one cooperative launch
 // (stages in the file's head), grid.sync() between the stages. actions: (B,
 // P) int32, 0 where a seat has no decision; tab's totals, claim and stats
 // and the counter zeroed before the launch.
+template <int NW>
 __global__ void ge_decide_kernel(const int32_t* __restrict__ game, int game_len,
                                  ge::MinorState ms, int64_t B, ge::SearchSpec s, uint32_t salt,
                                  ge::DecideTable tab, int32_t* __restrict__ actions,
@@ -200,18 +209,28 @@ __global__ void ge_decide_kernel(const int32_t* __restrict__ game, int game_len,
   const ge::Game g = load_game(smem, game, game_len);
   cg::grid_group grid = cg::this_grid();
   int32_t* words = smem + game_len;
-  decide_rooms(g, ms, B, tab, s.rollouts, actions, words);
+  decide_rooms<NW>(g, ms, B, tab, s.rollouts, actions, words);
   grid.sync();
-  decide_rollouts(g, ms, B, tab, s, salt, words, counter, lanes, prof);
+  decide_rollouts<NW>(g, ms, B, tab, s, salt, words, counter, lanes, prof);
   grid.sync();
-  decide_argmaxes(g, ms, B, tab, actions);
+  decide_argmaxes<NW>(g, ms, B, tab, actions);
+}
+
+// the builds of the two kernels for the game's seats
+const void* search_kernel_for(const ge::Game& g) {
+  return g.P <= 32 ? (const void*)ge_search_kernel<1>
+                   : (const void*)ge_search_kernel<ge::MAX_SEAT_WORDS>;
+}
+const void* decide_kernel_for(const ge::Game& g) {
+  return g.P <= 32 ? (const void*)ge_decide_kernel<1>
+                   : (const void*)ge_decide_kernel<ge::MAX_SEAT_WORDS>;
 }
 
 // int64 words of the decide entry's scratch: counter, stats[3], claim,
 // totals[B * P * C], starts[B * P], decision[B * P], then int32 cnt[B * P]
-// and alive[B]; the first 5 + B * P * C are zeroed each call.
+// and alive[B * SW]; the first 5 + B * P * C are zeroed each call.
 int64_t decide_scratch(int64_t B, int P, int C) {
-  return 5 + B * P * (int64_t)C + 2 * B * P + (B * P + B + 1) / 2;
+  return 5 + B * P * (int64_t)C + 2 * B * P + (B * P + B * ge::seat_words(P) + 1) / 2;
 }
 
 bool lanes_ok(const ge::Game& g, int lanes) {
@@ -244,7 +263,7 @@ int ge_search_plan(const int32_t* game_host, int game_len, int64_t n_rollouts, i
   const ge::Game g = ge::game_view(game_host);
   if (!ge::launchable(g, game_len, n_rollouts, threads)) return (int)cudaErrorInvalidValue;
   const ge::Grid p =
-      ge::persistent_grid((const void*)ge_search_kernel, g, game_len, n_rollouts, threads, 0);
+      ge::persistent_grid(search_kernel_for(g), g, game_len, n_rollouts, threads, 0);
   out[0] = p.p.G; out[1] = (int64_t)p.p.smem; out[2] = p.p.held; out[3] = p.p.threads;
   out[4] = p.blocks;
   return (int)p.p.err;
@@ -270,13 +289,18 @@ int ge_search(const int32_t* game, const int32_t* game_host, int game_len, int32
   const int64_t N = n_req * (int64_t)rollouts;
   if (!ge::search_spec_ok(g, s) || B <= 0 || !ge::launchable(g, game_len, N, threads))
     return (int)cudaErrorInvalidValue;
-  const ge::Grid p = ge::persistent_grid((const void*)ge_search_kernel, g, game_len, N, threads, 0);
+  const ge::Grid p = ge::persistent_grid(search_kernel_for(g), g, game_len, N, threads, 0);
   if (p.p.err != cudaSuccess) return (int)p.p.err;
   cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int64_t), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
-  ge_search_kernel<<<(unsigned)p.blocks, p.p.threads, p.p.smem, (cudaStream_t)stream>>>(
-      game, game_len, ms, B, req, n_req, s, totals, (unsigned long long*)counter, p.p.G, prof);
+  const dim3 grid((unsigned)p.blocks);
+  if (g.P <= 32)
+    ge_search_kernel<1><<<grid, p.p.threads, p.p.smem, (cudaStream_t)stream>>>(
+        game, game_len, ms, B, req, n_req, s, totals, (unsigned long long*)counter, p.p.G, prof);
+  else
+    ge_search_kernel<ge::MAX_SEAT_WORDS><<<grid, p.p.threads, p.p.smem, (cudaStream_t)stream>>>(
+        game, game_len, ms, B, req, n_req, s, totals, (unsigned long long*)counter, p.p.G, prof);
   return (int)cudaGetLastError();
 }
 
@@ -304,7 +328,7 @@ int ge_search_decide(const int32_t* game, const int32_t* game_host, int game_len
   // at most as many blocks as the card holds, which a cooperative launch needs
   const int64_t most = B * g.P * (int64_t)C * rollouts;  // rollouts if every seat chose
   const ge::Grid p =
-      ge::persistent_grid((const void*)ge_decide_kernel, g, game_len, most, threads, lanes);
+      ge::persistent_grid(decide_kernel_for(g), g, game_len, most, threads, lanes);
   if (p.p.err != cudaSuccess) return (int)p.p.err;
   const int64_t n_dec = B * g.P;
   cudaError_t err = cudaMemsetAsync(scratch, 0, (5 + n_dec * C) * sizeof(int64_t),
@@ -318,7 +342,7 @@ int ge_search_decide(const int32_t* game, const int32_t* game_host, int game_len
                       counter + 4, counter + 1, C};
   void* args[] = {&game, &game_len, &ms, &B, &s, &salt, &tab, &actions, &counter, &lanes,
                   &prof};
-  err = cudaLaunchCooperativeKernel((const void*)ge_decide_kernel, dim3((unsigned)p.blocks),
+  err = cudaLaunchCooperativeKernel(decide_kernel_for(g), dim3((unsigned)p.blocks),
                                     dim3(p.p.threads), args, p.p.smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -4,7 +4,8 @@
 // each rollout's room in the kernel's [slot][lane] layout (a block of one
 // room), its seats run in order. The same arguments as ge_search and
 // ge_search_decide in search.cu, minus the launch's; the CPU tests use it to
-// run the kernels' own logic without a GPU.
+// run the kernels' own logic without a GPU. A room's seat sets take as many
+// words as the kernels' build for its seats.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC search_host.cpp -o libsearch_host.so
 // With -DGE_COUNT the run also counts the interpreter's operations
@@ -20,6 +21,25 @@
 
 namespace {
 
+// the columns of a room's block: G lanes of SW columns each
+int room_cols(const ge::Game& g) { return ge::group_lanes(g.P) * g.SW; }
+
+template <int NW>
+void run_requests(const ge::Game& g, const ge::MinorState& ms, int64_t B, const int32_t* req,
+                  int64_t n_req, int rollouts, const ge::SearchSpec& s, int64_t* totals,
+                  int32_t* steps) {
+  const int cols = room_cols(g);
+  std::vector<int32_t> words((size_t)g.L.words * cols);
+  for (int64_t x = 0; x < n_req * rollouts; ++x) {
+    const int32_t* q = req + (x / rollouts) * ge::REQ_INTS;
+    ge::Room<NW> r = ge::room_fetch<NW>(g, ms, words.data(), cols, 0, 0, 0, q[0], B);
+    const int32_t t0 = r.t;
+    r.seed = ge::search_seed((uint32_t)q[3], r.t, (int)(x % rollouts));
+    totals[x / rollouts] += ge::room_search_rollout(g, r, q[1], q[2], s);
+    if (steps) steps[x] = r.t - t0;
+  }
+}
+
 // the order in which n flat rollouts are run: in order for shuffle = 0, else
 // a permutation drawn from splitmix32 streams of `shuffle`
 std::vector<int64_t> rollout_order(int64_t n, uint32_t shuffle) {
@@ -30,6 +50,26 @@ std::vector<int64_t> rollout_order(int64_t n, uint32_t shuffle) {
     std::swap(order[(size_t)i], order[(size_t)(h % (uint32_t)(i + 1))]);
   }
   return order;
+}
+
+template <int NW>
+int64_t run_decisions(const ge::Game& g, const ge::MinorState& ms, int64_t B,
+                      const ge::DecideTable& tab, int rollouts, const ge::SearchSpec& s,
+                      uint32_t salt, int32_t* actions, int64_t* totals, uint32_t shuffle) {
+  const int cols = room_cols(g);
+  std::vector<int32_t> words((size_t)g.L.words * cols);
+  for (int64_t i = 0; i < B; ++i)
+    ge::decide_room<NW>(g, ms, B, tab, rollouts, actions, words.data(), cols, 0, 0, 0, i);
+  const unsigned long long claim = *tab.claim;
+  const int64_t n = (int64_t)(claim & ge::CLAIM_ROLLOUTS);
+  for (int64_t x : rollout_order(n, shuffle)) {
+    int64_t slot = 0;
+    const int32_t score = ge::decide_rollout<NW>(g, ms, B, tab, (int64_t)(claim >> ge::CLAIM_SHIFT),
+                                                 s, salt, x, words.data(), cols, 0, 0, 0, &slot);
+    totals[slot] += score;
+  }
+  for (int64_t d = 0; d < B * g.P; ++d) ge::decide_argmax<NW>(g, ms, tab, actions, d);
+  return n;
 }
 
 }  // namespace
@@ -52,22 +92,14 @@ int ge_search_host(const int32_t* game, int game_len, int32_t* bools, int32_t* n
                    const int32_t* team_codes, int n_codes, int64_t* totals, int32_t* steps) {
   if (B <= 0 || game_len <= 0 || n_req < 0) return 1;
   const ge::Game g = ge::game_view(game);
-  if (g.P < 1 || g.P > ge::MAX_GROUP) return 2;
+  if (g.P < 1 || g.P > ge::MAX_SEATS) return 2;
   const ge::SearchSpec s{rollouts, horizon, mode, team_slot, n_codes, team_codes};
   if (!ge::search_spec_ok(g, s)) return 3;
   for (int64_t i = 0; i < n_req; ++i)
     if (!ge::search_request_ok(g, req + i * ge::REQ_INTS, B)) return 4;
   const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
-  const int G = ge::group_lanes(g.P);
-  std::vector<int32_t> words((size_t)g.L.words * G);
-  for (int64_t x = 0; x < n_req * rollouts; ++x) {
-    const int32_t* q = req + (x / rollouts) * ge::REQ_INTS;
-    ge::Room r = ge::room_fetch(g, ms, words.data(), G, 0, 0, 0, q[0], B);
-    const int32_t t0 = r.t;
-    r.seed = ge::search_seed((uint32_t)q[3], r.t, (int)(x % rollouts));
-    totals[x / rollouts] += ge::room_search_rollout(g, r, q[1], q[2], s);
-    if (steps) steps[x] = r.t - t0;
-  }
+  if (g.P <= 32) run_requests<1>(g, ms, B, req, n_req, rollouts, s, totals, steps);
+  else run_requests<ge::MAX_SEAT_WORDS>(g, ms, B, req, n_req, rollouts, s, totals, steps);
   return 0;
 }
 
@@ -86,28 +118,21 @@ int ge_search_decide_host(const int32_t* game, int game_len, int32_t* bools, int
                           int64_t* stats, int32_t* counts, uint32_t shuffle) {
   if (B <= 0 || game_len <= 0) return 1;
   const ge::Game g = ge::game_view(game);
-  if (g.P < 1 || g.P > ge::MAX_GROUP) return 2;
+  if (g.P < 1 || g.P > ge::MAX_SEATS) return 2;
   const ge::SearchSpec s{rollouts, horizon, mode, team_slot, n_codes, team_codes};
   if (!ge::search_spec_ok(g, s)) return 3;
   if (C < g.P) return 5;
   const ge::MinorState ms{bools, nums, strs, pdict, odict, present, regs, scal};
-  const int G = ge::group_lanes(g.P);
   const int64_t n_dec = B * g.P;
-  std::vector<int32_t> words((size_t)g.L.words * G), alive((size_t)B);
+  std::vector<int32_t> alive((size_t)(B * g.SW));
   std::vector<int64_t> starts((size_t)n_dec), decision((size_t)n_dec);
   unsigned long long claim = 0, sums[3] = {0, 0, 0};
   const ge::DecideTable tab{counts, alive.data(), totals, starts.data(), decision.data(),
                             &claim, sums, C};
-  for (int64_t i = 0; i < B; ++i)
-    ge::decide_room(g, ms, B, tab, rollouts, actions, words.data(), G, 0, 0, 0, i);
-  const int64_t n = (int64_t)(claim & ge::CLAIM_ROLLOUTS);
-  for (int64_t x : rollout_order(n, shuffle)) {
-    int64_t slot = 0;
-    const int32_t score = ge::decide_rollout(g, ms, B, tab, (int64_t)(claim >> ge::CLAIM_SHIFT),
-                                             s, salt, x, words.data(), G, 0, 0, 0, &slot);
-    totals[slot] += score;
-  }
-  for (int64_t d = 0; d < n_dec; ++d) ge::decide_argmax(g, ms, tab, actions, d);
+  const int64_t n =
+      g.P <= 32 ? run_decisions<1>(g, ms, B, tab, rollouts, s, salt, actions, totals, shuffle)
+                : run_decisions<ge::MAX_SEAT_WORDS>(g, ms, B, tab, rollouts, s, salt, actions,
+                                                    totals, shuffle);
   stats[0] = (int64_t)sums[0];
   stats[1] = (int64_t)sums[1];
   stats[2] = n;

@@ -1,8 +1,8 @@
 """Measurements of the rollout kernel (K1) on one NVIDIA GPU, beyond what
-chip_smoke.py checks: where a step's cycles go, what a block size does, and
-this checkout against another one on the same card.
+chip_smoke.py checks: where a step's cycles go and what a block size does
+(this checkout against another: ab_measure.py rollout).
 
-    python -m game_engine_tpu_torch.k1_measure [--other DIR]
+    python -m game_engine_tpu_torch.k1_measure
 
 One JSON line each (werewolf, 8 seats, 1024 steps a call, 4096 and 65,536
 rooms; every time is the mean of 3 calls after a warm-up, by CUDA events):
@@ -22,10 +22,6 @@ rooms; every time is the mean of 3 calls after a warm-up, by CUDA events):
             int32 lanes need for them
   games     ms of 4096 rooms x 1024 steps for a few catalog games, with the
             words a lane holds and the launch's plan
-  other     with --other DIR (another checkout of the repository, such as
-            `git archive` of the parent commit unpacked): its
-            `python -m game_engine_tpu_torch.bench` and this one's, in the
-            order other, this, this, other, at both sizes
 
 Exits 2 without a CUDA device.
 """
@@ -33,11 +29,8 @@ Exits 2 without a CUDA device.
 from __future__ import annotations
 
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 1024
 SIZES = (4096, 65536)
 
@@ -72,15 +65,6 @@ def ptxas(lib) -> list:
             if "registers" in ln or "stack frame" in ln]
 
 
-def bench_json(root: str, rooms: int) -> dict:
-    out = subprocess.run([sys.executable, "-m", "game_engine_tpu_torch.bench", str(rooms),
-                          str(STEPS), "5"], cwd=root, capture_output=True, text=True,
-                         timeout=900, check=True)
-    detail = json.loads(out.stdout.strip().splitlines()[-1])["detail"]
-    return {"root": root, "rooms": rooms, "ms": detail["hard_sync_median_iter_s"] * 1e3,
-            "env_steps_per_s": detail["hard_sync_steps_per_s"]}
-
-
 def main(argv: list) -> int:
     import numpy as np
     import torch
@@ -96,7 +80,6 @@ def main(argv: list) -> int:
     from game_engine_tpu_torch.gamespec.parser import load_builtin
     from game_engine_tpu_torch.gamespec.tables import lower
 
-    other = argv[argv.index("--other") + 1] if "--other" in argv else None
     gpu = gpu_line()
     rate = int32_ops_per_s()
     emit({"line": "env", "gpu": gpu, "int32_ops_per_s": rate})
@@ -137,13 +120,6 @@ def main(argv: list) -> int:
         emit({"line": "games", "game": name, "P": lw.P, "seats": seats, "rooms": SIZES[0],
               "steps": STEPS, "words_per_lane": RK.block_size(lw)["words_per_lane"],
               **RK.launch_plan(lw, SIZES[0]), "ms": time_ms(lib, lw, st, 128), "gpu": gpu})
-
-    if other:
-        del starts
-        torch.cuda.empty_cache()
-        for rooms in SIZES:
-            for root in (other, ROOT, ROOT, other):
-                emit({"line": "other", **bench_json(os.path.abspath(root), rooms), "gpu": gpu})
     return 0
 
 

@@ -1,11 +1,15 @@
 """Serialize a Lowered game into a flat int32 blob for the C++ simulator.
 
-Tag-length-value section stream; the C++ side (gamesim.cpp) parses the same
-layout. All cross-references are indices into pools, so the blob is fully
-position-independent. Semantics carried here are exactly the pinned P1..P11
-rules — the C++ sim is a third implementation used for differential testing
-against the oracle and the jitted engine, and as a sub-microsecond host-side
-step for interactive serving.
+Tag-length-value section stream; the C++ side (gamesim.cpp) and the CUDA
+kernels (room_step.cuh) parse the same layout. The blob equals the JAX
+package's for games of up to 63 phases; past that a branch condition's
+phase mask moves to the pool (ceil((NP + 1) / 32) words), where the JAX
+package's two words drop the later phases. All cross-references are
+indices into pools, so the blob is fully position-independent. Semantics
+carried here are exactly the pinned P1..P11 rules — the C++ sim is a third
+implementation used for differential testing against the oracle and the
+jitted engine, and as a sub-microsecond host-side step for interactive
+serving.
 """
 
 from __future__ import annotations
@@ -46,13 +50,16 @@ OP_CODES = {"eq": 0, "ne": 1, "ge": 2, "le": 3, "gt": 4, "lt": 5}
 MECH_PARAMS = 16
 
 
-def _mask_words(mask: np.ndarray) -> tuple[int, int]:
-    """(NP+1,) bool -> two 32-bit words (little)."""
+def _mask_words(mask: np.ndarray) -> list[int]:
+    """(NP+1,) bool -> its 32-bit words (little), at least two: two words
+    for NP <= 63, as the JAX package packs them; one more for each 32
+    phases past that, where the JAX package's two words drop them."""
     bits = 0
     for i, b in enumerate(mask):
         if b:
             bits |= 1 << i
-    return bits & 0xFFFFFFFF, (bits >> 32) & 0xFFFFFFFF
+    n = max(2, (len(mask) + 31) // 32)
+    return [_i32((bits >> (32 * k)) & 0xFFFFFFFF) for k in range(n)]
 
 
 def _i32(x: int) -> int:
@@ -88,8 +95,12 @@ def pack(lowered: Lowered) -> np.ndarray:
         elif isinstance(c, T.LAllPresent):
             row = [COND_ALLPRESENT, c.pred, 0, 0, 0]
         elif isinstance(c, T.LPrevPhaseIn):
-            lo, hi = _mask_words(c.mask)
-            row = [COND_PREVIN, _i32(lo), _i32(hi), 0, 0]
+            words = _mask_words(c.mask)
+            if len(words) == 2:
+                row = [COND_PREVIN, words[0], words[1], 0, 0]
+            else:  # NP > 63: the words in the pool (offset, count)
+                off, n = pool.add(words)
+                row = [COND_PREVIN, off, n, 0, 0]
         elif isinstance(c, T.LAnd):
             kids = [add_cond(k) for k in c.items]
             off, n = pool.add(kids)

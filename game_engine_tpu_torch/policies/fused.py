@@ -22,10 +22,13 @@ The weights are packed to bf16 once per parameter state (``_packed``). They
 cover every net ``supports`` accepts: the deepsets/attn archs with one
 attention head at any encoder and trunk width (the products run on the
 widths padded to multiples of 32, the LayerNorm and the attention scale on
-the true ones), up to MAX_LAYERS trunk layers, MAX_P seats and MAX_A
-actions. The JAX kernels have no such bounds; ``unsupported`` names the one
-a net passes, and every entry that would launch a kernel for it raises
-(``runs_on_card`` where the port picks the route itself).
+the true ones), any number of seats, actions and trunk layers, as the JAX
+kernels do. A chunk's rows are as many as its scratch budget holds, so a
+wide room takes smaller chunks, not more memory. What is left is the
+int32 addressing of the flat parameters (MAX_PARAMS); ``unsupported``
+names it for a net past it, and every entry that would launch a kernel for
+such a net raises (``runs_on_card`` where the port picks the route
+itself).
 
 Each kernel has its plain-torch version here: ``fused_forward_plain``
 follows _fwd_body's cast points (K2), autograd through it is K3's, and
@@ -52,17 +55,21 @@ from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies.net import bf, gelu
 
 _F32 = torch.float32
-MAX_LAYERS = 32  # lossgrad.cuh: trunk layers (Net::off and the packed weights' offsets)
-MAX_P = 32       # seats the attention stages hold in registers
-MAX_A = 64       # actions the loss stage holds in registers
+MAX_PARAMS = 2 ** 31 - 1  # lossgrad.cuh addresses the flat parameters with int32 offsets
 N_STATS = 4
 CHUNK_ROWS = 32768  # K3's and K4's rows per chunk: about 2.6 GB of scratch at the attn net's width
 NSPLIT = 32         # their row ranges per weight-gradient product (one slab each)
 FWD_CHUNK_ROWS = 32768  # K2's rows per chunk: about 0.9 GB of scratch at the attn net's width
-# lossgrad.cuh parameter slots; the trunk's layer i is 13 + 2i, 14 + 2i
+# the scratch a chunk may take: fewer rows a chunk where a row takes more
+# (seats enter the attention's buffers squared), so memory stays bounded
+SCRATCH_BUDGET = 3 << 30      # K3, K4
+FWD_SCRATCH_BUDGET = 1 << 30  # K2
+# lossgrad.cuh parameter slots; w0 is the trunk's first weight, from which
+# the kernels find every layer's (Net::tw, tb)
 _SLOT = {"w_phi0": 0, "b_phi0": 1, "w_phi1": 2, "b_phi1": 3, "ln_s": 4, "ln_b": 5,
-         "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12}
-_N_SLOTS = 13 + 2 * MAX_LAYERS
+         "w_qkv": 6, "w_ao": 7, "w_ptr": 8, "w_pi": 9, "b_pi": 10, "w_v": 11, "b_v": 12,
+         "w0": 13}
+_N_SLOTS = len(_SLOT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,14 +106,17 @@ def dims_for(lowered: Lowered, cfg: N.NetConfig) -> Dims:
                 n_opt=n_opt, A=max(lowered.P, n_opt), has_attn=cfg.arch == "attn")
 
 
+def _n_params(d: Dims) -> int:
+    return sum(math.prod(shape) for shape in _param_shapes(d).values())
+
+
 def _bound(d: Dims) -> str | None:
     """The pipelines' bound that the net passes, or None."""
-    if not 1 <= d.layers <= MAX_LAYERS:
-        return f"the kernels hold 1 to MAX_LAYERS = {MAX_LAYERS} trunk layers, not {d.layers}"
-    if d.P > MAX_P:
-        return f"the kernels hold at most MAX_P = {MAX_P} seats, not {d.P}"
-    if d.A > MAX_A:
-        return f"the kernels hold at most MAX_A = {MAX_A} actions, not {d.A}"
+    if d.layers < 1:
+        return f"the kernels need at least one trunk layer, not {d.layers}"
+    if _n_params(d) > MAX_PARAMS:
+        return (f"the kernels address at most MAX_PARAMS = {MAX_PARAMS} parameters, "
+                f"not {_n_params(d)}")
     return None
 
 
@@ -126,16 +136,15 @@ def unsupported(lowered: Lowered, cfg: N.NetConfig) -> str | None:
 
 def supports(lowered: Lowered, cfg: N.NetConfig) -> bool:
     """Whether K2, K3 and K4 cover the net: deepsets/attn with one attention
-    head, any width, and the bounds of _bound."""
+    head, any width, seats, actions and depth, within _bound."""
     return unsupported(lowered, cfg) is None
 
 
 def runs_on_card(lowered: Lowered, cfg: N.NetConfig, device) -> bool:
     """Whether the kernels run the net on `device` where the caller leaves
     the choice to the port: on a CUDA device, for a net of an arch they
-    cover. Such a net past one of the bounds of _bound raises there, naming
-    it: the JAX kernels run it, so the plain version does not take their
-    place unasked."""
+    cover. Such a net past _bound raises there, naming it: the plain version
+    does not take the kernels' place unasked."""
     if torch.device(device).type != "cuda" or not covers_arch(cfg):
         return False
     _require_pipeline(dims_for(lowered, cfg), "the policy-net kernels")
@@ -169,20 +178,15 @@ def _param_shapes(d: Dims) -> dict[str, tuple]:
     return {n: shapes[n] for n in _param_names(d)}
 
 
-def _slot(name: str) -> int:
-    if name in _SLOT:
-        return _SLOT[name]
-    i = int(name[1:])
-    return 13 + 2 * i + (name[0] == "b")
-
-
 def _meta(d: Dims) -> np.ndarray:
-    """lossgrad.cuh's Net as int32: the true dims, then each parameter's
-    float offset in the flat buffers (in _param_names order)."""
+    """lossgrad.cuh's Net as int32: the true dims, then the float offset in
+    the flat buffers (in _param_names order) of each parameter with a slot;
+    the trunk's layers after w0 follow it in order."""
     off = np.zeros(_N_SLOTS, np.int32)
     at = 0
     for name, shape in _param_shapes(d).items():
-        off[_slot(name)] = at
+        if name in _SLOT:
+            off[_SLOT[name]] = at
         at += math.prod(shape)
     return np.concatenate([np.array(
         [d.P, d.F0, d.NP, d.hp, d.hidden, d.layers, d.n_opt, d.A, int(d.has_attn), at],
@@ -302,16 +306,34 @@ def _lg_call(name: str, args: tuple, device, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.lg_error_string(err).decode()}")
 
 
+def _chunk(lib, meta: np.ndarray, n: int, chunk_rows: int, nsplit: int, fwd_only: int) -> int:
+    """Rows a chunk of a call over n rows: chunk_rows, or fewer where they
+    would take more scratch than the budget (K2's or K3's and K4's), at
+    least one."""
+    budget = FWD_SCRATCH_BUDGET if fwd_only else SCRATCH_BUDGET
+
+    def size(rows):
+        return int(lib.lg_scratch_bytes(meta.ctypes.data, rows, nsplit, fwd_only))
+
+    per_row = (size(2048) - size(1024)) / 1024
+    fits = max(1, int((budget - (size(1024) - 1024 * per_row)) // per_row))
+    while fits > 1 and size(fits) > budget:  # each buffer rounds up to 256 bytes
+        fits = fits * 15 // 16
+    return max(1, min(n, chunk_rows, fits))
+
+
 def kernel_plan(d: Dims) -> dict:
     """How the kernels run the net on the current CUDA device: rows per
-    chunk and scratch bytes (in all and a row) of K2, K3 and K4."""
+    chunk (at most the budget's, see _chunk) and scratch bytes (in all and
+    a row) of K2, K3 and K4."""
     _require_pipeline(d, "kernel_plan")
     meta = _meta(d)
     lib = _build.lossgrad_lib()
     if len(meta) != lib.lg_meta_ints():
         raise RuntimeError("lossgrad.cuh's Net layout differs from fused.py's")
 
-    def scratch(chunk, nsplit, fwd_only):
+    def scratch(chunk_rows, nsplit, fwd_only):
+        chunk = _chunk(lib, meta, chunk_rows, chunk_rows, nsplit, fwd_only)
         one, two = (int(lib.lg_scratch_bytes(meta.ctypes.data, c, nsplit, fwd_only))
                     for c in (chunk, 2 * chunk))
         return {"chunk_rows": chunk, "scratch_bytes": one,
@@ -438,7 +460,7 @@ def _pipeline_forward(d: Dims, rows, params, chunk_rows: int):
     lib = _pipeline_lib(dev)
     pk = _packed(d, params, dev)
     n = rows.shape[0]
-    chunk = max(1, min(n, chunk_rows))
+    chunk = _chunk(lib, pk.meta, n, chunk_rows, 1, 1)
     scratch = torch.empty((int(lib.lg_scratch_bytes(pk.meta.ctypes.data, chunk, 1, 1)),),
                           dtype=torch.uint8, device=dev)
     logits = torch.empty((n, d.A), dtype=_F32, device=dev)
@@ -458,7 +480,7 @@ def _pipeline_grads(d: Dims, rows, rowin, params, ppo, chunk_rows: int, nsplit: 
     lib = _pipeline_lib(dev)
     pk = _packed(d, params, dev)
     n = rows.shape[0]
-    chunk = max(1, min(n, chunk_rows))
+    chunk = _chunk(lib, pk.meta, n, chunk_rows, nsplit, 0)
     scratch = torch.empty((int(lib.lg_scratch_bytes(pk.meta.ctypes.data, chunk, nsplit, 0)),),
                           dtype=torch.uint8, device=dev)
     out = torch.empty((pk.prm.numel() + N_STATS,), dtype=_F32, device=dev)

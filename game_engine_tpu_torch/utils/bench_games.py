@@ -39,6 +39,52 @@ DEFAULT_GAMES = (
 )
 
 
+LONG_INTERLUDES = 60  # long_game_doc's pauses: werewolf's 18 phases and these make 78
+
+
+def long_game_doc(n_interludes: int = LONG_INTERLUDES, clauses: int = 19) -> dict:
+    """A synthetic game past the bounds K1 had: werewolf with a chain of
+    `n_interludes` pauses (ids 100 on, dense indices past 63) between the
+    day's result and the win check, and a branch of the check that holds
+    after a pause, a conjunction of `clauses` phase-history clauses (a
+    condition tree of clauses + 1 nodes, whose phase masks set bits past
+    63). A DSL document: both packages compile it."""
+    import os
+
+    import yaml
+
+    from game_engine_tpu_torch.gamespec.parser import games_dir
+
+    with open(os.path.join(games_dir(), "werewolf-(mafia).yaml")) as f:
+        doc = yaml.safe_load(f)
+    ph = doc["phases"]
+    ids = [100 + k for k in range(n_interludes)]
+    names = [f"Interlude {a}{b}" for a in "bcdfghjklmnpqrstvwxz" for b in "aeiou"][:n_interludes]
+    check = ph[9]
+    for k, pid in enumerate(ids):
+        nxt = ({"id": ids[k + 1], "name": names[k + 1]} if k + 1 < n_interludes
+               else {"id": 9, "name": check["name"]})
+        ph[pid] = {"name": names[k], "description": "A pause before the check.",
+                   "actions": [{"description": "Show a pause", "tools": ["createTextDisplay"]}],
+                   "completion_criteria": {"type": "UI_displayed", "description": "Shown."},
+                   "next_phase": nxt}
+    ph[16]["next_phase"] = {"id": ids[0], "name": names[0]}
+    branches = list(check["next_phase"].items())
+    cond = "If " + " and ".join(["this check follows an interlude"] * clauses)
+    check["next_phase"] = dict(branches[:2] + [(cond, {"id": 10, "name": ph[10]["name"]})]
+                               + branches[2:])
+    return doc
+
+
+def long_game():
+    """long_game_doc lowered by the port: 78 phases, a 20-node condition."""
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import parse_game_spec
+    from game_engine_tpu_torch.gamespec.tables import lower
+
+    return lower(compile_game(parse_game_spec(long_game_doc(), name="werewolf-long")))
+
+
 def game_setup(game: str) -> tuple:
     """(lowered, n_players, n_phases) of a catalog game: the declared
     min_players, else the full table width, clipped to [4, max_players]."""

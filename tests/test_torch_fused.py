@@ -17,8 +17,10 @@ against the plain versions: the pipelines of K2, K3 and K4
 the tensor-core versions, with plain-loop products) over ragged chunks and
 several row splits, within 5e-3 (forward) and 1e-3 (gradients) at hidden
 64, and at the test_fused_net.py tolerances at widths whose storage is
-padded (hidden 48: the trunk; 96 and 160: the encoder too) and at 9 trunk
-layers, where they are also held against the JAX kernels.
+padded (hidden 48: the trunk; 96 and 160: the encoder too), at 9 trunk
+layers, and past what they held in registers or tables before (40 and 72
+seats, 72 actions, 33 layers), where they are also held against the JAX
+kernels.
 """
 
 import dataclasses
@@ -239,10 +241,14 @@ PADDED = [(48, 2), (96, 2), (160, 2), (64, 9)]
 @pytest.mark.parametrize("arch", ["attn", "deepsets"])
 @pytest.mark.parametrize("hidden,layers", PADDED)
 def test_padded_pipelines_match_jax_kernels(ww, pww, traj, arch, hidden, layers):
+    check_against_jax_kernels(ww, pww, traj, arch, hidden, layers)
+
+
+def check_against_jax_kernels(ww, pww, traj, arch, hidden, layers):
     """K2, K3 and K4's pipelines (host_forward, host_grads, host_loss_grads)
     against the JAX package's Pallas kernels in interpret mode: make_apply's
-    forward, its custom VJP for seeded dl/dv, and make_loss_vg at logp_old =
-    the policy's own log-probs + noise, at the test_fused_net.py
+    forward, its custom VJP for seeded dl/dv, and make_loss_vg at logp_old
+    = the policy's own log-probs + noise, at the test_fused_net.py
     tolerances."""
     jcfg = JN.NetConfig(hidden=hidden, layers=layers, arch=arch)
     jp = JN.init_params(jax.random.PRNGKey(0), JN.obs_dim(ww), JN.action_space(ww), jcfg, ww)
@@ -254,18 +260,19 @@ def test_padded_pipelines_match_jax_kernels(ww, pww, traj, arch, hidden, layers)
     obs = jnp.asarray(traj["obs"], jnp.bfloat16)
     lead = obs.shape[:-1]
     apply = JFZ.make_apply(ww, jcfg)
+    rows, params = rows_of(traj, d), port_params(jp)
+    rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)
     (l0, v0), vjp = jax.vjp(lambda p: apply(p, obs), jp)
     (want,) = vjp((jnp.asarray(traj["dl"]).reshape(lead + (d.A,)),
                    jnp.asarray(traj["dv"]).reshape(lead)))
-    rows, params = rows_of(traj, d), port_params(jp)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    lp_old = logp_old(traj, jp, jcfg, ww)
     l1, v1 = FZ.host_forward(d, rows, params, chunk_rows=40)
     assert rel_err(l1.numpy(), to_np(l0).reshape(-1, d.A)) < 2e-2
     assert rel_err(v1.numpy(), to_np(v0).reshape(-1)) < 2e-2
-    rowin = torch.cat([torch.as_tensor(traj["dl"]), torch.as_tensor(traj["dv"])[:, None]], 1)
     got = FZ.host_grads(d, rows, rowin, params, chunk_rows=40, nsplit=3)
-    grads_close({k: v.numpy() for k, v in got.items()}, {k: np.asarray(v) for k, v in want.items()})
+    grads_close({k: v.numpy() for k, v in got.items()}, want)
 
-    lp_old = logp_old(traj, jp, jcfg, ww)
     j_in = (obs, jnp.asarray(traj["legal"]), jnp.asarray(traj["actions"]), jnp.asarray(lp_old),
             jnp.asarray(traj["adv"]), jnp.asarray(traj["ret"]), jnp.asarray(traj["mask"]))
     (l_k, m_k), g_k = JFZ.make_loss_vg(ww, jcfg, CLIP, VF, ENT)(jp, *j_in)
@@ -498,8 +505,9 @@ def test_k4_pipeline_ratios_on_both_sides_of_the_clip(ww, pww, traj):
 
 
 def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
-    """K4 covers hidden 48 (built and run); what the pipelines refuse is a
-    net past their seat, action or depth bounds, and every entry names the
+    """K4 covers hidden 48 (built and run), 40 seats, 65 actions and 33
+    trunk layers; what the pipelines refuse is a net past their int32
+    parameter addressing or with no trunk layer, and every entry names the
     bound."""
     cfg = N.NetConfig(hidden=48, arch="attn")  # hp = 32, hidden not a multiple of 32
     d = FZ.dims_for(pww, cfg)
@@ -510,21 +518,79 @@ def test_k4_refuses_what_its_pipeline_does_not_cover(ww, pww, traj):
     grads_close({k: v.numpy() for k, v in g_k.items()}, {k: v.numpy() for k, v in g_ref.items()})
     assert FZ.supports(pww, cfg)
     FZ.make_loss_vg(pww, cfg, CLIP, VF, ENT)
-    for field, value, bound in (("P", 33, "MAX_P = 32"), ("A", 65, "MAX_A = 64"),
-                                ("layers", 33, "MAX_LAYERS = 32")):
-        assert bound in FZ._bound(dataclasses.replace(d, **{field: value}))
-    with pytest.raises(ValueError, match="K4 .*MAX_LAYERS = 32"):
-        FZ.host_loss_grads(dataclasses.replace(d, layers=33), rows_of(traj, d), rowin, params,
+    for field, value in (("P", 33), ("A", 65), ("layers", 33)):
+        assert FZ._bound(dataclasses.replace(d, **{field: value})) is None
+    assert "at least one trunk layer, not 0" in FZ._bound(dataclasses.replace(d, layers=0))
+    with pytest.raises(ValueError, match="K4 .*at least one trunk layer, not 0"):
+        FZ.host_loss_grads(dataclasses.replace(d, layers=0), rows_of(traj, d), rowin, params,
                            CLIP, ENT)
     big = builtin_pair("werewolf", {"max_players": 40}).port
     deep = N.NetConfig(hidden=48, arch="attn", layers=33)
-    for lw, c, bound in ((big, cfg, "MAX_P = 32 seats, not 40"),
-                         (pww, deep, "MAX_LAYERS = 32 trunk layers, not 33")):
-        assert not FZ.supports(lw, c) and bound in FZ.unsupported(lw, c)
-        with pytest.raises(ValueError, match=bound):  # refused when built, not when run
-            FZ.make_loss_vg(lw, c, CLIP, VF, ENT)
-        with pytest.raises(ValueError, match=bound):
-            FZ.make_apply(lw, c)
+    for lw, c in ((big, cfg), (pww, deep)):
+        assert FZ.supports(lw, c) and FZ.unsupported(lw, c) is None
+        FZ.make_loss_vg(lw, c, CLIP, VF, ENT)
+        FZ.make_apply(lw, c)
+    huge = N.NetConfig(hidden=32768, arch="attn", layers=3)  # 3.2e9 parameters
+    bound = "MAX_PARAMS = 2147483647 parameters, not"
+    assert not FZ.supports(pww, huge) and bound in FZ.unsupported(pww, huge)
+    with pytest.raises(ValueError, match=bound):  # refused when built, not when run
+        FZ.make_loss_vg(pww, huge, CLIP, VF, ENT)
+    with pytest.raises(ValueError, match=bound):
+        FZ.make_apply(pww, huge)
+
+
+# Past what the pipelines held before: a room past a warp of seats (attn,
+# 40 seats), past 64 actions (deepsets, 72 seats: A = 72) and a trunk past
+# 32 layers (attn, 33 layers at hidden 48)
+LARGE = [("attn", 40, 64, 2), ("deepsets", 72, 64, 2), ("attn", 8, 48, 33)]
+
+
+@pytest.fixture(scope="module")
+def large_pairs():
+    return {P: builtin_pair("werewolf", {"max_players": P}) for P in (40, 72)}
+
+
+def port_traj(lw, B=2, T=2, every=6, seed=3):
+    """make_traj's inputs from the port's own scripted rollout (a full room
+    less three seats), so that no JAX engine compiles at a new seat count."""
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.train.ppo import actor_mask
+
+    eng = BatchedEngine(lw, "cpu")
+    st = eng.init(B, lw.P - 3, np.arange(B, dtype=np.uint32) + seed)
+    states = []
+    for t in range(1, T * every + 1):
+        st = eng.step(st, eng.bot_actions(st))
+        if t % every == 0:
+            states.append(st)
+    rng = np.random.default_rng(7)
+    obs = np.stack([N.observe(lw, s).float().numpy() for s in states])
+    legal = np.stack([N.legal_action_mask(lw, s).numpy() for s in states])
+    mask = np.stack([actor_mask(lw, s).numpy() for s in states])
+    T, B, P, A = legal.shape
+    actions = ((rng.random((T, B, P, A)) * legal).argmax(-1) + 1).astype(np.int32)
+    return {"obs": obs, "legal": legal, "mask": mask, "actions": actions,
+            "logp_noise": rng.normal(0.0, 0.3, (T, B, P)).astype(np.float32),
+            "adv": rng.normal(size=(T, B, P)).astype(np.float32),
+            "ret": rng.normal(size=(T, B, P)).astype(np.float32),
+            "dl": rng.normal(size=(T * B * P, A)).astype(np.float32),
+            "dv": rng.normal(size=(T * B * P,)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("arch,seats,hidden,layers", LARGE)
+def test_large_pipelines_match_jax_kernels(ww, pww, traj, large_pairs, arch, seats, hidden,
+                                           layers):
+    """test_padded_pipelines_match_jax_kernels past the bounds the pipelines
+    had before: the attention's seats past the 32 held in registers, the
+    loss's actions past the 64 held in registers and the trunk's layers past
+    32, against the JAX kernels in interpret mode at the test_fused_net.py
+    tolerances."""
+    jww, pw, tr = ((ww, pww, traj) if seats == 8 else
+                   (large_pairs[seats].jax, large_pairs[seats].port,
+                    port_traj(large_pairs[seats].port)))
+    d = FZ.dims_for(pw, N.NetConfig(hidden=hidden, layers=layers, arch=arch))
+    assert (d.P, d.layers) == (seats, layers) and (d.A > 64) == (seats == 72)
+    check_against_jax_kernels(jww, pw, tr, arch, hidden, layers)
 
 
 def test_k4_scratch_at_the_main_path_width(pww):
@@ -542,3 +608,21 @@ def test_k4_scratch_at_the_main_path_width(pww):
     ds = FZ.dims_for(pww, N.NetConfig(hidden=256, arch="deepsets"))
     small = _build.lossgrad_host_lib().lg_scratch_bytes(FZ._meta(ds).ctypes.data, 1024, 1, 0)
     assert small < one  # no attention buffers without attention
+
+
+@pytest.mark.parametrize("seats", [8, 40, 72])
+def test_scratch_budget_sizes_the_chunks(large_pairs, pww, seats):
+    """At the main path's width (attn, hidden 256) a chunk of 8-seat rooms
+    stays at CHUNK_ROWS and FWD_CHUNK_ROWS rows; wider rooms take fewer rows
+    a chunk (the attention's buffers grow with seats squared), and no
+    chunk's scratch passes its budget."""
+    lw = pww if seats == 8 else large_pairs[seats].port
+    d = FZ.dims_for(lw, N.NetConfig(hidden=256, arch="attn"))
+    lib, meta = _build.lossgrad_host_lib(), FZ._meta(d)
+    for want, nsplit, fwd, budget in ((FZ.CHUNK_ROWS, FZ.NSPLIT, 0, FZ.SCRATCH_BUDGET),
+                                      (FZ.FWD_CHUNK_ROWS, 1, 1, FZ.FWD_SCRATCH_BUDGET)):
+        chunk = FZ._chunk(lib, meta, 10 ** 6, want, nsplit, fwd)
+        assert lib.lg_scratch_bytes(meta.ctypes.data, chunk, nsplit, fwd) <= budget
+        assert (chunk == want) == (seats == 8), chunk
+        assert lib.lg_scratch_bytes(meta.ctypes.data, int(chunk * 1.1) + 1, nsplit, fwd) > budget \
+            or chunk == want

@@ -4,6 +4,7 @@ plain-torch rollout, exactly, plus the kernel wrapper's layout, packing and
 argument checks. The kernel itself runs only on a GPU (chip_smoke.py)."""
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -16,6 +17,8 @@ from game_engine_tpu.native.pack import pack as jax_pack
 from game_engine_tpu_torch.core.engine import make_rollout
 from game_engine_tpu_torch.core.rollout_kernel import (
     check_game,
+    max_block_nodes,
+    max_cond_nodes,
     check_state,
     block_size,
     count_rollout,
@@ -27,11 +30,13 @@ from game_engine_tpu_torch.core.rollout_kernel import (
     to_minor,
 )
 from game_engine_tpu_torch.core.state import GameState, init_state
-from game_engine_tpu_torch.gamespec.tables import LAnd
+from game_engine_tpu_torch.utils.bench_games import LONG_INTERLUDES, long_game_doc
+from game_engine_tpu_torch.gamespec.tables import LAlways, LAnd, LPrevPhaseIn
 from game_engine_tpu_torch.native.pack import pack
 from tests.test_torch_engine import born_done_game
 from tests.test_torch_net import one_torch_thread  # noqa: F401  (autouse)
-from tests.test_torch_state import assert_same_state, builtin_pair, catalog_games, lowered_game
+from tests.test_torch_state import (assert_same_state, builtin_pair, catalog_games, doc_pair,
+                                    lowered_game)
 from tests.test_torch_step import wrap_pair
 
 
@@ -158,8 +163,8 @@ def test_game_array_directory():
 
 
 def test_group_lanes():
-    assert [group_lanes(p) for p in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 20, 32)] == [
-        1, 2, 4, 4, 8, 8, 16, 16, 16, 32, 32, 32]
+    assert [group_lanes(p) for p in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 20, 32, 33, 40, 72)] == [
+        1, 2, 4, 4, 8, 8, 16, 16, 16, 32, 32, 32, 32, 32, 32]  # a warp past 32 seats
 
 
 def test_shared_memory_is_sized_to_the_game():
@@ -178,6 +183,10 @@ def test_shared_memory_is_sized_to_the_game():
     # twenty seats: the pdict row grows with P
     w20 = builtin_pair("werewolf", {"max_players": 20}).port
     assert block_size(w20)["words_per_lane"] == 46 + 12
+    # forty seats: two columns a lane (a room of 64 columns on 32 lanes)
+    w40 = builtin_pair("werewolf", {"max_players": 40}).port
+    assert block_size(w40)["words_per_lane"] == 2 * (46 + 32)
+    assert block_size(w40, 128)["shared_bytes"] == 4 * (len(game_array(w40)) + 156 * 128)
     assert block_size(ww, 128)["threads"] == 128 and block_size(ww, 1024)["threads"] == 1024
     assert block_size(ww)["max_shared_bytes"] == 232448  # 227 KB
     # a game whose rooms fit only a smaller block gets the largest halving
@@ -208,21 +217,33 @@ def test_room_words_agree_with_the_kernel_layout(game):
 
 
 def test_check_game_refuses_only_what_the_design_cannot_hold():
+    """Seats past a warp, phases past 63 and condition trees past 16 nodes
+    are held (the last one nested, as no DSL sentence lowers it: the body
+    equals the plain rollout on it); what is refused is a room past the seat
+    sets' words or past a one-warp block's shared memory, naming need and
+    limit."""
     lw = lowered_game("werewolf").port
     check_game(lw)
-    check_game(builtin_pair("werewolf", {"max_players": 32}).port)
-    with pytest.raises(ValueError, match=r"P=33 seats.*P <= 32"):
-        check_game(builtin_pair("werewolf", {"max_players": 33}).port)
-    with pytest.raises(ValueError, match=r"NP=64 phases.*NP <= 63"):
-        check_game(dataclasses.replace(lw, NP=64))
+    for seats in (32, 33, 72, 128):
+        check_game(builtin_pair("werewolf", {"max_players": seats}).port)
+    # werewolf's pdict row grows with the seats: at 256 a room's words pass
+    # a one-warp block's shared memory before its seats pass the sets' words
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory.*<= 232448"):
+        check_game(builtin_pair("werewolf", {"max_players": 256}).port)
+    with pytest.raises(ValueError, match=r"P=257 seats.*8 words, P <= 256"):
+        check_game(builtin_pair("werewolf", {"max_players": 257}).port)
+    check_game(long_pair().port)  # NP = 78, a 20-node condition
     at = next(i for i, br in enumerate(lw.branches) if br)
     deep = lw.branches[at][0][0]
     assert not isinstance(deep, LAnd)
-    for _ in range(16):
-        deep = LAnd((deep,))
-    with pytest.raises(ValueError, match=r"17 nodes in one branch condition.*<= 16"):
-        check_game(dataclasses.replace(
-            lw, branches=lw.branches[:at] + [[(deep, 0)]] + lw.branches[at + 1:]))
+    for _ in range(24):
+        deep = LAnd((deep, LAlways()))
+    # first-match: where the deep tree holds, the room goes back to phase 0
+    nested = dataclasses.replace(lw, branches=lw.branches[:at] + [[(deep, 0)] + lw.branches[at]]
+                                 + lw.branches[at + 1:])
+    assert max_cond_nodes(nested) == 49
+    check_game(nested)
+    assert_host_matches_plain(nested, 4, 8, 60)
     # a room too large for a one-warp block: need and limit are both named
     layout = dataclasses.replace(lw.game.layout, n_pdict=230)
     wide = dataclasses.replace(lw, game=dataclasses.replace(lw.game, layout=layout))
@@ -248,8 +269,8 @@ def test_wrapper_checks_raise():
     st = init_state(lw, 2, 6, 0, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_rollout(lw, st, 4)  # no silent CPU fallback
-    with pytest.raises(ValueError, match="P=33"):
-        check_game(builtin_pair("werewolf", {"max_players": 33}).port)
+    with pytest.raises(ValueError, match="P=257"):
+        check_game(builtin_pair("werewolf", {"max_players": 257}).port)
     check_game(lw)
     with pytest.raises(ValueError, match="field nums"):
         check_state(lw, st._replace(nums=st.nums.to(torch.int64)))
@@ -258,3 +279,72 @@ def test_wrapper_checks_raise():
     other = builtin_pair("potlatch").port
     with pytest.raises(ValueError):
         host_rollout(other, st, 4)
+
+
+# -- past the kernels' earlier bounds: 32 seats, 63 phases, 16 condition nodes
+
+@functools.lru_cache(maxsize=None)
+def long_pair():
+    pair = doc_pair(long_game_doc(), "werewolf-long", validate=False)
+    assert pair.port.NP == pair.jax.NP == 18 + LONG_INTERLUDES
+    return pair
+
+
+@functools.lru_cache(maxsize=None)
+def wide_pair(seats: int):
+    return builtin_pair("werewolf", {"max_players": seats})
+
+
+def test_long_game_reaches_past_the_old_bounds():
+    """The synthetic game: 78 phases, a branch condition of 20 nodes whose
+    phase masks set bits past 63, so the blob keeps them in the pool (longer
+    than the JAX package's blob, whose two words drop them)."""
+    pair = long_pair()
+    lw = pair.port
+    assert max_cond_nodes(lw) == 20
+    conds = [c for br in lw.branches for c, _ in br]
+    big = next(c for c in conds if isinstance(c, LAnd))
+    assert len(big.items) == 19 and all(isinstance(c, LPrevPhaseIn) for c in big.items)
+    assert np.flatnonzero(big.items[0].mask).max() > 63
+    blob, jblob = pack(lw), jax_pack(pair.jax)
+    assert len(blob) > len(jblob)  # the masks' third words, in the pool
+    gm = game_array(lw)
+    assert gm[0] == max_block_nodes(lw) and gm[16] == 20
+    check_game(lw)
+
+
+WIDE = {  # case: (pair, seats a room, steps)
+    "werewolf-40": (lambda: wide_pair(40), [37, 40, 33], 300),
+    "werewolf-72": (lambda: wide_pair(72), [72, 65], 200),
+    "long": (long_pair, [8, 6, 7, 8], 300),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_kernel_body_matches_jax_every_step_past_the_old_bounds(case):
+    """The kernel's body (the g++ harness: 40 and 72 seats on the wide build,
+    its seat sets 8 words; the 78-phase game's masks and 20-node condition
+    through the room's stack) against the JAX scan engine, which
+    tests/test_pallas.py holds bit-identical to the Pallas K1: every bank of
+    every room after every step, and the episodes."""
+    make, n, steps = WIDE[case]
+    pair = make()
+    B = len(n)
+    seeds = np.arange(B, dtype=np.uint32) + 5
+    jax_step = jax.jit(jax_make_rollout(pair.jax, 1, auto_reset=True))
+    jst = jax_init_state(pair.jax, B, np.asarray(n, np.int32), seeds)
+    st = init_state(pair.port, B, torch.as_tensor(n), seeds, device="cpu")
+    episodes, after_pause = 0, 0
+    night = pair.port.game.id_to_index[10]
+    last_pause = pair.port.game.id_to_index[100 + LONG_INTERLUDES - 1] if case == "long" else -1
+    for t in range(steps):
+        paused = (st.prev_phase == last_pause) & (st.phase == pair.port.game.id_to_index[9])
+        jst, j_eps = jax_step(jst)
+        st, eps = host_rollout(pair.port, st, 1)
+        assert_same_state(jst, st)
+        assert int(eps) == int(j_eps), t
+        episodes += int(eps)
+        after_pause += int((paused & (st.phase == night)).sum())
+    assert episodes > 0
+    if case == "long":  # the 20-node branch held, after a pause past phase 63
+        assert after_pause > 0

@@ -135,3 +135,38 @@ def test_library_lands_in_build_kernels():
     lib = _build.gamesim_lib()
     assert os.path.dirname(lib._name) == _build.BUILD_DIR
     assert os.path.basename(lib._name).startswith("libgamesim_")
+
+
+def test_long_game_native_parity_past_63_phases():
+    """The 78-phase game (tests/test_torch_kernel_host.py long_doc: a
+    20-node branch condition whose phase masks reach past 63): the port's
+    CppRoom reads its masks' pool words and equals the plain step after
+    every step, which the kernel's body and the JAX scan engine equal
+    too. The JAX package's CppRoom keeps two words a mask and drops the
+    later phases, so after a pause past phase 63 its check takes another
+    branch: a divergence of the JAX native backend, pinned here."""
+    from tests.test_torch_kernel_host import long_pair
+
+    pair = long_pair()
+    lw = pair.port
+    seeds = [0, 2]  # rooms that play on past their first pause
+    pg, jg = CppGame(lw), JaxCppGame(pair.jax)
+    rooms = [pg.room(8, s) for s in seeds]
+    jrooms = [jg.room(8, s) for s in seeds]
+    state = init_state(lw, len(seeds), 8, np.asarray(seeds, np.uint32), device="cpu")
+    step = make_step(lw)
+    diverged = None
+    for t in range(400):
+        for i, r in enumerate(rooms):
+            assert_room_matches_state(r.read(), state, i, f"seed {seeds[i]} t={t}")
+            if diverged is None and r.read()["phase_index"] != jrooms[i].read()["phase_index"]:
+                diverged = (t, jrooms[i].read()["prev_index"])
+        if all(r.read()["done"] for r in rooms):
+            break
+        for r, jr in zip(rooms, jrooms):
+            acts = r.policy_actions()
+            r.step(acts)
+            jr.step(acts)
+        state = step(state, scripted_actions(lw, state))
+    assert all(r.read()["done"] for r in rooms)
+    assert diverged is not None and diverged[1] == lw.game.id_to_index[9]

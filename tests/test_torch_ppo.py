@@ -238,45 +238,51 @@ def test_forced_fused_refuses_a_net_the_kernels_do_not_cover():
 
 def test_auto_fused_raises_on_the_card_for_a_net_past_the_bounds(monkeypatch):
     """Left to choose (no --fused, no --no-fused) on the card, run.py takes
-    the kernels for a net of an arch they cover, and one past their seat
-    bound raises there, naming it, before any training: the plain net does
-    not take the kernels' place unasked. (The card is stood in for: the
-    device resolves to cuda and MAX_P is lowered below werewolf's 8 seats;
-    the raise comes before anything touches the device.)"""
+    the kernels for a net of an arch they cover, and one past their bound
+    (the int32 addressing of the flat parameters) raises there, naming it,
+    before any training: the plain net does not take the kernels' place
+    unasked. (The card is stood in for: the device resolves to cuda and
+    MAX_PARAMS is lowered below the net's count; the raise comes before
+    anything touches the device.)"""
     from game_engine_tpu_torch import device as D
 
     monkeypatch.setattr(D, "resolve", lambda device: torch.device("cuda"))
-    monkeypatch.setattr(FZ, "MAX_P", 4)
+    monkeypatch.setattr(FZ, "MAX_PARAMS", 1000)
     argv = ["--device", "cuda", "--arch", "attn", "--hidden", "48", "--batch", "4",
             "--horizon", "2", "--updates", "1", "--eval-batch", "0"]
-    with pytest.raises(ValueError, match="MAX_P = 4 seats, not 8"):
+    with pytest.raises(ValueError, match="MAX_PARAMS = 1000 parameters, not"):
         run_main(argv)
 
 
 def test_kernel_choice_refuses_nets_past_the_bounds_and_passes_other_archs():
-    """runs_on_card: the kernels on the card for a covered arch, nothing on
-    the CPU or for another arch (mlp, multi-head attn: apply_net, as in
-    JAX), and a raise naming the bound for a covered net past it on the
-    card. PPOConfig(fused_net=True) forces the kernels: past a bound
-    make_apply_fn and make_loss_vg_fn raise on any device; an mlp net still
-    trains through apply_net."""
+    """runs_on_card: the kernels on the card for a covered arch (40 seats
+    and 33 trunk layers included, as the JAX kernels), nothing on the CPU
+    or for another arch (mlp, multi-head attn: apply_net, as in JAX), and a
+    raise naming the bound for a covered net past it on the card (more
+    parameters than int32 offsets address). PPOConfig(fused_net=True)
+    forces the kernels: at 40 seats make_apply_fn and make_loss_vg_fn build
+    them, past the bound they raise on any device; an mlp net still trains
+    through apply_net."""
     pww = builtin_pair("werewolf").port
     big = builtin_pair("werewolf", {"max_players": 40}).port
     attn, mlp = N.NetConfig(hidden=48, arch="attn"), N.NetConfig(hidden=48, arch="mlp")
-    assert FZ.runs_on_card(pww, attn, "cuda")
+    assert FZ.runs_on_card(pww, attn, "cuda") and FZ.runs_on_card(big, attn, "cuda")
     assert not FZ.runs_on_card(pww, attn, "cpu") and not FZ.runs_on_card(big, attn, "cpu")
     assert not FZ.runs_on_card(big, mlp, "cuda")
     assert not FZ.runs_on_card(pww, N.NetConfig(arch="attn", attn_heads=2), "cuda")
-    with pytest.raises(ValueError, match="MAX_P = 32 seats, not 40"):
-        FZ.runs_on_card(big, attn, "cuda")
     deep = N.NetConfig(hidden=48, arch="deepsets", layers=33)
-    with pytest.raises(ValueError, match="MAX_LAYERS = 32 trunk layers, not 33"):
-        FZ.runs_on_card(pww, deep, "cuda")
+    assert FZ.runs_on_card(pww, deep, "cuda")
+    huge = N.NetConfig(hidden=32768, arch="deepsets", layers=3)
+    with pytest.raises(ValueError, match="MAX_PARAMS = 2147483647 parameters, not"):
+        FZ.runs_on_card(pww, huge, "cuda")
     forced = P.PPOConfig(fused_net=True, net=attn)
-    with pytest.raises(ValueError, match="MAX_P = 32 seats, not 40"):
-        P.make_apply_fn(big, forced)
-    with pytest.raises(ValueError, match="K4: .*MAX_P = 32 seats, not 40"):
-        P.make_loss_vg_fn(big, forced)
+    assert P.make_apply_fn(big, forced) is not None
+    assert P.make_loss_vg_fn(big, forced) is not None
+    too_big = P.PPOConfig(fused_net=True, net=huge)
+    with pytest.raises(ValueError, match="MAX_PARAMS = 2147483647 parameters"):
+        P.make_apply_fn(big, too_big)
+    with pytest.raises(ValueError, match="K4: .*MAX_PARAMS = 2147483647 parameters"):
+        P.make_loss_vg_fn(big, too_big)
     plain = P.PPOConfig(fused_net=True, net=mlp)
     assert P.make_loss_vg_fn(big, plain) is None
     d = FZ.dims_for(big, mlp)

@@ -42,11 +42,12 @@ from tests.test_torch_state import builtin_pair
 GAMES = ("werewolf", "cult-of-the-depths", "two-truths-and-a-lie")
 
 
-def live_rooms(pair, count: int, seed0: int):
-    """`count` live JAX CppRooms at depths 0-30 of a scripted rollout:
-    [(room, read(), seed)], and the seats a room."""
+def live_rooms(pair, count: int, seed0: int, n: int | None = None):
+    """`count` live JAX CppRooms of n seats (6, or P if fewer) at depths
+    0-30 of a scripted rollout: [(room, read(), seed)], and the seats a
+    room."""
     g = JaxCppGame(pair.jax)
-    n = min(6, pair.jax.P)
+    n = min(6, pair.jax.P) if n is None else n
     out, k = [], 0
     while len(out) < count:
         seed, k = seed0 + k, k + 1

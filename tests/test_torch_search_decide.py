@@ -27,7 +27,7 @@ from game_engine_tpu_torch.policies.search import SearchBots
 from game_engine_tpu_torch.policies.serve import state_from_read
 from tests.test_torch_native import jax_native  # noqa: F401
 from tests.test_torch_net import one_torch_thread  # noqa: F401
-from tests.test_torch_search import GAMES, live_rooms, source_state
+from tests.test_torch_search import GAMES, cpp_requests, live_rooms, source_state
 from tests.test_torch_state import builtin_pair
 
 R, H = 3, 40  # rollouts x horizon: small, the tier-1 time
@@ -82,6 +82,34 @@ def test_twin_decides_as_the_cpp_search(game, salt):
     decisions, requests, rollouts = dec.stats.tolist()
     assert (decisions, requests) == (pb.last_call["decisions"], pb.last_call["requests"])
     assert rollouts == requests * R
+
+
+def test_twin_decides_as_the_cpp_search_in_rooms_past_a_warp():
+    """40-seat werewolf rooms of 37 on the kernels' wide build (a room on 32
+    lanes, seats 32-36 on lanes 0-4, the alive set two words, a target's
+    candidates the k-th alive seat across them): the twin's choices and
+    totals, and the request entry's twin's totals, equal the JAX package's
+    search (SearchBots and its C++ search_scores, which hold a room's seats
+    in vectors: no seat bound)."""
+    pair = builtin_pair("werewolf", {"max_players": 40})
+    rooms, n = live_rooms(pair, 28, 2100, n=37)
+    rooms = [x for x in rooms if x[2] in (2101, 2119)]  # a night, a day vote
+    jb = JaxSearchBots(pair.jax, rollouts=R, horizon=H)
+    source = source_state(pair, rooms, n)
+    dec = twin(pair, source)
+    searched = 0
+    for i, (_, r, seed) in enumerate(rooms):
+        want = jb.native_actions(r, n, seed=seed)
+        assert choices(dec.actions[i].tolist()) == want, i
+        searched += len(want)
+    assert searched >= 5
+    assert int(dec.counts.max()) > 32  # candidates past a word, each with its total
+    rows, want_totals, _ = cpp_requests(pair, rooms, n, R, H)
+    np.testing.assert_array_equal(in_request_order(dec), want_totals)
+    # the request entry's twin on the same decisions
+    got = SK.host_search(pair.port, source, SK.request_table(rows, "cpu"), R, H,
+                         SK.scoring(pair.port))
+    np.testing.assert_array_equal(got.numpy(), want_totals)
 
 
 @pytest.mark.parametrize("game", GAMES)
