@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --multichip     (four cards: the multi-device slice)
 
 Drives the port's paths through the hand-written CUDA kernels, which it
 builds from csrc/ first (the league, the pipelined learner, the matchup
@@ -219,6 +220,26 @@ Phases, one JSON line each:
                   K2 + K4, with the split of a step into unroll, update,
                   collectives and host waits. Ranks that share one card
                   share its time: the curve measures what sharding costs
+  --multichip     builds the kernels, then runs only the multi-device slice
+                  over NCCL, one card a rank (rank r on cuda:r), at the same
+                  shape; it raises with fewer than 4 cards:
+                  multichip_env: every card's name and power limit, NCCL's
+                  version, the cards' link (nvidia-smi topo -m where it
+                  answers, else nvlink --status; a timed card-to-card
+                  copy), the host's CPUs and /dev/shm's size; multichip_ranks: a world of 4
+                  whose ranks report their cards and CPU affinity and sum
+                  their ranks on the cards.
+                  multidevice_dp over NCCL (each rank's K2 and K4 counted
+                  on its own card, the four cards all different).
+                  multidevice_replicas: 2 updates at dp = 4, every rank's
+                  parameters and Adam state bit for bit rank 0's.
+                  multidevice_pipeline: 1 actor + 1 learner on two cards
+                  bit for bit against run_pipelined, then 1 + 2 on three,
+                  its largest relative parameter difference within 5e-2.
+                  multidevice_dryrun and multidevice_scaling over NCCL, the
+                  curve's collective_ms holding the NCCL kernels' time.
+                  Then a multichip_done line with the launches, every
+                  card's nvidia-smi line and the last line (count 4)
   policy_bench    bench.py --policy at its defaults (16,384 werewolf rooms x
                   128 steps x 4 iters, the mlp at hidden 256): the
                   learned-policy self-play rate; no kernel on this path
@@ -2734,12 +2755,35 @@ def md_nccl_world_of_one(lowered, params0, cfg, gpu: str) -> dict:
     return got["launches"]
 
 
-def md_data_parallel(cfg, gpu: str) -> dict:
-    """dp = 2 and dp = 4 over gloo with the ranks sharing the card, against
-    dp = 1 in the same world: the rooms and actions after the first unroll
-    exact (a differing action is reported with its sampling margin), the
-    first update's summed K4 gradients within compare_policy's tolerance.
-    Returns the launches of every rank."""
+def card_of(device: str) -> int:
+    """The card index of a rank's device string ("cuda:3" -> 3)."""
+    return int(device.split(":")[1])
+
+
+def check_own_card(what: str, rank: dict, want: dict) -> None:
+    """A rank's K2 / K4 launches (`want`: kernel -> count), on its own card,
+    the one it reports: the only card it held a tensor on (a wrapper
+    launches on its tensors' card)."""
+    card = card_of(rank["device"])
+    got = {k: rank["launches"][k] for k in want}
+    if got != want or rank["cards"] != [card]:
+        raise AssertionError(f"{what} on {rank['device']} launched {got}, not {want}, "
+                             f"holding tensors on cards {rank['cards']}")
+
+
+def check_one_card_a_rank(what: str, devices: list) -> None:
+    """NCCL's ranks: rank r on cuda:r, all different."""
+    if devices != [f"cuda:{r}" for r in range(len(devices))]:
+        raise AssertionError(f"{what}: the ranks ran on {devices}, not one card a rank")
+
+
+def md_data_parallel(cfg, gpu: str, backend: str = "gloo") -> dict:
+    """dp = 2 and dp = 4 against dp = 1 in one world of 4 ranks (over gloo
+    sharing the card, or over NCCL one card a rank): the rooms and actions
+    after the first unroll exact (a differing action is reported with its
+    sampling margin), the first update's summed K4 gradients within
+    compare_policy's tolerance, every rank's K2 and K4 launched on its own
+    card. Returns the launches of every rank."""
     import numpy as np
 
     from game_engine_tpu_torch.core.state import GameState
@@ -2749,8 +2793,8 @@ def md_data_parallel(cfg, gpu: str) -> dict:
     meshes = [(1, 1)] + [(n, 1) for n in MD_DP]
     t0 = time.perf_counter()
     out = run_ranks(parity.first_update, max(MD_DP),
-                    md_spec(cfg, meshes=meshes, backend="gloo"), backend="gloo", device="cuda",
-                    timeout=600)
+                    md_spec(cfg, meshes=meshes, backend=backend), backend=backend,
+                    device="cuda", timeout=600)
     seconds = time.perf_counter() - t0
     one = out[0]["1x1"]
     total = dict.fromkeys(MD_KERNELS, 0)
@@ -2758,9 +2802,8 @@ def md_data_parallel(cfg, gpu: str) -> dict:
     for n in MD_DP:
         ranks = [r[f"{n}x1"] for r in out[:n]]
         for r in ranks:  # every rank: 32 K2 a step + the bootstrap, one K4
-            if (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"]) \
-                    != (HORIZON + 1, 1):
-                raise AssertionError(f"dp={n}: a rank launched {r['launches']}")
+            check_own_card(f"dp={n}: a rank", r, {"policy_forward": HORIZON + 1,
+                                                  "ppo_loss_grad": 1})
             add_launches(total, r["launches"])
         state_equal = {f: bool(np.array_equal(np.concatenate([r["state"][i] for r in ranks]),
                                               one["state"][i]))
@@ -2772,18 +2815,23 @@ def md_data_parallel(cfg, gpu: str) -> dict:
                        for r in ranks for k, g in one["grads"].items())
         loss_err = max(abs(float(r["loss"]) - float(one["loss"])) / abs(float(one["loss"]))
                        for r in ranks)
-        results[n] = {"state_equal": all(state_equal.values()), "fields_differing":
+        results[n] = {"devices": [r["device"] for r in ranks],
+                      "state_equal": all(state_equal.values()), "fields_differing":
                       [f for f, ok in state_equal.items() if not ok],
                       "actions_differing": int(len(differ)),
                       "differing_at": differ[:16].tolist(), "their_margins": margins,
                       "grad_max_rel_err": grad_err, "loss_rel_err": loss_err,
-                      "launches_per_rank": ranks[0]["launches"]}
+                      "launches_per_rank": ranks[0]["launches"],
+                      "cards_held": [r["cards"] for r in ranks]}
     acted = np.isfinite(one["margins"])
-    emit({"phase": "multidevice_dp", "backend": "gloo", "ranks_share_one_card": True,
-          "rooms": ROOMS, "horizon": HORIZON, "tolerance_grad": TOL_GRAD,
+    emit({"phase": "multidevice_dp", "backend": backend,
+          "ranks_share_one_card": backend == "gloo", "rooms": ROOMS, "horizon": HORIZON,
+          "tolerance_grad": TOL_GRAD, "dp1_device": one["device"],
           "dp1_min_sampling_margin": float(one["margins"][acted].min()), "by_dp": results,
           "seconds": seconds, "gpu": gpu})
     for n, r in results.items():
+        if backend == "nccl":
+            check_one_card_a_rank(f"dp={n}", r["devices"])
         if r["actions_differing"] or not r["state_equal"]:
             raise AssertionError(f"dp={n}: the first unroll differs from dp=1: {r}")
         check(f"dp={n}: the first update's summed K4 gradients", r["grad_max_rel_err"],
@@ -2791,11 +2839,63 @@ def md_data_parallel(cfg, gpu: str) -> dict:
     return total
 
 
-def md_pipeline(lowered, params0, cfg, gpu: str) -> dict:
-    """run_pipelined_sharded with 1 actor + 1 learner rank over gloo on the
-    card, MD_ROUNDS rounds, against run_pipelined in this process from the
-    same start: params, rooms and metrics bit for bit. Returns the ranks'
-    launches."""
+MD_REPLICA_UPDATES = 2
+
+
+def md_replicas(params0, cfg, gpu: str) -> dict:
+    """MD_REPLICA_UPDATES full updates at dp = 4 over NCCL, one card a
+    rank, from params0: rank 0's parameters moved, every rank's parameters
+    and Adam state bit for bit equal to rank 0's (NCCL hands each rank the
+    same reduced gradient bits), every rank's K2 and K4 on its own card.
+    Returns the ranks' launches."""
+    import numpy as np
+
+    from game_engine_tpu_torch.parallel import parity
+    from game_engine_tpu_torch.parallel.launch import run_ranks
+
+    n = max(MD_DP)
+    t0 = time.perf_counter()
+    out = run_ranks(parity.dp_updates, n,
+                    md_spec(cfg, n=n, updates=MD_REPLICA_UPDATES, backend="nccl"),
+                    backend="nccl", device="cuda", timeout=600)
+    seconds = time.perf_counter() - t0
+    u = MD_REPLICA_UPDATES
+    total = dict.fromkeys(MD_KERNELS, 0)
+    for r in out:
+        check_own_card("a replica", r, {"policy_forward": u * (HORIZON + 1),
+                                        "ppo_loss_grad": u * cfg.epochs})
+        add_launches(total, r["launches"])
+    first = out[0]
+    moved = max(float(np.abs(first["params"][k] - v.detach().cpu().numpy()).max())
+                for k, v in params0.items())
+    differ = {f"rank {i}": [k for k in first["params"]
+                            if not np.array_equal(r["params"][k], first["params"][k])
+                            or any(not np.array_equal(r["adam"][k][s], x)
+                                   for s, x in first["adam"][k].items())]
+              for i, r in enumerate(out[1:], 1)}
+    emit({"phase": "multidevice_replicas", "backend": "nccl", "dp": n, "updates": u,
+          "rooms": ROOMS, "devices": [r["device"] for r in out],
+          "adam_state": sorted(first["adam"][next(iter(first["adam"]))]),
+          "rank0_params_max_abs_update": moved,
+          "params_or_adam_differing_from_rank_0": differ, "seconds": seconds,
+          "launches_per_rank": first["launches"], "gpu": gpu})
+    check_one_card_a_rank("the replicas", [r["device"] for r in out])
+    if not moved > 0:
+        raise AssertionError(f"rank 0's parameters did not move in {u} updates")
+    if any(differ.values()):
+        raise AssertionError(f"replicas differ from rank 0 after {u} updates: {differ}")
+    return total
+
+
+def md_pipeline(lowered, params0, cfg, gpu: str, backend: str = "gloo",
+                learners=(1,)) -> dict:
+    """run_pipelined_sharded with 1 actor + each count of learner ranks
+    (over gloo sharing the card, or over NCCL one card a rank), MD_ROUNDS
+    rounds, against run_pipelined in this process from the same start: at
+    1 learner params, rooms and metrics bit for bit; at more, whose update
+    sums its gradients over the learners, the updates (params - params0)
+    within TOL_GRAD: max |update - run_pipelined's| / max |run_pipelined's|.
+    Returns the ranks' launches."""
     import numpy as np
     import torch
 
@@ -2804,45 +2904,61 @@ def md_pipeline(lowered, params0, cfg, gpu: str) -> dict:
     from game_engine_tpu_torch.train import ppo as P
     from game_engine_tpu_torch.train.pipeline import run_pipelined
 
-    spec = md_spec(cfg, actors=1, learners=1, rounds=MD_ROUNDS, backend="gloo")
-    t0 = time.perf_counter()
-    out = run_ranks(parity.pipeline, 2, spec, backend="gloo", device="cuda", timeout=600)
-    seconds = time.perf_counter() - t0
     params = clone(params0)
     opt = P.make_optimizer(params, cfg)
-    start = parity.start_of(spec, "cuda")
+    start = parity.start_of(md_spec(cfg), "cuda")
     state, metrics = run_pipelined(lowered, cfg, params, opt, start,
                                    torch.Generator(device="cuda").manual_seed(MD_GEN),
                                    MD_ROUNDS, device="cuda")
     torch.cuda.synchronize()
-    actor, learner = out
-    same = {"params": all(np.array_equal(r["params"][k], params[k].detach().cpu().numpy())
-                          for r in out for k in params),
-            "state": all(np.array_equal(a, b.cpu().numpy())
-                         for a, b in zip(actor["state"], state)),
-            "metrics": all(np.array_equal(learner["metrics"][k], metrics[k].cpu().numpy())
-                           for k in metrics)}
-    want = {"actor": (HORIZON * (MD_ROUNDS + 1), 0), "learner": (MD_ROUNDS, MD_ROUNDS * cfg.epochs)}
+    ref = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    p0 = {k: v.detach().cpu().numpy() for k, v in params0.items()}
+    ref_update = max(float(np.abs(g - p0[k]).max()) for k, g in ref.items())
     total = dict.fromkeys(MD_KERNELS, 0)
-    for r in out:
-        got = (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"])
-        if got != want[r["role"]]:
-            raise AssertionError(f"the sharded pipeline's {r['role']} launched {r['launches']}")
-        add_launches(total, r["launches"])
-    emit({"phase": "multidevice_pipeline", "actors": 1, "learners": 1, "rounds": MD_ROUNDS,
-          "backend": "gloo", "rooms": ROOMS, "bitwise_equal_to_run_pipelined": same,
-          "loss": float(learner["metrics"]["loss"]), "seconds": seconds,
-          "launches": {r["role"]: r["launches"] for r in out}, "gpu": gpu})
-    if not all(same.values()):
-        raise AssertionError(f"the sharded pipeline differs from run_pipelined: {same}")
+    for n_learn in learners:
+        spec = md_spec(cfg, actors=1, learners=n_learn, rounds=MD_ROUNDS, backend=backend)
+        t0 = time.perf_counter()
+        out = run_ranks(parity.pipeline, 1 + n_learn, spec, backend=backend, device="cuda",
+                        timeout=600)
+        seconds = time.perf_counter() - t0
+        actor, learner = out[0], out[1]
+        same = {"params": all(np.array_equal(r["params"][k], ref[k]) for r in out for k in ref),
+                "state": all(np.array_equal(a, b.cpu().numpy())
+                             for a, b in zip(actor["state"], state)),
+                "metrics": all(np.array_equal(learner["metrics"][k], metrics[k].cpu().numpy())
+                               for k in metrics)}
+        update_err = max(float(np.abs(r["params"][k] - g).max())
+                         for r in out for k, g in ref.items()) / ref_update
+        want = {"actor": (HORIZON * (MD_ROUNDS + 1), 0),
+                "learner": (MD_ROUNDS, MD_ROUNDS * cfg.epochs)}
+        for r in out:
+            got = (r["launches"]["policy_forward"], r["launches"]["ppo_loss_grad"])
+            if got != want[r["role"]]:
+                raise AssertionError(f"the sharded pipeline's {r['role']} launched "
+                                     f"{r['launches']}")
+            add_launches(total, r["launches"])
+        emit({"phase": "multidevice_pipeline", "actors": 1, "learners": n_learn,
+              "rounds": MD_ROUNDS, "backend": backend, "rooms": ROOMS,
+              "devices": [r["device"] for r in out], "bitwise_equal_to_run_pipelined": same,
+              "update_max_abs": ref_update, "update_max_rel_err": update_err,
+              "tolerance_grad": TOL_GRAD,
+              "loss": float(learner["metrics"]["loss"]), "seconds": seconds,
+              "launches": [{r["role"]: r["launches"]} for r in out], "gpu": gpu})
+        if backend == "nccl":
+            check_one_card_a_rank(f"the pipeline 1 + {n_learn}", [r["device"] for r in out])
+        if n_learn == 1 and not all(same.values()):
+            raise AssertionError(f"the sharded pipeline differs from run_pipelined: {same}")
+        check(f"the pipeline 1 + {n_learn}: updates against run_pipelined", update_err,
+              TOL_GRAD)
     return total
 
 
-def md_dryrun(gpu: str) -> dict:
-    """graft_entry.dryrun_multichip(4) on the card, a (2, 2) mesh over gloo,
-    with the scaling curve at 1, 2 and 4 ranks at the learner's shape:
-    strong (ROOMS in all) and weak (1024 rooms a rank), the rollout through
-    K1 and the train step through K2 + K4. Returns the curve's launches."""
+def md_dryrun(gpu: str, backend: str = "gloo") -> dict:
+    """graft_entry.dryrun_multichip(4) on the card, a (2, 2) mesh (over gloo
+    sharing the card, or over NCCL one card a rank), with the scaling curve
+    at 1, 2 and 4 ranks at the learner's shape: strong (ROOMS in all) and
+    weak (1024 rooms a rank), the rollout through K1 and the train step
+    through K2 + K4. Returns the curve's launches."""
     import contextlib
     import io
 
@@ -2851,12 +2967,14 @@ def md_dryrun(gpu: str) -> dict:
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        out = dryrun_multichip(4, device="cuda", backend="gloo", scaling=MD_CURVE)
+        out = dryrun_multichip(4, device="cuda", backend=backend, scaling=MD_CURVE)
     seconds = time.perf_counter() - t0
     curve = out.pop("scaling")
     emit({"phase": "multidevice_dryrun", **out, "seconds": seconds, "gpu": gpu})
     if out["mesh"] != {"data": 2, "model": 2} or not out["episodes"] > 0:
         raise AssertionError(f"dryrun_multichip(4): {out}")
+    if backend == "nccl":
+        check_one_card_a_rank("dryrun_multichip(4)", out["devices"])
     if "error" in curve:
         raise AssertionError(f"the scaling curve failed: {curve['error']}")
     emit({"phase": "multidevice_scaling", **curve, "gpu": gpu})
@@ -2871,9 +2989,10 @@ def md_dryrun(gpu: str) -> dict:
 
 
 def multidevice_phase(lowered, gpu: str) -> dict:
-    """The multi-device slice on the card: the NCCL world of one, dp = 2 and
-    4 over gloo, the sharded pipeline, dryrun_multichip(4) and the scaling
-    curve. Returns the kernels' launches on this path, the ranks' included."""
+    """The multi-device slice on one card: the NCCL world of one, and over
+    gloo with the ranks sharing the card dp = 2 and 4, the sharded
+    pipeline, dryrun_multichip(4) and the scaling curve. Returns the
+    kernels' launches on this path, the ranks' included."""
     import torch
 
     from game_engine_tpu_torch.parallel.launch import stop_fork_server
@@ -2892,6 +3011,154 @@ def multidevice_phase(lowered, gpu: str) -> dict:
     emit({"phase": "multidevice_done", "seconds": time.perf_counter() - t0,
           "launches": total, "gpu": gpu})
     return total
+
+
+# -- --multichip: the multi-device slice on four cards, one a rank ---------------
+
+MC_CARDS = 4
+
+
+def nvidia_smi(*args) -> str:
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip()
+
+
+LINK_BYTES = 1 << 29     # a copy between two cards that times their link
+
+
+def card_links(n: int) -> dict:
+    """How the cards are joined, by every means the machine allows:
+    nvidia-smi topo -m's matrix, each card's NVLinks and their rate
+    (nvidia-smi nvlink --status), and, measured, whether cuda:0 can reach
+    each other card's memory directly (peer access) and the best of 3
+    copies of LINK_BYTES from cuda:0 to it, in GB/s. "link" is NVLink or
+    PCIe, from the first of the nvidia-smi queries that answered, else
+    unknown."""
+    import re
+    import subprocess
+
+    import torch
+
+    def smi(*args):
+        p = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        return p.returncode, (p.stdout + p.stderr).strip()
+
+    out = {}
+    rc, text = smi("topo", "-m")
+    rows = [line.split() for line in text.splitlines() if re.match(r"^\s*GPU\d+\s", line)]
+    out["topo"] = text.splitlines() if rc == 0 else f"exit {rc}: {text}"
+    topo = sorted({x for row in rows for x in row[1:1 + len(rows)] if x != "X"}) if rc == 0 else []
+    out["nvlinks"] = []
+    for i in range(n):
+        rc, text = smi("nvlink", "--status", "-i", str(i))
+        rates = [float(x) for x in re.findall(r"Link \d+: ([\d.]+) GB/s", text)] if rc == 0 else []
+        out["nvlinks"].append({"card": i, "links": len(rates), "gbps_each": sorted(set(rates))})
+    src = torch.empty(LINK_BYTES, dtype=torch.uint8, device="cuda:0")
+    out["peer_access"], out["copy_gbps"] = [], []
+    for j in range(1, n):
+        dst = torch.empty(LINK_BYTES, dtype=torch.uint8, device=f"cuda:{j}")
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize(0)
+            torch.cuda.synchronize(j)
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            torch.cuda.synchronize(j)
+            torch.cuda.synchronize(0)
+            best = min(best, time.perf_counter() - t0)
+        out["peer_access"].append(torch.cuda.can_device_access_peer(0, j))
+        out["copy_gbps"].append(LINK_BYTES / best / 1e9)
+        del dst
+    del src
+    torch.cuda.empty_cache()
+    if topo:
+        nv, out["link_from"] = any(x.startswith("NV") for x in topo), "nvidia-smi topo -m"
+    elif any(c["links"] for c in out["nvlinks"]):
+        nv = all(c["links"] for c in out["nvlinks"])
+        out["link_from"] = "nvidia-smi nvlink --status"
+    else:
+        out["link"], out["link_from"] = "unknown", None
+        return out
+    out["link"] = "NVLink" if nv else "PCIe"
+    return out
+
+
+def multichip_env(gpu: str) -> dict:
+    """The run's cards (nvidia-smi's name and power limit of each), NCCL's
+    version, the links between the cards (card_links), the host's CPUs and
+    the shared memory NCCL's processes may map; then a world of MC_CARDS
+    ranks over NCCL that binds rank r to cuda:r, sums the ranks on the
+    cards and reports each rank's card and CPU affinity."""
+    import shutil
+
+    import torch
+
+    from game_engine_tpu_torch.parallel import parity
+    from game_engine_tpu_torch.parallel.launch import run_ranks
+
+    env = {"phase": "multichip_env",
+           "cards": nvidia_smi("--query-gpu=name,power.limit", "--format=csv,noheader")
+           .splitlines(), "nccl": list(torch.cuda.nccl.version()),
+           **card_links(MC_CARDS), "cpu_count": os.cpu_count(),
+           "dev_shm_bytes": shutil.disk_usage("/dev/shm").total, "gpu": gpu}
+    emit(env)
+    t0 = time.perf_counter()
+    ranks = run_ranks(parity.rank_env, MC_CARDS, {"device": "cuda", "backend": "nccl"},
+                      backend="nccl", device="cuda", timeout=300)
+    env["ranks"] = [{k: r[k] for k in ("device", "current_device", "cpus")} for r in ranks]
+    emit({"phase": "multichip_ranks", "ranks": env["ranks"],
+          "world_sums": [r["world_sum"] for r in ranks], "seconds": time.perf_counter() - t0,
+          "gpu": gpu})
+    check_one_card_a_rank("the NCCL world", [r["device"] for r in ranks])
+    if [r["current_device"] for r in ranks] != list(range(MC_CARDS)):
+        raise AssertionError(f"a rank's current card is not its own: {env['ranks']}")
+    if any(r["world_sum"] != sum(range(MC_CARDS)) for r in ranks):
+        raise AssertionError(f"the NCCL all_reduce of the ranks gave {ranks}")
+    return env
+
+
+def multichip_main(gpu: str) -> int:
+    """The multi-device slice over NCCL, one card a rank, at the learner's
+    full shape: dp = 2 and 4 against dp = 1 in one world of 4, the replicas
+    after MD_REPLICA_UPDATES updates at dp = 4, the sharded pipeline 1 + 1
+    and 1 + 2, dryrun_multichip(4) and the scaling curve at 1, 2 and 4
+    ranks. Raises with fewer than MC_CARDS cards."""
+    import torch
+
+    from game_engine_tpu_torch import _build
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.parallel.launch import stop_fork_server
+
+    cards = torch.cuda.device_count()
+    if cards < MC_CARDS:
+        raise RuntimeError(f"--multichip runs one rank a card on {MC_CARDS} cards; "
+                           f"{cards} card(s) visible")
+    t0 = time.perf_counter()
+    _build.build_cuda()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    multichip_env(gpu)
+    t0 = time.perf_counter()
+    ww = lower(compile_game(load_builtin("werewolf")))
+    params0, cfg = learner_start(CKPT)
+    total = dict.fromkeys(MD_KERNELS, 0)
+    add_launches(total, md_data_parallel(cfg, gpu, "nccl"))
+    add_launches(total, md_replicas(params0, cfg, gpu))
+    add_launches(total, md_pipeline(ww, params0, cfg, gpu, "nccl", learners=(1, 2)))
+    add_launches(total, md_dryrun(gpu, "nccl"))
+    stop_fork_server()
+    emit({"phase": "multichip_done", "seconds": time.perf_counter() - t0,
+          "launches_by_path": {k: {"multichip": n} for k, n in total.items()}, "gpu": gpu})
+    for k in ("rollout", "policy_forward", "ppo_loss_grad"):
+        if total[k] <= 0:
+            raise AssertionError(f"the four-card path did not launch {k}: {total}")
+    print(nvidia_smi("--query-gpu=name,power.limit", "--format=csv,noheader"), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 # -- the chat LM's decode kernel (LM) -------------------------------------------
@@ -3260,8 +3527,10 @@ def train_chat_phase(gpu: str) -> int:
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
-    if argv and not profiled:
-        print(f"chip_smoke.py: unknown arguments {argv} (only --profile)", file=sys.stderr)
+    multichip = argv == ["--multichip"]
+    if argv and not (profiled or multichip):
+        print(f"chip_smoke.py: unknown arguments {argv} (--profile or --multichip)",
+              file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "game_engine_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3297,6 +3566,8 @@ def main(argv=()) -> int:
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "gpu": gpu,
           "device_count": torch.cuda.device_count()})
+    if multichip:
+        return multichip_main(gpu)
 
     t0 = time.perf_counter()
     _build.build_cuda()  # one nvcc per source, all at once

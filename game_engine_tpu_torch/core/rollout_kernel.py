@@ -256,11 +256,13 @@ def launch_plan(lowered: Lowered, batch: int, threads_per_block: int = 128,
     still holds a warp slot of the card at once), the dynamic shared memory
     of a block, the blocks an SM holds at a time, and the lanes of a block
     (the largest halving of threads_per_block whose rooms fit)."""
-    _, game_host = _game_arrays(lowered, torch.device(device))
+    device = torch.device(device)
+    _, game_host = _game_arrays(lowered, device)
     out = np.zeros(4, np.int64)
     lib = _build.cuda_lib()
-    err = lib.ge_plan(game_host.ctypes.data, len(game_host), batch, threads_per_block,
-                      out.ctypes.data)
+    with torch.cuda.device(device):  # the card whose SMs and limits are asked
+        err = lib.ge_plan(game_host.ctypes.data, len(game_host), batch, threads_per_block,
+                          out.ctypes.data)
     if err != 0:
         raise RuntimeError("rollout kernel plan failed: " + lib.ge_error_string(err).decode())
     threads = int(out[3])

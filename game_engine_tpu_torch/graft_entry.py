@@ -18,10 +18,12 @@ __graft_entry__.py:
 
 A device of the JAX mesh is a rank here: dryrun_multichip and the curve
 start their ranks with parallel.launch.run_ranks (one torch thread each).
-On "cuda" the default backend is NCCL with one card a rank; ranks that share
-one card run with backend="gloo". Ranks that share a card also share its
-time, so there the curve measures what sharding costs, not a speed-up: the
-same reading the JAX curve gives on virtual CPU devices that share one core.
+On "cuda" the default backend is NCCL with one card a rank (rank r on
+cuda:r, bound before it joins the world; more ranks than cards raise);
+ranks that share one card run with backend="gloo". Ranks that share a
+card also share its time, so there the curve measures what sharding
+costs, not a speed-up: the same reading the JAX curve gives on virtual CPU
+devices that share one core.
 """
 
 from __future__ import annotations
@@ -324,7 +326,10 @@ def _assemble_curve(ranks: list, spec: dict) -> dict:
                      f"(global batch {spec['global_batch']}) flat == no sharding overhead; "
                      f"weak series ({spec['per_rank']} rooms a rank) flat == linear dp "
                      "scaling, where every rank has a device of its own; ranks that share "
-                     "one device share its time, so there the curve measures overhead")
+                     "one device share its time, so there the curve measures overhead. "
+                     "collective_ms is the host's time inside each collective between two "
+                     "synchronisations of the card: over NCCL it includes the NCCL "
+                     "kernels' time and the wait for the group's last rank to arrive")
     for d in counts:
         if str(d) in curve["rollout"]:
             print(f"scaling: d={d} strong(roll={curve['rollout'][str(d)]:.1f}, "

@@ -6,7 +6,9 @@ runs fn(rank, *args) in n new processes that have joined one world (a
 FileStore rendezvous in a new temporary directory, so concurrent worlds
 never meet) and returns the results in rank order. Each rank:
 
-  - runs torch with one intra-op thread (the ranks share the host's cores);
+  - is bound to its card on "cuda" (cuda:{rank % cards}, made current
+    before it joins the world, and NCCL's device), and runs torch with one
+    intra-op thread (the ranks share the host's cores);
   - talks to the others over the loopback interface;
   - sends its result back as numpy arrays (tensors are copied to the host;
     bfloat16 as float32);
@@ -59,19 +61,18 @@ def _to_host(x):
     return x
 
 
-def _rank_main(fn, rank: int, n: int, backend: str, store: str, results, args,
+def _rank_main(fn, rank: int, n: int, backend: str, device, store: str, results, args,
                kwargs) -> None:
     import torch
     import torch.distributed as dist
 
-    from game_engine_tpu_torch.parallel.mesh import TIMEOUT_S, timeout_of
+    from game_engine_tpu_torch.parallel.mesh import init_world
 
     torch.set_num_threads(1)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     os.environ["LOCAL_RANK"] = str(rank)
     try:
-        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
-                                world_size=n, timeout=timeout_of(TIMEOUT_S))
+        init_world(backend, rank, n, device, init_method=f"file://{store}")
         results.put((rank, "ok", _to_host(fn(rank, *args, **kwargs))))
     except Exception:  # noqa: BLE001 — every failure goes back to the caller
         results.put((rank, "error", traceback.format_exc()))
@@ -128,8 +129,8 @@ def run_ranks(fn, n: int, *args, backend: str | None = None, device=D.DEFAULT,
     got: dict = {}
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, n, backend, os.path.join(tmp, "store"), results,
-                                   args, kwargs), daemon=True)
+                             args=(fn, r, n, backend, device, os.path.join(tmp, "store"),
+                                   results, args, kwargs), daemon=True)
                  for r in range(n)]
         deadline = time.monotonic() + timeout
         try:

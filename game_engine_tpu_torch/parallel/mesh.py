@@ -22,9 +22,13 @@ rooms: the data-parallel sums).
 
 Backends and devices. On "cuda" the default backend is NCCL with one card
 a rank (cuda:{local_rank}); NCCL refuses two ranks on one card, so asking
-it for more local ranks than cards raises, naming backend="gloo". Gloo
-takes CUDA tensors in all_reduce, broadcast and all_gather (checked on an
-H100), so ranks that share a card run over gloo with their tensors on it.
+it for more local ranks than cards raises, naming backend="gloo". A rank
+is bound to its card (cuda:{local_rank % cards}, torch.cuda.set_device)
+before it joins the world (init_world), and NCCL is given that card, so
+that its barriers and communicators use it; a mesh only checks the
+binding. Gloo takes CUDA tensors in all_reduce, broadcast and all_gather
+(checked on an H100), so ranks that share a card run over gloo with their
+tensors on it.
 Gloo's send and recv write a CUDA pointer to the socket and fail ("Bad
 address"), so the point-to-point hops of train/pipeline.py stage through
 pinned host memory under gloo. device="cpu" with gloo is the tests' path.
@@ -82,6 +86,31 @@ def rank_device(device, backend: str, rank: int) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
+def init_world(backend: str, rank: int, world_size: int, device, **init) -> torch.device:
+    """Bind this process to its rank's card (rank_device: cuda:{local_rank %
+    cards}, made torch's current device), then join the world
+    (init_process_group with `init`'s init_method or store). NCCL is given
+    the card (device_id), so its barriers and communicators use it from the
+    start. Returns the card, or the CPU."""
+    dev = rank_device(device, backend, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if backend == "nccl":
+        init["device_id"] = dev
+    dist.init_process_group(backend, rank=rank, world_size=world_size,
+                            timeout=init.pop("timeout", timeout_of(TIMEOUT_S)), **init)
+    return dev
+
+
+def check_bound(dev: torch.device, rank: int) -> None:
+    """Raise unless this process is bound to `dev` (its rank's card)."""
+    if dev.type == "cuda" and torch.cuda.current_device() != dev.index:
+        raise RuntimeError(
+            f"rank {rank} runs on cuda:{torch.cuda.current_device()}, its card is {dev}: join "
+            "the world through parallel.launch.run_ranks, initialize_multihost or make_mesh, "
+            "which bind a rank to its card first")
+
+
 class Mesh:
     """A (data, model) grid of ranks.
 
@@ -92,8 +121,9 @@ class Mesh:
 
     With `timing` set to a dict, every collective first waits for the
     card's queued work, then adds to timing["host_wait_ms"] that wait, to
-    timing["collective_ms"] its own host time, and to
-    timing["collectives"] one."""
+    timing["collective_ms"] its own host time up to the card's end of it
+    (under NCCL the NCCL kernels and the wait for the group's last rank),
+    and to timing["collectives"] one."""
 
     def __init__(self, devices, rank: int, device="cpu", backend: Optional[str] = None,
                  row_groups=None, col_groups=None):
@@ -226,9 +256,8 @@ def mesh_over(grid, backend: Optional[str] = None, device=D.DEFAULT) -> Mesh:
     grid = np.asarray(grid, dtype=np.int64)
     backend = backend or dist.get_backend()
     rank = dist.get_rank()
-    dev = rank_device(device, backend, rank) if rank in grid else torch.device(device.type)
-    if backend == "nccl" and rank in grid:
-        torch.cuda.set_device(dev)
+    dev = rank_device(device, backend, rank)
+    check_bound(dev, rank)
     td = timeout_of(TIMEOUT_S)
     rows = [dist.new_group([int(r) for r in row], backend=backend, timeout=td) for row in grid]
     cols = [dist.new_group([int(r) for r in col], backend=backend, timeout=td)
@@ -250,8 +279,7 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
             raise RuntimeError(f"make_mesh over {n_devices} ranks needs a torch.distributed "
                                "world: call initialize_multihost in every process, or start "
                                "the ranks with parallel.launch.run_ranks")
-        dist.init_process_group(backend or default_backend(device), store=dist.HashStore(),
-                                rank=0, world_size=1, timeout=timeout_of(TIMEOUT_S))
+        init_world(backend or default_backend(device), 0, 1, device, store=dist.HashStore())
     world = dist.get_world_size()
     n = n_devices or world
     if n > world:
@@ -276,9 +304,8 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     if coordinator_address is None or process_id is None:
         raise ValueError("a world of several processes needs coordinator_address and "
                          "process_id")
-    dist.init_process_group(backend or default_backend(device),
-                            init_method=f"tcp://{coordinator_address}", rank=process_id,
-                            world_size=num_processes, timeout=timeout_of(timeout))
+    init_world(backend or default_backend(device), process_id, num_processes, device,
+               init_method=f"tcp://{coordinator_address}", timeout=timeout_of(timeout))
     return dist.get_world_size()
 
 

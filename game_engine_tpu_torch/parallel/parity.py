@@ -1,7 +1,8 @@
 """Rank bodies of the multi-device checks. Each is fn(rank, spec) for
 parallel.launch.run_ranks and runs in every rank of the world: on the CPU
 over gloo in tests/test_torch_parallel.py and tests/test_torch_pipeline.py,
-and on the card in chip_smoke.py's multidevice phase. `spec` is a dict of
+and on the card in chip_smoke.py's multidevice phases (one card shared over
+gloo, or with --multichip one card a rank over NCCL). `spec` is a dict of
 plain values and numpy arrays:
 
   game, seats, rooms, start_seed   the rooms: init_state(game, rooms, seats,
@@ -73,6 +74,31 @@ def since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launches().items()}
 
 
+def cards_held() -> list:
+    """The cards this process has held a tensor on (a peak in the caching
+    allocator's count). A kernel wrapper launches on its tensors' card, so
+    a rank that held only its own card launched only there."""
+    if not torch.cuda.is_initialized():
+        return []
+    return [c for c in range(torch.cuda.device_count()) if torch.cuda.max_memory_allocated(c)]
+
+
+def rank_env(rank: int, spec: dict) -> dict:
+    """Where this rank runs: its card (the mesh's device and torch's current
+    one), the host CPUs it may use, and the world's sum of the ranks
+    (one all_reduce on the card over spec["backend"])."""
+    import os
+
+    import torch.distributed as dist
+
+    mesh = _mesh(spec, None)
+    t = torch.full((1,), float(rank), device=mesh.device)
+    dist.all_reduce(t)
+    return {"device": str(mesh.device),
+            "current_device": torch.cuda.current_device() if mesh.device.type == "cuda" else None,
+            "cpus": sorted(os.sched_getaffinity(0)), "world_sum": float(t)}
+
+
 def _mesh(spec: dict, n: int, model: int = 1) -> Mesh:
     return make_mesh(n, model, backend=spec.get("backend"), device=spec["device"])
 
@@ -124,7 +150,8 @@ def _first_update_on(mesh: Mesh, lw, cfg: P.PPOConfig, spec: dict) -> dict:
     loss, metrics, grads = P.make_grad_fn(lw, cfg, mesh)(params, traj, adv, ret)
     res = {"state": state, "actions": traj.actions.to(torch.int8), "loss": loss,
            "metrics": {**metrics, **P.rollout_metrics(traj, mesh)},
-           "grads": gather_params(mesh, grads), "launches": since(before)}
+           "grads": gather_params(mesh, grads), "launches": since(before),
+           "cards": cards_held(), "device": str(mesh.device)}
     if mesh.data_size == 1 and mesh.model_size == 1:
         res["margins"] = _margins(lw, cfg, params, traj, spec["gen_seed"], mesh)
     return res
@@ -144,6 +171,30 @@ def _margins(lw, cfg, params, traj, gen_seed: int, mesh: Mesh) -> torch.Tensor:
                          for _ in range(traj.obs.shape[0])])
     top = (logits + noise).topk(2, dim=-1).values
     return torch.where(traj.mask, top[..., 0] - top[..., 1], torch.inf)
+
+
+def dp_updates(rank: int, spec: dict) -> dict:
+    """spec["updates"] train steps (make_train_step) on a data-parallel mesh
+    of the world's first spec["n"] ranks, from the same start: this rank's
+    parameters and Adam state after them (the replicas of a data group
+    apply the same summed gradients, so they must end bit for bit equal),
+    its device, its launches and the cards it held."""
+    lw = lowered_of(spec["game"])
+    cfg = config_of(spec)
+    mesh = _mesh(spec, spec["n"])
+    if not mesh.member:
+        return {}
+    params = params_sharding(mesh, params_of(spec, mesh.device))
+    opt = P.make_optimizer(params, cfg)
+    state = state_sharding(mesh, start_of(spec, mesh.device))
+    gen = torch.Generator(mesh.device).manual_seed(spec["gen_seed"])
+    step = P.make_train_step(lw, cfg, mesh)
+    before = launches()
+    for _ in range(spec["updates"]):
+        state, _ = step(params, opt, state, gen)
+    adam = {k: {s: v for s, v in opt.state[p].items()} for k, p in params.items()}
+    return {"device": str(mesh.device), "params": params, "adam": adam,
+            "launches": since(before), "cards": cards_held()}
 
 
 def loss_grad(rank: int, spec: dict) -> dict:
@@ -194,4 +245,5 @@ def pipeline(rank: int, spec: dict) -> dict:
     state, metrics = run_pipelined_sharded(lw, cfg, params, opt, start_of(spec, mesh.device),
                                            gen, spec["rounds"], actor, learner)
     return {"role": "actor" if actor.member else "learner", "coords": mesh.coords,
-            "state": state, "metrics": metrics, "params": params, "launches": since(before)}
+            "device": str(mesh.device), "state": state, "metrics": metrics, "params": params,
+            "launches": since(before)}

@@ -309,11 +309,14 @@ def profile_decode(pk: Packed, bufs, n0, max_new: int) -> dict:
     counts = (kernel_decode.launches, kernel_decode.prefill_launches,
               kernel_decode.decode_launches)
     out = np.zeros(len(PROFILE_STAGES), np.uint64)
-    _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
+    dev = pk.wb.device
+    with torch.cuda.device(dev):  # the stage counters live on the weights' card
+        _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
     try:
         _run(pk, bufs, n0, max_new, None, 1.0, 1.0, False, "cuda", profile=True)
-        torch.cuda.synchronize(pk.wb.device)
-        _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
+        torch.cuda.synchronize(dev)
+        with torch.cuda.device(dev):
+            _check(lib, lib.cd_profile_read(out.ctypes.data, 1), "profile")
     finally:
         (kernel_decode.launches, kernel_decode.prefill_launches,
          kernel_decode.decode_launches) = counts

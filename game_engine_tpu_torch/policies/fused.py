@@ -294,14 +294,17 @@ _packed.packs = 0
 
 
 def _lg_call(name: str, args: tuple, device, what: str) -> None:
-    """One entry of the pipeline library, on the host or on `device`'s
-    current stream; raises on its error."""
+    """One entry of the pipeline library, on the host, or on `device`'s
+    current stream with `device` made torch's current card for the call (its
+    launches and kernel attributes go to the tensors' card, whichever is
+    current); raises on its error."""
     lib = _pipeline_lib(device)
     if device.type == "cpu":
         if getattr(lib, name + "_host")(*args) != 0:
             raise RuntimeError(f"host {what} failed")
         return
-    err = getattr(lib, name)(*args, _stream(device))
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: {lib.lg_error_string(err).decode()}")
 
@@ -447,11 +450,6 @@ def _check_f32(t: torch.Tensor, shape: tuple, device, name: str) -> None:
             or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous f32 {shape} on {device}; got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream(device).cuda_stream
 
 
 def _pipeline_forward(d: Dims, rows, params, chunk_rows: int):

@@ -451,6 +451,20 @@ def test_dp_first_unroll_and_update_equal_one_rank(dp_runs, ranks):
     assert acted.any() and (one["margins"][acted] >= 0).all()
 
 
+def test_dp_replicas_end_bit_for_bit_equal(pww):
+    """2 updates at dp = 2: both ranks apply the same summed gradients, so
+    their parameters and Adam state end with the same bits, moved from the
+    start (the chip check holds dp = 4 over NCCL to the same)."""
+    spec = {**_train_spec(pww, horizon=3, epochs=1), "n": 2, "updates": 2}
+    ranks = run_ranks(parity.dp_updates, 2, spec, device="cpu")
+    assert [r["device"] for r in ranks] == ["cpu", "cpu"]
+    for k, v in ranks[0]["params"].items():
+        assert not np.array_equal(v, spec["params"][k]), k
+        np.testing.assert_array_equal(ranks[1]["params"][k], v, err_msg=k)
+        for s, x in ranks[0]["adam"][k].items():
+            np.testing.assert_array_equal(ranks[1]["adam"][k][s], x, err_msg=f"{k} {s}")
+
+
 # ---------------------------------------------------------------------------
 # the dryrun, the curve and the launcher
 # ---------------------------------------------------------------------------
