@@ -50,6 +50,41 @@ Phases, one JSON line each:
                   which the timed call must share), then each game's rate
                   at the module's defaults (4096 rooms x 1024 steps, the
                   median of 5 calls), one line a game
+  engine_step     ST, the engine step entry (csrc/rollout.cu ge_step,
+                  ge_reset_done, ge_bots on GameState's own tensors), bit for
+                  bit against make_step (then torch.where over the keep
+                  mask), reset_where_done and scripted_actions: every
+                  catalog game, born-done rooms, werewolf at 40 and 72 seats
+                  (the wide build) and the 78-phase game, 1024 rooms of
+                  mixed sizes x 16 steps each, on actions no bot emits (0,
+                  negative, past P, past the option count, int32's
+                  extremes, any seat) mixed with the bots' and a keep mask;
+                  every field, `ended` and the dtypes, the differences
+                  and the largest |difference| counted on the card; then
+                  werewolf at 4096 x 6, 16,384 x 3 and 65,536 x 3 from
+                  rooms spread over its phases by K1, so that 32, 16 and 8
+                  lanes a room (the plan's picks for 8 seats) are each held
+                  (engine_step_check, each case with its lanes a room).
+                  Then its three entries' device ms at 4096 and 65,536
+                  werewolf rooms spread over the game's phases by K1 (each
+                  launch queued behind a sleep kernel, CUDA events, median
+                  of 5; and a call's span from an idle queue) beside the
+                  plain versions' alike, the timed calls' outputs held
+                  against the plain ones and their lanes a room against
+                  the checked launches', the step's host us a call and its
+                  bound (the -DGE_COUNT host build's integer operations on
+                  that step, or the state's bytes in and out), and the
+                  three wrappers under sync debug mode "error". ST's
+                  launches are counted by path (learner, train_narrow,
+                  large_rooms, serving, serve_search, eval_search, league,
+                  pipeline, matchup, multidevice, policy_bench, serve_chat;
+                  each must launch it); the pipeline phase names the line
+                  of every host wait of an unroll step, none in ST's
+                  wrappers. With --profile, unroll_split: one train-unroll
+                  step at 4096 rooms by op under torch.profiler (observe,
+                  sample_actions with K2, actor_mask, the engine step,
+                  terminal_rewards, the reset: launches, host and device
+                  ms), on the eager step and on ST
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256
@@ -128,9 +163,11 @@ Phases, one JSON line each:
                   rooms' journals replay on a CPU host to the same
                   snapshot_state. Also where a step of the server spends
                   its time (engine step, policy forward, host read) and K2
-                  alone at 64-2048 rows: device time (torch.profiler), time
-                  on the card's clock (CUDA events) and host time to
-                  enqueue, kept apart
+                  alone at 64-2048 rows: device time (the call's kernels
+                  back to back behind a sleep kernel, CUDA events; its
+                  launches from torch.profiler's trace, which holds the
+                  ctypes entries' own), time on the card's clock (CUDA
+                  events) and host time to enqueue, kept apart
 
   compare_search  the search kernels (S, csrc/search.cu) against their
                   plain versions on the card and against the port's C++
@@ -280,6 +317,7 @@ Phases, one JSON line each:
                   the held-out evaluation's replies through the kernel
 
 Then a {"kernels": [...]} line (each kernel's launches on the main paths,
+ST's too,
 by path in launches_by_path, the ranks' of the multidevice path included,
 which of its routes ran there, its error, time, plain version's time and
 bound: the larger of its operations over the card's peak for their type and
@@ -1647,35 +1685,38 @@ def sync_ms(fn, reps: int = 10) -> float:
 
 
 def device_ms(fn, reps: int = 3) -> tuple:
-    """(device milliseconds of the kernels of one fn() call, kernels a call)
-    by torch.profiler."""
+    """(device milliseconds of one fn() call's work with its kernels back to
+    back (prefilled_ms, the median of `reps`), kernels a call: the launch
+    calls in torch.profiler's trace, the ctypes entries' too)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    ms = statistics.median(prefilled_ms(fn, host) for _ in range(reps))
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if t > 0:
-            us += t
-            count += ev.count
-    return us / reps / 1e3, count / reps
+    launches = sum(1 for e in trace_events(prof) if e.get("ph") == "X"
+                   and str(e.get("name", "")).startswith(LAUNCH_CALLS))
+    return ms, launches / reps
 
 
 def serve_breakdown(host) -> dict:
     """Where one engine step of the server goes, on a copy of the live slot
-    batch (capacity x P rows): the eager engine step with its scripted
-    bots, the policy bots (observe, K2, legal mask, argmax), the host read
-    of the stepped rooms, and a whole step_slots of eight rooms; K2 alone
-    at 64-2048 rows. Host milliseconds with the card drained (sync_ms),
-    device milliseconds of the kernels (torch.profiler), and K2's time on
-    the card's clock (CUDA events) and host time to enqueue."""
+    batch (capacity x P rows): the engine step with its scripted bots (two
+    ST launches), the policy bots (observe, K2, legal mask, argmax), the
+    host read of the stepped rooms, and a whole step_slots of eight rooms;
+    K2 alone at 64-2048 rows. Host milliseconds with the card drained
+    (sync_ms), device milliseconds of the kernels back to back and the
+    launches a call (device_ms), and K2's time on the card's clock (CUDA
+    events) and host time to enqueue."""
     import copy
 
     import torch
@@ -2475,9 +2516,11 @@ def league_phase(lowered, gpu: str) -> dict:
     return total
 
 
-def host_syncs(fn) -> int:
-    """How many times `fn` makes the host wait for the card (torch's sync
-    debug mode: each synchronizing call warns once)."""
+def host_syncs(fn) -> tuple:
+    """(how many times `fn` makes the host wait for the card, {file:line of
+    the Python call that waited: times}) by torch's sync debug mode: each
+    synchronizing call warns once, from the line that made it."""
+    import collections
     import warnings
 
     import torch
@@ -2490,7 +2533,9 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in seen)
+    where = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in seen
+                                if "synchroniz" in str(w.message))
+    return sum(where.values()), dict(where)
 
 
 def pipeline_phase(lowered, gpu: str) -> dict:
@@ -2519,8 +2564,11 @@ def pipeline_phase(lowered, gpu: str) -> dict:
     (_, traj, last_obs), collect_ms = timed_ms(lambda: pair[0](p, start, gen))
     _, update_ms = timed_ms(lambda: pair[1](p, opt, traj, last_obs))
     del traj, last_obs
-    syncs = host_syncs(lambda: P.make_unroll(lowered, dataclasses.replace(cfg, horizon=1))(
-        p, start, gen))
+    syncs, sync_sources = host_syncs(
+        lambda: P.make_unroll(lowered, dataclasses.replace(cfg, horizon=1))(p, start, gen))
+    st_waits = {k: v for k, v in sync_sources.items() if "step_kernel" in k}
+    if st_waits:
+        raise AssertionError(f"ST's wrappers made the host wait: {st_waits}")
 
     def run(overlap: bool):
         params = clone(params0)
@@ -2563,7 +2611,8 @@ def pipeline_phase(lowered, gpu: str) -> dict:
                                     for k, v in by_order.items()},
           "bitwise_equal_to_serial": diffs, "launches": runs[1][1]["launches"],
           "actor_stream_priority": -1, "learner_stream_priority": 0,
-          "host_syncs_per_unroll_step": syncs, "gpu": gpu})
+          "host_syncs_per_unroll_step": syncs, "host_sync_sources": sync_sources,
+          "gpu": gpu})
     return runs[1][1]["launches"]
 
 
@@ -2683,7 +2732,7 @@ MD_ROUNDS = 2                 # the sharded pipeline's rounds
 MD_CURVE = {"per_rank": 1024, "global_batch": ROOMS, "horizon": HORIZON, "epochs": 4,
             "roll_steps": STEPS, "net": {"hidden": 256, "arch": "attn"}, "seats": 6,
             "train_steps": 2}
-MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad")
+MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad", "engine_step")
 
 
 def md_spec(cfg, **extra) -> dict:
@@ -3152,7 +3201,7 @@ def multichip_main(gpu: str) -> int:
     stop_fork_server()
     emit({"phase": "multichip_done", "seconds": time.perf_counter() - t0,
           "launches_by_path": {k: {"multichip": n} for k, n in total.items()}, "gpu": gpu})
-    for k in ("rollout", "policy_forward", "ppo_loss_grad"):
+    for k in ("rollout", "policy_forward", "ppo_loss_grad", "engine_step"):
         if total[k] <= 0:
             raise AssertionError(f"the four-card path did not launch {k}: {total}")
     print(nvidia_smi("--query-gpu=name,power.limit", "--format=csv,noheader"), flush=True)
@@ -3524,6 +3573,446 @@ def train_chat_phase(gpu: str) -> int:
     return n
 
 
+# -- the engine step entry (ST) --------------------------------------------------
+
+ST_KERNELS = {"step_kernel": "ge_step_kernelILi1E", "step_kernel_wide": "ge_step_kernelILi8E"}
+ST_REPLACES = "game_engine_tpu/core/step.py:826"
+ST_CHECK = (1024, 16)      # rooms and steps of each case of engine_step's check
+# werewolf rooms and steps checked at the paths' larger batches: the plan gives
+# 8 seats 16 lanes a room at 4096 (the learner) and 8 at 16,384 (the policy
+# loop) and 65,536, where ST_CHECK's 1024 rooms get 32
+ST_CHECK_SIZES = ((4096, 6), (16384, 3), (65536, 3))
+ST_SIZES = (4096, 65536)   # werewolf rooms of 8 where it is timed
+ST_REPS = 5                # timed calls a size (CUDA events, the median)
+# the paths that step rooms one at a time, each of which must launch ST
+ST_PATHS = ("learner", "train_narrow", "large_rooms", "serving", "serve_search", "eval_search",
+            "league", "pipeline", "matchup", "multidevice", "policy_bench", "serve_chat")
+UNROLL_GROUPS = ("observe", "sample_actions", "actor_mask", "engine_step", "terminal_rewards",
+                 "reset")
+
+
+def st_wrappers() -> dict:
+    from game_engine_tpu_torch.core import step_kernel as SK
+
+    return {"step": SK.kernel_step, "reset_done": SK.kernel_reset_done,
+            "bot_actions": SK.kernel_bot_actions}
+
+
+class STPaths:
+    """ST's launches by path: `with paths.of(name):` zeroes the three
+    wrappers' counts just before a path and adds them to `name` after.
+    A context of its own, because the phases zero K1-K4's counts inside
+    themselves (zero_launches) and return them, and ST runs in phases that
+    launch none of those; zero_launches leaves ST's counts alone so that a
+    phase's own zeroing cannot drop ST's launches from its path."""
+
+    def __init__(self):
+        self.by_path = {}
+
+    def of(self, name: str):
+        import contextlib
+
+        @contextlib.contextmanager
+        def counting():
+            for fn in st_wrappers().values():
+                fn.launches = 0
+            try:
+                yield
+            finally:
+                got = self.by_path.setdefault(name, dict.fromkeys(st_wrappers(), 0))
+                for k, fn in st_wrappers().items():
+                    got[k] += fn.launches
+
+        return counting()
+
+    def total(self, path: str) -> int:
+        return sum(self.by_path.get(path, {}).values())
+
+
+def st_differences(got, ref) -> tuple:
+    """(elements that differ, largest |got - ref|) over pairs of tensors,
+    as int64 tensors on the card (read by the caller), and whether every
+    pair agrees in dtype and shape."""
+    import torch
+
+    diff = torch.zeros((), dtype=torch.int64, device="cuda")
+    err = torch.zeros((), dtype=torch.int64, device="cuda")
+    same_kind = True
+    for x, y in zip(got, ref):
+        same_kind &= x.dtype == y.dtype and x.shape == y.shape
+        if x.numel():
+            diff = diff + (x != y).sum()
+            err = torch.maximum(err, (x.to(torch.int64) - y.to(torch.int64)).abs().max())
+    return diff, err, same_kind
+
+
+def st_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) -> dict:
+    """ST against the plain functions on the card, `steps` steps of `rooms`
+    rooms (of mixed sizes from init_state, or from `state`): the bots
+    against scripted_actions; the step on step_cases.odd_actions with a
+    keep mask against make_step then torch.where(keep), every field and
+    `ended`; the reset against reset_where_done. The differences are
+    counted on the card and read once; the launch's lanes a room are
+    recorded."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.core.engine import reset_where_done, scripted_actions
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.core.step import make_step
+    from game_engine_tpu_torch.utils.step_cases import odd_actions
+
+    rng = np.random.default_rng(seed)
+    if state is None:
+        lo = min(lw.game.spec.declaration.min_players or 4, lw.P)
+        n = torch.as_tensor(rng.integers(lo, lw.P + 1, rooms), dtype=torch.int32)
+        state = init_state(lw, rooms, n, np.arange(rooms, dtype=np.uint32) * 7 + seed,
+                           device="cuda")
+    step = make_step(lw)
+    diff = err = torch.zeros((), dtype=torch.int64, device="cuda")
+    dtypes_ok, ended_n, done_n = True, 0, 0
+
+    def count(got, ref):
+        nonlocal diff, err, dtypes_ok
+        d, e, same_kind = st_differences(got, ref)
+        diff, err, dtypes_ok = diff + d, torch.maximum(err, e), dtypes_ok and same_kind
+
+    for t in range(steps):
+        bots = SK.kernel_bot_actions(lw, state)
+        count([bots], [scripted_actions(lw, state)])
+        actions = odd_actions(lw, bots, rng)
+        keep = torch.as_tensor(rng.random(rooms) < 0.85, device="cuda")
+        got, ended = SK.kernel_step(lw, state, actions, keep)
+        ref = step(state, actions)
+        ref = [torch.where(keep.reshape((-1,) + (1,) * (o.dim() - 1)), x, o)
+               for x, o in zip(ref, state)]
+        count(list(got) + [ended], ref + [ref[11] & ~state.done])
+        ended_n = ended_n + ended.sum()
+        done_n = done_n + got.done.sum()
+        fresh = SK.kernel_reset_done(lw, got)
+        count(fresh, reset_where_done(lw, got))
+        state = fresh
+    return {"case": name, "game": lw.game.spec.name, "P": lw.P, "NP": lw.NP, "rooms": rooms,
+            "steps": steps, "lanes_per_room": SK.step_plan(lw, rooms, state.present.device)[0],
+            "differences": int(diff), "max_abs_err": int(err), "dtypes_ok": dtypes_ok,
+            "episodes_ended": int(ended_n), "done_rooms_stepped": int(done_n)}
+
+
+def st_state(lw, rooms: int, steps: int = 200):
+    """Werewolf rooms of 8 after `steps` steps of the scripted rollout with
+    auto-reset (K1): rooms spread over the game's phases, as a long run
+    leaves them (fresh rooms all wait in one phase)."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+
+    eng = BatchedEngine(lw, "cuda")
+    return eng.rollout(eng.init(rooms, 8, np.arange(rooms, dtype=np.uint32)), steps)[0]
+
+
+def st_timing(lw, rooms: int, int32_rate: float) -> dict:
+    """ST's three entries and their plain versions at `rooms` werewolf rooms
+    of 8 spread over the game's phases. "ms" is an entry's device time
+    (prefilled_ms: its launch queued behind a sleep kernel, CUDA events,
+    median of ST_REPS) and "plain_ms" its plain version's, its kernels back
+    to back, alike; "call_ms" and "plain_call_ms" a call's span on the
+    card's clock from an idle queue, its host time included, as a caller
+    waits for it (the eager step is host-bound). The timed calls' own
+    outputs are held against the plain ones (the step's every field and
+    `ended`, the reset, the bots: "differences", "max_abs_err"). Also the
+    step's host us a call (the wrapper's own cost, no sync), the launch's
+    lanes a room and the step's bound: the larger of the interpreter's
+    integer operations (the -DGE_COUNT host build over this step) over the
+    card's int32 rate and the bytes it must move (the state in and out,
+    the actions, `ended`, the game array) over the memory rate."""
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.core.engine import reset_where_done, scripted_actions
+    from game_engine_tpu_torch.core.rollout_kernel import _game_arrays
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.core.step import make_step
+
+    state = st_state(lw, rooms)
+    actions = SK.kernel_bot_actions(lw, state)
+    nxt, ended = SK.kernel_step(lw, state, actions)
+    step = make_step(lw)
+    calls = {"": lambda: SK.kernel_step(lw, state, actions),
+             "reset_": lambda: SK.kernel_reset_done(lw, nxt),
+             "bots_": lambda: SK.kernel_bot_actions(lw, state),
+             "plain_": lambda: step(state, actions),
+             "plain_reset_": lambda: reset_where_done(lw, nxt),
+             "plain_bots_": lambda: scripted_actions(lw, state)}
+    out = {"rooms": rooms, "seats": 8, "done_rooms": int(nxt.done.sum()),
+           "phases_held": int(torch.unique(state.phase).numel()),
+           "lanes_per_room": SK.step_plan(lw, rooms, state.present.device)[0]}
+    got = {}
+    for name, call in calls.items():
+        call()  # warm-up
+        spans = []
+        for _ in range(ST_REPS):
+            got[name], ms = timed_ms(call)
+            spans.append(ms)
+        span = statistics.median(spans)
+        out[name + "call_ms"] = span
+        out[name + "ms"] = statistics.median(prefilled_ms(call, span) for _ in range(ST_REPS))
+    (st_next, st_ended), plain_next = got[""], got["plain_"]
+    checks = [st_differences(list(st_next) + [st_ended],
+                             list(plain_next) + [plain_next.done & ~state.done]),
+              st_differences(got["reset_"], got["plain_reset_"]),
+              st_differences([got["bots_"]], [got["plain_bots_"]])]
+    out["differences"] = int(sum(d for d, _, _ in checks))
+    out["max_abs_err"] = int(max(e for _, e, _ in checks))
+    out["dtypes_ok"] = all(k for _, _, k in checks)
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SK.kernel_step(lw, state, actions)
+        host.append((time.perf_counter() - t0) * 1e6)
+    out["host_us_per_call"] = statistics.median(host)
+    counts = SK.count_step(lw, GameState(*(t.cpu() for t in state)), actions.cpu())
+    game, _ = _game_arrays(lw, state.present.device)
+    moved = 2 * nbytes(*state) + nbytes(actions, ended, game)
+    by_ops, by_bytes = counts["int_ops"] / int32_rate * 1e3, moved / PEAK_BYTES * 1e3
+    out.update(interpreter_counts=counts, bytes_moved=moved, bound_ms_by_bytes=by_bytes,
+               bound_ms_by_operations=by_ops,
+               bound=(by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes"))
+    return out
+
+
+def st_sync_check(lw) -> dict:
+    """ST's three wrappers under torch's sync debug mode "error" on an
+    unroll's shapes (4096 rooms, after a warm-up that caches the tables and
+    the plan): any host wait for the card raises."""
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+
+    state = st_state(lw, ROOMS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt, ended = SK.kernel_step(lw, state, SK.kernel_bot_actions(lw, state))
+        SK.kernel_reset_done(lw, nxt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"rooms": ROOMS, "sync_debug_mode": "error", "raised": False}
+
+
+def engine_step_phase(gpu: str, int32_rate: float) -> dict:
+    """ST against the plain functions on the card, bit for bit: every
+    catalog game (ST_CHECK rooms x steps, rooms of mixed sizes, the bots,
+    the step on legal and illegal actions with a keep mask, the reset),
+    born-done rooms, werewolf at 40 and 72 seats (the wide build), the
+    78-phase game, and werewolf at ST_CHECK_SIZES from rooms spread over
+    its phases, so that each lanes a room the plan picks for 8 seats is
+    held; then its time at ST_SIZES beside the plain versions and its
+    bound, the timed calls' outputs held against the plain ones and their
+    lanes a room against the checked launches', and the sync check.
+    Returns the kernels line's numbers."""
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import games_dir, load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.utils.bench_games import long_game
+    from game_engine_tpu_torch.utils.step_cases import born_done_game
+
+    t0 = time.perf_counter()
+    rooms, steps = ST_CHECK
+    ww = lower(compile_game(load_builtin("werewolf")))
+    names = sorted(fn[:-5] for fn in os.listdir(games_dir()) if fn.endswith(".yaml"))
+    cases = [(name, lambda name=name: lower(compile_game(load_builtin(name))), rooms, steps,
+              False) for name in names]
+    cases += [("born_done", born_done_game, rooms, steps, False),
+              ("werewolf_40_seats", lambda: large_game(40), rooms, steps, False),
+              ("werewolf_72_seats", lambda: large_game(72), rooms, steps, False),
+              ("long_game_78_phases", long_game, rooms, steps, False)]
+    cases += [(f"werewolf_{n}_rooms", lambda: ww, n, k, True) for n, k in ST_CHECK_SIZES]
+    results = []
+    for k, (name, make, n, n_steps, spread) in enumerate(cases):
+        lw = make()
+        got = st_check_case(name, lw, n, n_steps, 1000 + k, st_state(lw, n) if spread else None)
+        results.append(got)
+        if got["differences"] or got["max_abs_err"] or not got["dtypes_ok"]:
+            emit({"phase": "engine_step_case", **got, "gpu": gpu})
+            raise AssertionError(f"ST differs from the plain functions on {name}: {got}")
+    worst = max(results, key=lambda r: r["P"])
+    ww_lanes = sorted({r["lanes_per_room"] for r in results
+                       if r["game"] == ww.game.spec.name and r["P"] == ww.P})
+    emit({"phase": "engine_step_check", "cases": len(results), "differences": 0,
+          "werewolf_lanes_checked": ww_lanes, "per_case": results,
+          "seconds": time.perf_counter() - t0, "gpu": gpu})
+    if not any(r["episodes_ended"] for r in results) or worst["P"] != 72:
+        raise AssertionError("the engine step check ended no episode or missed the wide rooms")
+    if ww_lanes != [8, 16, 32]:
+        raise AssertionError(f"engine step check ran werewolf at {ww_lanes} lanes a room, "
+                             "not 8, 16 and 32")
+    timing = {n: st_timing(ww, n, int32_rate) for n in ST_SIZES}
+    for n, t in timing.items():
+        if t["differences"] or t["max_abs_err"] or not t["dtypes_ok"]:
+            raise AssertionError(f"ST's timed calls at {n} rooms differ from plain: {t}")
+        if t["lanes_per_room"] not in ww_lanes:
+            raise AssertionError(f"engine step timed at {t['lanes_per_room']} lanes a room "
+                                 f"({n} rooms), checked at {ww_lanes}")
+    sync = st_sync_check(ww)
+    emit({"phase": "engine_step", "timing": {str(k): {x: y for x, y in v.items() if x != "bound"}
+                                             for k, v in timing.items()},
+          "sync_check": sync, "seconds": time.perf_counter() - t0, "gpu": gpu})
+    return {"timing": timing, "cases": len(results),
+            "differences": sum(r["differences"] for r in results)
+            + sum(t["differences"] for t in timing.values()),
+            "max_abs_err": max([r["max_abs_err"] for r in results]
+                               + [t["max_abs_err"] for t in timing.values()])}
+
+
+SM_CYCLES_PER_MS = 1.98e6  # the H100's top SM clock: torch.cuda._sleep's cycles a ms
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel")
+
+
+def trace_events(prof) -> list:
+    """The profiler's trace as Kineto exports it: every CUPTI record, the
+    launches of the ctypes entries (ST, K2) included, which no torch op
+    owns and so no FunctionEvent holds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def prefilled_ms(fn, host_ms: float) -> float:
+    """Device milliseconds of the work fn() enqueues, its kernels back to
+    back: a sleep kernel holds the stream while the host enqueues them
+    (longer than `host_ms`, the enqueue's time), and CUDA events bracket
+    them. A host wait inside fn() drains the queue, so it then reads high."""
+    import torch
+
+    torch.cuda._sleep(int((3 * host_ms + 5) * SM_CYCLES_PER_MS))
+    _, ms = timed_ms(fn)
+    return ms
+
+
+def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
+    """One train-unroll step of the learner's shape (4096 werewolf rooms of
+    6, the attn checkpoint through K2) split by op: observe, sample_actions
+    (K2 inside), actor_mask, the engine step, terminal_rewards and the
+    reset. For each, a step's launches (the trace's launch calls inside its
+    record_function range, torch.profiler), host ms (the host clock around
+    it, no profiler), device ms (prefilled_ms) and host waits (sync debug
+    mode); the means of `steps` steps after a warm-up one, and a step's
+    wall ms. route "plain": make_step and reset_where_done, the eager step
+    every path ran before ST; "st": engine.engine_step and reset_done."""
+    import collections
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    from game_engine_tpu_torch.core import engine as E
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.core.step import make_step
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import ppo as P
+
+    params, cfg = learner_start(CKPT)
+    apply_fn = P.make_apply_fn(lowered, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    plain_step = make_step(lowered)
+
+    def step(st, actions):
+        if route == "st":
+            return E.engine_step(lowered, st, actions)
+        nxt = plain_step(st, actions)
+        return nxt, nxt.done & ~st.done
+
+    def reset(st):
+        return E.reset_done(lowered, st) if route == "st" else E.reset_where_done(lowered, st)
+
+    def ops(st) -> list:
+        """The step as (group, call) pairs, each call taking and returning
+        the carried values."""
+        def observe(c):
+            c["obs"] = N.observe(lowered, c["st"])
+
+        def sample(c):
+            c["a"] = N.sample_actions(lowered, params, c["st"], cfg.net, obs=c["obs"],
+                                      apply_fn=apply_fn, generator=gen)[0]
+
+        def mask(c):
+            c["actions"] = torch.where(P.actor_mask(lowered, c["st"]), c["a"], 0)
+
+        def engine(c):
+            c["nxt"], c["ended"] = step(c["st"], c["actions"])
+
+        def rewards(c):
+            P.terminal_rewards(lowered, c["nxt"], c["ended"])
+
+        def reset_(c):
+            c["st"] = reset(c["nxt"])
+
+        return list(zip(UNROLL_GROUPS, (observe, sample, mask, engine, rewards, reset_)))
+
+    state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 17, device="cuda")
+    groups = {g: collections.defaultdict(float) for g in UNROLL_GROUPS}
+    with torch.no_grad():
+        carry = {"st": state}
+        for _, call in ops(state):  # warm-up: tables, plans, packed weights
+            call(carry)
+        torch.cuda.synchronize()
+        wall = []
+        for _ in range(steps):  # host ms and the step's wall ms, no profiler
+            t0 = time.perf_counter()
+            for g, call in ops(carry["st"]):
+                t1 = time.perf_counter()
+                call(carry)
+                groups[g]["host_ms"] += (time.perf_counter() - t1) * 1e3 / steps
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(steps):  # device ms, each group on a prefilled queue
+            for g, call in ops(carry["st"]):
+                groups[g]["device_ms"] += prefilled_ms(
+                    lambda: call(carry), groups[g]["host_ms"]) / steps
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:  # host waits
+            warnings.simplefilter("always")
+            for g, call in ops(carry["st"]):
+                n = len(seen)
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    call(carry)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                groups[g]["host_waits"] = sum("synchroniz" in str(w.message)
+                                              for w in seen[n:])
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                for g, call in ops(carry["st"]):
+                    with record_function(g):
+                        call(carry)
+            torch.cuda.synchronize()
+    trace = trace_events(prof)
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in trace
+              if e.get("cat") == "user_annotation" and e.get("name") in groups]
+    for e in trace:
+        if e.get("ph") == "X" and str(e.get("name", "")).startswith(LAUNCH_CALLS):
+            for t0, t1, g in ranges:
+                if t0 <= e["ts"] <= t1:
+                    groups[g]["launches"] += 1 / steps
+    return {"route": route, "rooms": ROOMS, "steps": steps,
+            "wall_ms_per_step": statistics.median(wall),
+            "groups": {g: dict(v) for g, v in groups.items()},
+            "host_ms_per_step": sum(v["host_ms"] for v in groups.values()),
+            "device_ms_per_step": sum(v["device_ms"] for v in groups.values()),
+            "launches_per_step": sum(v["launches"] for v in groups.values()),
+            "host_waits_per_step": sum(v["host_waits"] for v in groups.values()), "gpu": gpu}
+
+
 def main(argv=()) -> int:
     argv = list(argv)
     profiled = argv == ["--profile"]
@@ -3577,8 +4066,10 @@ def main(argv=()) -> int:
         raise AssertionError(f"the search kernels spill: {search_ptxas}")
     wide_ptxas = ptxas_by_kernel(_build.search_lib(), SEARCH_KERNELS_WIDE.values())
     k1_ptxas = ptxas_by_kernel(lib, K1_KERNELS.values())
+    st_ptxas = ptxas_by_kernel(lib, ST_KERNELS.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           **{k: k1_ptxas[v] for k, v in K1_KERNELS.items()},
+          **{k: st_ptxas[v] for k, v in ST_KERNELS.items()},
           "search_kernels_wide": wide_ptxas,
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "lossgrad_kernels": ptxas_by_kernel(_build.lossgrad_lib(), LG_KERNELS),
@@ -3704,6 +4195,8 @@ def main(argv=()) -> int:
               "first_call_max_abs_err_vs_plain": err, "gpu": gpu})
 
     bg_launches = bench_games_phase(gpu)
+    st = engine_step_phase(gpu, int32_ops_per_s())
+    st_paths = STPaths()
 
     # -- the learner: K2-K4 vs plain at full width, then its main path -------
     from game_engine_tpu_torch.policies import net as N
@@ -3727,27 +4220,42 @@ def main(argv=()) -> int:
     packed_weights_check(ww, traj, adv, ret, attn, attn_cfg)
     del traj, adv, ret
     torch.cuda.empty_cache()
-    large = large_rooms_phase(gpu, int32_ops_per_s(), profiled)
-    launches = train_phase(ww, gpu)
-    narrow_train = train_narrow_phase(gpu)
-    serving = serve_phase(gpu)
+    with st_paths.of("large_rooms"):
+        large = large_rooms_phase(gpu, int32_ops_per_s(), profiled)
+    if profiled:  # the train unroll split by op, on the eager step and on ST
+        for route in ("plain", "st"):
+            emit({"phase": "unroll_split", **unroll_split(ww, gpu, route)})
+    with st_paths.of("learner"):
+        launches = train_phase(ww, gpu)
+    with st_paths.of("train_narrow"):
+        narrow_train = train_narrow_phase(gpu)
+    with st_paths.of("serving"):
+        serving = serve_phase(gpu)
     s_compare = compare_search(gpu)
     s_line = search_timing(gpu, int32_ops_per_s(), profiled)
     with SearchLaunchSizes() as s_sizes:  # S's launches on its paths, by decisions
-        s_serving = serve_search_phase(gpu)
-        s_eval = eval_phase(gpu)
-        league = league_phase(ww, gpu)
-        piped = pipeline_phase(ww, gpu)
-        matchup = matchup_phase(ww, gpu)
+        with st_paths.of("serve_search"):
+            s_serving = serve_search_phase(gpu)
+        with st_paths.of("eval_search"):
+            s_eval = eval_phase(gpu)
+        with st_paths.of("league"):
+            league = league_phase(ww, gpu)
+        with st_paths.of("pipeline"):
+            piped = pipeline_phase(ww, gpu)
+        with st_paths.of("matchup"):
+            matchup = matchup_phase(ww, gpu)
         judged = arena_phase(gpu)
-    multi = multidevice_phase(ww, gpu)
-    policy_bench_phase(gpu)
+    with st_paths.of("multidevice"):
+        multi = multidevice_phase(ww, gpu)
+    with st_paths.of("policy_bench"):
+        policy_bench_phase(gpu)
     c_compare = compare_chat(gpu)
     c_line = chat_timing(gpu, c_compare, profiled)
     zero_launches()
     c_by_path = {"chat_probes": chat_probes_phase(gpu)}
     c_by_program = decode_programs()
-    c_by_path["serving"], k2_serve_chat, served = serve_chat_phase(gpu)  # zeroes the counts
+    with st_paths.of("serve_chat"):
+        c_by_path["serving"], k2_serve_chat, served = serve_chat_phase(gpu)  # zeroes the counts
     zero_launches()
     c_by_path["train_chat_lm"] = train_chat_phase(gpu)
     c_by_program = {k: v + served[k] + decode_programs()[k] for k, v in c_by_program.items()}
@@ -3770,6 +4278,12 @@ def main(argv=()) -> int:
                "exploit": judged["exploit"],
                "large_rooms": {"search_decide": large["search_decide"]["launches"], "search": 0}}
     s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
+    st_by_path = {path: sum(got.values()) for path, got in st_paths.by_path.items()}
+    st_by_path["multidevice"] += multi["engine_step"]  # the ranks' own launches
+    idle = [path for path in ST_PATHS if not st_by_path.get(path)]
+    if idle:
+        raise AssertionError(f"ST was not launched on {idle}: {st_paths.by_path}")
+    st_line = st["timing"][ST_SIZES[0]]
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
@@ -3780,7 +4294,24 @@ def main(argv=()) -> int:
         "large_rooms": large["rollout"]["cases"], "ptxas": k1_ptxas,
         "max_abs_err": worst,
         "ms": kernel_ms[SIZES[0]], "plain_ms": plain_ms[SIZES[0]], "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1], "library_ms": None}] + [{
+        "bound_by": k1_bound[1], "library_ms": None}, {
+        "name": "engine_step", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": ST_REPLACES,
+        "replaces_kind": "XLA's jitted step (jit_step), jitted bots and the unroll's reset, "
+                         "no pallas_call site",
+        "entries": ["ge_step", "ge_reset_done", "ge_bots"],
+        "launches": sum(st_by_path.values()), "launches_by_path": st_by_path,
+        "launches_by_entry_and_path": st_paths.by_path,
+        "max_abs_err": st["max_abs_err"], "differences": st["differences"],
+        "cases_checked": st["cases"],
+        "ms": st_line["ms"], "plain_ms": st_line["plain_ms"], "call_ms": st_line["call_ms"],
+        "plain_call_ms": st_line["plain_call_ms"], "bound_ms": st_line["bound"][0],
+        "bound_by": st_line["bound"][1], "library_ms": None,
+        "library_ms_none_because": "no PyTorch call steps the game's interpreter",
+        "by_rooms": {str(k): {x: y for x, y in v.items() if x not in (
+            "bound", "interpreter_counts")} for k, v in st["timing"].items()},
+        "ptxas": {k: st_ptxas[v] for k, v in ST_KERNELS.items()},
+        "shape": {"game": "werewolf", "rooms": ST_SIZES[0], "seats": 8}}] + [{
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
         "launches": launches[k], "launches_by_path": by_path[k],
         "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],

@@ -36,6 +36,11 @@ _F = ctypes.c_float
 # bools, nums, strs, pdict, odict, present, regs, scal, eps, B, num_steps,
 # auto_reset
 _ROLLOUT_ARGS = [_P] * 9 + [_I64, _I, _I]
+# ST: state (15 addresses), actions, B; state, out, actions, keep, ended, B;
+# state, out, B
+_BOTS_ARGS = [_P, _P, _I64]
+_STEP_ARGS = [_P, _P, _P, _P, _P, _I64]
+_RESET_ARGS = [_P, _P, _I64]
 # bools, nums, strs, pdict, odict, present, regs, scal, B, req, n_req, rollouts,
 # horizon, mode, team_slot, team_codes, n_codes, totals
 _SEARCH_ARGS = [_P] * 8 + [_I64, _P, _I64, _I, _I, _I, _I, _P, _I, _P]
@@ -171,6 +176,14 @@ def _rollout_lib(profile: bool) -> ctypes.CDLL:
     entry.restype = _I
     # game on the device, game on the host, game_len, ..., threads, [prof,] stream
     entry.argtypes = [_P, _P, _I] + _ROLLOUT_ARGS + [_I] + [_P] * profile + [_P]
+    lib.ge_step_plan.restype = _I
+    lib.ge_step_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, game_len, B, threads, out
+    for name, args in (("ge_bots", _BOTS_ARGS), ("ge_step", _STEP_ARGS),
+                       ("ge_reset_done", _RESET_ARGS)):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        # game on the device, game on the host, game_len, ..., G, threads, smem, stream
+        fn.argtypes = [_P, _P, _I] + args + [_I, _I, _I64, _P]
     return lib
 
 
@@ -194,6 +207,11 @@ def _host_rollout_lib(stem: str, flags: list) -> ctypes.CDLL:
         os.path.join(_CSRC, "rollout_host.cpp"), stem, _GXX_CMD + flags)])[0]))
     lib.ge_rollout_host.restype = _I
     lib.ge_rollout_host.argtypes = [_P, _I] + _ROLLOUT_ARGS  # game, game_len, ...
+    for name, args in (("ge_bots_host", _BOTS_ARGS), ("ge_step_host", _STEP_ARGS),
+                       ("ge_reset_done_host", _RESET_ARGS)):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [_P, _I] + args  # game, game_len, ...
     return lib
 
 

@@ -1,8 +1,9 @@
 """This checkout's kernels against another checkout's on the same NVIDIA
-GPU: K1 (rollout), S (search) or K2-K4 (policy), each checkout measured in
-its own process in the order other, this, this, other.
+GPU: K1 (rollout), S (search), K2-K4 (policy) or the paths that step rooms a
+turn at a time (steps), each checkout measured in its own process in the
+order other, this, this, other.
 
-    python -m game_engine_tpu_torch.ab_measure {rollout,search,policy} [--other DIR]
+    python -m game_engine_tpu_torch.ab_measure {rollout,search,policy,steps} [--other DIR]
 
 DIR is another checkout of the repository, such as `git archive` of the
 parent commit unpacked; without it only this checkout is measured. Each
@@ -26,6 +27,14 @@ GPU's name and power limit:
             checkpoint docs/checkpoints/attn_werewolf_u120.npz at hidden 256
             on 4096 werewolf rooms of 6 players in 8 seats, 4 steps of a
             scripted rollout
+  steps     the paths the engine step entry ST moves: one train step at
+            the learner's shape (make_train_step, 4096 werewolf rooms of 6,
+            horizon 32, 4 epochs, the attn checkpoint through K2 and K4; 3
+            steps after a warm-up: unroll and update ms by the step's CUDA
+            events, and the step's host seconds), the policy loop
+            (bench.policy_rollout_bench: 16,384 rooms x 128 steps, 2 timed
+            calls) and a matchup pair (evaluate.make_vs, 1024 rooms x 64
+            steps, the checkpoint against itself through K2; host ms)
 
 Device times are medians of 5 calls after a warm-up, by CUDA events. Exits
 2 without a CUDA device.
@@ -42,7 +51,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if sys.path and sys.path[0] == os.path.dirname(os.path.abspath(__file__)):
     del sys.path[0]  # run as a file (--child): the package's modules are not top-level names
-KINDS = ("rollout", "search", "policy")
+KINDS = ("rollout", "search", "policy", "steps")
 K1_ROOMS, K1_STEPS = (4096, 65536), 1024
 S_SIZES, S_R, S_H = (1, 8, 64, 512, 4096), 32, 200
 CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
@@ -197,6 +206,51 @@ def policy(label: str) -> None:
                                                           pcfg.ent_coef))})
 
 
+def steps(label: str) -> None:
+    import time
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.bench import policy_rollout_bench
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.train import evaluate as E
+    from game_engine_tpu_torch.train import ppo as P
+
+    lw = werewolf()
+    params, net = N.load_policy(os.path.join(ROOT, CKPT), device="cuda")
+    cfg = P.PPOConfig(horizon=32, epochs=4, fused_net=True, net=net)
+    opt = P.make_optimizer(params, cfg)
+    step = P.make_train_step(lw, cfg)
+    state = init_state(lw, K2_ROOMS, K2_PLAYERS, np.arange(K2_ROOMS, dtype=np.uint32),
+                       device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state, _ = step(params, opt, state, gen)
+    unroll, update, wall = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(params, opt, state, gen)
+        unroll.append(m["unroll_ms"])
+        update.append(m["update_ms"])
+        wall.append(time.perf_counter() - t0)
+    emit({"line": "train_step", "checkout": label, "rooms": K2_ROOMS, "horizon": 32,
+          "unroll_ms": statistics.median(unroll), "update_ms": statistics.median(update),
+          "env_steps_per_s": K2_ROOMS * 32 / statistics.median(wall)})
+    loop = policy_rollout_bench(16384, 128, 2)
+    emit({"line": "policy_loop", "checkout": label, "env_steps_per_s": loop["value"]})
+    vs = E.make_vs(lw, P.PPOConfig(fused_net=True, net=net), 64)
+    start = init_state(lw, 1024, 6, np.arange(1024, dtype=np.uint32) + 5, device="cuda")
+    times = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        vs(params, params, start, torch.Generator(device="cuda").manual_seed(k))
+        times.append((time.perf_counter() - t0) * 1e3)
+    emit({"line": "matchup_pair", "checkout": label, "rooms": 1024, "steps": 64,
+          "ms": statistics.median(times[1:])})
+
+
 def main(argv: list) -> int:
     import torch
 
@@ -207,7 +261,8 @@ def main(argv: list) -> int:
         print("ab_measure: no CUDA device", file=sys.stderr)
         return 2
     if argv[0] == "--child":  # --child KIND LABEL, from the checkout being measured
-        {"rollout": rollout, "search": search, "policy": policy}[argv[1]](argv[2])
+        {"rollout": rollout, "search": search, "policy": policy,
+         "steps": steps}[argv[1]](argv[2])
         return 0
     from game_engine_tpu_torch.bench import gpu_line
 

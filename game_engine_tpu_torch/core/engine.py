@@ -5,6 +5,14 @@ plain-torch rollout: a Python loop of scripted actions -> step -> episode
 count -> auto-reset. ``rollout`` runs it for CPU tensors and launches the
 CUDA rollout kernel (core/rollout_kernel.py) for CUDA tensors; the two are
 bit-identical.
+
+``engine_step``, ``reset_done`` and ``bot_actions`` choose the same way for
+one step, the reset of done rooms and the scripted bots, which the JAX
+package jits once (its ``jit_step`` and jitted bots): CUDA tensors go
+through the engine step entry ST (core/step_kernel.py, one launch each),
+CPU tensors through the plain ``make_step``, ``reset_where_done`` and
+``scripted_actions``. Every path that steps rooms one step at a time (the
+train, league, evaluation and policy-loop unrolls, the server) calls them.
 """
 
 from __future__ import annotations
@@ -79,6 +87,74 @@ def init_state_like(lowered: Lowered, state: GameState) -> GameState:
     return init_state(lowered, B, n, new_seed, device=state.present.device)
 
 
+def reset_where_done(lowered: Lowered, state: GameState) -> GameState:
+    """Rooms that are done restart (init_state_like); the rest stay. The
+    plain version of ST's reset."""
+    fresh = init_state_like(lowered, state)
+    return _where_rooms(state.done, fresh, state)
+
+
+def _where_rooms(rooms: torch.Tensor, new: GameState, old: GameState) -> GameState:
+    """`new`'s rooms where `rooms` (B,) holds, `old`'s elsewhere."""
+    return GameState(*(torch.where(rooms.reshape((-1,) + (1,) * (o.dim() - 1)), n, o)
+                       for n, o in zip(new, old)))
+
+
+def _plain_step(lowered: Lowered):
+    """make_step(lowered), built once a game (cached on the Lowered, as the
+    tables are)."""
+    cache = lowered.__dict__
+    if "_torch_plain_step" not in cache:
+        cache["_torch_plain_step"] = make_step(lowered)
+    return cache["_torch_plain_step"]
+
+
+def _device_of(state: GameState) -> str:
+    device = state.present.device
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type
+
+
+def engine_step(lowered: Lowered, state: GameState, actions, keep=None):
+    """One engine step on (B, P) actions (0 = none; converted to int32 as
+    make_step converts them) -> (state, (B,) bool ended: done after the step
+    and not before). With a (B,) bool `keep`, only those rooms step and the
+    rest come back unchanged. CUDA tensors: one ST launch
+    (step_kernel.kernel_step); CPU tensors: make_step."""
+    kind = _device_of(state)
+    actions = torch.as_tensor(actions, device=state.present.device).to(_I32)
+    if kind == "cuda":
+        from game_engine_tpu_torch.core.step_kernel import kernel_step
+
+        return kernel_step(lowered, state, actions, keep)
+    new = _plain_step(lowered)(state, actions)
+    if keep is not None:
+        new = _where_rooms(keep, new, state)
+    return new, new.done & ~state.done
+
+
+def reset_done(lowered: Lowered, state: GameState) -> GameState:
+    """Done rooms restarted (init_state_like), the rest unchanged. CUDA
+    tensors: one ST launch (step_kernel.kernel_reset_done); CPU tensors:
+    reset_where_done."""
+    if _device_of(state) == "cuda":
+        from game_engine_tpu_torch.core.step_kernel import kernel_reset_done
+
+        return kernel_reset_done(lowered, state)
+    return reset_where_done(lowered, state)
+
+
+def bot_actions(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """The scripted bots' (B, P) int32 actions. CUDA tensors: one ST launch
+    (step_kernel.kernel_bot_actions); CPU tensors: scripted_actions."""
+    if _device_of(state) == "cuda":
+        from game_engine_tpu_torch.core.step_kernel import kernel_bot_actions
+
+        return kernel_bot_actions(lowered, state)
+    return scripted_actions(lowered, state)
+
+
 def make_rollout(lowered: Lowered, num_steps: int, auto_reset: bool = True):
     """Build rollout(state) -> (state, episodes): num_steps steps in plain
     torch — the plain version of the CUDA rollout kernel.
@@ -95,11 +171,7 @@ def make_rollout(lowered: Lowered, num_steps: int, auto_reset: bool = True):
             episodes = episodes + (new.done & ~state.done).sum()
             state = new
             if auto_reset:
-                fresh = init_state_like(lowered, state)
-                d = state.done
-                state = GameState(*(
-                    torch.where(d.reshape((-1,) + (1,) * (old.dim() - 1)), f, old)
-                    for f, old in zip(fresh, state)))
+                state = reset_where_done(lowered, state)
         return state, episodes
 
     return rollout
@@ -121,21 +193,23 @@ def rollout(lowered: Lowered, state: GameState, num_steps: int,
 
 
 class BatchedEngine:
-    """Convenience wrapper bound to one game and one device."""
+    """Convenience wrapper bound to one game and one device. Its step and
+    bots are engine_step and bot_actions: ST on the card."""
 
     def __init__(self, lowered: Lowered, device=D.DEFAULT):
         self.lowered = lowered
         self.device = D.resolve(device)
-        self.step_fn = make_step(lowered)
 
     def init(self, batch: int, n_players, seeds) -> GameState:
         return init_state(self.lowered, batch, n_players, seeds, device=self.device)
 
-    def step(self, state: GameState, actions) -> GameState:
-        return self.step_fn(state, torch.as_tensor(actions, device=self.device))
+    def step(self, state: GameState, actions, keep=None) -> GameState:
+        """One engine step; with a (B,) bool `keep`, of those rooms only."""
+        return engine_step(self.lowered, state, torch.as_tensor(actions, device=self.device),
+                           keep)[0]
 
     def bot_actions(self, state: GameState) -> torch.Tensor:
-        return scripted_actions(self.lowered, state)
+        return bot_actions(self.lowered, state)
 
     def rollout(self, state: GameState, num_steps: int, auto_reset: bool = True):
         return rollout(self.lowered, state, num_steps, auto_reset)

@@ -81,8 +81,13 @@ def tables(lowered: Lowered, device) -> dict:
 
 
 def _batched(x, batch: int, dtype, device) -> torch.Tensor:
+    """x as a (batch,) tensor of `dtype` on `device`; a scalar is filled
+    there (no host-to-device copy), wrapping as the int64 cast does."""
     if isinstance(x, torch.Tensor):
         t = x.to(device=device, dtype=dtype)
+    elif np.ndim(x) == 0:
+        return torch.full((batch,), int(np.asarray(x, dtype=np.int64)), dtype=torch.int64,
+                          device=device).to(dtype)
     else:
         t = torch.as_tensor(np.asarray(x, dtype=np.int64), device=device).to(dtype)
     return t.broadcast_to((batch,)).clone()

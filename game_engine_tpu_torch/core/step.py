@@ -178,7 +178,12 @@ class _EffectOps:
     # -- dtype helpers ------------------------------------------------------
 
     def const(self, v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=_I32, device=self.device)
+        """A 0-d int32 literal on the state's device: copied there once a
+        value and cached with the game's tables (never written in place)."""
+        consts = tables(self.lw, self.device).setdefault("ir_consts", {})
+        if v not in consts:
+            consts[v] = torch.tensor(v, dtype=_I32, device=self.device)
+        return consts[v]
 
     @staticmethod
     def _b(x: torch.Tensor) -> torch.Tensor:

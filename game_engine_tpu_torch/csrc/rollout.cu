@@ -37,6 +37,14 @@
 // its rooms in and out with one loop over (slot, seat, room), so neighbouring
 // threads touch neighbouring rooms of one field.
 //
+// The same library holds ST, the engine step entry (ge_step_kernel; exported
+// as ge_bots, ge_step and ge_reset_done): one step, the reset of done rooms
+// or the scripted bots of every room in a launch, on GameState's own tensors,
+// for the paths that step rooms a turn at a time (the unrolls, the policy
+// loop, the server). It is the counterpart of the JAX package's jitted step,
+// not of a Pallas kernel, and shares the room code above; K1's kernel is
+// untouched by it.
+//
 // -DGE_PROFILE builds the variant that sums clock64() by section of the step
 // (ge_rollout_profile); the engine never loads it.
 
@@ -108,6 +116,80 @@ int launch(const int32_t* game, const int32_t* game_host, int game_len,
   return (int)cudaGetLastError();
 }
 
+// ST, the engine step entry: one launch does one room_entry (the scripted
+// bots, one engine step, or the reset where done) of every room, a room on a
+// group of lanes as in ge_rollout_kernel, the game's tables and the rooms'
+// words in shared memory as there. The state is read from GameState's own
+// tensors and the result written to new ones (batch_copy: each field of a
+// block's rooms is one contiguous run, taken in memory order), so nothing
+// is converted on the host and the caller's state is left as it was.
+// `actions`: the (B, P) int32 actions in (step) or out (bots); `keep`: the
+// rooms a step advances (null: all), the others copied through; `ended`:
+// done after the step and not before.
+template <int NW>
+__global__ void ge_step_kernel(const int32_t* __restrict__ game, int game_len,
+                               ge::BatchState in, ge::BatchState out, int32_t* actions,
+                               const uint8_t* __restrict__ keep, uint8_t* __restrict__ ended,
+                               int64_t B, int mode, int G) {
+  extern __shared__ int32_t smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  for (int i = tid; i < game_len; i += T) smem[i] = game[i];
+  __syncthreads();
+  const ge::Game g = ge::game_view(smem);
+  const int K = NW == 1 ? 1 : g.SW;  // columns a lane
+  int32_t* words = smem + game_len;
+  const int R = T / G;  // rooms a block
+  const int64_t room0 = (int64_t)blockIdx.x * R;
+  ge::batch_copy(g, in, mode == ge::ENTRY_STEP ? actions : nullptr, words, T * K, G * K, R,
+                 room0, B, tid, T, true, false);
+  __syncthreads();
+  const int lane = tid & (G - 1), first = (tid & 31) & ~(G - 1);
+  const int64_t room = room0 + tid / G;
+  if (room < B) {  // whole groups take or leave this branch
+    const uint32_t mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << first;
+    ge::Room<NW> r = ge::room_open_batch<NW>(g, in, words + (tid - lane) * K, T * K, lane, mask,
+                                             first, room);
+    const bool e = ge::room_entry(g, r, mode, keep == nullptr || keep[room]);
+    if (lane == 0 && mode != ge::ENTRY_BOTS) {
+      ge::room_close_batch(r, out, room);
+      if (mode == ge::ENTRY_STEP) ended[room] = e;
+    }
+  }
+  __syncthreads();
+  if (mode == ge::ENTRY_BOTS)
+    ge::batch_copy(g, out, actions, words, T * K, G * K, R, room0, B, tid, T, false, true);
+  else
+    ge::batch_copy(g, out, nullptr, words, T * K, G * K, R, room0, B, tid, T, true, true);
+}
+
+const void* step_kernel_for(const ge::Game& g) {
+  return g.P <= 32 ? (const void*)ge_step_kernel<1>
+                   : (const void*)ge_step_kernel<ge::MAX_SEAT_WORDS>;
+}
+
+// One ST launch, sized by the caller's cached ge_step_plan: G lanes a room,
+// `threads` a block, `smem` bytes of shared memory a block. A plan that does
+// not fit the game is refused (cudaErrorInvalidValue) before the launch.
+int launch_entry(const int32_t* game, const int32_t* game_host, int game_len,
+                 const int64_t* in, const int64_t* out, int32_t* actions, const uint8_t* keep,
+                 uint8_t* ended, int64_t B, int mode, int G, int threads, int64_t smem,
+                 cudaStream_t stream) {
+  const ge::Game g = ge::game_view(game_host);
+  if (!ge::launchable(g, game_len, B, threads) || G < ge::group_lanes(g.P) ||
+      G > ge::MAX_GROUP || (G & (G - 1)) || threads % G ||
+      smem != ge::shared_bytes(g, game_len, threads) || smem > ge::MAX_SHARED)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (B + threads / G - 1) / (threads / G);
+  const ge::BatchState s = ge::batch_state(in), o = ge::batch_state(out ? out : in);
+  if (g.P <= 32)
+    ge_step_kernel<1><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
+        game, game_len, s, o, actions, keep, ended, B, mode, G);
+  else
+    ge_step_kernel<ge::MAX_SEAT_WORDS><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
+        game, game_len, s, o, actions, keep, ended, B, mode, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -129,6 +211,44 @@ int ge_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int6
   const ge::Plan p = ge::plan(rollout_kernel_for(g), g, game_len, B, threads);
   out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
   return (int)p.err;
+}
+
+// How an ST launch (ge_bots, ge_step, ge_reset_done) over B rooms of the game
+// is sized on the current card, as ge_plan sizes the rollout's (the same
+// rule, for the step kernel's registers): the caller asks once per game,
+// batch and card and passes {out[0], out[3], out[1]} to every launch.
+int ge_step_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int64_t* out) {
+  const ge::Game g = ge::game_view(game_host);
+  if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
+  const ge::Plan p = ge::plan(step_kernel_for(g), g, game_len, B, threads);
+  out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
+  return (int)p.err;
+}
+
+// ST's entries on `stream`. `state` and `out` are the addresses of
+// GameState's 15 tensors (BatchState order), `out` freshly allocated: the
+// state after the step / after the reset; ge_bots writes the scripted bots'
+// (B, P) int32 actions. G, threads and smem: ge_step_plan's. Each returns
+// cudaGetLastError() after the launch (0 = launched).
+int ge_bots(const int32_t* game, const int32_t* game_host, int game_len, const int64_t* state,
+            int32_t* actions, int64_t B, int G, int threads, int64_t smem, void* stream) {
+  return launch_entry(game, game_host, game_len, state, nullptr, actions, nullptr, nullptr, B,
+                      ge::ENTRY_BOTS, G, threads, smem, (cudaStream_t)stream);
+}
+
+// keep: (B,) bool, the rooms to step (null: every room); ended: (B,) bool.
+int ge_step(const int32_t* game, const int32_t* game_host, int game_len, const int64_t* state,
+            const int64_t* out, const int32_t* actions, const uint8_t* keep, uint8_t* ended,
+            int64_t B, int G, int threads, int64_t smem, void* stream) {
+  return launch_entry(game, game_host, game_len, state, out, const_cast<int32_t*>(actions),
+                      keep, ended, B, ge::ENTRY_STEP, G, threads, smem, (cudaStream_t)stream);
+}
+
+int ge_reset_done(const int32_t* game, const int32_t* game_host, int game_len,
+                  const int64_t* state, const int64_t* out, int64_t B, int G, int threads,
+                  int64_t smem, void* stream) {
+  return launch_entry(game, game_host, game_len, state, out, nullptr, nullptr, nullptr, B,
+                      ge::ENTRY_RESET, G, threads, smem, (cudaStream_t)stream);
 }
 
 #ifndef GE_PROFILE

@@ -3,6 +3,8 @@
 // the kernel's [slot][column] layout (a block of one room), its seats run in
 // order, its seat sets as many words as the kernel's build for its seats. The same signature as ge_rollout in rollout.cu, minus the launch
 // arguments; the CPU tests use it to run the kernel's own logic without a GPU.
+// ST's three entries (ge_bots_host, ge_step_host, ge_reset_done_host) loop
+// the same way over rooms of GameState's own tensors.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC rollout_host.cpp -o librollout_host.so
 // With -DGE_COUNT the run also counts the interpreter's operations
@@ -31,6 +33,39 @@ void run_rooms(const ge::Game& g, const ge::MinorState& ms, int32_t* eps, int64_
   }
 }
 
+// ST's entries (rollout.cu ge_bots, ge_step, ge_reset_done) the same way: a
+// room at a time through batch_copy and room_entry
+template <int NW>
+void entry_rooms(const ge::Game& g, const ge::BatchState& in, const ge::BatchState& out,
+                 int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B, int mode) {
+  const int cols = ge::group_lanes(g.P) * g.SW;
+  std::vector<int32_t> words((size_t)g.L.words * cols);
+  const bool bots = mode == ge::ENTRY_BOTS;
+  for (int64_t room = 0; room < B; ++room) {
+    ge::batch_copy(g, in, mode == ge::ENTRY_STEP ? actions : nullptr, words.data(), cols, cols,
+                   1, room, B, 0, 1, true, false);
+    ge::Room<NW> r = ge::room_open_batch<NW>(g, in, words.data(), cols, 0, 0, 0, room);
+    const bool e = ge::room_entry(g, r, mode, keep == nullptr || keep[room]);
+    if (!bots) {
+      ge::room_close_batch(r, out, room);
+      if (mode == ge::ENTRY_STEP) ended[room] = e;
+    }
+    ge::batch_copy(g, out, bots ? actions : nullptr, words.data(), cols, cols, 1, room, B, 0, 1,
+                   !bots, true);
+  }
+}
+
+int entry_host(const int32_t* game, int game_len, const int64_t* in, const int64_t* out,
+               int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B, int mode) {
+  if (B <= 0 || game_len <= 0) return 1;
+  const ge::Game g = ge::game_view(game);
+  if (g.P < 1 || g.P > ge::MAX_SEATS) return 2;
+  const ge::BatchState s = ge::batch_state(in), o = ge::batch_state(out ? out : in);
+  if (g.P <= 32) entry_rooms<1>(g, s, o, actions, keep, ended, B, mode);
+  else entry_rooms<ge::MAX_SEAT_WORDS>(g, s, o, actions, keep, ended, B, mode);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -51,6 +86,24 @@ int ge_rollout_host(const int32_t* game, int game_len, int32_t* bools,
   if (g.P <= 32) run_rooms<1>(g, ms, eps, B, num_steps, auto_reset);
   else run_rooms<ge::MAX_SEAT_WORDS>(g, ms, eps, B, num_steps, auto_reset);
   return 0;
+}
+
+// rollout.cu's ST entries on host arrays, minus the launch arguments
+int ge_bots_host(const int32_t* game, int game_len, const int64_t* state, int32_t* actions,
+                 int64_t B) {
+  return entry_host(game, game_len, state, nullptr, actions, nullptr, nullptr, B,
+                    ge::ENTRY_BOTS);
+}
+
+int ge_step_host(const int32_t* game, int game_len, const int64_t* state, const int64_t* out,
+                 const int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B) {
+  return entry_host(game, game_len, state, out, const_cast<int32_t*>(actions), keep, ended, B,
+                    ge::ENTRY_STEP);
+}
+
+int ge_reset_done_host(const int32_t* game, int game_len, const int64_t* state,
+                       const int64_t* out, int64_t B) {
+  return entry_host(game, game_len, state, out, nullptr, nullptr, nullptr, B, ge::ENTRY_RESET);
 }
 
 #ifdef GE_COUNT

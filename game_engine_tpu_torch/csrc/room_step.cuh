@@ -3,7 +3,9 @@
 // effect-IR interpreter (P20) and auto-reset. It is the body of the CUDA
 // rollout kernel (csrc/rollout.cu), which replaces the TPU kernel
 // game_engine_tpu/core/pallas_rollout.py::make_pallas_rollout, and of the g++
-// host harness (csrc/rollout_host.cpp) that the CPU tests run. Its search
+// host harness (csrc/rollout_host.cpp) that the CPU tests run, and of the
+// engine step entry ST (rollout.cu's ge_step, ge_reset_done and ge_bots on
+// GameState's own tensors: batch_copy, room_entry). Its search
 // rollout (room_search_rollout) and the full-information decisions around it
 // (seat_candidates, decide_room, decide_rollout, decide_argmax) are the body
 // of the search kernel (csrc/search.cu, host harness csrc/search_host.cpp).
@@ -951,6 +953,145 @@ GE_HD int32_t room_rollout(const Game& g, R& r, int num_steps, int auto_reset) {
     if (auto_reset && r.done) room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
   }
   return episodes;
+}
+
+// -- the engine step entry on GameState's own tensors (ST) --------------------
+
+// GameState's fields (core/state.py) as they lie in memory, row-major with
+// the rooms leading and each in its own dtype: a torch bool is a byte of 0
+// or 1, and the seed an int64 holding a uint32. In the field order of
+// GameState, which is the order of the host's pointer array (batch_state).
+struct BatchState {
+  uint8_t* bools;        // (B, P, NB)
+  int32_t* nums;         // (B, P, NN)
+  int8_t* strs;          // (B, P, NS)
+  int8_t* pdict;         // (B, P, NPD, P)
+  int8_t* odict;         // (B, P, NOD)
+  uint8_t* present;      // (B, P)
+  int32_t* phase;        // (B,)
+  int32_t* prev;         // (B,)
+  uint8_t* acted;        // (B, P)
+  int32_t* choice;       // (B, P)
+  int32_t* choice_phase; // (B, P)
+  uint8_t* done;         // (B,)
+  int32_t* winner;       // (B,)
+  int32_t* t;            // (B,)
+  int64_t* seed;         // (B,)
+};
+constexpr int BATCH_FIELDS = 15;
+
+inline BatchState batch_state(const int64_t* f) {
+  return {(uint8_t*)f[0], (int32_t*)f[1], (int8_t*)f[2], (int8_t*)f[3], (int8_t*)f[4],
+          (uint8_t*)f[5], (int32_t*)f[6], (int32_t*)f[7], (uint8_t*)f[8], (int32_t*)f[9],
+          (int32_t*)f[10], (uint8_t*)f[11], (int32_t*)f[12], (int32_t*)f[13], (int64_t*)f[14]};
+}
+
+// A word from its tensor's element and back, as core/rollout_kernel.to_minor
+// and from_minor convert: a flag as 0/1, an int8 sign-extended in and its
+// low byte out, an int32 as it is.
+GE_HD int32_t word_of(uint8_t v) { return v != 0; }
+GE_HD int32_t word_of(int8_t v) { return v; }
+GE_HD int32_t word_of(int32_t v) { return v; }
+GE_HD void put_word(uint8_t& d, int32_t v) { d = v != 0; }
+GE_HD void put_word(int8_t& d, int32_t v) { d = (int8_t)v; }
+GE_HD void put_word(int32_t& d, int32_t v) { d = v; }
+
+// Loads (store = false) or stores a per-seat field of `width` elements a
+// seat, held in slots slot0 .. slot0 + width - 1 of the words: rooms
+// [room0, room0 + R) of it are R * P * width consecutive elements, and
+// worker tid of n takes every n-th of them in memory order.
+template <class T>
+GE_HD void field_copy(T* field, int width, int slot0, int P, int32_t* w, int stride, int cols,
+                      int R, int64_t room0, int tid, int n, bool store) {
+  const int per_room = P * width;
+  T* at = field + room0 * per_room;
+  for (int x = tid; x < R * per_room; x += n) {
+    const int rr = x / per_room, k = x - rr * per_room, p = k / width;
+    int32_t& sw = w[(slot0 + k - p * width) * stride + rr * cols + p];
+    if (store) put_word(at[x], sw);
+    else sw = word_of(at[x]);
+  }
+}
+
+// rooms_copy for BatchState: the state words of rooms [room0, room0 + R)
+// that exist (R rooms of `cols` columns in w), and with `act` the action
+// words from or to a (B, P) int32 array.
+GE_HD void batch_copy(const Game& g, const BatchState& s, int32_t* act, int32_t* w, int stride,
+                      int cols, int R, int64_t room0, int64_t B, int tid, int n, bool state,
+                      bool store) {
+  if (room0 >= B) return;
+  if (R > B - room0) R = (int)(B - room0);
+  const Layout& L = g.L;
+  const int P = g.P;
+#define GE_FIELD(ptr, width, slot) \
+  if (width) field_copy(ptr, width, slot, P, w, stride, cols, R, room0, tid, n, store)
+  if (state) {
+    GE_FIELD(s.bools, g.NB, L.bools);
+    GE_FIELD(s.nums, g.NN, L.nums);
+    GE_FIELD(s.strs, g.NS, L.strs);
+    GE_FIELD(s.pdict, g.NPD * P, L.pdict);
+    GE_FIELD(s.odict, g.NOD, L.odict);
+    GE_FIELD(s.present, 1, L.present);
+    GE_FIELD(s.acted, 1, L.acted);
+    GE_FIELD(s.choice, 1, L.choice);
+    GE_FIELD(s.choice_phase, 1, L.choice_phase);
+  }
+  if (act) GE_FIELD(act, 1, L.act);
+#undef GE_FIELD
+}
+
+// room_open for BatchState: room i's scalars from s, the present set from
+// its words (after batch_copy and a barrier).
+template <int NW>
+GE_HD Room<NW> room_open_batch(const Game& g, const BatchState& s, int32_t* w, int stride,
+                               int lane, uint32_t mask, int shift, int64_t i) {
+  Room<NW> r;
+  r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
+  r.phase = s.phase[i];
+  r.prev = s.prev[i];
+  r.done = s.done[i] != 0;
+  r.winner = s.winner[i];
+  r.t = s.t[i];
+  r.seed = (uint32_t)s.seed[i];
+  r.present = seats_where(g, r, [&](int p) { return r.at(g.L.present, p) != 0; });
+#ifdef GE_PROFILE
+  for (int k = 0; k < N_PROF; ++k) r.prof[k] = 0;
+#endif
+  return r;
+}
+
+// The scalars to s (one lane of the group calls it); the seed as its uint32.
+template <class R>
+GE_HD void room_close_batch(const R& r, const BatchState& s, int64_t i) {
+  s.phase[i] = r.phase;
+  s.prev[i] = r.prev;
+  s.done[i] = r.done != 0;
+  s.winner[i] = r.winner;
+  s.t[i] = r.t;
+  s.seed[i] = (int64_t)r.seed;
+}
+
+// What an ST launch does to each room: the scripted bots' actions into its
+// action words (engine.scripted_actions), one engine step on the caller's
+// action words (core/step.py make_step) where `keep`, or a fresh room where
+// done (train/ppo.py reset_done: init_state_like, as room_rollout resets).
+enum { ENTRY_BOTS, ENTRY_STEP, ENTRY_RESET };
+
+// One room of an ST launch; returns whether the step ended an episode.
+template <class R>
+GE_HD bool room_entry(const Game& g, R& r, int mode, bool keep) {
+  if (mode == ENTRY_BOTS) {
+    room_policy(g, r);
+    return false;
+  }
+  if (mode == ENTRY_RESET) {
+    if (r.done) room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
+    return false;
+  }
+  if (!keep) return false;
+  const int32_t done_in = r.done;
+  room_step(g, r);
+  return r.done && !done_in;
 }
 
 // -- lookahead search (native/gamesim.cpp search_scores_core) -----------------

@@ -56,23 +56,21 @@ def _lowered():
 def entry(device=D.DEFAULT):
     """(fn, example_args): fn(state, params) -> (state, logits, value), one
     engine step with scripted actions and the policy forward, on a batch of
-    256 werewolf rooms of 8 seats on `device`."""
-    from game_engine_tpu_torch.core.engine import scripted_actions
+    256 werewolf rooms of 8 seats on `device` (the bots and the step: ST's
+    launches on the card)."""
+    from game_engine_tpu_torch.core.engine import bot_actions, engine_step
     from game_engine_tpu_torch.core.state import init_state
-    from game_engine_tpu_torch.core.step import make_step
     from game_engine_tpu_torch.policies import net as N
 
     device = D.resolve(device)
     lowered = _lowered()
-    step = make_step(lowered)
     cfg = N.NetConfig(hidden=128, layers=2)
     params = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(lowered),
                            N.action_space(lowered), cfg, device=device)
 
     @torch.no_grad()
     def fn(state, params):
-        actions = scripted_actions(lowered, state)
-        state = step(state, actions)
+        state, _ = engine_step(lowered, state, bot_actions(lowered, state))
         logits, value = N.apply_net(params, N.observe(lowered, state), cfg, lowered)
         return state, logits, value
 

@@ -485,8 +485,7 @@ def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
     else:
         logits, value = apply_fn(params, obs)
     mask = legal_action_mask(lowered, state)
-    logits = torch.where(mask, logits, torch.tensor(-1e9, dtype=logits.dtype,
-                                                    device=logits.device))
+    logits = torch.where(mask, logits, -1e9)  # a scalar: no copy to the card
     if gumbel is None:
         if generator is None:
             raise ValueError("sample_actions needs gumbel noise or a generator")

@@ -253,11 +253,8 @@ class _TorchSlots:
             actions = torch.where(torch.as_tensor(pmask, device=dev), pa, actions)
         actions = torch.where(torch.as_tensor(hmask, device=dev),
                               torch.as_tensor(hval, device=dev), actions)
-        new_state = self.engine.step(self.state, actions)
-        keep_t = torch.as_tensor(keep, device=dev)
-        self.state = GameState(*(
-            torch.where(keep_t.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
-            for new, old in zip(new_state, self.state)))
+        # the slots not stepped come back as they were (ST's keep mask on the card)
+        self.state = self.engine.step(self.state, actions, keep=torch.as_tensor(keep, device=dev))
         self._pull(list(slots))
 
     # backend-agnostic accessors used by GameHost, all on the host mirror

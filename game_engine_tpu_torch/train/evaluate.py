@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from game_engine_tpu_torch import device as D
+from game_engine_tpu_torch.core.engine import engine_step
 from game_engine_tpu_torch.core.state import init_state
-from game_engine_tpu_torch.core.step import make_step
 from game_engine_tpu_torch.gamespec.compile import compile_game
 from game_engine_tpu_torch.gamespec.parser import load_builtin
 from game_engine_tpu_torch.gamespec.tables import lower
@@ -51,8 +51,8 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
     -> (minority_wins, episodes) as host ints. The forward is
     ppo.make_apply_fn's (K2 with cfg.fused_net). Per step the minority's
     Gumbel draw comes before the majority's; ``noise[t]`` = (minority,
-    majority) noise (B, P, A) replaces the draws."""
-    step = make_step(lowered)
+    majority) noise (B, P, A) replaces the draws. The engine step and the
+    reset are ST's launches on the card."""
     apply_fn = make_apply_fn(lowered, cfg)
 
     @torch.no_grad()
@@ -70,8 +70,7 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
             side = team_masks(lowered, state)
             am = actor_mask(lowered, state)
             actions = torch.where(am & side, a_min, torch.where(am, a_maj, 0))
-            nxt = step(state, actions)
-            ended = nxt.done & ~state.done
+            nxt, ended = engine_step(lowered, state, actions)
             wins = wins + (ended & (nxt.winner == 1)).sum()
             dones = dones + ended.sum()
             state = reset_done(lowered, nxt)

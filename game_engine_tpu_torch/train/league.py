@@ -21,9 +21,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from game_engine_tpu_torch.core.engine import scripted_actions
+from game_engine_tpu_torch.core.engine import bot_actions, engine_step
 from game_engine_tpu_torch.core.state import GameState
-from game_engine_tpu_torch.core.step import make_step
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, _Clock, actor_mask, gae,
@@ -119,8 +118,9 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
     Per step one observation serves both sides; the learner's Gumbel draw
     comes before the opponent's. ``noise[t]`` = (learner, opponent) noise
     (B, P, A) replaces the draws (the opponent's is unused when scripted).
-    ``apply_fn`` defaults to ppo.make_apply_fn: K2 with cfg.fused_net."""
-    step = make_step(lowered)
+    ``apply_fn`` defaults to ppo.make_apply_fn: K2 with cfg.fused_net. The
+    engine step, the scripted opponent and the reset are ST's launches on
+    the card."""
     if apply_fn is None:
         apply_fn = make_apply_fn(lowered, cfg)
 
@@ -134,7 +134,7 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
                                                  apply_fn=apply_fn, gumbel=g_learn,
                                                  generator=generator)
             if scripted_opponent:
-                oa = scripted_actions(lowered, state)
+                oa = bot_actions(lowered, state)
             else:
                 oa, _, _, _ = N.sample_actions(lowered, opp_params, state, cfg.net, obs=obs,
                                                apply_fn=apply_fn, gumbel=g_opp,
@@ -142,8 +142,7 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
             ctrl = learner_controls(lowered, state)
             am = actor_mask(lowered, state)
             actions = torch.where(am & ctrl, a, torch.where(am, oa, 0))
-            nxt = step(state, actions)
-            ended = nxt.done & ~state.done
+            nxt, ended = engine_step(lowered, state, actions)
             reward = terminal_rewards(lowered, nxt, ended)
             # the learner won: a learner-controlled seat got +1 at the end
             won.append(ended & (ctrl & (reward > 0)).any(1))

@@ -7,7 +7,8 @@ whose action was relevant this step contribute to the policy loss;
 everyone contributes to the value loss.
 
 A train step unrolls T env steps with the learned policy (a Python loop
-over the port's plain engine step, as the JAX unroll uses the XLA step),
+over engine.engine_step and engine.reset_done: on the card one ST launch
+each, csrc/rollout.cu, where the JAX unroll scans its jitted XLA step),
 computes GAE, then runs `epochs` full-batch clipped-PPO updates with
 torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
 deepsets/attn net runs through the policy-net kernels (policies/fused.py):
@@ -50,9 +51,9 @@ from torch.utils.checkpoint import checkpoint
 
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
-from game_engine_tpu_torch.core.engine import init_state_like
+from game_engine_tpu_torch.core.engine import engine_step, reset_done
 from game_engine_tpu_torch.core.state import GameState, tables
-from game_engine_tpu_torch.core.step import PredEval, make_step
+from game_engine_tpu_torch.core.step import PredEval
 from game_engine_tpu_torch.parallel.mesh import data_sums
 from game_engine_tpu_torch.policies import net as N
 
@@ -102,6 +103,15 @@ def make_apply_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered)
 
 
+def _team_codes(lowered: Lowered, go: LGameOver, device) -> torch.Tensor:
+    """The game-over mechanic's team codes on `device`, copied there once
+    and cached with the game's tables."""
+    tabs = tables(lowered, device)
+    if "team_codes" not in tabs:
+        tabs["team_codes"] = torch.as_tensor(np.asarray(go.team_codes, np.int32), device=device)
+    return tabs["team_codes"]
+
+
 def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
     """(B, P) float32 rewards paid on the step an episode ends."""
     go = _game_over_mech(lowered)
@@ -111,7 +121,7 @@ def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) ->
         return torch.zeros((B, P), dtype=torch.float32, device=dev)
     if go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
         team = state.strs[..., go.team_str_slot].to(torch.int32)
-        codes = torch.as_tensor(np.asarray(go.team_codes, np.int32), device=dev)
+        codes = _team_codes(lowered, go, dev)
         win_code = codes[(state.winner - 1).clamp(0, len(go.team_codes) - 1).long()]
         r = torch.where(team == win_code[:, None], 1.0, -1.0)
     elif go.mode == "score":
@@ -152,16 +162,12 @@ class Rollout(NamedTuple):
     legal: torch.Tensor  # (T, B, P, A) legal-action mask used at sampling
 
 
-def reset_done(lowered: Lowered, state: GameState) -> GameState:
-    """Rooms that are done restart (init_state_like); the rest stay."""
-    fresh = init_state_like(lowered, state)
-    d = state.done
-    return GameState(*(torch.where(d.reshape((-1,) + (1,) * (old.dim() - 1)), f, old)
-                       for f, old in zip(fresh, state)))
-
-
 def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
-    step = make_step(lowered)
+    """unroll(params, state, generator) -> (state, Rollout): cfg.horizon
+    steps of the learned policy. The engine step and the reset of done
+    rooms are engine.engine_step and engine.reset_done (ST on the card, two
+    launches a step: terminal_rewards reads the team strings between
+    them)."""
     apply_fn = (make_apply_fn(lowered, cfg, mesh)
                 if cfg.fused_net or _tensor_parallel(mesh) else None)
 
@@ -176,8 +182,7 @@ def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
                                                  rows=rows)
             mask = actor_mask(lowered, state)
             actions = torch.where(mask, a, 0)
-            nxt = step(state, actions)
-            ended = nxt.done & ~state.done
+            nxt, ended = engine_step(lowered, state, actions)
             reward = terminal_rewards(lowered, nxt, ended)
             state = reset_done(lowered, nxt)
             steps.append(Rollout(obs, actions, logp, v, reward, ended, mask, legal))

@@ -31,9 +31,8 @@ from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.compile import compile_game
 from game_engine_tpu_torch.gamespec.parser import load_builtin
 from game_engine_tpu_torch.gamespec.tables import Lowered, lower
-from game_engine_tpu_torch.core.engine import scripted_actions
+from game_engine_tpu_torch.core.engine import bot_actions, engine_step
 from game_engine_tpu_torch.core.state import init_state
-from game_engine_tpu_torch.core.step import make_step
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train.ppo import (PPOConfig, actor_mask, init_training,
                                              make_optimizer, make_train_step,
@@ -43,8 +42,9 @@ from game_engine_tpu_torch.train.ppo import (PPOConfig, actor_mask, init_trainin
 def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int = 256):
     """Cross-play: learned policy (plain apply_net) for one side, scripted
     for the other. Returns fn(params, state, generator) -> (wins_side,
-    done_count) as host ints."""
-    step = make_step(lowered)
+    done_count) as host ints. The engine step, the scripted side and the
+    reset are ST's launches on the card (engine.engine_step, bot_actions,
+    reset_done)."""
 
     @torch.no_grad()
     def run(params, state, generator):
@@ -52,13 +52,12 @@ def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int
         for _ in range(n_steps):
             la, _, _, _ = N.sample_actions(lowered, params, state, cfg.net,
                                            generator=generator)
-            sa = scripted_actions(lowered, state)
+            sa = bot_actions(lowered, state)
             side = team_masks(lowered, state)
             use_learned = side if learned_side else ~side
             am = actor_mask(lowered, state)
             actions = torch.where(am & use_learned, la, torch.where(am, sa, 0))
-            nxt = step(state, actions)
-            ended = nxt.done & ~state.done
+            nxt, ended = engine_step(lowered, state, actions)
             wins = wins + (ended & (nxt.winner == 1)).sum()  # minority team / side 1
             dones = dones + ended.sum()
             state = reset_done(lowered, nxt)

@@ -11,13 +11,12 @@ import jax
 import numpy as np
 import pytest
 import torch
-import yaml
 
 from game_engine_tpu.core.engine import make_rollout as jax_make_rollout
 from game_engine_tpu.core.state import init_state as jax_init_state
-from game_engine_tpu.gamespec.parser import games_dir
 from game_engine_tpu_torch.core.engine import BatchedEngine, make_rollout, rollout
 from game_engine_tpu_torch.core.state import init_state
+from game_engine_tpu_torch.utils.step_cases import born_done_doc
 from tests.test_torch_state import Pair, assert_same_state, builtin_pair, doc_pair, lowered_game
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,9 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def born_done_game() -> Pair:
     """potlatch whose start phase declares `over` in 4-seat rooms: those
     rooms are born done, and every auto-reset re-creates them done."""
-    doc = yaml.safe_load(open(os.path.join(games_dir(), "potlatch.yaml")))
-    doc["phases"][0]["mechanics"] = [{"effects": ["over 2 where nplayers == 4"]}]
-    return doc_pair(doc, "born-done")
+    return doc_pair(born_done_doc(), "born-done")
 
 
 def assert_rollout_matches_jax(pair: Pair, B, n, steps):
