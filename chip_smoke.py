@@ -2732,7 +2732,8 @@ MD_ROUNDS = 2                 # the sharded pipeline's rounds
 MD_CURVE = {"per_rank": 1024, "global_batch": ROOMS, "horizon": HORIZON, "epochs": 4,
             "roll_steps": STEPS, "net": {"hidden": 256, "arch": "attn"}, "seats": 6,
             "train_steps": 2}
-MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad", "engine_step")
+MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad", "engine_step",
+              "observe", "rewards", "sample")
 
 
 def md_spec(cfg, **extra) -> dict:
@@ -3201,7 +3202,8 @@ def multichip_main(gpu: str) -> int:
     stop_fork_server()
     emit({"phase": "multichip_done", "seconds": time.perf_counter() - t0,
           "launches_by_path": {k: {"multichip": n} for k, n in total.items()}, "gpu": gpu})
-    for k in ("rollout", "policy_forward", "ppo_loss_grad", "engine_step"):
+    for k in ("rollout", "policy_forward", "ppo_loss_grad", "engine_step", "observe", "rewards",
+              "sample"):
         if total[k] <= 0:
             raise AssertionError(f"the four-card path did not launch {k}: {total}")
     print(nvidia_smi("--query-gpu=name,power.limit", "--format=csv,noheader"), flush=True)
@@ -3585,8 +3587,9 @@ ST_CHECK_SIZES = ((4096, 6), (16384, 3), (65536, 3))
 ST_SIZES = (4096, 65536)   # werewolf rooms of 8 where it is timed
 ST_REPS = 5                # timed calls a size (CUDA events, the median)
 # the paths that step rooms one at a time, each of which must launch ST
-ST_PATHS = ("learner", "train_narrow", "large_rooms", "serving", "serve_search", "eval_search",
-            "league", "pipeline", "matchup", "multidevice", "policy_bench", "serve_chat")
+ST_PATHS = ("learner", "train_narrow", "train_curve", "large_rooms", "serving", "serve_search",
+            "eval_search", "league", "pipeline", "matchup", "multidevice", "policy_bench",
+            "serve_chat")
 UNROLL_GROUPS = ("observe", "sample_actions", "actor_mask", "engine_step", "terminal_rewards",
                  "reset")
 
@@ -3599,12 +3602,13 @@ def st_wrappers() -> dict:
 
 
 class STPaths:
-    """ST's launches by path: `with paths.of(name):` zeroes the three
-    wrappers' counts just before a path and adds them to `name` after.
+    """ST's, OB's and SA's launches by path: `with paths.of(name):` zeroes
+    path_wrappers' counts just before a path and adds them to `name` after.
     A context of its own, because the phases zero K1-K4's counts inside
-    themselves (zero_launches) and return them, and ST runs in phases that
-    launch none of those; zero_launches leaves ST's counts alone so that a
-    phase's own zeroing cannot drop ST's launches from its path."""
+    themselves (zero_launches) and return them, and ST, OB and SA run in
+    phases that launch none of those; zero_launches leaves their counts
+    alone so that a phase's own zeroing cannot drop their launches from its
+    path."""
 
     def __init__(self):
         self.by_path = {}
@@ -3614,19 +3618,21 @@ class STPaths:
 
         @contextlib.contextmanager
         def counting():
-            for fn in st_wrappers().values():
+            wrappers = path_wrappers()
+            for fn in wrappers.values():
                 fn.launches = 0
             try:
                 yield
             finally:
-                got = self.by_path.setdefault(name, dict.fromkeys(st_wrappers(), 0))
-                for k, fn in st_wrappers().items():
+                got = self.by_path.setdefault(name, dict.fromkeys(wrappers, 0))
+                for k, fn in wrappers.items():
                     got[k] += fn.launches
 
         return counting()
 
-    def total(self, path: str) -> int:
-        return sum(self.by_path.get(path, {}).values())
+    def entries(self, wrappers: dict) -> dict:
+        """{path: {entry: launches}} of `wrappers`' entries."""
+        return {path: {k: got[k] for k in wrappers} for path, got in self.by_path.items()}
 
 
 def st_differences(got, ref) -> tuple:
@@ -3866,6 +3872,355 @@ def engine_step_phase(gpu: str, int32_rate: float) -> dict:
                                + [t["max_abs_err"] for t in timing.values()])}
 
 
+# -- the observation and sampling entries (OB, SA) -------------------------------
+
+OB_SOURCE = "game_engine_tpu_torch/csrc/observe.cu"
+OB_REPLACES = "game_engine_tpu/policies/net.py:155"
+SA_REPLACES = "game_engine_tpu/policies/net.py:440"
+OB_KERNELS = {"observe": "ob_observe_kernel", "rewards": "ob_rewards_kernel",
+              "sample": "ob_sample_kernel"}
+OB_CHECK = (1024, 4)       # rooms and steps of each case of observe_step's check
+# werewolf rooms and steps checked at the paths' larger batches, from rooms
+# spread over the game's phases
+OB_CHECK_SIZES = ((4096, 2), (16384, 1), (65536, 1))
+OB_SIZES = (4096, 65536)   # werewolf rooms of 8 where OB and SA are timed
+OB_REPS = 5
+LOGP_TOL = 1e-6            # SA's logp against log_softmax's (float rounding of the sum)
+OB_ENTRIES = ("observe", "rewards", "sample")  # ob_observe, ob_rewards, ob_sample
+# the paths that run a learned policy a turn at a time, each of which must
+# launch OB and SA
+OB_PATHS = ("learner", "train_narrow", "large_rooms", "serving", "league", "pipeline",
+            "matchup", "multidevice", "policy_bench", "train_curve")
+
+
+def ob_wrappers() -> dict:
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    return {"observe": OK.kernel_observe, "rewards": OK.kernel_rewards,
+            "sample": OK.kernel_sample}
+
+
+def path_wrappers() -> dict:
+    """The wrappers STPaths counts by path: ST's, OB's and SA's."""
+    return {**st_wrappers(), **ob_wrappers()}
+
+
+def as_bits(t):
+    """A float tensor as its bits (bf16 as int16, f32 as int32), so that
+    equality is bit for bit."""
+    import torch
+
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(t.dtype)
+    return t if bits is None else t.view(bits)
+
+
+def ob_differences(got, ref) -> tuple:
+    """(elements that differ bit for bit, largest |got - ref| with each
+    value as float64, both on the card; every pair alike in dtype and
+    shape)."""
+    import torch
+
+    diff, _, same_kind = st_differences([as_bits(x) for x in got], [as_bits(y) for y in ref])
+    err = torch.zeros((), dtype=torch.float64, device="cuda")
+    for x, y in zip(got, ref):
+        if x.numel() and x.shape == y.shape:
+            err = torch.maximum(err, (x.to(torch.float64) - y.to(torch.float64)).abs().max())
+    return diff, err, same_kind
+
+
+def sa_inputs(legal, seed: int):
+    """f32 logits and torch.rand uniforms for SA over `legal`'s shape, from a
+    seed on the card, with ties forced: every fifth room's logits all equal
+    and its uniforms equal along each row."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(legal.shape, generator=gen, device="cuda")
+    u = torch.rand(legal.shape, generator=gen, device="cuda")
+    logits[::5] = 0.5
+    u[::5] = u[::5, :, :1]
+    return logits, u
+
+
+def sa_plain(logits, legal, u, actor, present):
+    """SA's plain version on the same inputs: net.draw_plain on gumbel_noise's
+    transform of the uniforms, the actor-masked actions, and the greedy
+    mode's PolicyBots.greedy body; last, that Gumbel noise, which SA's
+    "gumbel" mode takes as it is."""
+    import torch
+
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies.serve import first_argmax
+
+    noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    a, logp = N.draw_plain(logits, legal, noise)
+    g = first_argmax(torch.where(legal, logits, -1e9)).to(torch.int32) + 1
+    return a, torch.where(actor, a, 0), logp, torch.where(legal.any(-1) & present, g, 0), noise
+
+
+def ob_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) -> dict:
+    """OB and SA against the plain functions on the card, `steps` steps of
+    `rooms` rooms (of mixed sizes from init_state, or from `state`): OB's
+    masked and full observations, legal and actor masks; SA's actions,
+    actor-masked actions and logp (sa_inputs, ties forced), its "gumbel"
+    mode on the plain version's noise and its greedy mode; then ST's step
+    on odd_actions of the sampled actions, OB's rewards of the stepped
+    state, and the reset. The differences and the largest absolute
+    difference of each of OB_ENTRIES, and logp's, are counted on the card
+    and read once."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.engine import engine_step, reset_done
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+    from game_engine_tpu_torch.train import ppo as P
+    from game_engine_tpu_torch.utils.step_cases import odd_actions
+
+    rng = np.random.default_rng(seed)
+    if state is None:
+        lo = min(lw.game.spec.declaration.min_players or 4, lw.P)
+        n = torch.as_tensor(rng.integers(lo, lw.P + 1, rooms), dtype=torch.int32)
+        state = init_state(lw, rooms, n, np.arange(rooms, dtype=np.uint32) * 7 + seed,
+                           device="cuda")
+    diff = {e: torch.zeros((), dtype=torch.int64, device="cuda") for e in OB_ENTRIES}
+    err = {e: torch.zeros((), dtype=torch.float64, device="cuda") for e in OB_ENTRIES}
+    logp_err = torch.zeros((), dtype=torch.float32, device="cuda")
+    dtypes_ok, actors, ended_n = True, 0, 0
+
+    def count(entry, got, ref):
+        nonlocal dtypes_ok
+        d, e, same_kind = ob_differences(got, ref)
+        diff[entry], err[entry] = diff[entry] + d, torch.maximum(err[entry], e)
+        dtypes_ok = dtypes_ok and same_kind
+
+    for t in range(steps):
+        for masked in (True, False):
+            got = OK.kernel_observe(lw, state, masked)
+            count("observe", got, [N.observe_plain(lw, state, masked),
+                                   N.legal_action_mask_plain(lw, state),
+                                   N.actor_mask_plain(lw, state)])
+        _, legal, actor = got
+        logits, u = sa_inputs(legal, seed * 100 + t)
+        ref_a, ref_acting, ref_logp, ref_greedy, noise = sa_plain(logits, legal, u, actor,
+                                                                  state.present)
+        a, acting, logp = OK.kernel_sample(logits, legal, u, actor)
+        ga, gacting, glogp = OK.kernel_sample(logits, legal, noise, actor, mode="gumbel")
+        greedy = OK.kernel_sample(logits, legal, actor=state.present, mode="greedy")[1]
+        count("sample", [a, acting, ga, gacting, greedy],
+              [ref_a, ref_acting, ref_a, ref_acting, ref_greedy])
+        logp_err = torch.maximum(logp_err, torch.maximum((logp - ref_logp).abs().max(),
+                                                         (glogp - ref_logp).abs().max()))
+        actors = actors + actor.sum()
+        nxt, ended = engine_step(lw, state, odd_actions(lw, acting, rng))
+        count("rewards", [OK.kernel_rewards(lw, nxt, ended)],
+              [P.terminal_rewards_plain(lw, nxt, ended)])
+        ended_n = ended_n + ended.sum()
+        state = reset_done(lw, nxt)
+    return {"case": name, "game": lw.game.spec.name, "P": lw.P, "NP": lw.NP, "rooms": rooms,
+            "steps": steps, "differences": {e: int(d) for e, d in diff.items()},
+            "max_abs_err": {e: float(x) for e, x in err.items()},
+            "logp_max_abs_err": float(logp_err), "dtypes_ok": dtypes_ok,
+            "actors": int(actors), "episodes_ended": int(ended_n)}
+
+
+def ob_timing(lw, rooms: int) -> dict:
+    """OB (the observation with both masks), OB's reward mode and SA beside
+    their plain versions at `rooms` werewolf rooms of 8 spread over the
+    game's phases, as st_timing times ST: "ms" a call's device time
+    (prefilled_ms, median of OB_REPS), "call_ms" its span from an idle
+    queue, "host_us" the wrapper's host time (no sync); the plain
+    versions' alike. The timed calls' outputs are held against the plain
+    ones. The bound is the bytes each must move (the GameState fields read
+    and the outputs written once, or SA's logits, masks, uniforms and
+    outputs) over the memory rate: their operations are a few a byte."""
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+    from game_engine_tpu_torch.train import ppo as P
+
+    state = st_state(lw, rooms)
+    nxt, ended = SK.kernel_step(lw, state, SK.kernel_bot_actions(lw, state))
+    _, legal, actor = OK.kernel_observe(lw, state)
+    logits, u = sa_inputs(legal, rooms)
+    calls = {"ob_": lambda: OK.kernel_observe(lw, state),
+             "plain_ob_": lambda: (N.observe_plain(lw, state), N.legal_action_mask_plain(lw, state),
+                                   N.actor_mask_plain(lw, state)),
+             "rewards_": lambda: (OK.kernel_rewards(lw, nxt, ended),),
+             "plain_rewards_": lambda: (P.terminal_rewards_plain(lw, nxt, ended),),
+             "sa_": lambda: OK.kernel_sample(logits, legal, u, actor),
+             "plain_sa_": lambda: sa_plain(logits, legal, u, actor, state.present)[:3]}
+    out = {"rooms": rooms, "seats": 8, "phases_held": int(torch.unique(state.phase).numel()),
+           "actors": int(actor.sum()), "episodes_ended": int(ended.sum())}
+    got = {}
+    for name, call in calls.items():
+        call()  # warm-up
+        spans = []
+        for _ in range(OB_REPS):
+            got[name], ms = timed_ms(call)
+            spans.append(ms)
+        span = statistics.median(spans)
+        out[name + "call_ms"] = span
+        out[name + "ms"] = statistics.median(prefilled_ms(call, span) for _ in range(OB_REPS))
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e6)
+        out[name + "host_us"] = statistics.median(host)
+    checks = {"observe": ob_differences(got["ob_"], got["plain_ob_"]),
+              "rewards": ob_differences(got["rewards_"], got["plain_rewards_"]),
+              "sample": ob_differences(got["sa_"][:2], got["plain_sa_"][:2])}
+    out["differences"] = {e: int(d) for e, (d, _, _) in checks.items()}
+    out["max_abs_err"] = {e: float(x) for e, (_, x, _) in checks.items()}
+    out["dtypes_ok"] = all(k for _, _, k in checks.values())
+    out["logp_max_abs_err"] = float((got["sa_"][2] - got["plain_sa_"][2]).abs().max())
+    read = nbytes(state.bools, state.nums, state.strs, state.present, state.phase, state.acted,
+                  state.done)
+    out["bytes"] = {"ob": read + nbytes(*got["ob_"]),
+                    "rewards": nbytes(nxt.present, nxt.strs, nxt.winner, ended, *got["rewards_"]),
+                    "sa": nbytes(logits, legal, u, actor, *got["sa_"])}
+    out["bound_ms"] = {k: v / PEAK_BYTES * 1e3 for k, v in out["bytes"].items()}
+    return out
+
+
+def ob_sync_check(lw) -> dict:
+    """OB, its reward mode and SA under torch's sync debug mode "error" at
+    the unroll's shape (4096 rooms, after a warm-up that caches the table):
+    any host wait for the card raises."""
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    state = st_state(lw, ROOMS)
+    nxt, ended = SK.kernel_step(lw, state, SK.kernel_bot_actions(lw, state))
+    _, legal, actor = OK.kernel_observe(lw, state)
+    logits, u = sa_inputs(legal, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        OK.kernel_observe(lw, state)
+        OK.kernel_rewards(lw, nxt, ended)
+        OK.kernel_sample(logits, legal, u, actor)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"rooms": ROOMS, "sync_debug_mode": "error", "raised": False}
+
+
+def observe_step_phase(gpu: str) -> dict:
+    """OB and SA against their plain versions on the card, bit for bit
+    (logp within LOGP_TOL): every catalog game (OB_CHECK rooms x steps of
+    mixed sizes), born-done rooms, werewolf at 40 and 72 seats, the
+    78-phase game, and werewolf at OB_CHECK_SIZES from rooms spread over
+    its phases; then their times at OB_SIZES beside the plain versions and
+    their bounds, the timed calls' outputs held against the plain ones, and
+    the sync check. Returns the kernels line's numbers."""
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import games_dir, load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.utils.bench_games import long_game
+    from game_engine_tpu_torch.utils.step_cases import born_done_game
+
+    t0 = time.perf_counter()
+    rooms, steps = OB_CHECK
+    ww = lower(compile_game(load_builtin("werewolf")))
+    names = sorted(fn[:-5] for fn in os.listdir(games_dir()) if fn.endswith(".yaml"))
+    cases = [(name, lambda name=name: lower(compile_game(load_builtin(name))), rooms, steps,
+              False) for name in names]
+    cases += [("born_done", born_done_game, rooms, steps, False),
+              ("werewolf_40_seats", lambda: large_game(40), rooms, steps, False),
+              ("werewolf_72_seats", lambda: large_game(72), rooms // 4, steps, False),
+              ("long_game_78_phases", long_game, rooms, steps, False)]
+    cases += [(f"werewolf_{n}_rooms", lambda: ww, n, k, True) for n, k in OB_CHECK_SIZES]
+    results = []
+    for k, (name, make, n, n_steps, spread) in enumerate(cases):
+        lw = make()
+        got = ob_check_case(name, lw, n, n_steps, 2000 + k, st_state(lw, n) if spread else None)
+        results.append(got)
+        if not ob_agrees(got):
+            emit({"phase": "observe_step_case", **got, "gpu": gpu})
+            raise AssertionError(f"OB or SA differs from the plain functions on {name}: {got}")
+    emit({"phase": "observe_step_check", "cases": len(results),
+          "differences": dict.fromkeys(OB_ENTRIES, 0),
+          "logp_max_abs_err": max(r["logp_max_abs_err"] for r in results), "per_case": results,
+          "seconds": time.perf_counter() - t0, "gpu": gpu})
+    if not any(r["episodes_ended"] for r in results) or max(r["P"] for r in results) != 72 \
+            or not all(r["actors"] for r in results if r["game"] == ww.game.spec.name):
+        raise AssertionError("the observe step check ended no episode, missed the wide rooms "
+                             "or met no actor")
+    timing = {n: ob_timing(ww, n) for n in OB_SIZES}
+    for n, t in timing.items():
+        if not ob_agrees(t):
+            raise AssertionError(f"OB's or SA's timed calls at {n} rooms differ from plain: {t}")
+    sync = ob_sync_check(ww)
+    emit({"phase": "observe_step", "timing": {str(k): v for k, v in timing.items()},
+          "sync_check": sync, "seconds": time.perf_counter() - t0, "gpu": gpu})
+    checked = results + list(timing.values())
+    return {"timing": timing, "cases": len(results),
+            "differences": {e: sum(r["differences"][e] for r in checked) for e in OB_ENTRIES},
+            "max_abs_err": {e: max(r["max_abs_err"][e] for r in checked) for e in OB_ENTRIES},
+            "logp_max_abs_err": max(r["logp_max_abs_err"] for r in checked)}
+
+
+def ob_agrees(got: dict) -> bool:
+    """Whether a check of ob_check_case or ob_timing found OB and SA equal
+    to their plain versions: no difference, no dtype or shape apart, logp
+    within LOGP_TOL."""
+    return not any(got["differences"].values()) and not any(got["max_abs_err"].values()) \
+        and got["dtypes_ok"] and got["logp_max_abs_err"] <= LOGP_TOL
+
+
+TRAIN_CURVE_ARGV = ["--device", "cuda", "--arch", "attn", "--hidden", "256", "--batch", str(ROOMS),
+                    "--players", "6", "--horizon", str(HORIZON), "--epochs", "4",
+                    "--updates", "13", "--eval-every", "6", "--eval-batch", "1024"]
+
+
+def train_curve_phase(gpu: str) -> dict:
+    """run.main from fresh parameters for 13 updates with --eval-every 6
+    (through OB, K2, SA and K4): the learned minority side's win rate
+    against the scripted bots must rise from update 0 to 6 and to 12, the
+    shape of the JAX package's run (0.3575, 0.6716, 0.6923 in
+    docs/r5_tpu_runs/train_mono.log), not its values, since the random
+    streams differ. Returns K2's and K4's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from game_engine_tpu_torch.train import run as R
+
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        R.main(TRAIN_CURVE_ARGV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = policy_launches()
+    events = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    rates = {ev["update"]: ev["learned_as_minority"]["minority_win_rate"]
+             for ev in events if ev["event"] == "eval"}
+    majority = {ev["update"]: ev["learned_as_majority"]["minority_win_rate"]
+                for ev in events if ev["event"] == "eval"}
+    trains = [ev for ev in events if ev["event"] == "train"]
+    emit({"phase": "train_curve", "argv": TRAIN_CURVE_ARGV, "seconds": seconds,
+          "minority_win_rate_learned_as_minority": rates,
+          "minority_win_rate_learned_as_majority": majority, "train": trains,
+          "launches": launches, "gpu": gpu})
+    if not (rates[6] > rates[0] and rates[12] > rates[0]):
+        raise AssertionError(f"the learned minority's win rate did not rise from update 0 "
+                             f"to 6 and 12: {rates}")
+    want = {"policy_forward": K2_PER_UPDATE * 13, "policy_backward": 0, "ppo_loss_grad": 4 * 13}
+    if launches != want:
+        raise AssertionError(f"the 13-update run launched {launches}, expected {want}")
+    return launches
+
+
 SM_CYCLES_PER_MS = 1.98e6  # the H100's top SM clock: torch.cuda._sleep's cycles a ms
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel")
 
@@ -3904,14 +4259,15 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
     it, no profiler), device ms (prefilled_ms) and host waits (sync debug
     mode); the means of `steps` steps after a warm-up one, and a step's
     wall ms. route "plain": make_step and reset_where_done, the eager step
-    every path ran before ST; "st": engine.engine_step and reset_done."""
-    import collections
-    import warnings
-
+    every path ran before ST, with the plain observation, masks, draw and
+    rewards; "st": engine.engine_step and reset_done (ST) with those plain
+    ops, as every path ran before OB and SA; "ob": the unroll as it runs
+    now, net.observe_all (OB: the observation and both masks, so the
+    actor_mask group is empty), sample_actions with the actor mask (K2,
+    torch.rand and SA), ST, terminal_rewards (OB's reward mode) and ST's
+    reset."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, record_function
-    from torch.profiler import profile as torch_profile
 
     from game_engine_tpu_torch.core import engine as E
     from game_engine_tpu_torch.core.state import init_state
@@ -3925,32 +4281,42 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
     plain_step = make_step(lowered)
 
     def step(st, actions):
-        if route == "st":
+        if route != "plain":
             return E.engine_step(lowered, st, actions)
         nxt = plain_step(st, actions)
         return nxt, nxt.done & ~st.done
 
     def reset(st):
-        return E.reset_done(lowered, st) if route == "st" else E.reset_where_done(lowered, st)
+        return E.reset_done(lowered, st) if route != "plain" else E.reset_where_done(lowered, st)
 
     def ops(st) -> list:
         """The step as (group, call) pairs, each call taking and returning
         the carried values."""
         def observe(c):
-            c["obs"] = N.observe(lowered, c["st"])
+            if route == "ob":
+                c["obs"], c["legal"], c["mask"] = N.observe_all(lowered, c["st"])
+            else:
+                c["obs"] = N.observe_plain(lowered, c["st"])
 
         def sample(c):
-            c["a"] = N.sample_actions(lowered, params, c["st"], cfg.net, obs=c["obs"],
-                                      apply_fn=apply_fn, generator=gen)[0]
+            if route == "ob":
+                c["actions"] = N.sample_actions(
+                    lowered, params, c["st"], cfg.net, obs=c["obs"], apply_fn=apply_fn,
+                    generator=gen, legal=c["legal"], actor=c["mask"])[0]
+            else:
+                c["a"] = N.sample_actions_plain(lowered, params, c["st"], cfg.net, obs=c["obs"],
+                                                apply_fn=apply_fn, generator=gen)[0]
 
         def mask(c):
-            c["actions"] = torch.where(P.actor_mask(lowered, c["st"]), c["a"], 0)
+            if route != "ob":
+                c["actions"] = torch.where(P.actor_mask_plain(lowered, c["st"]), c["a"], 0)
 
         def engine(c):
             c["nxt"], c["ended"] = step(c["st"], c["actions"])
 
         def rewards(c):
-            P.terminal_rewards(lowered, c["nxt"], c["ended"])
+            (P.terminal_rewards if route == "ob" else P.terminal_rewards_plain)(
+                lowered, c["nxt"], c["ended"])
 
         def reset_(c):
             c["st"] = reset(c["nxt"])
@@ -3958,10 +4324,26 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
         return list(zip(UNROLL_GROUPS, (observe, sample, mask, engine, rewards, reset_)))
 
     state = init_state(lowered, ROOMS, 6, np.arange(ROOMS, dtype=np.uint32) + 17, device="cuda")
-    groups = {g: collections.defaultdict(float) for g in UNROLL_GROUPS}
+    return {"route": route, "rooms": ROOMS, **split_step(ops, {"st": state}, steps), "gpu": gpu}
+
+
+def split_step(ops, carry: dict, steps: int) -> dict:
+    """A step of `ops(state)` -> [(group, call(carry))] measured by group
+    after a warm-up step: host ms (the host clock around each call, no
+    profiler), device ms (prefilled_ms), host waits (sync debug mode) and
+    launches (the trace's launch calls inside the group's
+    record_function range, torch.profiler), the means of `steps` steps,
+    and each step's wall ms."""
+    import collections
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    groups = {g: collections.defaultdict(float) for g, _ in ops(carry["st"])}
     with torch.no_grad():
-        carry = {"st": state}
-        for _, call in ops(state):  # warm-up: tables, plans, packed weights
+        for _, call in ops(carry["st"]):  # warm-up: tables, plans, packed weights
             call(carry)
         torch.cuda.synchronize()
         wall = []
@@ -4004,13 +4386,61 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
             for t0, t1, g in ranges:
                 if t0 <= e["ts"] <= t1:
                     groups[g]["launches"] += 1 / steps
-    return {"route": route, "rooms": ROOMS, "steps": steps,
-            "wall_ms_per_step": statistics.median(wall),
+    return {"steps": steps, "wall_ms_per_step": statistics.median(wall), "wall_ms_all": wall,
             "groups": {g: dict(v) for g, v in groups.items()},
             "host_ms_per_step": sum(v["host_ms"] for v in groups.values()),
             "device_ms_per_step": sum(v["device_ms"] for v in groups.values()),
             "launches_per_step": sum(v["launches"] for v in groups.values()),
-            "host_waits_per_step": sum(v["host_waits"] for v in groups.values()), "gpu": gpu}
+            "host_waits_per_step": sum(v["host_waits"] for v in groups.values())}
+
+
+def policy_split(gpu: str, steps: int = 8) -> dict:
+    """A step of the policy loop (bench.py --policy's shape: 16,384 werewolf
+    rooms of 8 after 128 steps, the mlp at hidden 256) split as
+    split_step splits it: OB (observe_all), the mlp forward (apply_net,
+    eager torch), the draw (torch.rand and SA), ST's step and reset."""
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.bench import POLICY_SEED, policy_steps
+    from game_engine_tpu_torch.core import engine as E
+    from game_engine_tpu_torch.core.state import init_state
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    rooms = POLICY_BENCH_SHAPE[0]
+    lw = lower(compile_game(load_builtin("werewolf")))
+    cfg = N.NetConfig(hidden=256, layers=2)
+    params = N.init_params(torch.Generator().manual_seed(0), N.obs_dim(lw),
+                           N.action_space(lw), cfg, lw, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(POLICY_SEED)
+    state = init_state(lw, rooms, 8, np.arange(rooms, dtype=np.uint32), device="cuda")
+    state, _ = policy_steps(lw, params, cfg, state, POLICY_BENCH_SHAPE[1], gen)
+
+    def ops(_):
+        def observe(c):
+            c["obs"], c["legal"], c["actor"] = N.observe_all(lw, c["st"])
+
+        def forward(c):
+            c["logits"] = N.apply_net(params, c["obs"], cfg, lw)[0]
+
+        def draw(c):
+            u = N.uniforms(c["logits"].shape, gen, c["logits"].device)
+            c["actions"] = OK.kernel_sample(c["logits"], c["legal"], u, c["actor"])[1]
+
+        def engine(c):
+            c["nxt"], _ = E.engine_step(lw, c["st"], c["actions"])
+
+        def reset(c):
+            c["st"] = E.reset_done(lw, c["nxt"])
+
+        return [("observe", observe), ("forward", forward), ("draw", draw),
+                ("engine_step", engine), ("reset", reset)]
+
+    return {"rooms": rooms, **split_step(ops, {"st": state}, steps), "gpu": gpu}
 
 
 def main(argv=()) -> int:
@@ -4067,10 +4497,11 @@ def main(argv=()) -> int:
     wide_ptxas = ptxas_by_kernel(_build.search_lib(), SEARCH_KERNELS_WIDE.values())
     k1_ptxas = ptxas_by_kernel(lib, K1_KERNELS.values())
     st_ptxas = ptxas_by_kernel(lib, ST_KERNELS.values())
+    ob_ptxas = ptxas_by_kernel(_build.observe_lib(), OB_KERNELS.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           **{k: k1_ptxas[v] for k, v in K1_KERNELS.items()},
           **{k: st_ptxas[v] for k, v in ST_KERNELS.items()},
-          "search_kernels_wide": wide_ptxas,
+          "search_kernels_wide": wide_ptxas, "observe_kernels": ob_ptxas,
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "lossgrad_kernels": ptxas_by_kernel(_build.lossgrad_lib(), LG_KERNELS),
           "search_ptxas": ptxas_report(_build.search_lib()),
@@ -4196,7 +4627,8 @@ def main(argv=()) -> int:
 
     bg_launches = bench_games_phase(gpu)
     st = engine_step_phase(gpu, int32_ops_per_s())
-    st_paths = STPaths()
+    ob = observe_step_phase(gpu)
+    paths = STPaths()
 
     # -- the learner: K2-K4 vs plain at full width, then its main path -------
     from game_engine_tpu_torch.policies import net as N
@@ -4220,41 +4652,45 @@ def main(argv=()) -> int:
     packed_weights_check(ww, traj, adv, ret, attn, attn_cfg)
     del traj, adv, ret
     torch.cuda.empty_cache()
-    with st_paths.of("large_rooms"):
+    with paths.of("large_rooms"):
         large = large_rooms_phase(gpu, int32_ops_per_s(), profiled)
-    if profiled:  # the train unroll split by op, on the eager step and on ST
-        for route in ("plain", "st"):
-            emit({"phase": "unroll_split", **unroll_split(ww, gpu, route)})
-    with st_paths.of("learner"):
+    if profiled:  # the train unroll split by op: the eager step, ST, ST with OB and SA
+        for route in ("plain", "st", "ob"):
+            emit({"phase": "unroll_split", **unroll_split(ww, gpu, route, steps=8)})
+    with paths.of("learner"):
         launches = train_phase(ww, gpu)
-    with st_paths.of("train_narrow"):
+    with paths.of("train_narrow"):
         narrow_train = train_narrow_phase(gpu)
-    with st_paths.of("serving"):
+    with paths.of("train_curve"):
+        curve = train_curve_phase(gpu)
+    with paths.of("serving"):
         serving = serve_phase(gpu)
     s_compare = compare_search(gpu)
     s_line = search_timing(gpu, int32_ops_per_s(), profiled)
     with SearchLaunchSizes() as s_sizes:  # S's launches on its paths, by decisions
-        with st_paths.of("serve_search"):
+        with paths.of("serve_search"):
             s_serving = serve_search_phase(gpu)
-        with st_paths.of("eval_search"):
+        with paths.of("eval_search"):
             s_eval = eval_phase(gpu)
-        with st_paths.of("league"):
+        with paths.of("league"):
             league = league_phase(ww, gpu)
-        with st_paths.of("pipeline"):
+        with paths.of("pipeline"):
             piped = pipeline_phase(ww, gpu)
-        with st_paths.of("matchup"):
+        with paths.of("matchup"):
             matchup = matchup_phase(ww, gpu)
         judged = arena_phase(gpu)
-    with st_paths.of("multidevice"):
+    with paths.of("multidevice"):
         multi = multidevice_phase(ww, gpu)
-    with st_paths.of("policy_bench"):
+    with paths.of("policy_bench"):
         policy_bench_phase(gpu)
+    if profiled:  # the policy loop's step split by op
+        emit({"phase": "policy_split", **policy_split(gpu)})
     c_compare = compare_chat(gpu)
     c_line = chat_timing(gpu, c_compare, profiled)
     zero_launches()
     c_by_path = {"chat_probes": chat_probes_phase(gpu)}
     c_by_program = decode_programs()
-    with st_paths.of("serve_chat"):
+    with paths.of("serve_chat"):
         c_by_path["serving"], k2_serve_chat, served = serve_chat_phase(gpu)  # zeroes the counts
     zero_launches()
     c_by_path["train_chat_lm"] = train_chat_phase(gpu)
@@ -4266,7 +4702,7 @@ def main(argv=()) -> int:
     if loaded:
         raise AssertionError(f"the port imported jax or the JAX package: {loaded[:10]}")
     by_path = {k: {"learner": launches[k], "train_narrow": narrow_train[k],
-                   "league": league[k], "pipeline": piped[k],
+                   "train_curve": curve[k], "league": league[k], "pipeline": piped[k],
                    "matchup": matchup[k], "arena": judged["arena"][k],
                    "exploit": judged["exploit"][k], "multidevice": multi[k],
                    "large_rooms": large[k]["launches"]}
@@ -4278,12 +4714,25 @@ def main(argv=()) -> int:
                "exploit": judged["exploit"],
                "large_rooms": {"search_decide": large["search_decide"]["launches"], "search": 0}}
     s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
-    st_by_path = {path: sum(got.values()) for path, got in st_paths.by_path.items()}
+    st_by_entry = paths.entries(st_wrappers())
+    st_by_path = {path: sum(got.values()) for path, got in st_by_entry.items()}
     st_by_path["multidevice"] += multi["engine_step"]  # the ranks' own launches
     idle = [path for path in ST_PATHS if not st_by_path.get(path)]
     if idle:
-        raise AssertionError(f"ST was not launched on {idle}: {st_paths.by_path}")
+        raise AssertionError(f"ST was not launched on {idle}: {st_by_entry}")
     st_line = st["timing"][ST_SIZES[0]]
+    ob_by_entry = paths.entries(ob_wrappers())
+    for entry in ob_wrappers():  # the ranks' own launches
+        ob_by_entry["multidevice"][entry] += multi[entry]
+    ob_by_path = {name: {path: got["observe"] + got["rewards"] if name == "observe"
+                         else got["sample"] for path, got in ob_by_entry.items()}
+                  for name in ("observe", "sample")}
+    idle = [(name, path) for name in ob_by_path for path in OB_PATHS
+            if not ob_by_path[name].get(path)]
+    if idle:
+        raise AssertionError(f"OB or SA was not launched on {idle}: {ob_by_entry}")
+    ob_line = ob["timing"][OB_SIZES[0]]
+    ob_shape = {"game": "werewolf", "rooms": OB_SIZES[0], "seats": 8}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
@@ -4301,7 +4750,7 @@ def main(argv=()) -> int:
                          "no pallas_call site",
         "entries": ["ge_step", "ge_reset_done", "ge_bots"],
         "launches": sum(st_by_path.values()), "launches_by_path": st_by_path,
-        "launches_by_entry_and_path": st_paths.by_path,
+        "launches_by_entry_and_path": st_by_entry,
         "max_abs_err": st["max_abs_err"], "differences": st["differences"],
         "cases_checked": st["cases"],
         "ms": st_line["ms"], "plain_ms": st_line["plain_ms"], "call_ms": st_line["call_ms"],
@@ -4311,7 +4760,47 @@ def main(argv=()) -> int:
         "by_rooms": {str(k): {x: y for x, y in v.items() if x not in (
             "bound", "interpreter_counts")} for k, v in st["timing"].items()},
         "ptxas": {k: st_ptxas[v] for k, v in ST_KERNELS.items()},
-        "shape": {"game": "werewolf", "rooms": ST_SIZES[0], "seats": 8}}] + [{
+        "shape": {"game": "werewolf", "rooms": ST_SIZES[0], "seats": 8}}, {
+        "name": "observe", "route": "cuda", "source": OB_SOURCE, "replaces": OB_REPLACES,
+        "replaces_kind": "XLA's fusion of observe, legal_action_mask, actor_mask and "
+                         "terminal_rewards in the jitted unroll body (train/ppo.py:138), no "
+                         "pallas_call site",
+        "entries": ["ob_observe", "ob_rewards"],
+        "launches": sum(ob_by_path["observe"].values()),
+        "launches_by_path": ob_by_path["observe"], "launches_by_entry_and_path": ob_by_entry,
+        "max_abs_err": max(ob["max_abs_err"]["observe"], ob["max_abs_err"]["rewards"]),
+        "max_abs_err_of": "obs as float, legal and actor masks, rewards",
+        "max_abs_err_by_entry": {"ob_observe": ob["max_abs_err"]["observe"],
+                                 "ob_rewards": ob["max_abs_err"]["rewards"]},
+        "differences": ob["differences"]["observe"] + ob["differences"]["rewards"],
+        "differences_by_entry": {"ob_observe": ob["differences"]["observe"],
+                                 "ob_rewards": ob["differences"]["rewards"]},
+        "cases_checked": ob["cases"],
+        "ms": ob_line["ob_ms"], "plain_ms": ob_line["plain_ob_ms"],
+        "call_ms": ob_line["ob_call_ms"], "plain_call_ms": ob_line["plain_ob_call_ms"],
+        "host_us": ob_line["ob_host_us"], "plain_host_us": ob_line["plain_ob_host_us"],
+        "rewards_ms": ob_line["rewards_ms"], "plain_rewards_ms": ob_line["plain_rewards_ms"],
+        "rewards_bound_ms": ob_line["bound_ms"]["rewards"],
+        "bound_ms": ob_line["bound_ms"]["ob"], "bound_by": "bytes", "library_ms": None,
+        "library_ms_none_because": "no PyTorch call builds the observation or its masks",
+        "by_rooms": {str(k): v for k, v in ob["timing"].items()},
+        "ptxas": {k: ob_ptxas[v] for k, v in OB_KERNELS.items() if k != "sample"},
+        "shape": ob_shape}, {
+        "name": "sample", "route": "cuda", "source": OB_SOURCE, "replaces": SA_REPLACES,
+        "replaces_kind": "XLA's fusion of sample_actions' draw and log-softmax and the "
+                         "unroll's actor-masked actions, no pallas_call site",
+        "entries": ["ob_sample"],
+        "launches": sum(ob_by_path["sample"].values()),
+        "launches_by_path": ob_by_path["sample"],
+        "max_abs_err": ob["logp_max_abs_err"], "max_abs_err_of": "logp",
+        "actions_max_abs_err": ob["max_abs_err"]["sample"],
+        "differences": ob["differences"]["sample"], "cases_checked": ob["cases"],
+        "ms": ob_line["sa_ms"], "plain_ms": ob_line["plain_sa_ms"],
+        "call_ms": ob_line["sa_call_ms"], "plain_call_ms": ob_line["plain_sa_call_ms"],
+        "host_us": ob_line["sa_host_us"], "plain_host_us": ob_line["plain_sa_host_us"],
+        "bound_ms": ob_line["bound_ms"]["sa"], "bound_by": "bytes", "library_ms": None,
+        "library_ms_none_because": "no PyTorch call draws a masked Gumbel-max with its logp",
+        "ptxas": ob_ptxas[OB_KERNELS["sample"]], "shape": ob_shape}] + [{
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
         "launches": launches[k], "launches_by_path": by_path[k],
         "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],

@@ -1,6 +1,7 @@
 """Build csrc/ at first use and load it with ctypes.
 
-The CUDA kernels (csrc/rollout.cu, lossgrad.cu, search.cu, chat_decode.cu)
+The CUDA kernels (csrc/rollout.cu, lossgrad.cu, search.cu, chat_decode.cu,
+observe.cu)
 are compiled by nvcc for sm_90a into shared libraries with a plain C
 interface; the host harnesses (the kernels' bodies and stages, compiled by
 g++) serve the CPU tests, and csrc/gamesim.cpp (the native per-room
@@ -59,6 +60,11 @@ _LG_ARGS = [_P, _P, _I64, _P, _F, _F, _P, _P, _P, _I64, _I, _P]
 _CD_ARGS = [_P, _P, _P, _P, _P, _P, _F, _F, _I, _P, _I]
 # wb, wf, dims, io, kv, rows, n_rows, scratch
 _CD_PREFILL_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P]
+# OB: state, obs, legal, actor, B, masked; rewards: state, ended, reward, B
+_OB_ARGS = [_P, _P, _P, _P, _I64, _I]
+_OB_REWARD_ARGS = [_P, _P, _P, _I64]
+# SA: logits, legal, noise, actor, actions, masked, logp, rows, A, mode
+_SA_ARGS = [_P] * 7 + [_I64, _I, _I]
 
 
 def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> str:
@@ -147,13 +153,14 @@ def _cuda_jobs() -> list:
     return [(os.path.join(_CSRC, "rollout.cu"), "librollout", _nvcc_cmd()),
             (os.path.join(_CSRC, "lossgrad.cu"), "liblossgrad", _nvcc_cmd()),
             (os.path.join(_CSRC, "search.cu"), "libsearch", _nvcc_cmd()),
-            (os.path.join(_CSRC, "chat_decode.cu"), "libchat_decode", _nvcc_cmd())]
+            (os.path.join(_CSRC, "chat_decode.cu"), "libchat_decode", _nvcc_cmd()),
+            (os.path.join(_CSRC, "observe.cu"), "libobserve", _nvcc_cmd())]
 
 
 def build_cuda() -> list:
     """Build every CUDA library at once (one nvcc per source, in parallel);
-    returns their paths. cuda_lib(), lossgrad_lib(), search_lib() and
-    chat_decode_lib() then load them."""
+    returns their paths. cuda_lib(), lossgrad_lib(), search_lib(),
+    chat_decode_lib() and observe_lib() then load them."""
     return _compile_all(_cuda_jobs())
 
 
@@ -384,6 +391,37 @@ def chat_decode_host_lib() -> ctypes.CDLL:
         os.path.join(_CSRC, "chat_decode_host.cpp"), "libchat_decode_host", _GXX_CMD)])[0]))
     lib.cd_decode_host.restype = _I
     lib.cd_decode_host.argtypes = _CD_ARGS + [_P, _I, _P]  # rows, n_rows, scratch
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def observe_lib() -> ctypes.CDLL:
+    """csrc/observe.cu (OB, the observation entry, and SA, the sampling
+    entry) built with nvcc for sm_90a, loaded."""
+    lib = ctypes.CDLL(_compile_all([_cuda_jobs()[4]])[0])
+    lib.ob_error_string.restype = ctypes.c_char_p
+    lib.ob_error_string.argtypes = [_I]
+    lib.ob_observe.restype = _I
+    # game on the device and the host, table on the device and the host, len, ..., stream
+    lib.ob_observe.argtypes = [_P, _P, _P, _P, _I] + _OB_ARGS + [_P]
+    lib.ob_rewards.restype = _I
+    lib.ob_rewards.argtypes = [_P, _P, _I] + _OB_REWARD_ARGS + [_P]  # table x2, len, ..., stream
+    lib.ob_sample.restype = _I
+    lib.ob_sample.argtypes = _SA_ARGS + [_P]  # ..., stream
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def observe_host_lib() -> ctypes.CDLL:
+    """csrc/observe_host.cpp (OB's and SA's bodies) built with g++."""
+    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "observe_host.cpp"), "libobserve_host",
+                                     _GXX_CMD)])[0])
+    lib.ob_observe_host.restype = _I
+    lib.ob_observe_host.argtypes = [_P, _P, _I] + _OB_ARGS  # game, table, len, ...
+    lib.ob_rewards_host.restype = _I
+    lib.ob_rewards_host.argtypes = [_P, _I] + _OB_REWARD_ARGS  # table, len, ...
+    lib.ob_sample_host.restype = _I
+    lib.ob_sample_host.argtypes = _SA_ARGS
     return lib
 
 

@@ -27,14 +27,17 @@ GPU's name and power limit:
             checkpoint docs/checkpoints/attn_werewolf_u120.npz at hidden 256
             on 4096 werewolf rooms of 6 players in 8 seats, 4 steps of a
             scripted rollout
-  steps     the paths the engine step entry ST moves: one train step at
-            the learner's shape (make_train_step, 4096 werewolf rooms of 6,
-            horizon 32, 4 epochs, the attn checkpoint through K2 and K4; 3
+  steps     the paths that step rooms a turn at a time (ST, OB and SA
+            move them): train steps at the learner's shape
+            (make_train_step, 4096 werewolf rooms of 6, horizon 32, 4
+            epochs, the attn checkpoint through K2 and K4; TRAIN_STEPS
             steps after a warm-up: unroll and update ms by the step's CUDA
             events, and the step's host seconds), the policy loop
-            (bench.policy_rollout_bench: 16,384 rooms x 128 steps, 2 timed
-            calls) and a matchup pair (evaluate.make_vs, 1024 rooms x 64
-            steps, the checkpoint against itself through K2; host ms)
+            (bench.policy_rollout_bench: 16,384 rooms x 128 steps,
+            LOOP_CALLS calls of one timed call each) and matchup pairs
+            (evaluate.make_vs, 1024 rooms x 64 steps, the checkpoint
+            against itself through K2; MATCHUP_PAIRS pairs after a warm-up;
+            host ms); each with its median and its every value
 
 Device times are medians of 5 calls after a warm-up, by CUDA events. Exits
 2 without a CUDA device.
@@ -56,6 +59,7 @@ K1_ROOMS, K1_STEPS = (4096, 65536), 1024
 S_SIZES, S_R, S_H = (1, 8, 64, 512, 4096), 32, 200
 CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
 K2_ROOMS, K2_PLAYERS, K2_STEPS = 4096, 6, 4
+TRAIN_STEPS, LOOP_CALLS, MATCHUP_PAIRS = 8, 5, 6  # the steps kind's spreads
 
 
 def emit(obj) -> None:
@@ -228,27 +232,30 @@ def steps(label: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     state, _ = step(params, opt, state, gen)
     unroll, update, wall = [], [], []
-    for _ in range(3):
+    for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(params, opt, state, gen)
         unroll.append(m["unroll_ms"])
         update.append(m["update_ms"])
         wall.append(time.perf_counter() - t0)
+    rates = [K2_ROOMS * 32 / w for w in wall]
     emit({"line": "train_step", "checkout": label, "rooms": K2_ROOMS, "horizon": 32,
           "unroll_ms": statistics.median(unroll), "update_ms": statistics.median(update),
-          "env_steps_per_s": K2_ROOMS * 32 / statistics.median(wall)})
-    loop = policy_rollout_bench(16384, 128, 2)
-    emit({"line": "policy_loop", "checkout": label, "env_steps_per_s": loop["value"]})
+          "env_steps_per_s": statistics.median(rates), "unroll_ms_all": unroll,
+          "update_ms_all": update, "env_steps_per_s_all": rates})
+    loops = [policy_rollout_bench(16384, 128, 1)["value"] for _ in range(LOOP_CALLS)]
+    emit({"line": "policy_loop", "checkout": label, "env_steps_per_s": statistics.median(loops),
+          "env_steps_per_s_all": loops})
     vs = E.make_vs(lw, P.PPOConfig(fused_net=True, net=net), 64)
     start = init_state(lw, 1024, 6, np.arange(1024, dtype=np.uint32) + 5, device="cuda")
     times = []
-    for k in range(3):
+    for k in range(MATCHUP_PAIRS + 1):
         t0 = time.perf_counter()
         vs(params, params, start, torch.Generator(device="cuda").manual_seed(k))
         times.append((time.perf_counter() - t0) * 1e3)
     emit({"line": "matchup_pair", "checkout": label, "rooms": 1024, "steps": 64,
-          "ms": statistics.median(times[1:])})
+          "ms": statistics.median(times[1:]), "ms_all": times[1:]})
 
 
 def main(argv: list) -> int:

@@ -26,47 +26,16 @@ refused launch raise; nothing falls back to the plain step.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from game_engine_tpu_torch import _build
-from game_engine_tpu_torch.core.rollout_kernel import (
-    COUNT_NAMES,
-    COUNT_OPS,
-    _game_arrays,
-    check_state,
-)
+from game_engine_tpu_torch.core.entry_args import checked_state, rooms_arg, state_addresses
+from game_engine_tpu_torch.core.rollout_kernel import COUNT_NAMES, COUNT_OPS, _game_arrays
 from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.gamespec.tables import Lowered
 
 THREADS = 128  # lanes a block asked of the plan, as kernel_rollout asks
-_ADDRESSES = ctypes.c_int64 * len(GameState._fields)
-
-
-def _checked(lowered: Lowered, state: GameState, kind: str, what: str) -> GameState:
-    """The state, each field contiguous, once it is checked to lie on a
-    device of `kind` with the GameState dtypes and this game's shapes."""
-    device = state.present.device
-    if device.type != kind:
-        raise ValueError(f"{what} takes {'CUDA' if kind == 'cuda' else 'CPU'} tensors, "
-                         f"got {device}")
-    check_state(lowered, state)
-    return GameState(*(t.contiguous() for t in state))
-
-
-def _rooms_arg(x: torch.Tensor, name: str, shape: tuple, dtype, device) -> torch.Tensor:
-    if not isinstance(x, torch.Tensor) or x.device != device or x.dtype != dtype \
-            or tuple(x.shape) != shape:
-        got = (f"{tuple(x.shape)} {x.dtype} on {x.device}" if isinstance(x, torch.Tensor)
-               else type(x).__name__)
-        raise ValueError(f"{name} must be {shape} {dtype} on {device}, got {got}")
-    return x.contiguous()
-
-
-def _addresses(state: GameState):
-    return _ADDRESSES(*(t.data_ptr() for t in state))
 
 
 def _new_like(state: GameState) -> GameState:
@@ -120,33 +89,33 @@ def _on_host(lib):
 
 
 def _step(run, kind: str, lowered: Lowered, state: GameState, actions, keep):
-    st = _checked(lowered, state, kind, "the engine step")
+    st = checked_state(lowered, state, kind, "the engine step")
     B, P = st.present.shape
     device = st.present.device
-    acts = _rooms_arg(actions, "actions", (B, P), torch.int32, device)
-    keep = None if keep is None else _rooms_arg(keep, "keep", (B,), torch.bool, device)
+    acts = rooms_arg(actions, "actions", (B, P), torch.int32, device)
+    keep = None if keep is None else rooms_arg(keep, "keep", (B,), torch.bool, device)
     out = _new_like(st)
     ended = torch.empty(B, dtype=torch.bool, device=device)  # every room's is written
     if B == 0:
         return out, ended
-    run("ge_step", lowered, st, _addresses(st), _addresses(out), acts.data_ptr(),
+    run("ge_step", lowered, st, state_addresses(st), state_addresses(out), acts.data_ptr(),
         None if keep is None else keep.data_ptr(), ended.data_ptr())
     return out, ended
 
 
 def _reset_done(run, kind: str, lowered: Lowered, state: GameState) -> GameState:
-    st = _checked(lowered, state, kind, "the reset")
+    st = checked_state(lowered, state, kind, "the reset")
     out = _new_like(st)
     if st.batch:
-        run("ge_reset_done", lowered, st, _addresses(st), _addresses(out))
+        run("ge_reset_done", lowered, st, state_addresses(st), state_addresses(out))
     return out
 
 
 def _bot_actions(run, kind: str, lowered: Lowered, state: GameState) -> torch.Tensor:
-    st = _checked(lowered, state, kind, "the scripted bots")
+    st = checked_state(lowered, state, kind, "the scripted bots")
     actions = torch.empty(st.present.shape, dtype=torch.int32, device=st.present.device)
     if st.batch:
-        run("ge_bots", lowered, st, _addresses(st), actions.data_ptr())
+        run("ge_bots", lowered, st, state_addresses(st), actions.data_ptr())
     return actions
 
 

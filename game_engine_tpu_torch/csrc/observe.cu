@@ -1,0 +1,133 @@
+// observe.cu — OB, the observation entry, and SA, the sampling entry (sm_90a).
+//
+// The port's counterparts of the eager remainder of the JAX package's jitted
+// unroll body (game_engine_tpu/train/ppo.py make_unroll), which XLA fuses
+// around the policy-forward pallas_call (K2): observe, legal_action_mask and
+// actor_mask before K2, the categorical draw and log-softmax of
+// sample_actions and the actor-masked actions after it, and
+// terminal_rewards after the engine step. No pallas_call site of the JAX
+// package computes them; on the card they were ~190 eager torch launches a
+// step. csrc/observe.cuh holds the per-room bodies, which
+// csrc/observe_host.cpp builds with g++ for the CPU tests.
+//
+// ob_observe: one launch writes the (B, P, F) bf16 observation (masked or
+// full view), the (B, P, A) legal mask and the (B, P) actor mask of B rooms
+// of GameState's own tensors; blocks of R rooms, 256 threads (observe.cuh).
+// ob_rewards: the (B, P) f32 terminal rewards of the rooms a step ended, a
+// seat a thread. ob_sample: SA, a row a thread.
+//
+// Every entry launches on the caller's stream and returns cudaGetLastError()
+// after the launch; bad sizes are refused with cudaErrorInvalidValue before
+// it. Nothing here waits for the card.
+
+#include <cuda_runtime.h>
+
+#include "observe.cuh"
+
+namespace {
+
+constexpr int OB_THREADS = 256;
+constexpr int SEAT_THREADS = 256;
+
+__global__ void ob_observe_kernel(const int32_t* __restrict__ game,
+                                  const int32_t* __restrict__ table, ge::BatchState s,
+                                  uint16_t* __restrict__ obs, uint8_t* __restrict__ legal,
+                                  uint8_t* __restrict__ actor, int64_t B, int R, int masked) {
+  extern __shared__ int32_t smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const ob::Table x = ob::table_view(table);
+  const ge::Game g = ge::game_view(game);
+  const ob::Stage st = ob::stage_of(smem, x, R);
+  const int64_t room0 = (int64_t)blockIdx.x * R;
+  ob::stage_seats(x, s, st, R, room0, B, tid, T);
+  __syncthreads();
+  ob::stage_counts(x, st, R, room0, B, tid, T);
+  __syncthreads();
+  ob::stage_features(x, g, s, st, legal, actor, R, room0, B, tid, T);
+  __syncthreads();
+  if (obs) ob::stage_obs(x, st, obs, R, room0, B, masked != 0, tid, T);
+}
+
+__global__ void ob_rewards_kernel(const int32_t* __restrict__ table, ge::BatchState s,
+                                  const uint8_t* __restrict__ ended, float* __restrict__ reward,
+                                  int64_t B) {
+  const ob::Table x = ob::table_view(table);
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= B * x.P) return;
+  const int64_t i = k / x.P;
+  const int p = (int)(k % x.P);
+  const int n = x.rw_mode == ob::RW_SCORE ? ob::count_present(x, s, i) : 0;
+  reward[k] = ob::reward_of(x, s, ended, i, p, n);
+}
+
+__global__ void ob_sample_kernel(const float* __restrict__ logits,
+                                 const uint8_t* __restrict__ legal,
+                                 const float* __restrict__ noise,
+                                 const uint8_t* __restrict__ actor, int32_t* __restrict__ actions,
+                                 int32_t* __restrict__ masked, float* __restrict__ logp,
+                                 int64_t rows, int A, int mode) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row < rows) ob::sample_row(logits, legal, noise, actor, actions, masked, logp, row, A, mode);
+}
+
+int64_t blocks_of(int64_t n, int threads) { return (n + threads - 1) / threads; }
+
+}  // namespace
+
+extern "C" {
+
+const char* ob_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// OB over B rooms: `game` the game blob and `table` ob_table's ints on the
+// card, `table_host` the same table on the host (it sizes the launch);
+// `state` the addresses of GameState's 15 tensors; obs (B, P, F) bf16
+// (16-byte aligned), legal (B, P, A) and actor (B, P) bool, any of them null
+// to skip it; masked: the game's information rules (1) or the full room (0).
+int ob_observe(const int32_t* game, const int32_t* game_host, const int32_t* table,
+               const int32_t* table_host, int table_len, const int64_t* state, uint16_t* obs,
+               uint8_t* legal, uint8_t* actor, int64_t B, int masked, void* stream) {
+  int R;
+  int64_t smem;
+  if (B <= 0 || !ob::plan_of(game_host, table_host, table_len, &R, &smem) ||
+      smem > ge::MAX_SHARED || ((uintptr_t)obs & 15))
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ob_observe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ob_observe_kernel<<<(unsigned)blocks_of(B, R), OB_THREADS, (size_t)smem,
+                      (cudaStream_t)stream>>>(game, table, ge::batch_state(state), obs, legal,
+                                              actor, B, R, masked);
+  return (int)cudaGetLastError();
+}
+
+// OB's second mode: reward (B, P) f32 of the rooms `ended` (B,) bool marks,
+// from the state after the step (before the reset).
+int ob_rewards(const int32_t* table, const int32_t* table_host, int table_len,
+               const int64_t* state, const uint8_t* ended, float* reward, int64_t B,
+               void* stream) {
+  if (B <= 0 || table_len < ob::HDR || table_host[ob::T_LEN] != table_len)
+    return (int)cudaErrorInvalidValue;
+  const int P = table_host[ob::T_P];
+  ob_rewards_kernel<<<(unsigned)blocks_of(B * P, SEAT_THREADS), SEAT_THREADS, 0,
+                      (cudaStream_t)stream>>>(table, ge::batch_state(state), ended, reward, B);
+  return (int)cudaGetLastError();
+}
+
+// SA over `rows` rows of A choices: logits f32, legal bool, noise f32 (mode
+// SA_UNIFORM: uniforms; SA_GUMBEL: Gumbel noise; SA_GREEDY: null), actor
+// bool or null; out: actions and masked int32, logp f32 (any may be null).
+int ob_sample(const float* logits, const uint8_t* legal, const float* noise,
+              const uint8_t* actor, int32_t* actions, int32_t* masked, float* logp,
+              int64_t rows, int A, int mode, void* stream) {
+  if (rows <= 0 || A < 1 || mode < ob::SA_UNIFORM || mode > ob::SA_GREEDY ||
+      (mode != ob::SA_GREEDY && noise == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ob_sample_kernel<<<(unsigned)blocks_of(rows, SEAT_THREADS), SEAT_THREADS, 0,
+                     (cudaStream_t)stream>>>(logits, legal, noise, actor, actions, masked, logp,
+                                             rows, A, mode);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -8,6 +8,16 @@ layout, parameter names and shapes, and bf16 cast points:
                      tanh gelu
   legal_action_mask  (B, P, A) bool
   sample_actions     Gumbel-max over the legal-masked logits
+  actor_mask         (B, P) bool, the seats whose decision this step counts
+  observe_all        observe, legal_action_mask and actor_mask of one state
+                     together
+
+observe, legal_action_mask, actor_mask, observe_all and sample_actions take
+CUDA tensors through the hand-written entries of csrc/observe.cu (OB for the
+observation and masks, SA for the draw; policies/obs_kernel.py), one launch
+each, and CPU tensors through the plain bodies (observe_plain,
+legal_action_mask_plain, actor_mask_plain, sample_actions_plain), which they
+equal bit for bit (logp within float rounding).
 
 A product of bf16 operands is computed as f32 on the bf16-rounded values:
 each product of two bf16 numbers is exact in f32 and the sum stays f32,
@@ -32,7 +42,7 @@ import torch.nn.functional as F
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.core.state import GameState, tables
-from game_engine_tpu_torch.core.step import _alive
+from game_engine_tpu_torch.core.step import PredEval, _alive
 
 _PRIVATE_RE = re.compile(r"\bprivate\b|\bhidden\b|\bsecret\b", re.IGNORECASE)
 _REVEAL_RE = re.compile(r"reveal", re.IGNORECASE)
@@ -163,9 +173,35 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None].long() == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def _on_card(state: GameState) -> bool:
+    return state.present.device.type == "cuda"
+
+
 def observe(lowered: Lowered, state: GameState, masked: bool = True) -> torch.Tensor:
     """(B, P, F) bfloat16 — each viewer sees the room through the game's
-    information rules (masked=True), or the full room (masked=False)."""
+    information rules (masked=True), or the full room (masked=False): OB on
+    CUDA tensors, observe_plain on the CPU."""
+    if _on_card(state):
+        from game_engine_tpu_torch.policies import obs_kernel as OK
+
+        return OK.kernel_observe(lowered, state, masked, legal=False, actor=False)[0]
+    return observe_plain(lowered, state, masked)
+
+
+def observe_all(lowered: Lowered, state: GameState, masked: bool = True, actor: bool = True):
+    """(observe, legal_action_mask, actor_mask or None without
+    `actor`) of one state: one OB launch on CUDA tensors, the plain
+    functions on the CPU."""
+    if _on_card(state):
+        from game_engine_tpu_torch.policies import obs_kernel as OK
+
+        return OK.kernel_observe(lowered, state, masked, actor=actor)
+    return (observe_plain(lowered, state, masked), legal_action_mask_plain(lowered, state),
+            actor_mask_plain(lowered, state) if actor else None)
+
+
+def observe_plain(lowered: Lowered, state: GameState, masked: bool = True) -> torch.Tensor:
+    """observe's plain torch body."""
     B, P = state.present.shape
     dev = state.present.device
     lay = lowered.game.layout
@@ -431,7 +467,17 @@ def apply_net(params: dict[str, Any], obs: torch.Tensor, cfg: NetConfig,
 # ---------------------------------------------------------------------------
 
 def legal_action_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
-    """(B, P, A) bool — which choices the engine would accept (P2)."""
+    """(B, P, A) bool — which choices the engine would accept (P2): OB on
+    CUDA tensors, legal_action_mask_plain on the CPU."""
+    if _on_card(state):
+        from game_engine_tpu_torch.policies import obs_kernel as OK
+
+        return OK.kernel_observe(lowered, state, obs=False, actor=False)[1]
+    return legal_action_mask_plain(lowered, state)
+
+
+def legal_action_mask_plain(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """legal_action_mask's plain torch body."""
     from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
 
     B, P = state.present.shape
@@ -456,16 +502,88 @@ def legal_action_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
     return mask.expand(B, P, A)
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+def actor_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """(B, P) — players whose decision this step is policy-relevant: OB on
+    CUDA tensors (one launch), actor_mask_plain on the CPU."""
+    if _on_card(state):
+        from game_engine_tpu_torch.policies import obs_kernel as OK
+
+        return OK.kernel_observe(lowered, state, obs=False, legal=False)[2]
+    return actor_mask_plain(lowered, state)
+
+
+def actor_mask_plain(lowered: Lowered, state: GameState) -> torch.Tensor:
+    """actor_mask's plain torch body."""
+    pe = PredEval(lowered, state)
+    target = torch.zeros_like(state.present)
+    by_pred: dict[int, list[int]] = {}
+    for i, pi in enumerate(lowered.phase_target_pred):
+        by_pred.setdefault(int(pi), []).append(i)
+    for pi, phase_idxs in by_pred.items():
+        hit = torch.zeros_like(state.done)
+        for i in phase_idxs:
+            hit = hit | (state.phase == i)
+        target = torch.where(hit[:, None], pe.pred(pi), target)
+    is_action = tables(lowered, state.present.device)["phase_is_action"][
+        state.phase.long()][:, None] != 0
+    return target & state.present & is_action & ~state.acted & ~state.done[:, None]
+
+
+def uniforms(shape, generator: torch.Generator, device, rows=None) -> torch.Tensor:
+    """torch.rand's f32 uniforms of `shape` from `generator`; with ``rows`` =
+    (first, end, total), drawn for `total` leading rows and sliced to
+    [first, end) (see sample_actions)."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    first, end, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator, dtype=torch.float32,
+                      device=device)[first:end]
+
+
+def gumbel_noise(shape, generator: torch.Generator, device, rows=None) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(U)), U uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    u = uniforms(shape, generator, device, rows)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
 
 def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
                    obs=None, apply_fn=None, gumbel=None,
-                   generator: torch.Generator | None = None, rows=None):
+                   generator: torch.Generator | None = None, rows=None, legal=None,
+                   actor=None):
+    """sample_actions_plain's draw (see there): on CUDA tensors the
+    observation and legal mask come from OB where not given and the draw is
+    SA, one launch on the logits and torch.rand's uniforms (the same stream
+    the plain path turns into Gumbel noise) or the given ``gumbel``. With
+    ``actor`` (B, P) bool, the actions returned are where(actor, actions,
+    0), written by the same launch."""
+    if not _on_card(state):
+        a, logp, value, mask = sample_actions_plain(lowered, params, state, cfg, obs, apply_fn,
+                                                    gumbel, generator, rows, legal)
+        return (a if actor is None else torch.where(actor, a, 0)), logp, value, mask
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    if obs is None or legal is None:
+        o, m, _ = OK.kernel_observe(lowered, state, obs=obs is None, legal=legal is None,
+                                    actor=False)
+        obs, legal = (o if obs is None else obs), (m if legal is None else legal)
+    if apply_fn is None:
+        logits, value = apply_net(params, obs, cfg, lowered)
+    else:
+        logits, value = apply_fn(params, obs)
+    if gumbel is None:
+        if generator is None:
+            raise ValueError("sample_actions needs gumbel noise or a generator")
+        noise, mode = uniforms(logits.shape, generator, logits.device, rows), "uniform"
+    else:
+        noise, mode = gumbel, "gumbel"
+    a, masked, logp = OK.kernel_sample(logits, legal, noise, actor, mode)
+    return (a if actor is None else masked), logp, value, legal
+
+
+def sample_actions_plain(lowered: Lowered, params, state: GameState, cfg: NetConfig,
+                         obs=None, apply_fn=None, gumbel=None,
+                         generator: torch.Generator | None = None, rows=None, legal=None):
     """Sample per-player choices: argmax(masked logits + Gumbel noise), which
     is how jax.random.categorical draws.
 
@@ -477,27 +595,31 @@ def sample_actions(lowered: Lowered, params, state: GameState, cfg: NetConfig,
     [first, end) of a batch of `total` split over ranks: the noise is
     drawn for the whole batch and this rank keeps its rows, so every split
     samples what one process over the whole batch samples (every rank's
-    generator is seeded alike)."""
+    generator is seeded alike). ``legal`` is the state's legal mask where
+    the caller has it."""
     if obs is None:
-        obs = observe(lowered, state)
+        obs = observe_plain(lowered, state)
     if apply_fn is None:
         logits, value = apply_net(params, obs, cfg, lowered)
     else:
         logits, value = apply_fn(params, obs)
-    mask = legal_action_mask(lowered, state)
-    logits = torch.where(mask, logits, -1e9)  # a scalar: no copy to the card
+    mask = legal_action_mask_plain(lowered, state) if legal is None else legal
     if gumbel is None:
         if generator is None:
             raise ValueError("sample_actions needs gumbel noise or a generator")
-        if rows is None:
-            gumbel = gumbel_noise(logits.shape, generator, logits.device)
-        else:
-            first, end, total = rows
-            gumbel = gumbel_noise((total,) + tuple(logits.shape[1:]), generator,
-                                  logits.device)[first:end]
+        gumbel = gumbel_noise(logits.shape, generator, logits.device, rows)
+    a, logp = draw_plain(logits, mask, gumbel)
+    return a, logp, value, mask
+
+
+def draw_plain(logits: torch.Tensor, legal: torch.Tensor, gumbel: torch.Tensor):
+    """The plain draw of sample_actions_plain (SA's plain version): (1-based
+    int32 argmax of the legal-masked logits plus the Gumbel noise, the
+    log-softmax of the masked logits there)."""
+    logits = torch.where(legal, logits, -1e9)  # a scalar: no copy to the card
     a = torch.argmax(logits + gumbel, dim=-1)  # (B, P) in [0, A)
     logp = torch.log_softmax(logits, dim=-1).gather(-1, a[..., None])[..., 0]
-    return (a + 1).to(torch.int32), logp, value, mask
+    return (a + 1).to(torch.int32), logp
 
 
 # ---------------------------------------------------------------------------

@@ -96,13 +96,17 @@ class PolicyBots:
                     raise ValueError(f"param {name} has shape "
                                      f"{tuple(self.params[name].shape)}, K2 needs {shape}")
 
+    def _logits(self, state: GameState) -> tuple[torch.Tensor, torch.Tensor]:
+        """((B, P, A) f32 logits, (B, P, A) legal mask): the observation and
+        the mask in one OB launch on the card."""
+        obs, mask, _ = N.observe_all(self.lowered, state, actor=False)
+        return self._forward(obs)[0], mask
+
     def masked_logits(self, state: GameState) -> tuple[torch.Tensor, torch.Tensor]:
         """((B, P, A) f32 logits with illegal choices at -1e9, (B, P, A)
         legal mask)."""
-        lw = self.lowered
         with torch.inference_mode():
-            logits, _ = self._forward(N.observe(lw, state))
-            mask = N.legal_action_mask(lw, state)
+            logits, mask = self._logits(state)
             return torch.where(mask, logits, torch.tensor(-1e9, dtype=logits.dtype,
                                                           device=logits.device)), mask
 
@@ -110,7 +114,14 @@ class PolicyBots:
         """(B, P) int32 greedy choices on the state's device: argmax over the
         legal-masked logits, 0 where the phase offers no legal choice.
         Deterministic — ties resolve to the lowest action index (the first
-        maximum, as jnp.argmax), so replay is exact."""
+        maximum, as jnp.argmax), so replay is exact. On the card the argmax
+        is SA's greedy mode (one launch); on the CPU first_argmax."""
+        if state.present.device.type == "cuda":
+            from game_engine_tpu_torch.policies import obs_kernel as OK
+
+            with torch.inference_mode():
+                logits, mask = self._logits(state)
+                return OK.kernel_sample(logits, mask, actor=state.present, mode="greedy")[1]
         logits, mask = self.masked_logits(state)
         a = first_argmax(logits).to(torch.int32) + 1
         return torch.where(mask.any(-1) & state.present, a, 0)

@@ -40,8 +40,8 @@ from game_engine_tpu_torch.gamespec.compile import compile_game
 from game_engine_tpu_torch.gamespec.parser import load_builtin
 from game_engine_tpu_torch.gamespec.tables import lower
 from game_engine_tpu_torch.policies import net as N
-from game_engine_tpu_torch.train.ppo import (PPOConfig, actor_mask, init_training,
-                                             make_apply_fn, reset_done, team_masks)
+from game_engine_tpu_torch.train.ppo import (PPOConfig, init_training, make_apply_fn,
+                                             reset_done, team_masks)
 from game_engine_tpu_torch.train.run import make_eval
 
 
@@ -51,8 +51,9 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
     -> (minority_wins, episodes) as host ints. The forward is
     ppo.make_apply_fn's (K2 with cfg.fused_net). Per step the minority's
     Gumbel draw comes before the majority's; ``noise[t]`` = (minority,
-    majority) noise (B, P, A) replaces the draws. The engine step and the
-    reset are ST's launches on the card."""
+    majority) noise (B, P, A) replaces the draws. On the card the
+    observation with its masks and the draws are OB's and SA's launches,
+    the engine step and the reset ST's."""
     apply_fn = make_apply_fn(lowered, cfg)
 
     @torch.no_grad()
@@ -60,15 +61,14 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
         wins = dones = 0
         for t in range(n_steps):
             g_min, g_maj = (None, None) if noise is None else noise[t]
-            obs = N.observe(lowered, state)
+            obs, legal, am = N.observe_all(lowered, state)
             a_min, _, _, _ = N.sample_actions(lowered, params_min, state, cfg.net, obs=obs,
                                               apply_fn=apply_fn, gumbel=g_min,
-                                              generator=generator)
+                                              generator=generator, legal=legal)
             a_maj, _, _, _ = N.sample_actions(lowered, params_maj, state, cfg.net, obs=obs,
                                               apply_fn=apply_fn, gumbel=g_maj,
-                                              generator=generator)
+                                              generator=generator, legal=legal)
             side = team_masks(lowered, state)
-            am = actor_mask(lowered, state)
             actions = torch.where(am & side, a_min, torch.where(am, a_maj, 0))
             nxt, ended = engine_step(lowered, state, actions)
             wins = wins + (ended & (nxt.winner == 1)).sum()

@@ -25,7 +25,7 @@ from game_engine_tpu_torch.core.engine import bot_actions, engine_step
 from game_engine_tpu_torch.core.state import GameState
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
-from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, _Clock, actor_mask, gae,
+from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, _Clock, gae,
                                              make_apply_fn, make_update, reset_done,
                                              team_masks, terminal_rewards)
 
@@ -119,8 +119,9 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
     comes before the opponent's. ``noise[t]`` = (learner, opponent) noise
     (B, P, A) replaces the draws (the opponent's is unused when scripted).
     ``apply_fn`` defaults to ppo.make_apply_fn: K2 with cfg.fused_net. The
-    engine step, the scripted opponent and the reset are ST's launches on
-    the card."""
+    observation with its masks, the draws and the rewards are OB's and SA's
+    launches on the card, the engine step, the scripted opponent and the
+    reset ST's."""
     if apply_fn is None:
         apply_fn = make_apply_fn(lowered, cfg)
 
@@ -129,18 +130,17 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
         steps, won = [], []
         for t in range(cfg.horizon):
             g_learn, g_opp = (None, None) if noise is None else noise[t]
-            obs = N.observe(lowered, state)
-            a, logp, v, legal = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
-                                                 apply_fn=apply_fn, gumbel=g_learn,
-                                                 generator=generator)
+            obs, legal, am = N.observe_all(lowered, state)
+            a, logp, v, _ = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
+                                             apply_fn=apply_fn, gumbel=g_learn,
+                                             generator=generator, legal=legal)
             if scripted_opponent:
                 oa = bot_actions(lowered, state)
             else:
                 oa, _, _, _ = N.sample_actions(lowered, opp_params, state, cfg.net, obs=obs,
                                                apply_fn=apply_fn, gumbel=g_opp,
-                                               generator=generator)
+                                               generator=generator, legal=legal)
             ctrl = learner_controls(lowered, state)
-            am = actor_mask(lowered, state)
             actions = torch.where(am & ctrl, a, torch.where(am, oa, 0))
             nxt, ended = engine_step(lowered, state, actions)
             reward = terminal_rewards(lowered, nxt, ended)

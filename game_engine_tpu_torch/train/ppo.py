@@ -7,8 +7,11 @@ whose action was relevant this step contribute to the policy loss;
 everyone contributes to the value loss.
 
 A train step unrolls T env steps with the learned policy (a Python loop
-over engine.engine_step and engine.reset_done: on the card one ST launch
-each, csrc/rollout.cu, where the JAX unroll scans its jitted XLA step),
+over net.observe_all, net.sample_actions, engine.engine_step,
+terminal_rewards and engine.reset_done: on the card one launch each of OB,
+SA (csrc/observe.cu), ST (csrc/rollout.cu), OB's reward mode and ST, with
+the forward and torch.rand between, where the JAX unroll scans its jitted
+XLA body),
 computes GAE, then runs `epochs` full-batch clipped-PPO updates with
 torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
 deepsets/attn net runs through the policy-net kernels (policies/fused.py):
@@ -53,9 +56,10 @@ from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
 from game_engine_tpu_torch.core.engine import engine_step, reset_done
 from game_engine_tpu_torch.core.state import GameState, tables
-from game_engine_tpu_torch.core.step import PredEval
 from game_engine_tpu_torch.parallel.mesh import data_sums
 from game_engine_tpu_torch.policies import net as N
+# the actor mask is a predicate over the state (P2), kept beside the legal mask
+from game_engine_tpu_torch.policies.net import actor_mask, actor_mask_plain  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +117,18 @@ def _team_codes(lowered: Lowered, go: LGameOver, device) -> torch.Tensor:
 
 
 def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
-    """(B, P) float32 rewards paid on the step an episode ends."""
+    """(B, P) float32 rewards paid on the step an episode ends: OB's reward
+    mode on CUDA tensors (one launch), terminal_rewards_plain on the CPU."""
+    if state.present.device.type == "cuda":
+        from game_engine_tpu_torch.policies import obs_kernel as OK
+
+        return OK.kernel_rewards(lowered, state, ended)
+    return terminal_rewards_plain(lowered, state, ended)
+
+
+def terminal_rewards_plain(lowered: Lowered, state: GameState,
+                           ended: torch.Tensor) -> torch.Tensor:
+    """terminal_rewards's plain torch body."""
     go = _game_over_mech(lowered)
     B, P = state.present.shape
     dev = state.present.device
@@ -134,23 +149,6 @@ def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) ->
     return torch.where(ended[:, None] & state.present, r, 0.0).to(torch.float32)
 
 
-def actor_mask(lowered: Lowered, state: GameState) -> torch.Tensor:
-    """(B, P) — players whose decision this step is policy-relevant."""
-    pe = PredEval(lowered, state)
-    target = torch.zeros_like(state.present)
-    by_pred: dict[int, list[int]] = {}
-    for i, pi in enumerate(lowered.phase_target_pred):
-        by_pred.setdefault(int(pi), []).append(i)
-    for pi, phase_idxs in by_pred.items():
-        hit = torch.zeros_like(state.done)
-        for i in phase_idxs:
-            hit = hit | (state.phase == i)
-        target = torch.where(hit[:, None], pe.pred(pi), target)
-    is_action = tables(lowered, state.present.device)["phase_is_action"][
-        state.phase.long()][:, None] != 0
-    return target & state.present & is_action & ~state.acted & ~state.done[:, None]
-
-
 class Rollout(NamedTuple):
     obs: torch.Tensor  # (T, B, P, F) bf16
     actions: torch.Tensor  # (T, B, P) 1-based
@@ -164,10 +162,10 @@ class Rollout(NamedTuple):
 
 def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """unroll(params, state, generator) -> (state, Rollout): cfg.horizon
-    steps of the learned policy. The engine step and the reset of done
-    rooms are engine.engine_step and engine.reset_done (ST on the card, two
-    launches a step: terminal_rewards reads the team strings between
-    them)."""
+    steps of the learned policy. On the card a step is OB (observation,
+    legal and actor masks), the forward, torch.rand, SA (the draw and the
+    actor-masked actions), ST's step, OB's rewards (the team strings
+    before the reset) and ST's reset."""
     apply_fn = (make_apply_fn(lowered, cfg, mesh)
                 if cfg.fused_net or _tensor_parallel(mesh) else None)
 
@@ -176,12 +174,10 @@ def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
         rows = None if mesh is None else mesh.room_rows(state.present.shape[0])
         steps = []
         for _ in range(cfg.horizon):
-            obs = N.observe(lowered, state)
-            a, logp, v, legal = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
-                                                 apply_fn=apply_fn, generator=generator,
-                                                 rows=rows)
-            mask = actor_mask(lowered, state)
-            actions = torch.where(mask, a, 0)
+            obs, legal, mask = N.observe_all(lowered, state)
+            actions, logp, v, _ = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
+                                                   apply_fn=apply_fn, generator=generator,
+                                                   rows=rows, legal=legal, actor=mask)
             nxt, ended = engine_step(lowered, state, actions)
             reward = terminal_rewards(lowered, nxt, ended)
             state = reset_done(lowered, nxt)

@@ -34,28 +34,28 @@ from game_engine_tpu_torch.gamespec.tables import Lowered, lower
 from game_engine_tpu_torch.core.engine import bot_actions, engine_step
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.policies import net as N
-from game_engine_tpu_torch.train.ppo import (PPOConfig, actor_mask, init_training,
-                                             make_optimizer, make_train_step,
-                                             reset_done, team_masks)
+from game_engine_tpu_torch.train.ppo import (PPOConfig, init_training, make_optimizer,
+                                             make_train_step, reset_done, team_masks)
 
 
 def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int = 256):
     """Cross-play: learned policy (plain apply_net) for one side, scripted
     for the other. Returns fn(params, state, generator) -> (wins_side,
-    done_count) as host ints. The engine step, the scripted side and the
-    reset are ST's launches on the card (engine.engine_step, bot_actions,
-    reset_done)."""
+    done_count) as host ints. On the card the observation with its masks
+    and the draw are OB's and SA's launches (net.observe_all,
+    sample_actions), the engine step, the scripted side and the reset ST's
+    (engine.engine_step, bot_actions, reset_done)."""
 
     @torch.no_grad()
     def run(params, state, generator):
         wins = dones = 0
         for _ in range(n_steps):
-            la, _, _, _ = N.sample_actions(lowered, params, state, cfg.net,
-                                           generator=generator)
+            obs, legal, am = N.observe_all(lowered, state)
+            la, _, _, _ = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
+                                           generator=generator, legal=legal)
             sa = bot_actions(lowered, state)
             side = team_masks(lowered, state)
             use_learned = side if learned_side else ~side
-            am = actor_mask(lowered, state)
             actions = torch.where(am & use_learned, la, torch.where(am, sa, 0))
             nxt, ended = engine_step(lowered, state, actions)
             wins = wins + (ended & (nxt.winner == 1)).sum()  # minority team / side 1
