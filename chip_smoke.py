@@ -51,9 +51,13 @@ Phases, one JSON line each:
                   at the module's defaults (4096 rooms x 1024 steps, the
                   median of 5 calls), one line a game
   engine_step     ST, the engine step entry (csrc/rollout.cu ge_step,
-                  ge_reset_done, ge_bots on GameState's own tensors), bit for
-                  bit against make_step (then torch.where over the keep
-                  mask), reset_where_done and scripted_actions: every
+                  ge_reset_done, ge_bots and ge_step_reset, the unroll's
+                  step, terminal rewards and reset in one launch, on
+                  GameState's own tensors), bit for bit against make_step
+                  (then torch.where over the keep mask), reset_where_done,
+                  scripted_actions and, for the fused entry, make_step,
+                  terminal_rewards_plain and reset_where_done (every
+                  field, ended, the winner, the rewards' bits): every
                   catalog game, born-done rooms, werewolf at 40 and 72 seats
                   (the wide build) and the 78-phase game, 1024 rooms of
                   mixed sizes x 16 steps each, on actions no bot emits (0,
@@ -61,30 +65,39 @@ Phases, one JSON line each:
                   extremes, any seat) mixed with the bots' and a keep mask;
                   every field, `ended` and the dtypes, the differences
                   and the largest |difference| counted on the card; then
-                  werewolf at 4096 x 6, 16,384 x 3 and 65,536 x 3 from
-                  rooms spread over its phases by K1, so that 32, 16 and 8
-                  lanes a room (the plan's picks for 8 seats) are each held
-                  (engine_step_check, each case with its lanes a room).
-                  Then its three entries' device ms at 4096 and 65,536
+                  werewolf at 4096 x 6, 8192 x 4, 16,384 x 3 and 65,536 x 3
+                  from rooms spread over its phases by K1, so that 32, 16
+                  and 8 lanes a room (the plan's picks for 8 seats) are
+                  each held (engine_step_check, each case with its lanes a
+                  room). Then its entries' device ms at 4096 and 65,536
                   werewolf rooms spread over the game's phases by K1 (each
                   launch queued behind a sleep kernel, CUDA events, median
                   of 5; and a call's span from an idle queue) beside the
-                  plain versions' alike, the timed calls' outputs held
-                  against the plain ones and their lanes a room against
-                  the checked launches', the step's host us a call and its
+                  plain versions' alike, the fused entry beside the step,
+                  OB's rewards and the reset as three launches, the timed
+                  calls' outputs held against the plain ones and their
+                  lanes a room against the checked launches', the host us
+                  a call (the step; the fused entry into a spare state, as
+                  the unrolls call it; the three launches), the step's
                   bound (the -DGE_COUNT host build's integer operations on
                   that step, or the state's bytes in and out), and the
-                  three wrappers under sync debug mode "error". ST's
-                  launches are counted by path (learner, train_narrow,
-                  large_rooms, serving, serve_search, eval_search, league,
-                  pipeline, matchup, multidevice, policy_bench, serve_chat;
-                  each must launch it); the pipeline phase names the line
+                  four wrappers under sync debug mode "error". ST's
+                  launches are counted by path and entry (learner,
+                  train_narrow, large_rooms, serving, serve_search,
+                  eval_search, league, pipeline, matchup, multidevice,
+                  policy_bench, serve_chat; each must launch it, and the
+                  unroll paths a step_reset and no reset or OB rewards
+                  launch of their own); the pipeline phase names the line
                   of every host wait of an unroll step, none in ST's
-                  wrappers. With --profile, unroll_split: one train-unroll
-                  step at 4096 rooms by op under torch.profiler (observe,
-                  sample_actions with K2, actor_mask, the engine step,
-                  terminal_rewards, the reset: launches, host and device
-                  ms), on the eager step and on ST
+                  wrappers. With --profile, entry_sections: ST's fused
+                  entry, step and reset and OB split by section of a block
+                  (the -DGE_PROFILE builds' clock64() marks) at 4096 and
+                  65,536 rooms; unroll_split: one train-unroll step at 4096
+                  rooms by op under torch.profiler (observe, sample_actions
+                  with K2, actor_mask, the engine step, terminal_rewards,
+                  the reset: launches, host and device ms), on the eager
+                  step, on ST and on the unroll as it runs (ST's
+                  step_reset)
   compare_policy  K2, K3 and K4 vs their plain versions on observations of
                   a werewolf trajectory collected on the card (4096 rooms),
                   for the attn checkpoint and a deepsets net at hidden 256
@@ -2733,7 +2746,7 @@ MD_CURVE = {"per_rank": 1024, "global_batch": ROOMS, "horizon": HORIZON, "epochs
             "roll_steps": STEPS, "net": {"hidden": 256, "arch": "attn"}, "seats": 6,
             "train_steps": 2}
 MD_KERNELS = ("rollout", "policy_forward", "policy_backward", "ppo_loss_grad", "engine_step",
-              "observe", "rewards", "sample")
+              "step", "reset_done", "bot_actions", "step_reset", "observe", "rewards", "sample")
 
 
 def md_spec(cfg, **extra) -> dict:
@@ -3580,10 +3593,11 @@ def train_chat_phase(gpu: str) -> int:
 ST_KERNELS = {"step_kernel": "ge_step_kernelILi1E", "step_kernel_wide": "ge_step_kernelILi8E"}
 ST_REPLACES = "game_engine_tpu/core/step.py:826"
 ST_CHECK = (1024, 16)      # rooms and steps of each case of engine_step's check
-# werewolf rooms and steps checked at the paths' larger batches: the plan gives
-# 8 seats 16 lanes a room at 4096 (the learner) and 8 at 16,384 (the policy
-# loop) and 65,536, where ST_CHECK's 1024 rooms get 32
-ST_CHECK_SIZES = ((4096, 6), (16384, 3), (65536, 3))
+# werewolf rooms and steps checked at the paths' larger batches, 4096 (the
+# learner), 16,384 (the policy loop) and 65,536, and at 8192, so that every
+# lanes a room the plan gives 8 seats (32, 16, 8 as the rooms grow; ST_CHECK's
+# 1024 rooms get 32) is held whatever the card's occupancy sets the steps at
+ST_CHECK_SIZES = ((4096, 6), (8192, 4), (16384, 3), (65536, 3))
 ST_SIZES = (4096, 65536)   # werewolf rooms of 8 where it is timed
 ST_REPS = 5                # timed calls a size (CUDA events, the median)
 # the paths that step rooms one at a time, each of which must launch ST
@@ -3592,13 +3606,16 @@ ST_PATHS = ("learner", "train_narrow", "train_curve", "large_rooms", "serving", 
             "serve_chat")
 UNROLL_GROUPS = ("observe", "sample_actions", "actor_mask", "engine_step", "terminal_rewards",
                  "reset")
+# the paths that unroll a learned policy: each step one ST step_reset launch
+UNROLL_PATHS = ("learner", "train_narrow", "train_curve", "league", "matchup", "policy_bench",
+                "pipeline", "multidevice")
 
 
 def st_wrappers() -> dict:
     from game_engine_tpu_torch.core import step_kernel as SK
 
     return {"step": SK.kernel_step, "reset_done": SK.kernel_reset_done,
-            "bot_actions": SK.kernel_bot_actions}
+            "bot_actions": SK.kernel_bot_actions, "step_reset": SK.kernel_step_reset}
 
 
 class STPaths:
@@ -3657,14 +3674,20 @@ def st_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) 
     rooms (of mixed sizes from init_state, or from `state`): the bots
     against scripted_actions; the step on step_cases.odd_actions with a
     keep mask against make_step then torch.where(keep), every field and
-    `ended`; the reset against reset_where_done. The differences are
-    counted on the card and read once; the launch's lanes a room are
-    recorded."""
+    `ended`; the fused step_reset on the same actions (into the last
+    step's spare state) against make_step, terminal_rewards_plain and
+    reset_where_done: every field, ended, the winner and the rewards' bits;
+    the reset against reset_where_done. The differences are counted on the
+    card and read once; the launch's lanes a room are recorded."""
     import numpy as np
     import torch
 
     from game_engine_tpu_torch.core import step_kernel as SK
-    from game_engine_tpu_torch.core.engine import reset_where_done, scripted_actions
+    from game_engine_tpu_torch.core.engine import (
+        reset_where_done,
+        scripted_actions,
+        terminal_rewards_plain,
+    )
     from game_engine_tpu_torch.core.state import init_state
     from game_engine_tpu_torch.core.step import make_step
     from game_engine_tpu_torch.utils.step_cases import odd_actions
@@ -3684,6 +3707,7 @@ def st_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) 
         d, e, same_kind = st_differences(got, ref)
         diff, err, dtypes_ok = diff + d, torch.maximum(err, e), dtypes_ok and same_kind
 
+    spare = None
     for t in range(steps):
         bots = SK.kernel_bot_actions(lw, state)
         count([bots], [scripted_actions(lw, state)])
@@ -3691,9 +3715,18 @@ def st_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) 
         keep = torch.as_tensor(rng.random(rooms) < 0.85, device="cuda")
         got, ended = SK.kernel_step(lw, state, actions, keep)
         ref = step(state, actions)
+        whole = ref
         ref = [torch.where(keep.reshape((-1,) + (1,) * (o.dim() - 1)), x, o)
                for x, o in zip(ref, state)]
         count(list(got) + [ended], ref + [ref[11] & ~state.done])
+        # the fused entry on the same actions, every room stepped, into a spare state
+        fused = SK.kernel_step_reset(lw, state, actions, rewards=True, out=spare)
+        whole_ended = whole.done & ~state.done
+        count(list(fused[0]) + [fused[1], fused[2], fused[3].view(torch.int32)],
+              list(reset_where_done(lw, whole)) + [
+                  whole_ended, whole.winner,
+                  terminal_rewards_plain(lw, whole, whole_ended).view(torch.int32)])
+        spare = fused[0]
         ended_n = ended_n + ended.sum()
         done_n = done_n + got.done.sum()
         fresh = SK.kernel_reset_done(lw, got)
@@ -3718,16 +3751,21 @@ def st_state(lw, rooms: int, steps: int = 200):
 
 
 def st_timing(lw, rooms: int, int32_rate: float) -> dict:
-    """ST's three entries and their plain versions at `rooms` werewolf rooms
-    of 8 spread over the game's phases. "ms" is an entry's device time
+    """ST's entries and their plain versions at `rooms` werewolf rooms of 8
+    spread over the game's phases: the step, the reset, the bots, the
+    fused step_reset (with rewards) and, beside it, the step, OB's rewards
+    and the reset as three launches. "ms" is an entry's device time
     (prefilled_ms: its launch queued behind a sleep kernel, CUDA events,
     median of ST_REPS) and "plain_ms" its plain version's, its kernels back
     to back, alike; "call_ms" and "plain_call_ms" a call's span on the
     card's clock from an idle queue, its host time included, as a caller
     waits for it (the eager step is host-bound). The timed calls' own
     outputs are held against the plain ones (the step's every field and
-    `ended`, the reset, the bots: "differences", "max_abs_err"). Also the
-    step's host us a call (the wrapper's own cost, no sync), the launch's
+    `ended`, the reset, the bots, the fused entry's state, ended, winner and
+    rewards, the three launches' too: "differences", "max_abs_err"). Also
+    the host us a call (the wrappers' own cost, no sync) of the step, of
+    the fused entry into a spare state (as the unrolls call it) and of the
+    three launches, the launch's
     lanes a room and the step's bound: the larger of the interpreter's
     integer operations (the -DGE_COUNT host build over this step) over the
     card's int32 rate and the bytes it must move (the state in and out,
@@ -3735,21 +3773,40 @@ def st_timing(lw, rooms: int, int32_rate: float) -> dict:
     import torch
 
     from game_engine_tpu_torch.core import step_kernel as SK
-    from game_engine_tpu_torch.core.engine import reset_where_done, scripted_actions
+    from game_engine_tpu_torch.core.engine import (
+        reset_where_done,
+        scripted_actions,
+        terminal_rewards_plain,
+    )
+    from game_engine_tpu_torch.core.entry_args import new_state
     from game_engine_tpu_torch.core.rollout_kernel import _game_arrays
     from game_engine_tpu_torch.core.state import GameState
     from game_engine_tpu_torch.core.step import make_step
+    from game_engine_tpu_torch.policies import obs_kernel as OK
 
     state = st_state(lw, rooms)
     actions = SK.kernel_bot_actions(lw, state)
     nxt, ended = SK.kernel_step(lw, state, actions)
     step = make_step(lw)
+
+    def three():  # the unroll's step, rewards and reset as three launches
+        n, e = SK.kernel_step(lw, state, actions)
+        return SK.kernel_reset_done(lw, n), e, OK.kernel_rewards(lw, n, e)
+
+    def plain_step_reset():
+        n = step(state, actions)
+        e = n.done & ~state.done
+        return reset_where_done(lw, n), e, n.winner, terminal_rewards_plain(lw, n, e)
+
     calls = {"": lambda: SK.kernel_step(lw, state, actions),
              "reset_": lambda: SK.kernel_reset_done(lw, nxt),
              "bots_": lambda: SK.kernel_bot_actions(lw, state),
+             "step_reset_": lambda: SK.kernel_step_reset(lw, state, actions, rewards=True),
+             "three_": three,
              "plain_": lambda: step(state, actions),
              "plain_reset_": lambda: reset_where_done(lw, nxt),
-             "plain_bots_": lambda: scripted_actions(lw, state)}
+             "plain_bots_": lambda: scripted_actions(lw, state),
+             "plain_step_reset_": plain_step_reset}
     out = {"rooms": rooms, "seats": 8, "done_rooms": int(nxt.done.sum()),
            "phases_held": int(torch.unique(state.phase).numel()),
            "lanes_per_room": SK.step_plan(lw, rooms, state.present.device)[0]}
@@ -3764,32 +3821,48 @@ def st_timing(lw, rooms: int, int32_rate: float) -> dict:
         out[name + "call_ms"] = span
         out[name + "ms"] = statistics.median(prefilled_ms(call, span) for _ in range(ST_REPS))
     (st_next, st_ended), plain_next = got[""], got["plain_"]
+    fused, plain_fused = got["step_reset_"], got["plain_step_reset_"]
     checks = [st_differences(list(st_next) + [st_ended],
                              list(plain_next) + [plain_next.done & ~state.done]),
               st_differences(got["reset_"], got["plain_reset_"]),
-              st_differences([got["bots_"]], [got["plain_bots_"]])]
+              st_differences([got["bots_"]], [got["plain_bots_"]]),
+              st_differences(list(fused[0]) + [fused[1], fused[2], fused[3].view(torch.int32)],
+                             list(plain_fused[0]) + [plain_fused[1], plain_fused[2],
+                                                     plain_fused[3].view(torch.int32)]),
+              st_differences(list(got["three_"][0]) + [got["three_"][1],
+                                                       got["three_"][2].view(torch.int32)],
+                             list(plain_fused[0]) + [plain_fused[1],
+                                                     plain_fused[3].view(torch.int32)])]
     out["differences"] = int(sum(d for d, _, _ in checks))
     out["max_abs_err"] = int(max(e for _, e, _ in checks))
     out["dtypes_ok"] = all(k for _, _, k in checks)
-    host = []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        SK.kernel_step(lw, state, actions)
-        host.append((time.perf_counter() - t0) * 1e6)
-    out["host_us_per_call"] = statistics.median(host)
+    spare = new_state(lw, rooms, state.present.device)
+    for name, call in (("", lambda: SK.kernel_step(lw, state, actions)),
+                       ("step_reset_", lambda: SK.kernel_step_reset(lw, state, actions, True,
+                                                                   out=spare)),
+                       ("three_", three)):
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e6)
+        out[name + "host_us_per_call"] = statistics.median(host)
     counts = SK.count_step(lw, GameState(*(t.cpu() for t in state)), actions.cpu())
     game, _ = _game_arrays(lw, state.present.device)
     moved = 2 * nbytes(*state) + nbytes(actions, ended, game)
     by_ops, by_bytes = counts["int_ops"] / int32_rate * 1e3, moved / PEAK_BYTES * 1e3
+    fused_moved = moved + nbytes(*fused[2:])
     out.update(interpreter_counts=counts, bytes_moved=moved, bound_ms_by_bytes=by_bytes,
                bound_ms_by_operations=by_ops,
-               bound=(by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes"))
+               bound=(by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes"),
+               step_reset_bytes_moved=fused_moved,
+               step_reset_bound_ms_by_bytes=fused_moved / PEAK_BYTES * 1e3)
     return out
 
 
 def st_sync_check(lw) -> dict:
-    """ST's three wrappers under torch's sync debug mode "error" on an
+    """ST's four wrappers under torch's sync debug mode "error" on an
     unroll's shapes (4096 rooms, after a warm-up that caches the tables and
     the plan): any host wait for the card raises."""
     import torch
@@ -3797,14 +3870,137 @@ def st_sync_check(lw) -> dict:
     from game_engine_tpu_torch.core import step_kernel as SK
 
     state = st_state(lw, ROOMS)
+    SK.kernel_step_reset(lw, state, SK.kernel_bot_actions(lw, state), rewards=True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        nxt, ended = SK.kernel_step(lw, state, SK.kernel_bot_actions(lw, state))
+        actions = SK.kernel_bot_actions(lw, state)
+        nxt, ended = SK.kernel_step(lw, state, actions)
         SK.kernel_reset_done(lw, nxt)
+        SK.kernel_step_reset(lw, state, actions, rewards=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return {"rooms": ROOMS, "sync_debug_mode": "error", "raised": False}
+
+
+def wide_state(lw, rooms: int, steps: int = 40):
+    """`rooms` full rooms of the game after `steps` steps of the scripted
+    rollout with auto-reset (K1)."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+
+    eng = BatchedEngine(lw, "cuda")
+    return eng.rollout(eng.init(rooms, lw.P, np.arange(rooms, dtype=np.uint32)), steps)[0]
+
+
+def st_plan_order_check() -> dict:
+    """A kernel's shared-memory limit outlives the plan that raised it: ST
+    planned for werewolf at 72 seats, then at 40 (a block of fewer bytes,
+    still past 48 KB), then launched on the 72-seat plan, the fused entry
+    held bit for bit against make_step, terminal_rewards_plain and
+    reset_where_done."""
+    import torch
+
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.core.engine import reset_where_done, terminal_rewards_plain
+    from game_engine_tpu_torch.core.step import make_step
+
+    w72, w40 = large_game(72), large_game(40)
+    state = wide_state(w72, ROOMS)
+    smem = [SK.step_plan(lw, ROOMS, state.present.device)[2] for lw in (w72, w40)]
+    if not 48 * 1024 < smem[1] < smem[0]:
+        raise AssertionError(f"ST's plans at 72 and 40 seats ask {smem} shared bytes: the "
+                             "order check needs two past 48 KB, the later one smaller")
+    actions = SK.kernel_bot_actions(w72, state)
+    got = SK.kernel_step_reset(w72, state, actions, rewards=True)
+    whole = make_step(w72)(state, actions)
+    ended = whole.done & ~state.done
+    diff, err, same_kind = st_differences(
+        list(got[0]) + [got[1], got[2], got[3].view(torch.int32)],
+        list(reset_where_done(w72, whole)) + [
+            ended, whole.winner, terminal_rewards_plain(w72, whole, ended).view(torch.int32)])
+    out = {"rooms": ROOMS, "shared_bytes_72_then_40": smem, "differences": int(diff),
+           "max_abs_err": int(err), "dtypes_ok": same_kind}
+    if out["differences"] or out["max_abs_err"] or not same_kind:
+        raise AssertionError(f"ST after a smaller plan differs from plain: {out}")
+    return out
+
+
+# planned in this order: at 72 seats a block of 16 rooms (146 KB) down to
+# 4096 rooms, then fewer rooms a block as the batch falls below ~2000
+OB_ORDER_BATCHES = (65536, 4096, 2048, 1792, 1536, 1280, 1152, 1024, 16)
+OB_ORDER_HELD = 1024  # rooms of ob_plan_order_check's launch held against plain
+
+
+def ob_plan_order_check() -> dict:
+    """As st_plan_order_check for OB: werewolf at 72 (else 40) seats
+    planned at each of OB_ORDER_BATCHES in turn (fewer rooms a block at
+    fewer rooms, so fewer bytes), then launched on the smallest batch whose
+    plan asked more bytes than a later plan past 48 KB, its first
+    OB_ORDER_HELD rooms held bit for bit against the plain observation and
+    masks (a room's rows depend on that room alone)."""
+    import torch
+
+    from game_engine_tpu_torch.core.state import GameState
+    from game_engine_tpu_torch.policies import net as N
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+    from game_engine_tpu_torch.train import ppo as P
+
+    for seats in LARGE_SEATS[::-1]:
+        lw = large_game(seats)
+        plans = [(n, *OK.observe_plan(lw, n, "cuda")) for n in OB_ORDER_BATCHES]
+        first = [n for i, (n, _, smem) in enumerate(plans)
+                 if any(48 * 1024 < later < smem for _, _, later in plans[i + 1:])]
+        if first:
+            break
+    else:
+        raise AssertionError(f"OB's plans ask no bytes past 48 KB below an earlier's: {plans}")
+    state = wide_state(lw, first[-1])
+    got = OK.kernel_observe(lw, state)
+    head = GameState(*(t[:OB_ORDER_HELD] for t in state))
+    diff, err, same_kind = ob_differences(
+        [x[:OB_ORDER_HELD] for x in got],
+        (N.observe_plain(lw, head, True), N.legal_action_mask_plain(lw, head),
+         P.actor_mask_plain(lw, head)))
+    out = {"seats": seats, "rooms": first[-1], "held_rooms": min(OB_ORDER_HELD, first[-1]),
+           "rooms_a_block_and_shared_bytes_by_batch": {str(n): [r, b] for n, r, b in plans},
+           "differences": int(diff), "max_abs_err": float(err), "dtypes_ok": same_kind}
+    del got, state
+    torch.cuda.empty_cache()
+    if out["differences"] or out["max_abs_err"] or not same_kind:
+        raise AssertionError(f"OB after a smaller plan differs from plain: {out}")
+    return out
+
+
+def state_check_us(lw, reps: int = 2000) -> dict:
+    """Host us of a call of entry_args.checked_state and state_addresses on
+    a ROOMS-room state, as every ST and OB call makes them: the state
+    remembered from the call before (the unrolls' case), and forgotten
+    before each call (the one-pass check over the fields alone)."""
+    import numpy as np
+
+    from game_engine_tpu_torch.core import entry_args as EA
+    from game_engine_tpu_torch.core.state import init_state
+
+    state = init_state(lw, ROOMS, 8, np.arange(ROOMS, dtype=np.uint32), device="cuda")
+
+    def call():
+        EA.checked_state(lw, state, "cuda", "x")
+        EA.state_addresses(lw, state, "cuda")
+
+    def forgotten():
+        EA._KNOWN.clear()
+        call()
+
+    out = {}
+    for name, fn in (("remembered_us", call), ("checked_us", forgotten)):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
 
 
 def engine_step_phase(gpu: str, int32_rate: float) -> dict:
@@ -3862,9 +4058,11 @@ def engine_step_phase(gpu: str, int32_rate: float) -> dict:
             raise AssertionError(f"engine step timed at {t['lanes_per_room']} lanes a room "
                                  f"({n} rooms), checked at {ww_lanes}")
     sync = st_sync_check(ww)
+    order = st_plan_order_check()
     emit({"phase": "engine_step", "timing": {str(k): {x: y for x, y in v.items() if x != "bound"}
                                              for k, v in timing.items()},
-          "sync_check": sync, "seconds": time.perf_counter() - t0, "gpu": gpu})
+          "sync_check": sync, "plan_order_check": order, "state_check": state_check_us(ww),
+          "seconds": time.perf_counter() - t0, "gpu": gpu})
     return {"timing": timing, "cases": len(results),
             "differences": sum(r["differences"] for r in results)
             + sum(t["differences"] for t in timing.values()),
@@ -4054,7 +4252,8 @@ def ob_timing(lw, rooms: int) -> dict:
              "sa_": lambda: OK.kernel_sample(logits, legal, u, actor),
              "plain_sa_": lambda: sa_plain(logits, legal, u, actor, state.present)[:3]}
     out = {"rooms": rooms, "seats": 8, "phases_held": int(torch.unique(state.phase).numel()),
-           "actors": int(actor.sum()), "episodes_ended": int(ended.sum())}
+           "actors": int(actor.sum()), "episodes_ended": int(ended.sum()),
+           "rooms_per_block": OK.observe_plan(lw, rooms, state.present.device)[0]}
     got = {}
     for name, call in calls.items():
         call()  # warm-up
@@ -4112,6 +4311,43 @@ def ob_sync_check(lw) -> dict:
     return {"rooms": ROOMS, "sync_debug_mode": "error", "raised": False}
 
 
+def entry_sections(gpu: str) -> dict:
+    """ST's and OB's device time split by section of a block (the
+    -DGE_PROFILE builds: a block's first thread reads clock64() after each
+    barrier and adds the cycles since the last mark), at ST_SIZES werewolf
+    rooms of 8 spread over the game's phases: ST's fused step_reset, its
+    step and its reset (step_kernel.ST_SECTIONS) on the bots' actions, and
+    the observation with both masks (obs_kernel.OB_SECTIONS). Each
+    section's share of the cycles summed over the blocks, the sums, and
+    the launches' lanes a room and rooms a block."""
+    from game_engine_tpu_torch.core import step_kernel as SK
+    from game_engine_tpu_torch.gamespec.compile import compile_game
+    from game_engine_tpu_torch.gamespec.parser import load_builtin
+    from game_engine_tpu_torch.gamespec.tables import lower
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    ww = lower(compile_game(load_builtin("werewolf")))
+    out = {}
+    for n in ST_SIZES:
+        state = st_state(ww, n)
+        actions = SK.kernel_bot_actions(ww, state)
+        nxt, _ = SK.kernel_step(ww, state, actions)
+        got = {}
+        for name, run in (("st_step_reset", lambda: SK.profile_step(ww, state, actions)),
+                          ("st_step", lambda: SK.profile_step(ww, state, actions, "step")),
+                          ("st_reset", lambda: SK.profile_step(ww, nxt, actions, "reset")),
+                          ("ob", lambda: OK.profile_observe(ww, state))):
+            run()  # warm-up: the build, the plan, the tables
+            cycles = run()
+            total = sum(cycles.values())
+            got[name] = {"cycles": cycles, "share": {k: v / total for k, v in cycles.items()}}
+        got["lanes_per_room"] = SK.step_plan(ww, n, state.present.device)[0]
+        got["ob_rooms_per_block"] = OK.observe_plan(ww, n, state.present.device)[0]
+        out[str(n)] = got
+    emit({"phase": "entry_sections", "by_rooms": out, "gpu": gpu})
+    return out
+
+
 def observe_step_phase(gpu: str) -> dict:
     """OB and SA against their plain versions on the card, bit for bit
     (logp within LOGP_TOL): every catalog game (OB_CHECK rooms x steps of
@@ -4158,8 +4394,10 @@ def observe_step_phase(gpu: str) -> dict:
         if not ob_agrees(t):
             raise AssertionError(f"OB's or SA's timed calls at {n} rooms differ from plain: {t}")
     sync = ob_sync_check(ww)
+    order = ob_plan_order_check()
     emit({"phase": "observe_step", "timing": {str(k): v for k, v in timing.items()},
-          "sync_check": sync, "seconds": time.perf_counter() - t0, "gpu": gpu})
+          "sync_check": sync, "plan_order_check": order,
+          "seconds": time.perf_counter() - t0, "gpu": gpu})
     checked = results + list(timing.values())
     return {"timing": timing, "cases": len(results),
             "differences": {e: sum(r["differences"][e] for r in checked) for e in OB_ENTRIES},
@@ -4264,8 +4502,9 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
     ops, as every path ran before OB and SA; "ob": the unroll as it runs
     now, net.observe_all (OB: the observation and both masks, so the
     actor_mask group is empty), sample_actions with the actor mask (K2,
-    torch.rand and SA), ST, terminal_rewards (OB's reward mode) and ST's
-    reset."""
+    torch.rand and SA) and ST's step_reset (the step, its rewards and the
+    reset in one launch, so the terminal_rewards and reset groups are
+    empty)."""
     import numpy as np
     import torch
 
@@ -4312,14 +4551,20 @@ def unroll_split(lowered, gpu: str, route: str, steps: int = 3) -> dict:
                 c["actions"] = torch.where(P.actor_mask_plain(lowered, c["st"]), c["a"], 0)
 
         def engine(c):
-            c["nxt"], c["ended"] = step(c["st"], c["actions"])
+            if route == "ob":  # the step, its rewards and the reset: one step_reset
+                res = E.step_and_reset(lowered, c["st"], c["actions"], rewards=True,
+                                       out=c.get("spare"))
+                c["spare"], c["st"] = c["st"], res.state
+            else:
+                c["nxt"], c["ended"] = step(c["st"], c["actions"])
 
         def rewards(c):
-            (P.terminal_rewards if route == "ob" else P.terminal_rewards_plain)(
-                lowered, c["nxt"], c["ended"])
+            if route != "ob":
+                P.terminal_rewards_plain(lowered, c["nxt"], c["ended"])
 
         def reset_(c):
-            c["st"] = reset(c["nxt"])
+            if route != "ob":
+                c["st"] = reset(c["nxt"])
 
         return list(zip(UNROLL_GROUPS, (observe, sample, mask, engine, rewards, reset_)))
 
@@ -4398,7 +4643,8 @@ def policy_split(gpu: str, steps: int = 8) -> dict:
     """A step of the policy loop (bench.py --policy's shape: 16,384 werewolf
     rooms of 8 after 128 steps, the mlp at hidden 256) split as
     split_step splits it: OB (observe_all), the mlp forward (apply_net,
-    eager torch), the draw (torch.rand and SA), ST's step and reset."""
+    eager torch), the draw (torch.rand and SA), ST's step_reset (the step
+    and the reset in one launch)."""
     import numpy as np
     import torch
 
@@ -4432,13 +4678,11 @@ def policy_split(gpu: str, steps: int = 8) -> dict:
             c["actions"] = OK.kernel_sample(c["logits"], c["legal"], u, c["actor"])[1]
 
         def engine(c):
-            c["nxt"], _ = E.engine_step(lw, c["st"], c["actions"])
-
-        def reset(c):
-            c["st"] = E.reset_done(lw, c["nxt"])
+            res = E.step_and_reset(lw, c["st"], c["actions"], out=c.get("spare"))
+            c["spare"], c["st"] = c["st"], res.state
 
         return [("observe", observe), ("forward", forward), ("draw", draw),
-                ("engine_step", engine), ("reset", reset)]
+                ("engine_step", engine)]
 
     return {"rooms": rooms, **split_step(ops, {"st": state}, steps), "gpu": gpu}
 
@@ -4628,6 +4872,8 @@ def main(argv=()) -> int:
     bg_launches = bench_games_phase(gpu)
     st = engine_step_phase(gpu, int32_ops_per_s())
     ob = observe_step_phase(gpu)
+    if profiled:  # ST's and OB's block time by section
+        entry_sections(gpu)
     paths = STPaths()
 
     # -- the learner: K2-K4 vs plain at full width, then its main path -------
@@ -4715,8 +4961,9 @@ def main(argv=()) -> int:
                "large_rooms": {"search_decide": large["search_decide"]["launches"], "search": 0}}
     s_by_path = {e: {path: got[e] for path, got in s_paths.items()} for e in SEARCH_ENTRIES}
     st_by_entry = paths.entries(st_wrappers())
+    for entry in st_wrappers():  # the ranks' own launches
+        st_by_entry["multidevice"][entry] += multi[entry]
     st_by_path = {path: sum(got.values()) for path, got in st_by_entry.items()}
-    st_by_path["multidevice"] += multi["engine_step"]  # the ranks' own launches
     idle = [path for path in ST_PATHS if not st_by_path.get(path)]
     if idle:
         raise AssertionError(f"ST was not launched on {idle}: {st_by_entry}")
@@ -4731,6 +4978,12 @@ def main(argv=()) -> int:
             if not ob_by_path[name].get(path)]
     if idle:
         raise AssertionError(f"OB or SA was not launched on {idle}: {ob_by_entry}")
+    # an unroll step is one step_reset launch: no reset or rewards launch of its own
+    apart = {path: (st_by_entry[path]["reset_done"], ob_by_entry[path]["rewards"])
+             for path in UNROLL_PATHS}
+    if any(apart[path] != (0, 0) or not st_by_entry[path]["step_reset"] for path in apart):
+        raise AssertionError(f"an unroll path launched the reset or the rewards apart, or no "
+                             f"step_reset: {apart}, {st_by_entry}")
     ob_line = ob["timing"][OB_SIZES[0]]
     ob_shape = {"game": "werewolf", "rooms": OB_SIZES[0], "seats": 8}
     emit({"kernels": [{
@@ -4748,7 +5001,7 @@ def main(argv=()) -> int:
         "replaces": ST_REPLACES,
         "replaces_kind": "XLA's jitted step (jit_step), jitted bots and the unroll's reset, "
                          "no pallas_call site",
-        "entries": ["ge_step", "ge_reset_done", "ge_bots"],
+        "entries": ["ge_step", "ge_reset_done", "ge_bots", "ge_step_reset"],
         "launches": sum(st_by_path.values()), "launches_by_path": st_by_path,
         "launches_by_entry_and_path": st_by_entry,
         "max_abs_err": st["max_abs_err"], "differences": st["differences"],
@@ -4756,6 +5009,13 @@ def main(argv=()) -> int:
         "ms": st_line["ms"], "plain_ms": st_line["plain_ms"], "call_ms": st_line["call_ms"],
         "plain_call_ms": st_line["plain_call_ms"], "bound_ms": st_line["bound"][0],
         "bound_by": st_line["bound"][1], "library_ms": None,
+        "host_us": st_line["host_us_per_call"],
+        "step_reset_ms": st_line["step_reset_ms"],
+        "step_reset_plain_ms": st_line["plain_step_reset_ms"],
+        "step_reset_host_us": st_line["step_reset_host_us_per_call"],
+        "step_reset_bound_ms": st_line["step_reset_bound_ms_by_bytes"],
+        "three_launches_ms": st_line["three_ms"],
+        "three_launches_host_us": st_line["three_host_us_per_call"],
         "library_ms_none_because": "no PyTorch call steps the game's interpreter",
         "by_rooms": {str(k): {x: y for x, y in v.items() if x not in (
             "bound", "interpreter_counts")} for k, v in st["timing"].items()},

@@ -38,10 +38,14 @@ _F = ctypes.c_float
 # auto_reset
 _ROLLOUT_ARGS = [_P] * 9 + [_I64, _I, _I]
 # ST: state (15 addresses), actions, B; state, out, actions, keep, ended, B;
-# state, out, B
+# state, out, B; state, out, actions, ended, winner, reward, rw_mode,
+# rw_team_slot, codes, n_codes, B
 _BOTS_ARGS = [_P, _P, _I64]
 _STEP_ARGS = [_P, _P, _P, _P, _P, _I64]
 _RESET_ARGS = [_P, _P, _I64]
+_STEP_RESET_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I64]
+_ST_ENTRIES = (("ge_bots", _BOTS_ARGS), ("ge_step", _STEP_ARGS),
+               ("ge_reset_done", _RESET_ARGS), ("ge_step_reset", _STEP_RESET_ARGS))
 # bools, nums, strs, pdict, odict, present, regs, scal, B, req, n_req, rollouts,
 # horizon, mode, team_slot, team_codes, n_codes, totals
 _SEARCH_ARGS = [_P] * 8 + [_I64, _P, _I64, _I, _I, _I, _I, _P, _I, _P]
@@ -185,12 +189,14 @@ def _rollout_lib(profile: bool) -> ctypes.CDLL:
     entry.argtypes = [_P, _P, _I] + _ROLLOUT_ARGS + [_I] + [_P] * profile + [_P]
     lib.ge_step_plan.restype = _I
     lib.ge_step_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, game_len, B, threads, out
-    for name, args in (("ge_bots", _BOTS_ARGS), ("ge_step", _STEP_ARGS),
-                       ("ge_reset_done", _RESET_ARGS)):
+    for name, args in _ST_ENTRIES:
         fn = getattr(lib, name)
         fn.restype = _I
         # game on the device, game on the host, game_len, ..., G, threads, smem, stream
         fn.argtypes = [_P, _P, _I] + args + [_I, _I, _I64, _P]
+    if profile:
+        lib.ge_step_sections.restype = None
+        lib.ge_step_sections.argtypes = [_P]  # prof on the device, or null
     return lib
 
 
@@ -214,11 +220,10 @@ def _host_rollout_lib(stem: str, flags: list) -> ctypes.CDLL:
         os.path.join(_CSRC, "rollout_host.cpp"), stem, _GXX_CMD + flags)])[0]))
     lib.ge_rollout_host.restype = _I
     lib.ge_rollout_host.argtypes = [_P, _I] + _ROLLOUT_ARGS  # game, game_len, ...
-    for name, args in (("ge_bots_host", _BOTS_ARGS), ("ge_step_host", _STEP_ARGS),
-                       ("ge_reset_done_host", _RESET_ARGS)):
-        fn = getattr(lib, name)
+    for name, args in _ST_ENTRIES:
+        fn = getattr(lib, name + "_host")
         fn.restype = _I
-        fn.argtypes = [_P, _I] + args  # game, game_len, ...
+        fn.argtypes = [_P, _I] + args + [_I]  # game, game_len, ..., rooms a block
     return lib
 
 
@@ -394,16 +399,22 @@ def chat_decode_host_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def observe_lib() -> ctypes.CDLL:
-    """csrc/observe.cu (OB, the observation entry, and SA, the sampling
-    entry) built with nvcc for sm_90a, loaded."""
-    lib = ctypes.CDLL(_compile_all([_cuda_jobs()[4]])[0])
+def _observe_cuda(profile: bool) -> ctypes.CDLL:
+    job = _cuda_jobs()[4]
+    if profile:
+        job = (job[0], "libobserve_profile", job[2] + ["-DGE_PROFILE"])
+    lib = ctypes.CDLL(_compile_all([job])[0])
+    if profile:
+        lib.ob_observe_sections.restype = None
+        lib.ob_observe_sections.argtypes = [_P]  # prof on the device, or null
     lib.ob_error_string.restype = ctypes.c_char_p
     lib.ob_error_string.argtypes = [_I]
+    lib.ob_plan.restype = _I
+    lib.ob_plan.argtypes = [_P, _P, _I, _I64, _P]  # game, table on the host, len, B, out
     lib.ob_observe.restype = _I
-    # game on the device and the host, table on the device and the host, len, ..., stream
-    lib.ob_observe.argtypes = [_P, _P, _P, _P, _I] + _OB_ARGS + [_P]
+    # game on the device and the host, table on the device and the host, len, ..., R, smem,
+    # stream
+    lib.ob_observe.argtypes = [_P, _P, _P, _P, _I] + _OB_ARGS + [_I, _I64, _P]
     lib.ob_rewards.restype = _I
     lib.ob_rewards.argtypes = [_P, _P, _I] + _OB_REWARD_ARGS + [_P]  # table x2, len, ..., stream
     lib.ob_sample.restype = _I
@@ -412,12 +423,27 @@ def observe_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def observe_lib() -> ctypes.CDLL:
+    """csrc/observe.cu (OB, the observation entry, and SA, the sampling
+    entry) built with nvcc for sm_90a, loaded."""
+    return _observe_cuda(False)
+
+
+@functools.lru_cache(maxsize=None)
+def observe_profile_lib() -> ctypes.CDLL:
+    """csrc/observe.cu built with -DGE_PROFILE: OB's launches also sum
+    their block sections' clock cycles (ob_observe_sections). A measuring
+    tool; the paths run observe_lib()."""
+    return _observe_cuda(True)
+
+
+@functools.lru_cache(maxsize=None)
 def observe_host_lib() -> ctypes.CDLL:
     """csrc/observe_host.cpp (OB's and SA's bodies) built with g++."""
     lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "observe_host.cpp"), "libobserve_host",
                                      _GXX_CMD)])[0])
     lib.ob_observe_host.restype = _I
-    lib.ob_observe_host.argtypes = [_P, _P, _I] + _OB_ARGS  # game, table, len, ...
+    lib.ob_observe_host.argtypes = [_P, _P, _I] + _OB_ARGS + [_I]  # game, table, len, ..., R
     lib.ob_rewards_host.restype = _I
     lib.ob_rewards_host.argtypes = [_P, _I] + _OB_REWARD_ARGS  # table, len, ...
     lib.ob_sample_host.restype = _I

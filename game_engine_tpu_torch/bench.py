@@ -57,24 +57,26 @@ def policy_steps(lowered, params, cfg, state, n_steps: int, generator=None, gumb
     actions (argmax of logits + Gumbel noise, jax.random.categorical's
     draw), keeps the actors' (actor_mask), steps the engine, counts fresh
     completions (nxt.done & ~st.done) and restarts the rooms that are done
-    (on the card: OB, the forward, SA, then ST's step and restart). The
+    (on the card: OB, the forward, SA, then ST's step_reset, one launch for
+    the step and the restart). The
     noise is gumbel[t] at step t when given (JAX's own draws in a test),
     else drawn from `generator`."""
     import torch
 
-    from game_engine_tpu_torch.core.engine import engine_step, reset_done
+    from game_engine_tpu_torch.core.engine import step_and_reset
     from game_engine_tpu_torch.policies import net as N
 
     episodes = torch.zeros((), dtype=torch.int64, device=state.present.device)
+    spare = None
     with torch.no_grad():
         for t in range(n_steps):
             obs, legal, am = N.observe_all(lowered, state)
             actions, _, _, _ = N.sample_actions(lowered, params, state, cfg, obs=obs,
                                                 generator=generator, legal=legal, actor=am,
                                                 gumbel=None if gumbel is None else gumbel[t])
-            nxt, ended = engine_step(lowered, state, actions)
-            episodes = episodes + ended.sum()
-            state = reset_done(lowered, nxt)
+            nxt = step_and_reset(lowered, state, actions, out=spare)
+            episodes = episodes + nxt.ended.sum()
+            spare, state = (state if t else None), nxt.state
     return state, episodes
 
 

@@ -11,18 +11,24 @@ one step, the reset of done rooms and the scripted bots, which the JAX
 package jits once (its ``jit_step`` and jitted bots): CUDA tensors go
 through the engine step entry ST (core/step_kernel.py, one launch each),
 CPU tensors through the plain ``make_step``, ``reset_where_done`` and
-``scripted_actions``. Every path that steps rooms one step at a time (the
-train, league, evaluation and policy-loop unrolls, the server) calls them.
+``scripted_actions``. ``step_and_reset`` is an unroll's step: the step,
+what the caller reads of the stepped rooms (ended, winner, the terminal
+rewards) and the restart of the rooms it ended, one ST launch on the card
+where the plain path composes make_step, ``terminal_rewards_plain`` and
+reset_where_done. The train, league, evaluation and policy-loop unrolls
+call it; the server and the search call the others.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.mechanics import ChoiceKind
-from game_engine_tpu_torch.gamespec.tables import Lowered
+from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
 from game_engine_tpu_torch.core.state import M32, GameState, init_state, tables
 from game_engine_tpu_torch.core.step import (
     GOLDEN,
@@ -94,6 +100,42 @@ def reset_where_done(lowered: Lowered, state: GameState) -> GameState:
     return _where_rooms(state.done, fresh, state)
 
 
+def _game_over_mech(lowered: Lowered) -> LGameOver | None:
+    return lowered.game_overs[0] if lowered.game_overs else None
+
+
+def _team_codes(lowered: Lowered, go: LGameOver, device) -> torch.Tensor:
+    """The game-over mechanic's team codes on `device`, copied there once
+    and cached with the game's tables."""
+    tabs = tables(lowered, device)
+    if "team_codes" not in tabs:
+        tabs["team_codes"] = torch.as_tensor(np.asarray(go.team_codes, np.int32), device=device)
+    return tabs["team_codes"]
+
+
+def terminal_rewards_plain(lowered: Lowered, state: GameState,
+                           ended: torch.Tensor) -> torch.Tensor:
+    """terminal_rewards's plain torch body."""
+    go = _game_over_mech(lowered)
+    B, P = state.present.shape
+    dev = state.present.device
+    if go is None:
+        return torch.zeros((B, P), dtype=torch.float32, device=dev)
+    if go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
+        team = state.strs[..., go.team_str_slot].to(torch.int32)
+        codes = _team_codes(lowered, go, dev)
+        win_code = codes[(state.winner - 1).clamp(0, len(go.team_codes) - 1).long()]
+        r = torch.where(team == win_code[:, None], 1.0, -1.0)
+    elif go.mode == "score":
+        pidx = torch.arange(1, P + 1, dtype=torch.int32, device=dev)[None, :]
+        # zero-sum per room: losers split -1 across the room's actual seats
+        n = state.present.sum(1).to(torch.float32)[:, None]
+        r = torch.where(pidx == state.winner[:, None], 1.0, -1.0 / (n - 1).clamp_min(1))
+    else:
+        r = torch.zeros((B, P), dtype=torch.float32, device=dev)
+    return torch.where(ended[:, None] & state.present, r, 0.0).to(torch.float32)
+
+
 def _where_rooms(rooms: torch.Tensor, new: GameState, old: GameState) -> GameState:
     """`new`'s rooms where `rooms` (B,) holds, `old`'s elsewhere."""
     return GameState(*(torch.where(rooms.reshape((-1,) + (1,) * (o.dim() - 1)), n, o)
@@ -132,6 +174,37 @@ def engine_step(lowered: Lowered, state: GameState, actions, keep=None):
     if keep is not None:
         new = _where_rooms(keep, new, state)
     return new, new.done & ~state.done
+
+
+class StepReset(NamedTuple):
+    """What step_and_reset gives an unroll."""
+
+    state: GameState  # after the step, the rooms it ended restarted
+    ended: torch.Tensor  # (B,) bool: done after the step and not before
+    winner: torch.Tensor  # (B,) int32: the stepped rooms' winner (0 before the end)
+    reward: torch.Tensor | None  # (B, P) f32 terminal rewards, with rewards=True
+
+
+def step_and_reset(lowered: Lowered, state: GameState, actions, rewards: bool = False,
+                   out: GameState | None = None) -> StepReset:
+    """One engine step on (B, P) actions (converted to int32 as
+    engine_step converts them), then the restart of the rooms that are
+    done: (state, ended, the stepped winner, with `rewards` the terminal
+    rewards of the stepped state). CUDA tensors: one ST launch
+    (step_kernel.kernel_step_reset), writing into `out` when given (a state
+    of the same rooms that the caller is done with); CPU tensors:
+    make_step, terminal_rewards_plain and reset_where_done (`out` unused)."""
+    kind = _device_of(state)
+    if not (isinstance(actions, torch.Tensor) and actions.dtype == _I32
+            and actions.device == state.present.device):
+        actions = torch.as_tensor(actions, device=state.present.device).to(_I32)
+    if kind == "cuda":
+        from game_engine_tpu_torch.core.step_kernel import kernel_step_reset
+
+        return StepReset(*kernel_step_reset(lowered, state, actions, rewards, out))
+    nxt, ended = engine_step(lowered, state, actions)
+    reward = terminal_rewards_plain(lowered, nxt, ended) if rewards else None
+    return StepReset(reset_where_done(lowered, nxt), ended, nxt.winner, reward)
 
 
 def reset_done(lowered: Lowered, state: GameState) -> GameState:

@@ -116,12 +116,14 @@ def block_size(lowered: Lowered, threads: int = 128, lib=None) -> dict:
     seat's lane holds in shared memory; "threads", the largest of `threads`,
     `threads` / 2, ... down to one warp whose block fits (0: none does);
     "shared_bytes", that block's game array and words (one warp's when none
-    fits); "max_shared_bytes", the most a block can have."""
+    fits); "max_shared_bytes", the most a block can have; "st_threads" and
+    "st_shared_bytes", the same two for the engine step entry's block
+    (core/step_kernel.py), which also stages its rooms' fields."""
     gm = np.ascontiguousarray(game_array(lowered))
-    out = np.zeros(4, np.int64)
+    out = np.zeros(6, np.int64)
     (lib or _build.host_lib()).ge_size(gm.ctypes.data, len(gm), threads, out.ctypes.data)
-    return dict(zip(("words_per_lane", "threads", "shared_bytes", "max_shared_bytes"),
-                    (int(x) for x in out)))
+    return dict(zip(("words_per_lane", "threads", "shared_bytes", "max_shared_bytes",
+                     "st_threads", "st_shared_bytes"), (int(x) for x in out)))
 
 
 def _cond_nodes(cond) -> int:
@@ -133,10 +135,11 @@ def _cond_nodes(cond) -> int:
 def check_game(lowered: Lowered, lib=None) -> None:
     """Raise ValueError for a game the rollout kernel's design cannot hold:
     more seats than a seat set's words hold, or rooms too large for a
-    one-warp block's shared memory (`lib`: the library whose sizing is
-    asked, see block_size). Phases and branch conditions are sized to the
-    game: the blob's phase masks take the words they need (pack.py), a
-    condition's stack the room's words (room_step.cuh)."""
+    one-warp block's shared memory, the engine step entry's (which also
+    stages the rooms' fields) as well as the rollout's (`lib`: the library
+    whose sizing is asked, see block_size). Phases and branch conditions
+    are sized to the game: the blob's phase masks take the words they need
+    (pack.py), a condition's stack the room's words (room_step.cuh)."""
     if lowered.P > MAX_SEATS:
         raise ValueError(f"game needs P={lowered.P} seats; the rollout kernel keeps a "
                          f"room's seat sets in {MAX_SEATS // 32} words, P <= {MAX_SEATS}")
@@ -145,6 +148,10 @@ def check_game(lowered: Lowered, lib=None) -> None:
         raise ValueError(f"game needs {size['shared_bytes']} bytes of shared memory for a "
                          f"block of {MIN_THREADS} lanes ({size['words_per_lane']} words a "
                          f"lane); a block can have <= {size['max_shared_bytes']}")
+    if size["st_threads"] == 0:
+        raise ValueError(f"game needs {size['st_shared_bytes']} bytes of shared memory for an "
+                         f"engine step block of {MIN_THREADS} lanes (its words and its rooms' "
+                         f"fields); a block can have <= {size['max_shared_bytes']}")
 
 
 def _game_arrays(lowered: Lowered, device) -> tuple:

@@ -24,17 +24,23 @@ struct Plan {
 // room would still hold a warp slot of the card at once, its group is
 // doubled and the spare lanes idle: a warp of fewer rooms runs fewer phases one after another, and a
 // call of few rooms is bound by that latency, not by lanes.
-inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int threads) {
-  Plan p{fit_threads(g, game_len, threads), group_lanes(g.P), 0, 0, cudaSuccess};
+// `staged`: the block also stages its rooms (ST, st_shared_bytes), sized
+// for the most rooms a block can have while the group is chosen, then for
+// the group's. The kernel's shared-memory limit is raised to the most a
+// block can have, not to this plan's bytes, so that a later plan (another
+// batch or game) never lowers it under the blocks of one a caller cached.
+inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int threads,
+                 bool staged = false) {
+  Plan p{fit_threads(g, game_len, threads, staged), group_lanes(g.P), 0, 0, cudaSuccess};
   if (p.threads == 0) {  // not even one warp's rooms fit
     p.err = cudaErrorInvalidValue;
     return p;
   }
   threads = p.threads;
-  p.smem = (size_t)shared_bytes(g, game_len, threads);
+  p.smem = (size_t)block_bytes(g, game_len, threads, staged);
   if (p.smem > 48 * 1024)
     p.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)p.smem);
+                                 (int)MAX_SHARED);
   int dev = 0, sms = 0;
   if (p.err == cudaSuccess) p.err = cudaGetDevice(&dev);
   if (p.err == cudaSuccess)
@@ -44,6 +50,10 @@ inline Plan plan(const void* kernel, const Game& g, int game_len, int64_t n, int
   if (p.err != cudaSuccess) return p;
   const int64_t warp_slots = (int64_t)sms * p.held * (threads / 32);
   while (p.G < MAX_GROUP && n * (2 * p.G) / 32 <= warp_slots) p.G *= 2;
+  if (staged && p.G > group_lanes(g.P)) {  // fewer rooms a block: less staging
+    p.smem = (size_t)st_shared_bytes(g, game_len, threads, p.G);
+    p.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.held, kernel, threads, p.smem);
+  }
   return p;
 }
 

@@ -12,7 +12,8 @@
 //
 // ob_observe: one launch writes the (B, P, F) bf16 observation (masked or
 // full view), the (B, P, A) legal mask and the (B, P) actor mask of B rooms
-// of GameState's own tensors; blocks of R rooms, 256 threads (observe.cuh).
+// of GameState's own tensors; blocks of R rooms (ob_plan), 256 threads, the
+// block body observe.cuh's ob_block.
 // ob_rewards: the (B, P) f32 terminal rewards of the rooms a step ended, a
 // seat a thread. ob_sample: SA, a row a thread.
 //
@@ -27,26 +28,22 @@
 namespace {
 
 constexpr int OB_THREADS = 256;
+constexpr int OB_MIN_BLOCKS = 4;  // registers for 4 blocks an SM: 32 warps
 constexpr int SEAT_THREADS = 256;
 
-__global__ void ob_observe_kernel(const int32_t* __restrict__ game,
-                                  const int32_t* __restrict__ table, ge::BatchState s,
-                                  uint16_t* __restrict__ obs, uint8_t* __restrict__ legal,
-                                  uint8_t* __restrict__ actor, int64_t B, int R, int masked) {
-  extern __shared__ int32_t smem[];
-  const int tid = threadIdx.x, T = blockDim.x;
-  const ob::Table x = ob::table_view(table);
-  const ge::Game g = ge::game_view(game);
-  const ob::Stage st = ob::stage_of(smem, x, R);
-  const int64_t room0 = (int64_t)blockIdx.x * R;
-  ob::stage_seats(x, s, st, R, room0, B, tid, T);
-  __syncthreads();
-  ob::stage_counts(x, st, R, room0, B, tid, T);
-  __syncthreads();
-  ob::stage_features(x, g, s, st, legal, actor, R, room0, B, tid, T);
-  __syncthreads();
-  if (obs) ob::stage_obs(x, st, obs, R, room0, B, masked != 0, tid, T);
+__global__ void __launch_bounds__(OB_THREADS, OB_MIN_BLOCKS)
+    ob_observe_kernel(ob::ObLaunch l, const int32_t* __restrict__ game,
+                      const int32_t* __restrict__ table, ge::BatchState s,
+                      uint16_t* __restrict__ obs, uint8_t* __restrict__ legal,
+                      uint8_t* __restrict__ actor, int64_t B, int masked, long long* prof) {
+  extern __shared__ int4 smem[];
+  ob::ob_block(l, game, table, s, obs, legal, actor, B, (int64_t)blockIdx.x * l.R, masked != 0,
+               smem, threadIdx.x, blockDim.x, prof);
 }
+
+// -DGE_PROFILE: OB's launches add their block sections' cycles here
+// (ob_observe_sections); null otherwise
+long long* ob_prof = nullptr;
 
 __global__ void ob_rewards_kernel(const int32_t* __restrict__ table, ge::BatchState s,
                                   const uint8_t* __restrict__ ended, float* __restrict__ reward,
@@ -56,7 +53,7 @@ __global__ void ob_rewards_kernel(const int32_t* __restrict__ table, ge::BatchSt
   if (k >= B * x.P) return;
   const int64_t i = k / x.P;
   const int p = (int)(k % x.P);
-  const int n = x.rw_mode == ob::RW_SCORE ? ob::count_present(x, s, i) : 0;
+  const int n = x.rw_mode == ge::RW_SCORE ? ob::count_present(x, s, i) : 0;
   reward[k] = ob::reward_of(x, s, ended, i, p, n);
 }
 
@@ -78,29 +75,82 @@ extern "C" {
 
 const char* ob_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// How an OB launch over B rooms of the game is sized on the current card
+// (game and table on the host): R rooms a block, the fewest that let one
+// wave of blocks hold the launch (every block resident at once, the SMs'
+// warp slots filled as far as B allows) and at most MAX_ROOMS, so a large B
+// runs in several waves of small blocks rather than in one and a tail.
+// out = {R, shared bytes a block, blocks an SM holds, blocks}. The caller
+// asks once per game, batch and card and passes {out[0], out[1]} to every
+// launch. The kernel's shared-memory limit is raised to the most a block
+// can have, not to this plan's bytes, so that a later plan (another batch
+// or game) never lowers it under the blocks of one cached before. Returns a
+// CUDA error code (0 = ok).
+int ob_plan(const int32_t* game_host, const int32_t* table_host, int table_len, int64_t B,
+            int64_t* out) {
+  if (B <= 0 || !ob::table_ok(table_host, table_len, ge::game_view(game_host)))
+    return (int)cudaErrorInvalidValue;
+  auto bytes = [&](int R) {
+    return (int64_t)ob::ob_launch(game_host, table_host, table_len, R).bytes;
+  };
+  auto held = [&](int R, int* n) {
+    const int64_t smem = bytes(R);
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(ob_observe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)ge::MAX_SHARED);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, ob_observe_kernel, OB_THREADS,
+                                                        (size_t)smem);
+    return e;
+  };
+  int R = ob::MAX_ROOMS;
+  while (R > 1 && bytes(R) > ge::MAX_SHARED) --R;
+  if (bytes(R) > ge::MAX_SHARED) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, n = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  for (int pass = 0; pass < 2 && e == cudaSuccess; ++pass) {  // fewer rooms, more blocks held
+    e = held(R, &n);
+    if (e == cudaSuccess && n < 1) e = cudaErrorInvalidConfiguration;
+    if (e != cudaSuccess) break;
+    const int64_t slots = (int64_t)sms * n, want = (B + slots - 1) / slots;
+    if (want >= R) break;
+    R = (int)(want < 1 ? 1 : want);
+  }
+  if (e == cudaSuccess) e = held(R, &n);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = R; out[1] = bytes(R); out[2] = n; out[3] = (B + R - 1) / R;
+  return 0;
+}
+
 // OB over B rooms: `game` the game blob and `table` ob_table's ints on the
-// card, `table_host` the same table on the host (it sizes the launch);
-// `state` the addresses of GameState's 15 tensors; obs (B, P, F) bf16
-// (16-byte aligned), legal (B, P, A) and actor (B, P) bool, any of them null
-// to skip it; masked: the game's information rules (1) or the full room (0).
+// card and on the host; `state` the addresses of GameState's 15 tensors;
+// obs (B, P, F) bf16 (16-byte aligned), legal (B, P, A) and actor (B, P)
+// bool, any of them null to skip it; masked: the game's information rules
+// (1) or the full room (0); R rooms a block and smem bytes a block:
+// ob_plan's, refused when they do not fit the table.
 int ob_observe(const int32_t* game, const int32_t* game_host, const int32_t* table,
                const int32_t* table_host, int table_len, const int64_t* state, uint16_t* obs,
-               uint8_t* legal, uint8_t* actor, int64_t B, int masked, void* stream) {
-  int R;
-  int64_t smem;
-  if (B <= 0 || !ob::plan_of(game_host, table_host, table_len, &R, &smem) ||
-      smem > ge::MAX_SHARED || ((uintptr_t)obs & 15))
+               uint8_t* legal, uint8_t* actor, int64_t B, int masked, int R, int64_t smem,
+               void* stream) {
+  if (B <= 0 || R < 1 || R > ob::MAX_ROOMS ||
+      !ob::table_ok(table_host, table_len, ge::game_view(game_host)))
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ob_observe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const ob::ObLaunch l = ob::ob_launch(game_host, table_host, table_len, R);
+  if (smem != l.bytes || smem > ge::MAX_SHARED || ((uintptr_t)obs & 15))
+    return (int)cudaErrorInvalidValue;
   ob_observe_kernel<<<(unsigned)blocks_of(B, R), OB_THREADS, (size_t)smem,
-                      (cudaStream_t)stream>>>(game, table, ge::batch_state(state), obs, legal,
-                                              actor, B, R, masked);
+                      (cudaStream_t)stream>>>(l, game, table, ge::batch_state(state), obs, legal,
+                                              actor, B, masked, ob_prof);
   return (int)cudaGetLastError();
 }
+
+#ifdef GE_PROFILE
+// OB's launches from now on add their block sections' clock64() cycles to
+// prof (OB_SECTIONS int64 on the device, zeroed by the caller); null stops.
+void ob_observe_sections(long long* prof) { ob_prof = prof; }
+#endif
 
 // OB's second mode: reward (B, P) f32 of the rooms `ended` (B,) bool marks,
 // from the state after the step (before the reset).

@@ -1,7 +1,8 @@
 // observe_host.cpp — OB's and SA's bodies (observe.cuh) compiled with g++ and
-// run on the host: ob_observe's blocks of R rooms one after another, each
-// stage done by one worker over the whole block (the device's barriers fall
-// between the stages as they do there), and SA's rows in order. The same
+// run on the host: ob_observe's blocks of R rooms one after another through
+// the kernel's block body (ob_block), each stage done by one worker over the
+// whole block (the device's barriers fall between the stages as they do
+// there), and SA's rows in order. The same
 // signatures as observe.cu's entries, minus the launch arguments; the CPU
 // tests use them to run the kernels' own logic without a GPU.
 //
@@ -13,23 +14,18 @@
 
 extern "C" {
 
+// R: rooms a block (the card's: ob_plan's)
 int ob_observe_host(const int32_t* game, const int32_t* table, int table_len,
                     const int64_t* state, uint16_t* obs, uint8_t* legal, uint8_t* actor,
-                    int64_t B, int masked) {
-  int R;
-  int64_t bytes;
-  if (B <= 0 || !ob::plan_of(game, table, table_len, &R, &bytes)) return 1;
-  const ge::Game g = ge::game_view(game);
-  const ob::Table x = ob::table_view(table);
+                    int64_t B, int masked, int R) {
+  if (B <= 0 || R < 1 || R > ob::MAX_ROOMS || !ob::table_ok(table, table_len, ge::game_view(game)))
+    return 1;
   const ge::BatchState s = ge::batch_state(state);
-  std::vector<int32_t> words((size_t)ob::stage_words(x, R));
-  const ob::Stage st = ob::stage_of(words.data(), x, R);
-  for (int64_t room0 = 0; room0 < B; room0 += R) {
-    ob::stage_seats(x, s, st, R, room0, B, 0, 1);
-    ob::stage_counts(x, st, R, room0, B, 0, 1);
-    ob::stage_features(x, g, s, st, legal, actor, R, room0, B, 0, 1);
-    if (obs) ob::stage_obs(x, st, obs, R, room0, B, masked != 0, 0, 1);
-  }
+  const ob::ObLaunch l = ob::ob_launch(game, table, table_len, R);
+  std::vector<int64_t> smem((size_t)(l.bytes + 7) / 8);
+  for (int64_t room0 = 0; room0 < B; room0 += R)
+    ob::ob_block(l, game, table, s, obs, legal, actor, B, room0, masked != 0, smem.data(), 0, 1,
+                 nullptr);
   return 0;
 }
 
@@ -39,7 +35,7 @@ int ob_rewards_host(const int32_t* table, int table_len, const int64_t* state,
   const ob::Table x = ob::table_view(table);
   const ge::BatchState s = ge::batch_state(state);
   for (int64_t i = 0; i < B; ++i) {
-    const int n = x.rw_mode == ob::RW_SCORE ? ob::count_present(x, s, i) : 0;
+    const int n = x.rw_mode == ge::RW_SCORE ? ob::count_present(x, s, i) : 0;
     for (int p = 0; p < x.P; ++p) reward[i * x.P + p] = ob::reward_of(x, s, ended, i, p, n);
   }
   return 0;

@@ -38,15 +38,23 @@
 // threads touch neighbouring rooms of one field.
 //
 // The same library holds ST, the engine step entry (ge_step_kernel; exported
-// as ge_bots, ge_step and ge_reset_done): one step, the reset of done rooms
-// or the scripted bots of every room in a launch, on GameState's own tensors,
-// for the paths that step rooms a turn at a time (the unrolls, the policy
-// loop, the server). It is the counterpart of the JAX package's jitted step,
-// not of a Pallas kernel, and shares the room code above; K1's kernel is
-// untouched by it.
+// as ge_bots, ge_step, ge_reset_done and ge_step_reset): one step, the reset
+// of done rooms, the scripted bots, or an unroll's step, terminal rewards
+// and reset of every room in a launch, on GameState's own tensors, for the
+// paths that step rooms a turn at a time (the unrolls, the policy loop, the
+// server). It is the counterpart of the JAX package's jitted step and of the
+// unroll body around it, not of a Pallas kernel, and shares the room code
+// above; K1's kernel is untouched by it. What bounds ST is a room step's
+// chain, as for K1, once a launch: the block sections measured on the card
+// (chip_smoke.py entry_sections) put the step itself at about half a block
+// and the copies of the state in and out at about a third, so a block copies
+// its rooms' fields with cp.async, every load in flight together, and the
+// unrolls take one launch where the step, OB's rewards and the reset took
+// three.
 //
 // -DGE_PROFILE builds the variant that sums clock64() by section of the step
-// (ge_rollout_profile); the engine never loads it.
+// (ge_rollout_profile) and by section of an ST block (ge_step_sections); the
+// engine never loads it.
 
 #include <cuda_runtime.h>
 
@@ -117,50 +125,30 @@ int launch(const int32_t* game, const int32_t* game_host, int game_len,
 }
 
 // ST, the engine step entry: one launch does one room_entry (the scripted
-// bots, one engine step, or the reset where done) of every room, a room on a
-// group of lanes as in ge_rollout_kernel, the game's tables and the rooms'
-// words in shared memory as there. The state is read from GameState's own
-// tensors and the result written to new ones (batch_copy: each field of a
-// block's rooms is one contiguous run, taken in memory order), so nothing
-// is converted on the host and the caller's state is left as it was.
-// `actions`: the (B, P) int32 actions in (step) or out (bots); `keep`: the
-// rooms a step advances (null: all), the others copied through; `ended`:
-// done after the step and not before.
+// bots, one engine step, the reset where done, or the unroll's step,
+// rewards and reset in one) of every room, a room on a group of lanes as in
+// ge_rollout_kernel, the game's tables and the rooms' words in shared memory
+// as there. The state is read from GameState's own tensors and the result
+// written to new ones, each field of a block's rooms one run of elements,
+// all of a block's runs copied with their loads in flight together
+// (room_step.cuh st_block), so nothing is converted on the host and the
+// caller's state is left as it was.
+// at most ST_THREADS lanes a block (the plan's ask, halved for a room that
+// does not fit), registers for ST_MIN_BLOCKS such blocks an SM
+constexpr int ST_THREADS = 128, ST_MIN_BLOCKS = 6;
+
 template <int NW>
-__global__ void ge_step_kernel(const int32_t* __restrict__ game, int game_len,
-                               ge::BatchState in, ge::BatchState out, int32_t* actions,
-                               const uint8_t* __restrict__ keep, uint8_t* __restrict__ ended,
-                               int64_t B, int mode, int G) {
+__global__ void __launch_bounds__(ST_THREADS, ST_MIN_BLOCKS)
+    ge_step_kernel(ge::StArgs a, int G, long long* prof) {
   extern __shared__ int32_t smem[];
-  const int tid = threadIdx.x, T = blockDim.x;
-  for (int i = tid; i < game_len; i += T) smem[i] = game[i];
-  __syncthreads();
-  const ge::Game g = ge::game_view(smem);
-  const int K = NW == 1 ? 1 : g.SW;  // columns a lane
-  int32_t* words = smem + game_len;
-  const int R = T / G;  // rooms a block
-  const int64_t room0 = (int64_t)blockIdx.x * R;
-  ge::batch_copy(g, in, mode == ge::ENTRY_STEP ? actions : nullptr, words, T * K, G * K, R,
-                 room0, B, tid, T, true, false);
-  __syncthreads();
-  const int lane = tid & (G - 1), first = (tid & 31) & ~(G - 1);
-  const int64_t room = room0 + tid / G;
-  if (room < B) {  // whole groups take or leave this branch
-    const uint32_t mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << first;
-    ge::Room<NW> r = ge::room_open_batch<NW>(g, in, words + (tid - lane) * K, T * K, lane, mask,
-                                             first, room);
-    const bool e = ge::room_entry(g, r, mode, keep == nullptr || keep[room]);
-    if (lane == 0 && mode != ge::ENTRY_BOTS) {
-      ge::room_close_batch(r, out, room);
-      if (mode == ge::ENTRY_STEP) ended[room] = e;
-    }
-  }
-  __syncthreads();
-  if (mode == ge::ENTRY_BOTS)
-    ge::batch_copy(g, out, actions, words, T * K, G * K, R, room0, B, tid, T, false, true);
-  else
-    ge::batch_copy(g, out, nullptr, words, T * K, G * K, R, room0, B, tid, T, true, true);
+  const int R = blockDim.x / G;  // rooms a block
+  ge::st_block<NW>(a, smem, (int64_t)blockIdx.x * R, blockDim.x, G, threadIdx.x, blockDim.x,
+                   prof);
 }
+
+// -DGE_PROFILE: ST's launches add their block sections' cycles here
+// (ge_step_sections); null otherwise
+long long* st_prof = nullptr;
 
 const void* step_kernel_for(const ge::Game& g) {
   return g.P <= 32 ? (const void*)ge_step_kernel<1>
@@ -169,25 +157,39 @@ const void* step_kernel_for(const ge::Game& g) {
 
 // One ST launch, sized by the caller's cached ge_step_plan: G lanes a room,
 // `threads` a block, `smem` bytes of shared memory a block. A plan that does
-// not fit the game is refused (cudaErrorInvalidValue) before the launch.
-int launch_entry(const int32_t* game, const int32_t* game_host, int game_len,
-                 const int64_t* in, const int64_t* out, int32_t* actions, const uint8_t* keep,
-                 uint8_t* ended, int64_t B, int mode, int G, int threads, int64_t smem,
-                 cudaStream_t stream) {
+// not fit the game, or a reward rule that does not, is refused
+// (cudaErrorInvalidValue) before the launch.
+int launch_entry(const int32_t* game_host, const ge::StArgs& a, int G, int threads,
+                 int64_t smem, cudaStream_t stream) {
   const ge::Game g = ge::game_view(game_host);
-  if (!ge::launchable(g, game_len, B, threads) || G < ge::group_lanes(g.P) ||
+  if (!ge::launchable(g, a.game_len, a.B, threads) || threads > ST_THREADS ||
+      G < ge::group_lanes(g.P) ||
       G > ge::MAX_GROUP || (G & (G - 1)) || threads % G ||
-      smem != ge::shared_bytes(g, game_len, threads) || smem > ge::MAX_SHARED)
+      smem != ge::st_shared_bytes(g, a.game_len, threads, G) || smem > ge::MAX_SHARED ||
+      (a.mode == ge::ENTRY_STEP_RESET && a.reward && !ge::reward_rule_ok(g, a.rw)))
     return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (B + threads / G - 1) / (threads / G);
-  const ge::BatchState s = ge::batch_state(in), o = ge::batch_state(out ? out : in);
+  ge::StArgs la = a;
+  ge::st_fill(la, g, threads, G);
+  const int64_t blocks = (a.B + threads / G - 1) / (threads / G);
   if (g.P <= 32)
-    ge_step_kernel<1><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
-        game, game_len, s, o, actions, keep, ended, B, mode, G);
+    ge_step_kernel<1><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(la, G, st_prof);
   else
     ge_step_kernel<ge::MAX_SEAT_WORDS><<<(unsigned)blocks, threads, (size_t)smem, stream>>>(
-        game, game_len, s, o, actions, keep, ended, B, mode, G);
+        la, G, st_prof);
   return (int)cudaGetLastError();
+}
+
+ge::StArgs st_args(const int32_t* game, int game_len, const int64_t* in, const int64_t* out,
+                   int32_t* actions, int64_t B, int mode) {
+  ge::StArgs a{};
+  a.game = game;
+  a.game_len = game_len;
+  a.in = ge::batch_state(in);
+  a.out = ge::batch_state(out ? out : in);
+  a.actions = actions;
+  a.B = B;
+  a.mode = mode;
+  return a;
 }
 
 }  // namespace
@@ -213,14 +215,16 @@ int ge_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int6
   return (int)p.err;
 }
 
-// How an ST launch (ge_bots, ge_step, ge_reset_done) over B rooms of the game
-// is sized on the current card, as ge_plan sizes the rollout's (the same
-// rule, for the step kernel's registers): the caller asks once per game,
-// batch and card and passes {out[0], out[3], out[1]} to every launch.
+// How an ST launch (ge_bots, ge_step, ge_reset_done, ge_step_reset) over B
+// rooms of the game is sized on the current card, as ge_plan sizes the
+// rollout's (the same rule, for the step kernel's registers and its
+// staging): the caller asks once per game, batch and card and passes
+// {out[0], out[3], out[1]} to every launch.
 int ge_step_plan(const int32_t* game_host, int game_len, int64_t B, int threads, int64_t* out) {
   const ge::Game g = ge::game_view(game_host);
-  if (!ge::launchable(g, game_len, B, threads)) return (int)cudaErrorInvalidValue;
-  const ge::Plan p = ge::plan(step_kernel_for(g), g, game_len, B, threads);
+  if (!ge::launchable(g, game_len, B, threads) || threads > ST_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const ge::Plan p = ge::plan(step_kernel_for(g), g, game_len, B, threads, true);
   out[0] = p.G; out[1] = (int64_t)p.smem; out[2] = p.held; out[3] = p.threads;
   return (int)p.err;
 }
@@ -232,24 +236,52 @@ int ge_step_plan(const int32_t* game_host, int game_len, int64_t B, int threads,
 // cudaGetLastError() after the launch (0 = launched).
 int ge_bots(const int32_t* game, const int32_t* game_host, int game_len, const int64_t* state,
             int32_t* actions, int64_t B, int G, int threads, int64_t smem, void* stream) {
-  return launch_entry(game, game_host, game_len, state, nullptr, actions, nullptr, nullptr, B,
-                      ge::ENTRY_BOTS, G, threads, smem, (cudaStream_t)stream);
+  const ge::StArgs a = st_args(game, game_len, state, nullptr, actions, B, ge::ENTRY_BOTS);
+  return launch_entry(game_host, a, G, threads, smem, (cudaStream_t)stream);
 }
 
 // keep: (B,) bool, the rooms to step (null: every room); ended: (B,) bool.
 int ge_step(const int32_t* game, const int32_t* game_host, int game_len, const int64_t* state,
             const int64_t* out, const int32_t* actions, const uint8_t* keep, uint8_t* ended,
             int64_t B, int G, int threads, int64_t smem, void* stream) {
-  return launch_entry(game, game_host, game_len, state, out, const_cast<int32_t*>(actions),
-                      keep, ended, B, ge::ENTRY_STEP, G, threads, smem, (cudaStream_t)stream);
+  ge::StArgs a = st_args(game, game_len, state, out, const_cast<int32_t*>(actions), B,
+                         ge::ENTRY_STEP);
+  a.keep = keep;
+  a.ended = ended;
+  return launch_entry(game_host, a, G, threads, smem, (cudaStream_t)stream);
 }
 
 int ge_reset_done(const int32_t* game, const int32_t* game_host, int game_len,
                   const int64_t* state, const int64_t* out, int64_t B, int G, int threads,
                   int64_t smem, void* stream) {
-  return launch_entry(game, game_host, game_len, state, out, nullptr, nullptr, nullptr, B,
-                      ge::ENTRY_RESET, G, threads, smem, (cudaStream_t)stream);
+  const ge::StArgs a = st_args(game, game_len, state, out, nullptr, B, ge::ENTRY_RESET);
+  return launch_entry(game_host, a, G, threads, smem, (cudaStream_t)stream);
 }
+
+// The unroll's step, terminal rewards and reset in one launch: `out` the
+// state after the step and the restart of the rooms it left done; ended
+// (B,) bool; winner (B,) int32, the stepped rooms' winner; reward (B, P)
+// f32 by the rule {rw_mode, rw_team_slot, codes (n_codes int32 on the
+// device)}, or null for none.
+int ge_step_reset(const int32_t* game, const int32_t* game_host, int game_len,
+                  const int64_t* state, const int64_t* out, const int32_t* actions,
+                  uint8_t* ended, int32_t* winner, float* reward, int rw_mode, int rw_team_slot,
+                  const int32_t* codes, int n_codes, int64_t B, int G, int threads, int64_t smem,
+                  void* stream) {
+  ge::StArgs a = st_args(game, game_len, state, out, const_cast<int32_t*>(actions), B,
+                         ge::ENTRY_STEP_RESET);
+  a.ended = ended;
+  a.winner = winner;
+  a.reward = reward;
+  a.rw = ge::RewardRule{rw_mode, rw_team_slot, n_codes, codes};
+  return launch_entry(game_host, a, G, threads, smem, (cudaStream_t)stream);
+}
+
+#ifdef GE_PROFILE
+// ST's launches from now on add their block sections' clock64() cycles to
+// prof (ST_SECTIONS int64 on the device, zeroed by the caller); null stops.
+void ge_step_sections(long long* prof) { st_prof = prof; }
+#endif
 
 #ifndef GE_PROFILE
 // Launches the rollout on `stream` over B rooms, in place on the minor-layout

@@ -3,8 +3,9 @@
 // the kernel's [slot][column] layout (a block of one room), its seats run in
 // order, its seat sets as many words as the kernel's build for its seats. The same signature as ge_rollout in rollout.cu, minus the launch
 // arguments; the CPU tests use it to run the kernel's own logic without a GPU.
-// ST's three entries (ge_bots_host, ge_step_host, ge_reset_done_host) loop
-// the same way over rooms of GameState's own tensors.
+// ST's entries (ge_bots_host, ge_step_host, ge_reset_done_host,
+// ge_step_reset_host) run the kernel's block body, blocks of R rooms one
+// after another, on GameState's own tensors.
 //
 // Build: g++ -O2 -std=c++17 -shared -fPIC rollout_host.cpp -o librollout_host.so
 // With -DGE_COUNT the run also counts the interpreter's operations
@@ -33,36 +34,40 @@ void run_rooms(const ge::Game& g, const ge::MinorState& ms, int32_t* eps, int64_
   }
 }
 
-// ST's entries (rollout.cu ge_bots, ge_step, ge_reset_done) the same way: a
-// room at a time through batch_copy and room_entry
+// ST's entries (rollout.cu ge_bots, ge_step, ge_reset_done, ge_step_reset)
+// the same way: blocks of R rooms one after another through st_block, the
+// kernel's block body, its buffer laid out as the kernel's shared memory
+// (a room on group_lanes(P) lanes) and its rooms run in order
 template <int NW>
-void entry_rooms(const ge::Game& g, const ge::BatchState& in, const ge::BatchState& out,
-                 int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B, int mode) {
-  const int cols = ge::group_lanes(g.P) * g.SW;
-  std::vector<int32_t> words((size_t)g.L.words * cols);
-  const bool bots = mode == ge::ENTRY_BOTS;
-  for (int64_t room = 0; room < B; ++room) {
-    ge::batch_copy(g, in, mode == ge::ENTRY_STEP ? actions : nullptr, words.data(), cols, cols,
-                   1, room, B, 0, 1, true, false);
-    ge::Room<NW> r = ge::room_open_batch<NW>(g, in, words.data(), cols, 0, 0, 0, room);
-    const bool e = ge::room_entry(g, r, mode, keep == nullptr || keep[room]);
-    if (!bots) {
-      ge::room_close_batch(r, out, room);
-      if (mode == ge::ENTRY_STEP) ended[room] = e;
-    }
-    ge::batch_copy(g, out, bots ? actions : nullptr, words.data(), cols, cols, 1, room, B, 0, 1,
-                   !bots, true);
-  }
+void entry_rooms(const ge::Game& g, const ge::StArgs& a, int R) {
+  const int G = ge::group_lanes(g.P), lanes = R * G;
+  std::vector<int64_t> smem((size_t)(ge::st_shared_bytes(g, a.game_len, lanes, G) + 7) / 8);
+  ge::StArgs la = a;
+  ge::st_fill(la, g, lanes, G);
+  for (int64_t room0 = 0; room0 < a.B; room0 += R)
+    ge::st_block<NW>(la, smem.data(), room0, lanes, G, 0, 1, nullptr);
 }
 
-int entry_host(const int32_t* game, int game_len, const int64_t* in, const int64_t* out,
-               int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B, int mode) {
-  if (B <= 0 || game_len <= 0) return 1;
-  const ge::Game g = ge::game_view(game);
+ge::StArgs host_args(const int32_t* game, int game_len, const int64_t* in, const int64_t* out,
+                     int32_t* actions, int64_t B, int mode) {
+  ge::StArgs a{};
+  a.game = game;
+  a.game_len = game_len;
+  a.in = ge::batch_state(in);
+  a.out = ge::batch_state(out ? out : in);
+  a.actions = actions;
+  a.B = B;
+  a.mode = mode;
+  return a;
+}
+
+int entry_host(const ge::StArgs& a, int R) {
+  if (a.B <= 0 || a.game_len <= 0 || R < 1) return 1;
+  const ge::Game g = ge::game_view(a.game);
   if (g.P < 1 || g.P > ge::MAX_SEATS) return 2;
-  const ge::BatchState s = ge::batch_state(in), o = ge::batch_state(out ? out : in);
-  if (g.P <= 32) entry_rooms<1>(g, s, o, actions, keep, ended, B, mode);
-  else entry_rooms<ge::MAX_SEAT_WORDS>(g, s, o, actions, keep, ended, B, mode);
+  if (a.mode == ge::ENTRY_STEP_RESET && a.reward && !ge::reward_rule_ok(g, a.rw)) return 3;
+  if (g.P <= 32) entry_rooms<1>(g, a, R);
+  else entry_rooms<ge::MAX_SEAT_WORDS>(g, a, R);
   return 0;
 }
 
@@ -88,22 +93,38 @@ int ge_rollout_host(const int32_t* game, int game_len, int32_t* bools,
   return 0;
 }
 
-// rollout.cu's ST entries on host arrays, minus the launch arguments
+// rollout.cu's ST entries on host arrays, minus the launch arguments and
+// plus R, the rooms a block
 int ge_bots_host(const int32_t* game, int game_len, const int64_t* state, int32_t* actions,
-                 int64_t B) {
-  return entry_host(game, game_len, state, nullptr, actions, nullptr, nullptr, B,
-                    ge::ENTRY_BOTS);
+                 int64_t B, int R) {
+  return entry_host(host_args(game, game_len, state, nullptr, actions, B, ge::ENTRY_BOTS), R);
 }
 
 int ge_step_host(const int32_t* game, int game_len, const int64_t* state, const int64_t* out,
-                 const int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B) {
-  return entry_host(game, game_len, state, out, const_cast<int32_t*>(actions), keep, ended, B,
-                    ge::ENTRY_STEP);
+                 const int32_t* actions, const uint8_t* keep, uint8_t* ended, int64_t B, int R) {
+  ge::StArgs a = host_args(game, game_len, state, out, const_cast<int32_t*>(actions), B,
+                           ge::ENTRY_STEP);
+  a.keep = keep;
+  a.ended = ended;
+  return entry_host(a, R);
 }
 
 int ge_reset_done_host(const int32_t* game, int game_len, const int64_t* state,
-                       const int64_t* out, int64_t B) {
-  return entry_host(game, game_len, state, out, nullptr, nullptr, nullptr, B, ge::ENTRY_RESET);
+                       const int64_t* out, int64_t B, int R) {
+  return entry_host(host_args(game, game_len, state, out, nullptr, B, ge::ENTRY_RESET), R);
+}
+
+int ge_step_reset_host(const int32_t* game, int game_len, const int64_t* state,
+                       const int64_t* out, const int32_t* actions, uint8_t* ended,
+                       int32_t* winner, float* reward, int rw_mode, int rw_team_slot,
+                       const int32_t* codes, int n_codes, int64_t B, int R) {
+  ge::StArgs a = host_args(game, game_len, state, out, const_cast<int32_t*>(actions), B,
+                           ge::ENTRY_STEP_RESET);
+  a.ended = ended;
+  a.winner = winner;
+  a.reward = reward;
+  a.rw = ge::RewardRule{rw_mode, rw_team_slot, n_codes, codes};
+  return entry_host(a, R);
 }
 
 #ifdef GE_COUNT

@@ -4,8 +4,8 @@
 // rollout kernel (csrc/rollout.cu), which replaces the TPU kernel
 // game_engine_tpu/core/pallas_rollout.py::make_pallas_rollout, and of the g++
 // host harness (csrc/rollout_host.cpp) that the CPU tests run, and of the
-// engine step entry ST (rollout.cu's ge_step, ge_reset_done and ge_bots on
-// GameState's own tensors: batch_copy, room_entry). Its search
+// engine step entry ST (rollout.cu's ge_step, ge_reset_done, ge_bots and
+// ge_step_reset on GameState's own tensors: st_block, room_entry). Its search
 // rollout (room_search_rollout) and the full-information decisions around it
 // (seat_candidates, decide_room, decide_rollout, decide_argmax) are the body
 // of the search kernel (csrc/search.cu, host harness csrc/search_host.cpp).
@@ -90,9 +90,25 @@
 #if defined(GE_PROFILE) && defined(__CUDA_ARCH__)
 #define GE_TIC(r) const long long ge_t0 = clock64()
 #define GE_TOC(r, sec) (r).prof[sec] += clock64() - ge_t0
+// a block's sections (the step and observation entries): after a barrier,
+// thread 0 adds the cycles since the last mark to prof[sec]
+#define GE_MARK_START(prof) long long ge_mark = clock64()
+#define GE_MARK(prof, sec)                                                   \
+  do {                                                                       \
+    if ((prof) && threadIdx.x == 0) {                                        \
+      const long long ge_now = clock64();                                    \
+      atomicAdd((unsigned long long*)(prof) + (sec),                         \
+                (unsigned long long)(ge_now - ge_mark));                     \
+      ge_mark = ge_now;                                                      \
+    }                                                                        \
+  } while (0)
+#define GE_MARK_SYNC() __syncthreads()
 #else
 #define GE_TIC(r) ((void)0)
 #define GE_TOC(r, sec) ((void)0)
+#define GE_MARK_START(prof) ((void)(prof))
+#define GE_MARK(prof, sec) ((void)0)
+#define GE_MARK_SYNC() ((void)0)
 #endif
 
 namespace ge {
@@ -391,25 +407,39 @@ GE_HD int64_t shared_bytes(const Game& g, int game_len, int threads) {
   return ((int64_t)game_len + (int64_t)g.L.words * threads * g.SW) * (int64_t)sizeof(int32_t);
 }
 
+GE_HD int64_t st_shared_bytes(const Game& g, int game_len, int threads, int G);
+
+// bytes of a block of `threads` lanes: K1's and S's (shared_bytes), or with
+// `staged` ST's (st_shared_bytes: its rooms' staging too, for the most rooms
+// a block can have, a room on group_lanes(P) lanes)
+GE_HD int64_t block_bytes(const Game& g, int game_len, int threads, bool staged) {
+  return staged ? st_shared_bytes(g, game_len, threads, group_lanes(g.P))
+                : shared_bytes(g, game_len, threads);
+}
+
 // the largest of threads, threads / 2, ... (in whole warps) down to one warp
 // whose block fits in shared memory; 0 when not even one warp's does
-GE_HD int fit_threads(const Game& g, int game_len, int threads) {
-  while (threads > MIN_THREADS && shared_bytes(g, game_len, threads) > MAX_SHARED)
+GE_HD int fit_threads(const Game& g, int game_len, int threads, bool staged = false) {
+  while (threads > MIN_THREADS && block_bytes(g, game_len, threads, staged) > MAX_SHARED)
     threads = threads / 64 * 32;
-  return shared_bytes(g, game_len, threads) <= MAX_SHARED ? threads : 0;
+  return block_bytes(g, game_len, threads, staged) <= MAX_SHARED ? threads : 0;
 }
 
 // How a block of the game (a host array) is sized when `threads` lanes are
 // asked for: out = {words a lane holds, lanes of the block that fits (0 =
 // none), its bytes of shared memory (of one warp's block when none fits),
-// the most bytes a block can have}. The one place the sizing is computed.
+// the most bytes a block can have, and the same two for ST's block, which
+// also stages its rooms}. The one place the sizing is computed.
 inline void size_report(const int32_t* game, int game_len, int threads, int64_t* out) {
   const Game g = game_view(game);
   const int fit = fit_threads(g, game_len, threads);
+  const int st_fit = fit_threads(g, game_len, threads, true);
   out[0] = (int64_t)g.L.words * g.SW;
   out[1] = fit;
   out[2] = shared_bytes(g, game_len, fit ? fit : MIN_THREADS);
   out[3] = MAX_SHARED;
+  out[4] = st_fit;
+  out[5] = block_bytes(g, game_len, st_fit ? st_fit : MIN_THREADS, true);
 }
 
 // One room: its seats' words and its scalars, its seat sets NW words. On
@@ -996,63 +1026,360 @@ GE_HD void put_word(uint8_t& d, int32_t v) { d = v != 0; }
 GE_HD void put_word(int8_t& d, int32_t v) { d = (int8_t)v; }
 GE_HD void put_word(int32_t& d, int32_t v) { d = v; }
 
-// Loads (store = false) or stores a per-seat field of `width` elements a
-// seat, held in slots slot0 .. slot0 + width - 1 of the words: rooms
-// [room0, room0 + R) of it are R * P * width consecutive elements, and
-// worker tid of n takes every n-th of them in memory order.
-template <class T>
-GE_HD void field_copy(T* field, int width, int slot0, int P, int32_t* w, int stride, int cols,
-                      int R, int64_t room0, int tid, int n, bool store) {
-  const int per_room = P * width;
-  T* at = field + room0 * per_room;
-  for (int x = tid; x < R * per_room; x += n) {
-    const int rr = x / per_room, k = x - rr * per_room, p = k / width;
-    int32_t& sw = w[(slot0 + k - p * width) * stride + rr * cols + p];
-    if (store) put_word(at[x], sw);
-    else sw = word_of(at[x]);
+// -- a block's copy: runs of elements, its loads in flight together ----------
+
+// A run of a block's copy: `count` elements of `size` bytes (1 or 4) from
+// src to dst.
+struct Run {
+  const void* src;
+  void* dst;
+  int count, size;
+};
+
+// A run of `bytes` bytes: 4-byte words where both ends and the length allow
+// (a GameState field's stretch of a block's rooms mostly does), else bytes.
+GE_HD Run byte_run(const void* src, void* dst, int64_t bytes) {
+  const uintptr_t ends = (uintptr_t)src | (uintptr_t)dst | (uintptr_t)bytes;
+  const int size = (ends & 15) == 0 ? 16 : (ends & 3) == 0 ? 4 : 1;
+  return Run{src, dst, (int)(bytes / size), size};
+}
+
+GE_HD uint32_t run_load(const Run& r, int x) {
+  return r.size == 4 ? ((const uint32_t*)r.src)[x] : ((const uint8_t*)r.src)[x];
+}
+
+GE_HD void run_store(const Run& r, int x, uint32_t v) {
+  if (r.size == 4) ((uint32_t*)r.dst)[x] = v;
+  else ((uint8_t*)r.dst)[x] = (uint8_t)v;
+}
+
+// element x of a run of any size, loaded and stored
+GE_HD void run_move(const Run& r, int x) {
+  if (r.size == 16) {
+#ifdef __CUDA_ARCH__
+    ((uint4*)r.dst)[x] = ((const uint4*)r.src)[x];
+#else
+    for (int b = 0; b < 4; ++b) ((uint32_t*)r.dst)[4 * x + b] = ((const uint32_t*)r.src)[4 * x + b];
+#endif
+  } else {
+    run_store(r, x, run_load(r, x));
   }
 }
 
-// rooms_copy for BatchState: the state words of rooms [room0, room0 + R)
-// that exist (R rooms of `cols` columns in w), and with `act` the action
-// words from or to a (B, P) int32 array.
-GE_HD void batch_copy(const Game& g, const BatchState& s, int32_t* act, int32_t* w, int stride,
-                      int cols, int R, int64_t room0, int64_t B, int tid, int n, bool state,
-                      bool store) {
-  if (room0 >= B) return;
-  if (R > B - room0) R = (int)(B - room0);
+// Worker tid of n starts copying run r from global to shared memory:
+// elements tid, tid + n, ... On the device a run of 4- or 16-byte elements
+// is cp.async (the copy engine moves it while the worker goes on: a block's
+// many small runs, GameState's fields, wait for memory together, in
+// copy_wait, and hold no registers); a byte run is loaded and stored here.
+// Consecutive workers take consecutive elements (coalesced).
+GE_HD void copy_start(const Run& r, int tid, int n) {
+#ifdef __CUDA_ARCH__
+  if (r.size == 4 || r.size == 16) {
+    const char* s = (const char*)r.src;
+    char* d = (char*)r.dst;
+    for (int x = tid; x < r.count; x += n) {
+      const unsigned at = (unsigned)__cvta_generic_to_shared(d + (size_t)x * r.size);
+      if (r.size == 4)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at),
+                     "l"(s + (size_t)x * 4));
+      else
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at),
+                     "l"(s + (size_t)x * 16));
+    }
+    return;
+  }
+#endif
+  for (int x = tid; x < r.count; x += n) run_move(r, x);
+}
+
+// Waits for this worker's copy_start copies (a barrier then makes every
+// worker's visible to the block).
+GE_HD void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Worker tid of n copies run r from shared memory (or global) to global:
+// each element loaded and stored, the stores not waited for.
+GE_HD void copy_out(const Run& r, int tid, int n) {
+  for (int x = tid; x < r.count; x += n) run_move(r, x);
+}
+
+// The game array (int32) to shared memory: 16-byte runs where the whole
+// array allows (its start and the shared copy are 16-byte aligned), the
+// tail in 4-byte ones.
+GE_HD void blob_start(const int32_t* src, int32_t* dst, int len, int tid, int n) {
+  const int vecs = ((uintptr_t)src & 15) ? 0 : len / 4;
+  copy_start(Run{src, dst, vecs, 16}, tid, n);
+  copy_start(Run{src + 4 * vecs, dst + 4 * vecs, len - 4 * vecs, 4}, tid, n);
+}
+
+// A block's workers as crews for a copy: warp w takes runs w, w + warps,
+// ..., its lanes a run's elements (the host: one crew of one).
+struct Crew {
+  int warp, warps, lane, width;
+};
+
+GE_HD Crew crew_of(int tid, int n) {
+#ifdef __CUDA_ARCH__
+  return Crew{tid >> 5, (n + 31) >> 5, tid & 31, 32};
+#else
+  (void)tid;
+  (void)n;
+  return Crew{0, 1, 0, 1};
+#endif
+}
+
+// -- ST: a block's rooms staged through shared memory --------------------------
+
+// GameState's fields in BatchState order, then the (B, P) int32 actions
+enum { F_BOOLS, F_NUMS, F_STRS, F_PDICT, F_ODICT, F_PRESENT, F_PHASE, F_PREV, F_ACTED,
+       F_CHOICE, F_CHOICE_PHASE, F_DONE, F_WINNER, F_T, F_SEED, F_ACT, ST_FIELDS };
+
+// bytes an element of field f
+GE_HD int field_size(int f) {
+  switch (f) {
+    case F_BOOLS: case F_STRS: case F_PDICT: case F_ODICT: case F_PRESENT: case F_ACTED:
+    case F_DONE: return 1;
+    case F_SEED: return 8;
+    default: return 4;
+  }
+}
+
+GE_HD void* field_ptr(const BatchState& s, int32_t* act, int f) {
+  switch (f) {
+    case F_BOOLS: return s.bools;
+    case F_NUMS: return s.nums;
+    case F_STRS: return s.strs;
+    case F_PDICT: return s.pdict;
+    case F_ODICT: return s.odict;
+    case F_PRESENT: return s.present;
+    case F_PHASE: return s.phase;
+    case F_PREV: return s.prev;
+    case F_ACTED: return s.acted;
+    case F_CHOICE: return s.choice;
+    case F_CHOICE_PHASE: return s.choice_phase;
+    case F_DONE: return s.done;
+    case F_WINNER: return s.winner;
+    case F_T: return s.t;
+    case F_SEED: return s.seed;
+    default: return act;
+  }
+}
+
+// The game's widths that size a block's staging (dims_per_room's), set by
+// the host (st_fill) so that a block reckons its runs from its launch's
+// arguments, not from the blob in global memory.
+struct StDims {
+  int P, NB, NN, NS, NPD, NOD;
+};
+
+GE_HD int dims_per_room(const StDims& d, int f) {
+  switch (f) {
+    case F_BOOLS: return d.P * d.NB;
+    case F_NUMS: return d.P * d.NN;
+    case F_STRS: return d.P * d.NS;
+    case F_PDICT: return d.P * d.NPD * d.P;
+    case F_ODICT: return d.P * d.NOD;
+    case F_PRESENT: case F_ACTED: case F_CHOICE: case F_CHOICE_PHASE: case F_ACT: return d.P;
+    default: return 1;
+  }
+}
+
+// The terminal rewards' rule (train/ppo.py terminal_rewards_plain): paid on
+// the step that ends the room's episode, to its present seats; team mode +1
+// when the seat's team string is the winner's team code (codes[winner - 1],
+// the index clamped), else -1; score mode +1 to the winning seat and
+// -1 / max(n - 1, 1) to the others of the n present.
+enum { RW_NONE, RW_TEAM, RW_SCORE };
+struct RewardRule {
+  int mode, team_slot, n_codes;
+  const int32_t* codes;
+};
+
+GE_HD float terminal_reward(const RewardRule& rw, int32_t team, int32_t winner, int p,
+                            int n_present) {
+  if (rw.mode == RW_TEAM) {
+    int w = winner - 1;
+    w = w < 0 ? 0 : w > rw.n_codes - 1 ? rw.n_codes - 1 : w;
+    return team == rw.codes[w] ? 1.0f : -1.0f;
+  }
+  if (rw.mode == RW_SCORE) {
+    const float m = (float)(n_present - 1);
+    return winner == p + 1 ? 1.0f : -1.0f / (m > 1.0f ? m : 1.0f);
+  }
+  return 0.0f;
+}
+
+// Whether a rule names a team string of the game and some codes.
+GE_HD bool reward_rule_ok(const Game& g, const RewardRule& rw) {
+  if (rw.mode == RW_TEAM)
+    return rw.team_slot >= 0 && rw.team_slot < g.NS && rw.n_codes > 0 && rw.codes != nullptr;
+  return rw.mode == RW_NONE || rw.mode == RW_SCORE;
+}
+
+// What an ST launch does to each room: the scripted bots' actions into its
+// action words (engine.scripted_actions), one engine step on the caller's
+// action words (core/step.py make_step) where `keep`, a fresh room where
+// done (train/ppo.py reset_done: init_state_like, as room_rollout resets),
+// or the unroll's step, terminal rewards and restart in one (step_reset).
+enum { ENTRY_BOTS, ENTRY_STEP, ENTRY_RESET, ENTRY_STEP_RESET };
+
+// One room of an ST launch; returns whether the step ended an episode.
+// ENTRY_STEP_RESET also gives what the unroll reads of the stepped room, its
+// winner (*winner, the same in every lane) and with `reward` its P seats'
+// terminal rewards, before the restart where done. Each of room_policy,
+// room_step and room_init has one call site, so the kernel holds each once.
+template <class R>
+GE_HD bool room_entry(const Game& g, R& r, int mode, bool keep, const RewardRule& rw,
+                      float* reward, int32_t* winner) {
+  if (mode == ENTRY_BOTS) {
+    room_policy(g, r);
+    return false;
+  }
+  const int32_t done_in = r.done;
+  const bool step = (mode == ENTRY_STEP || mode == ENTRY_STEP_RESET) && keep;
+  if (step) room_step(g, r);
+  const bool ended = step && r.done && !done_in;
+  if (mode == ENTRY_STEP_RESET) {
+    *winner = r.winner;
+    if (reward) {
+      const int np = popc(r.present);
+      GE_EACH_SEAT(g, r, p)
+        reward[p] = ended && has_bit(r.present, p)
+            ? terminal_reward(rw, rw.mode == RW_TEAM ? r.at(g.L.strs + rw.team_slot, p) : 0,
+                              r.winner, p, np)
+            : 0.0f;
+    }
+  }
+  if (mode != ENTRY_STEP && r.done)
+    room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
+  return ended;
+}
+
+// Byte offset of field f's run in a block's staging of R rooms: the fields
+// one after another, each 16-byte aligned (a copy of 16-byte elements where
+// the tensor's stretch allows); f = ST_FIELDS gives its bytes.
+GE_HD int stage_offset(const StDims& d, int R, int f) {
+  int o = 0;
+  for (int k = 0; k < f; ++k) o += (R * dims_per_room(d, k) * field_size(k) + 15) & ~15;
+  return o;
+}
+
+// A block's staging: its base and each field's offset (in shared memory,
+// written once a block by the worker of that field).
+struct Stage {
+  uint8_t* base;
+  const int* offs;
+  template <class T>
+  GE_HD T* at(int f) const { return (T*)(base + offs[f]); }
+};
+
+// An ST block of `threads` lanes in shared memory: the blob, the words (as
+// K1's block: shared_bytes), then from a 16-byte boundary the staging of its
+// threads / G rooms (G lanes a room), then the copies' runs (ST_FIELDS in,
+// ST_FIELDS out) and the staging's ST_FIELDS + 1 offsets.
+GE_HD int st_stage_at(const Game& g, int game_len, int threads) {
+  return (int)((shared_bytes(g, game_len, threads) + 15) & ~(int64_t)15);
+}
+
+GE_HD StDims dims_of(const Game& g) { return StDims{g.P, g.NB, g.NN, g.NS, g.NPD, g.NOD}; }
+
+GE_HD int st_runs_at(const Game& g, int game_len, int threads, int G) {
+  const int R = threads / G > 0 ? threads / G : 1;
+  return st_stage_at(g, game_len, threads) + stage_offset(dims_of(g), R, ST_FIELDS);
+}
+
+GE_HD int64_t st_shared_bytes(const Game& g, int game_len, int threads, int G) {
+  return st_runs_at(g, game_len, threads, G) + 2 * ST_FIELDS * (int64_t)sizeof(Run) +
+         (ST_FIELDS + 1) * (int64_t)sizeof(int);
+}
+
+struct StShared {
+  int32_t* blob;
+  int32_t* words;
+  uint8_t* stage;
+  Run* runs_in;
+  Run* runs_out;
+  int* offs;
+};
+
+GE_HD StShared st_shared(int game_len, int stage_at, int runs_at, void* smem) {
+  StShared sh;
+  sh.blob = (int32_t*)smem;
+  sh.words = sh.blob + game_len;
+  sh.stage = (uint8_t*)smem + stage_at;
+  sh.runs_in = (Run*)((uint8_t*)smem + runs_at);
+  sh.runs_out = sh.runs_in + ST_FIELDS;
+  sh.offs = (int*)(sh.runs_out + ST_FIELDS);
+  return sh;
+}
+
+// Field f's run of a block's copy of rooms [room0, room0 + R) (R existing)
+// between its tensor (`s`, or `act` for F_ACT) and `staged`: `in` from the
+// tensor, else back; empty unless `used`.
+GE_HD Run st_run(const StDims& d, const BatchState& s, int32_t* act, uint8_t* staged, int R,
+                 int64_t room0, bool in, bool used, int f) {
+  if (!used) return Run{nullptr, nullptr, 0, 1};
+  const int64_t bytes = (int64_t)dims_per_room(d, f) * field_size(f);
+  uint8_t* t = (uint8_t*)field_ptr(s, act, f) + room0 * bytes;
+  return in ? byte_run(t, staged, R * bytes) : byte_run(staged, t, R * bytes);
+}
+
+template <class T>
+GE_HD void seat_words(T* raw, int width, int32_t* word, int stride, bool to_words) {
+  for (int j = 0; j < width; ++j) {
+    if (to_words) word[j * stride] = word_of(raw[j]);
+    else put_word(raw[j], word[j * stride]);
+  }
+}
+
+// The staged rooms' per-seat fields to their words (to_words) or back, and
+// with `act` the action words: a seat (room rr, seat p) a worker, its words
+// in column rr * cols + p. The rooms' scalars stay in the staging
+// (room_open_staged).
+GE_HD void st_words(const Game& g, const Stage& st, int R, int32_t* w, int stride, int cols,
+                    bool state, bool act, bool to_words, int tid, int n) {
   const Layout& L = g.L;
   const int P = g.P;
-#define GE_FIELD(ptr, width, slot) \
-  if (width) field_copy(ptr, width, slot, P, w, stride, cols, R, room0, tid, n, store)
-  if (state) {
-    GE_FIELD(s.bools, g.NB, L.bools);
-    GE_FIELD(s.nums, g.NN, L.nums);
-    GE_FIELD(s.strs, g.NS, L.strs);
-    GE_FIELD(s.pdict, g.NPD * P, L.pdict);
-    GE_FIELD(s.odict, g.NOD, L.odict);
-    GE_FIELD(s.present, 1, L.present);
-    GE_FIELD(s.acted, 1, L.acted);
-    GE_FIELD(s.choice, 1, L.choice);
-    GE_FIELD(s.choice_phase, 1, L.choice_phase);
+  for (int x = tid; x < R * P; x += n) {
+    const int rr = x / P, p = x - rr * P;
+    int32_t* col = w + rr * cols + p;
+    if (state) {
+      seat_words(st.at<uint8_t>(F_BOOLS) + x * g.NB, g.NB, col + L.bools * stride, stride,
+                 to_words);
+      seat_words(st.at<int32_t>(F_NUMS) + x * g.NN, g.NN, col + L.nums * stride, stride,
+                 to_words);
+      seat_words(st.at<int8_t>(F_STRS) + x * g.NS, g.NS, col + L.strs * stride, stride,
+                 to_words);
+      seat_words(st.at<int8_t>(F_PDICT) + x * g.NPD * P, g.NPD * P, col + L.pdict * stride,
+                 stride, to_words);
+      seat_words(st.at<int8_t>(F_ODICT) + x * g.NOD, g.NOD, col + L.odict * stride, stride,
+                 to_words);
+      seat_words(st.at<uint8_t>(F_PRESENT) + x, 1, col + L.present * stride, stride, to_words);
+      seat_words(st.at<uint8_t>(F_ACTED) + x, 1, col + L.acted * stride, stride, to_words);
+      seat_words(st.at<int32_t>(F_CHOICE) + x, 1, col + L.choice * stride, stride, to_words);
+      seat_words(st.at<int32_t>(F_CHOICE_PHASE) + x, 1, col + L.choice_phase * stride, stride,
+                 to_words);
+    }
+    if (act) seat_words(st.at<int32_t>(F_ACT) + x, 1, col + L.act * stride, stride, to_words);
   }
-  if (act) GE_FIELD(act, 1, L.act);
-#undef GE_FIELD
 }
 
-// room_open for BatchState: room i's scalars from s, the present set from
-// its words (after batch_copy and a barrier).
+// Room rr of the staging opened on its words (after st_words and a
+// barrier): its scalars from the staging, the present set from its words.
 template <int NW>
-GE_HD Room<NW> room_open_batch(const Game& g, const BatchState& s, int32_t* w, int stride,
-                               int lane, uint32_t mask, int shift, int64_t i) {
+GE_HD Room<NW> room_open_staged(const Game& g, const Stage& st, int rr, int32_t* w, int stride,
+                                int lane, uint32_t mask, int shift) {
   Room<NW> r;
   r.w = w; r.stride = stride; r.lane = lane; r.mask = mask; r.shift = shift;
-  r.phase = s.phase[i];
-  r.prev = s.prev[i];
-  r.done = s.done[i] != 0;
-  r.winner = s.winner[i];
-  r.t = s.t[i];
-  r.seed = (uint32_t)s.seed[i];
+  r.phase = st.at<int32_t>(F_PHASE)[rr];
+  r.prev = st.at<int32_t>(F_PREV)[rr];
+  r.done = st.at<uint8_t>(F_DONE)[rr] != 0;
+  r.winner = st.at<int32_t>(F_WINNER)[rr];
+  r.t = st.at<int32_t>(F_T)[rr];
+  r.seed = (uint32_t)st.at<int64_t>(F_SEED)[rr];
   r.present = seats_where(g, r, [&](int p) { return r.at(g.L.present, p) != 0; });
 #ifdef GE_PROFILE
   for (int k = 0; k < N_PROF; ++k) r.prof[k] = 0;
@@ -1060,38 +1387,144 @@ GE_HD Room<NW> room_open_batch(const Game& g, const BatchState& s, int32_t* w, i
   return r;
 }
 
-// The scalars to s (one lane of the group calls it); the seed as its uint32.
+// The room's scalars back to the staging (one lane of the group calls it);
+// the seed as its uint32.
 template <class R>
-GE_HD void room_close_batch(const R& r, const BatchState& s, int64_t i) {
-  s.phase[i] = r.phase;
-  s.prev[i] = r.prev;
-  s.done[i] = r.done != 0;
-  s.winner[i] = r.winner;
-  s.t[i] = r.t;
-  s.seed[i] = (int64_t)r.seed;
+GE_HD void room_close_staged(const R& r, const Stage& st, int rr) {
+  st.at<int32_t>(F_PHASE)[rr] = r.phase;
+  st.at<int32_t>(F_PREV)[rr] = r.prev;
+  st.at<uint8_t>(F_DONE)[rr] = r.done != 0;
+  st.at<int32_t>(F_WINNER)[rr] = r.winner;
+  st.at<int32_t>(F_T)[rr] = r.t;
+  st.at<int64_t>(F_SEED)[rr] = (int64_t)r.seed;
 }
 
-// What an ST launch does to each room: the scripted bots' actions into its
-// action words (engine.scripted_actions), one engine step on the caller's
-// action words (core/step.py make_step) where `keep`, or a fresh room where
-// done (train/ppo.py reset_done: init_state_like, as room_rollout resets).
-enum { ENTRY_BOTS, ENTRY_STEP, ENTRY_RESET };
+// An ST launch's arguments: the game array on the device (the host's own
+// in the g++ build), the state in and the state out (GameState's tensors),
+// the (B, P) int32 actions (in for a step, out for the bots), the step's
+// keep mask, and what each room's step gives the caller: ended (B,) bool,
+// with step_reset also the stepped winner (B,) int32 and, unless null, the
+// (B, P) f32 terminal rewards by `rw`. The game's widths and where a block's
+// staging and runs lie in its shared memory come from the host (st_fill).
+struct StArgs {
+  const int32_t* game;
+  int game_len;
+  BatchState in, out;
+  int32_t* actions;
+  const uint8_t* keep;
+  uint8_t* ended;
+  int32_t* winner;
+  float* reward;
+  RewardRule rw;
+  int64_t B;
+  int mode;
+  StDims d;
+  int stage_at, runs_at;
+};
 
-// One room of an ST launch; returns whether the step ended an episode.
-template <class R>
-GE_HD bool room_entry(const Game& g, R& r, int mode, bool keep) {
-  if (mode == ENTRY_BOTS) {
-    room_policy(g, r);
-    return false;
+// An ST launch's sizes from the game (a host view), its lanes a block and
+// its lanes a room.
+GE_HD void st_fill(StArgs& a, const Game& g, int lanes, int G) {
+  a.d = dims_of(g);
+  a.stage_at = st_stage_at(g, a.game_len, lanes);
+  a.runs_at = st_runs_at(g, a.game_len, lanes, G);
+}
+
+// sections of ST's -DGE_PROFILE block clock sums (ge_step_sections)
+enum { STS_SETUP, STS_ISSUE, STS_COPY_IN, STS_WORDS_IN, STS_ROOMS, STS_WORDS_OUT, STS_COPY_OUT,
+       N_STS };
+
+#ifdef __CUDA_ARCH__
+#define GE_BLOCK_SYNC() __syncthreads()
+#else
+#define GE_BLOCK_SYNC() ((void)0)
+#endif
+
+// Field f's share of a block's set-up (the worker of that field, once a
+// block): its staging offset (f = ST_FIELDS: the staging's bytes) and its
+// runs in and out.
+GE_HD void st_setup(const StArgs& a, const StShared& sh, int R, int64_t room0, int f) {
+  const int off = stage_offset(a.d, R, f);
+  sh.offs[f] = off;
+  if (f == ST_FIELDS) return;
+  const bool bots = a.mode == ENTRY_BOTS;
+  const bool step = a.mode == ENTRY_STEP || a.mode == ENTRY_STEP_RESET;
+  const bool state = f != F_ACT;
+  sh.runs_in[f] = st_run(a.d, a.in, a.actions, sh.stage + off, R, room0, true, state || step,
+                         f);
+  sh.runs_out[f] = st_run(a.d, a.out, a.actions, sh.stage + off, R, room0, false,
+                          state ? !bots : bots, f);
+}
+
+// One block of an ST launch: rooms [room0, room0 + R) that exist, a room on
+// G lanes of a block of `lanes` (R = lanes / G), in `smem` as st_shared lays
+// it out (the host: a block's buffer of st_shared_bytes), by worker tid of n
+// (the device: a lane each; the host: one worker, the block's rooms one after
+// another). A field's worker writes its runs (a block's set-up reckoned
+// once, from the launch's arguments); the blob and the rooms' fields are
+// copied in with cp.async (copy_start), their loads in flight together,
+// turned into words (st_words), stepped (room_entry) with their scalars in
+// the staging, turned back and copied out: the state's memory is read once
+// and written once.
+template <int NW>
+GE_HD void st_block(const StArgs& a, void* smem, int64_t room0, int lanes, int G, int tid,
+                    int n, long long* prof) {
+  GE_MARK_START(prof);
+  const int K = NW == 1 ? 1 : (a.d.P + 31) / 32;  // columns a lane
+  const int Rb = (int)(a.B - room0 < lanes / G ? a.B - room0 : lanes / G);
+  const StShared sh = st_shared(a.game_len, a.stage_at, a.runs_at, smem);
+  const Stage st{sh.stage, sh.offs};
+  blob_start(a.game, sh.blob, a.game_len, tid, n);
+#ifdef __CUDA_ARCH__
+  if (tid <= ST_FIELDS) st_setup(a, sh, Rb, room0, tid);
+#else
+  for (int f = 0; f <= ST_FIELDS; ++f) st_setup(a, sh, Rb, room0, f);
+#endif
+  GE_BLOCK_SYNC();
+  GE_MARK(prof, STS_SETUP);
+  for (int f = 0; f < ST_FIELDS; ++f) copy_start(sh.runs_in[f], tid, n);
+  GE_MARK(prof, STS_ISSUE);
+  copy_wait();
+  GE_BLOCK_SYNC();
+  GE_MARK(prof, STS_COPY_IN);
+  const bool bots = a.mode == ENTRY_BOTS;
+  const bool step = a.mode == ENTRY_STEP || a.mode == ENTRY_STEP_RESET;
+  const Game g = game_view(sh.blob);
+  st_words(g, st, Rb, sh.words, lanes * K, G * K, true, step, true, tid, n);
+  GE_BLOCK_SYNC();
+  GE_MARK(prof, STS_WORDS_IN);
+#ifdef __CUDA_ARCH__
+  {
+    const int rr = tid / G, lane = tid & (G - 1), first = (tid & 31) & ~(G - 1);
+    const uint32_t mask = (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u) << first;
+    if (rr < Rb) {  // whole groups take or leave this branch
+#else
+  for (int rr = 0; rr < Rb; ++rr) {
+    const int lane = 0, first = 0;
+    const uint32_t mask = 0;
+    {
+#endif
+      const int64_t room = room0 + rr;
+      Room<NW> r = room_open_staged<NW>(g, st, rr, sh.words + rr * G * K, lanes * K, lane, mask,
+                                        first);
+      int32_t w = 0;
+      const bool e = room_entry(g, r, a.mode, a.keep == nullptr || a.keep[room], a.rw,
+                                a.reward ? a.reward + room * g.P : nullptr, &w);
+      if (lane == 0 && !bots) {
+        room_close_staged(r, st, rr);
+        if (step) a.ended[room] = e;
+        if (a.mode == ENTRY_STEP_RESET) a.winner[room] = w;
+      }
+    }
   }
-  if (mode == ENTRY_RESET) {
-    if (r.done) room_init(g, r, popc(r.present), splitmix32(r.seed ^ 0xDECAF000u));
-    return false;
-  }
-  if (!keep) return false;
-  const int32_t done_in = r.done;
-  room_step(g, r);
-  return r.done && !done_in;
+  GE_BLOCK_SYNC();
+  GE_MARK(prof, STS_ROOMS);
+  st_words(g, st, Rb, sh.words, lanes * K, G * K, !bots, bots, false, tid, n);
+  GE_BLOCK_SYNC();
+  GE_MARK(prof, STS_WORDS_OUT);
+  for (int f = 0; f < ST_FIELDS; ++f) copy_out(sh.runs_out[f], tid, n);
+  GE_MARK_SYNC();
+  GE_MARK(prof, STS_COPY_OUT);
 }
 
 // -- lookahead search (native/gamesim.cpp search_scores_core) -----------------

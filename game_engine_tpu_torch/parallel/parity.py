@@ -60,8 +60,8 @@ def start_of(spec: dict, device="cpu"):
 
 
 def launches() -> dict:
-    """This process's kernel launches so far: K1, K2, K3, K4, ST (its three
-    entries together), OB's two entries and SA."""
+    """This process's kernel launches so far: K1, K2, K3, K4, ST (its four
+    entries together, and each), OB's two entries and SA."""
     from game_engine_tpu_torch.core import step_kernel as SK
     from game_engine_tpu_torch.core.rollout_kernel import kernel_rollout
     from game_engine_tpu_torch.policies import fused as FZ
@@ -72,7 +72,10 @@ def launches() -> dict:
             "policy_backward": FZ.kernel_grads.launches,
             "ppo_loss_grad": FZ.kernel_loss_grads.launches,
             "engine_step": (SK.kernel_step.launches + SK.kernel_reset_done.launches
-                            + SK.kernel_bot_actions.launches),
+                            + SK.kernel_bot_actions.launches + SK.kernel_step_reset.launches),
+            "step": SK.kernel_step.launches, "reset_done": SK.kernel_reset_done.launches,
+            "bot_actions": SK.kernel_bot_actions.launches,
+            "step_reset": SK.kernel_step_reset.launches,
             "observe": OK.kernel_observe.launches, "rewards": OK.kernel_rewards.launches,
             "sample": OK.kernel_sample.launches}
 

@@ -27,20 +27,59 @@ import numpy as np
 import torch
 
 from game_engine_tpu_torch import _build
-from game_engine_tpu_torch.core.entry_args import checked_state, rooms_arg, state_addresses
+from game_engine_tpu_torch.core.entry_args import (
+    card_stream,
+    checked_state,
+    on_card,
+    rooms_arg,
+    state_addresses,
+)
 from game_engine_tpu_torch.core.rollout_kernel import _game_arrays
 from game_engine_tpu_torch.core.state import GameState, tables
+from game_engine_tpu_torch.core.step_kernel import reward_rule
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
 
 # csrc/observe.cuh's table layout
-HDR = 20
+HDR = 21
 (T_P, T_NP, T_F0, T_F, T_A, T_TEAM_SLOT, T_MINORITY, T_HAS_MINORITY, T_REVEAL_SLOT,
  T_ALIVE_BOOL, T_NB, T_NN, T_NS, T_RW_MODE, T_RW_TEAM_SLOT, T_N_CODES, T_COLS, T_PHASES,
- T_CODES, T_LEN) = range(HDR)
+ T_CODES, T_LEN, T_FTAB) = range(HDR)
 SRC_BOOL, SRC_NUM, SRC_STR, SRC_ACTED, SRC_ALIVE = range(5)
 VIS_ACTED = 3  # after net's VIS_PUBLIC, VIS_SELF, VIS_TEAM
-RW_NONE, RW_TEAM, RW_SCORE = range(3)
+# a column's visibility bit (observe.cuh VB_*) by its visibility and whether
+# a reveal flag opens it
+VB_PUBLIC, VB_SELF, VB_SELF_RV, VB_TEAM, VB_TEAM_RV, VB_ACTED = range(6)
+FT_INDEX, FT_OTHER = 0xFFFFF, 1 << 31
+FT_VIEWER, FT_PHASE, FT_ALIVE = range(3)
+
+
+def _column_bit(vis: int, reveal: int) -> int:
+    if vis == N.VIS_PUBLIC:
+        return VB_PUBLIC
+    if vis == VIS_ACTED:
+        return VB_ACTED
+    if vis == N.VIS_SELF:
+        return VB_SELF_RV if reveal else VB_SELF
+    return VB_TEAM_RV if reveal else VB_TEAM
+
+
+def feature_codes(P: int, NP: int, cols: list) -> np.ndarray:
+    """The uint32 code of each feature f of a viewer's row (observe.cuh
+    ftab): target t's column j, (column bit << 28) | (t << 20) | (t * F0 +
+    j), below P * F0; then the viewer's one-hot, the phase's and the alive
+    count, FT_OTHER | (kind << 29) | index."""
+    F0 = len(cols)
+    if P * F0 > FT_INDEX:
+        raise ValueError(f"the observation's {P} x {F0} target features pass OB's {FT_INDEX}")
+    codes = [(_column_bit(c[3], c[4]) << 28) | (t << 20) | (t * F0 + j)
+             for t in range(P) for j, c in enumerate(cols)]
+    codes += [FT_OTHER | (FT_VIEWER << 29) | p for p in range(P)]
+    codes += [FT_OTHER | (FT_PHASE << 29) | i for i in range(NP)]
+    codes.append(FT_OTHER | (FT_ALIVE << 29))
+    return np.asarray(codes, np.uint32)
+# rooms a block of the g++ build (the card's: ob_plan's, by the batch and the card)
+HOST_ROOMS_PER_BLOCK = 3
 SAMPLE_MODES = {"uniform": 0, "gumbel": 1, "greedy": 2}
 
 
@@ -48,8 +87,9 @@ def ob_table(lowered: Lowered) -> np.ndarray:
     """The game's facts OB needs beyond the blob, as int32: a header, a
     column a target's feature (source bank, slot, one-hot code, visibility,
     whether a reveal flag makes it public), a row a phase (who-acted is
-    public, choice kind, choice max, is an action, target predicate) and the
-    game-over's team codes. The same derivations as observe_plain,
+    public, choice kind, choice max, is an action, target predicate), the
+    game-over's team codes and the code of each feature of a viewer's row
+    (feature_codes). The same derivations as observe_plain,
     legal_action_mask_plain, actor_mask_plain and
     ppo.terminal_rewards_plain."""
     lay = lowered.game.layout
@@ -90,12 +130,8 @@ def ob_table(lowered: Lowered) -> np.ndarray:
             raise ValueError(f"phase {i}'s target predicate {pi} is not one of {n_preds}")
         phases.append((int(pub[i]), int(lowered.choice_kind[i]), int(lowered.choice_max[i]),
                        int(lowered.phase_is_action[i] != 0), pi))
-    go = lowered.game_overs[0] if lowered.game_overs else None
-    rw_mode, rw_slot, codes = RW_NONE, -1, []
-    if go is not None and go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
-        rw_mode, rw_slot, codes = RW_TEAM, int(go.team_str_slot), [int(c) for c in go.team_codes]
-    elif go is not None and go.mode == "score":
-        rw_mode = RW_SCORE
+    rw_mode, rw_slot, codes = reward_rule(lowered)
+    codes = [int(c) for c in codes]
     head = np.zeros(HDR, np.int64)
     head[[T_P, T_NP, T_F0, T_F, T_A]] = P, NP, F0, N.obs_dim(lowered), N.action_space(lowered)
     head[[T_TEAM_SLOT, T_MINORITY, T_HAS_MINORITY]] = team_slot, code or 0, code is not None
@@ -103,12 +139,15 @@ def ob_table(lowered: Lowered) -> np.ndarray:
     head[[T_NB, T_NN, T_NS]] = (len(lowered.bool_defaults), len(lowered.num_defaults),
                                 len(lowered.str_defaults))
     head[[T_RW_MODE, T_RW_TEAM_SLOT, T_N_CODES]] = rw_mode, rw_slot, len(codes)
+    ftab = feature_codes(P, NP, cols)
     head[T_COLS] = HDR
     head[T_PHASES] = HDR + 5 * F0
     head[T_CODES] = head[T_PHASES] + 5 * NP
-    head[T_LEN] = head[T_CODES] + len(codes)
+    head[T_FTAB] = head[T_CODES] + len(codes)
+    head[T_LEN] = head[T_FTAB] + len(ftab)
     out = np.concatenate([head, np.asarray(cols, np.int64).reshape(-1),
-                          np.asarray(phases, np.int64).reshape(-1), np.asarray(codes, np.int64)])
+                          np.asarray(phases, np.int64).reshape(-1), np.asarray(codes, np.int64),
+                          ftab.view(np.int32).astype(np.int64)])
     return out.astype(np.int32)
 
 
@@ -126,29 +165,69 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _launch_observe(lowered: Lowered, st: GameState, obs, legal, actor, masked: bool) -> None:
+def observe_plan(lowered: Lowered, batch: int, device, lib=None) -> tuple:
+    """(rooms a block, shared bytes a block) of OB's launch over `batch`
+    rooms of the game on `device`'s card: asked of the card once (ob_plan:
+    the fewest rooms a block that let one wave hold the launch, at most
+    MAX_ROOMS) and cached with the game's tables of that card."""
+    device = torch.device(device)
+    lib = lib or _build.observe_lib()
+    plans = tables(lowered, device).setdefault("observe_plans", {})
+    if (batch, lib._name) not in plans:
+        _, game_host = _game_arrays(lowered, device)
+        _, tab_host = _tables(lowered, device)
+        out = np.zeros(4, np.int64)
+        with torch.cuda.device(device):  # the card whose SMs and limits are asked
+            err = lib.ob_plan(game_host.ctypes.data, tab_host.ctypes.data, len(tab_host), batch,
+                              out.ctypes.data)
+        if err != 0:
+            raise RuntimeError("observation entry plan failed: "
+                               + lib.ob_error_string(err).decode())
+        plans[batch, lib._name] = (int(out[0]), int(out[1]))
+    return plans[batch, lib._name]
+
+
+def _observe_args(lowered: Lowered, batch: int, device, lib) -> tuple:
+    """What every OB launch over `batch` rooms on `device` passes besides
+    its tensors: (game on the card and the host, table on the card and the
+    host, its length) and (rooms a block, shared bytes), cached."""
+    cache = lowered.__dict__.setdefault("_torch_ob_launch", {})
+    key = (batch, device, lib._name)
+    if key not in cache:
+        game, game_host = _game_arrays(lowered, device)
+        tab, tab_host = _tables(lowered, device)
+        cache[key] = ((game.data_ptr(), game_host.ctypes.data, tab.data_ptr(),
+                       tab_host.ctypes.data, len(tab_host)),
+                      observe_plan(lowered, batch, device, lib))
+    return cache[key]
+
+
+def _launch_observe(lowered: Lowered, st: GameState, obs, legal, actor, masked: bool,
+                    lib=None) -> None:
     device = st.present.device
-    game, game_host = _game_arrays(lowered, device)
-    tab, tab_host = _tables(lowered, device)
-    lib = _build.observe_lib()
-    with torch.cuda.device(device):
-        err = lib.ob_observe(game.data_ptr(), game_host.ctypes.data, tab.data_ptr(),
-                             tab_host.ctypes.data, len(tab_host), state_addresses(st), _ptr(obs),
-                             _ptr(legal), _ptr(actor), st.batch, int(masked),
-                             torch.cuda.current_stream(device).cuda_stream)
+    lib = lib or _build.observe_lib()
+    tabs, plan = _observe_args(lowered, st.batch, device, lib)
+    with on_card(device):
+        err = lib.ob_observe(*tabs, state_addresses(lowered, st, "cuda"), _ptr(obs), _ptr(legal),
+                             _ptr(actor),
+                             st.batch, int(masked), *plan, card_stream(device))
     if err != 0:
         raise RuntimeError("observation entry ob_observe launch failed: "
                            + lib.ob_error_string(err).decode())
 
 
-def _host_observe(lowered: Lowered, st: GameState, obs, legal, actor, masked: bool) -> None:
-    game, _ = _game_arrays(lowered, st.present.device)
-    _, tab_host = _tables(lowered, st.present.device)
-    err = _build.observe_host_lib().ob_observe_host(
-        game.data_ptr(), tab_host.ctypes.data, len(tab_host), state_addresses(st), _ptr(obs),
-        _ptr(legal), _ptr(actor), st.batch, int(masked))
-    if err != 0:
-        raise RuntimeError(f"host observation entry failed ({err})")
+def _host_observe(rooms_per_block: int):
+    def run(lowered: Lowered, st: GameState, obs, legal, actor, masked: bool) -> None:
+        game, _ = _game_arrays(lowered, st.present.device)
+        _, tab_host = _tables(lowered, st.present.device)
+        err = _build.observe_host_lib().ob_observe_host(
+            game.data_ptr(), tab_host.ctypes.data, len(tab_host),
+            state_addresses(lowered, st, "cpu"),
+            _ptr(obs), _ptr(legal), _ptr(actor), st.batch, int(masked), rooms_per_block)
+        if err != 0:
+            raise RuntimeError(f"host observation entry failed ({err})")
+
+    return run
 
 
 def _observe(run, kind: str, lowered: Lowered, state: GameState, masked: bool, obs: bool,
@@ -169,10 +248,11 @@ def _launch_rewards(lowered: Lowered, st: GameState, ended, reward) -> None:
     device = st.present.device
     tab, tab_host = _tables(lowered, device)
     lib = _build.observe_lib()
-    with torch.cuda.device(device):
+    with on_card(device):
         err = lib.ob_rewards(tab.data_ptr(), tab_host.ctypes.data, len(tab_host),
-                             state_addresses(st), ended.data_ptr(), reward.data_ptr(), st.batch,
-                             torch.cuda.current_stream(device).cuda_stream)
+                             state_addresses(lowered, st, "cuda"), ended.data_ptr(),
+                             reward.data_ptr(), st.batch,
+                             card_stream(device))
     if err != 0:
         raise RuntimeError("observation entry ob_rewards launch failed: "
                            + lib.ob_error_string(err).decode())
@@ -181,7 +261,7 @@ def _launch_rewards(lowered: Lowered, st: GameState, ended, reward) -> None:
 def _host_rewards(lowered: Lowered, st: GameState, ended, reward) -> None:
     _, tab_host = _tables(lowered, st.present.device)
     err = _build.observe_host_lib().ob_rewards_host(
-        tab_host.ctypes.data, len(tab_host), state_addresses(st), ended.data_ptr(),
+        tab_host.ctypes.data, len(tab_host), state_addresses(lowered, st, "cpu"), ended.data_ptr(),
         reward.data_ptr(), st.batch)
     if err != 0:
         raise RuntimeError(f"host rewards entry failed ({err})")
@@ -229,8 +309,8 @@ def _sample(kind: str, logits, legal, noise, actor, mode: str, run) -> tuple:
 def _launch_sample(*args) -> None:
     *args, device = args
     lib = _build.observe_lib()
-    with torch.cuda.device(device):
-        err = lib.ob_sample(*args, torch.cuda.current_stream(device).cuda_stream)
+    with on_card(device):
+        err = lib.ob_sample(*args, card_stream(device))
     if err != 0:
         raise RuntimeError("sampling entry ob_sample launch failed: "
                            + lib.ob_error_string(err).decode())
@@ -285,9 +365,12 @@ kernel_sample.launches = 0
 
 
 def host_observe(lowered: Lowered, state: GameState, masked: bool = True, obs: bool = True,
-                 legal: bool = True, actor: bool = True) -> tuple:
-    """kernel_observe's body built with g++. CPU tensors only."""
-    return _observe(_host_observe, "cpu", lowered, state, masked, obs, legal, actor)
+                 legal: bool = True, actor: bool = True,
+                 rooms_per_block: int = HOST_ROOMS_PER_BLOCK) -> tuple:
+    """kernel_observe's block body built with g++, blocks of
+    `rooms_per_block` rooms. CPU tensors only."""
+    return _observe(_host_observe(rooms_per_block), "cpu", lowered, state, masked, obs, legal,
+                    actor)
 
 
 def host_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
@@ -300,3 +383,28 @@ def host_sample(logits: torch.Tensor, legal: torch.Tensor, noise: torch.Tensor |
     """kernel_sample's body built with g++. CPU tensors only."""
     return _sample("cpu", logits, legal, noise, actor, mode, _host_sample)
 
+
+
+# observe.cuh OBS_*: the copy in's issue, its wait (the table, the predicate
+# sections, the rooms' fields), stage 1 (the actor mask and what the
+# observation is made of), stage 2 (the legal mask and the observation
+# written)
+OB_SECTIONS = ("issue", "copy", "rooms", "write")
+
+
+def profile_observe(lowered: Lowered, state: GameState) -> dict:
+    """A measuring tool: one OB launch (the masked observation and both
+    masks) through the -DGE_PROFILE build -> {section of OB_SECTIONS:
+    clock64() cycles summed over the blocks}, a block's sections timed by
+    its first thread between barriers. Not counted in
+    kernel_observe.launches. CUDA tensors only."""
+    lib = _build.observe_profile_lib()
+    prof = torch.zeros(len(OB_SECTIONS), dtype=torch.int64, device=state.present.device)
+    with torch.cuda.device(prof.device):
+        lib.ob_observe_sections(prof.data_ptr())
+        try:
+            _observe(lambda *a: _launch_observe(*a, lib=lib), "cuda", lowered, state, True,
+                     True, True, True)
+        finally:
+            lib.ob_observe_sections(None)
+    return dict(zip(OB_SECTIONS, prof.tolist()))

@@ -34,14 +34,13 @@ import numpy as np
 import torch
 
 from game_engine_tpu_torch import device as D
-from game_engine_tpu_torch.core.engine import engine_step
+from game_engine_tpu_torch.core.engine import step_and_reset
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.gamespec.compile import compile_game
 from game_engine_tpu_torch.gamespec.parser import load_builtin
 from game_engine_tpu_torch.gamespec.tables import lower
 from game_engine_tpu_torch.policies import net as N
-from game_engine_tpu_torch.train.ppo import (PPOConfig, init_training, make_apply_fn,
-                                             reset_done, team_masks)
+from game_engine_tpu_torch.train.ppo import PPOConfig, init_training, make_apply_fn, team_masks
 from game_engine_tpu_torch.train.run import make_eval
 
 
@@ -53,12 +52,13 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
     Gumbel draw comes before the majority's; ``noise[t]`` = (minority,
     majority) noise (B, P, A) replaces the draws. On the card the
     observation with its masks and the draws are OB's and SA's launches,
-    the engine step and the reset ST's."""
+    the step with its winner and the reset one ST step_reset launch."""
     apply_fn = make_apply_fn(lowered, cfg)
 
     @torch.no_grad()
     def run(params_min, params_maj, state, generator=None, noise=None):
         wins = dones = 0
+        spare = None
         for t in range(n_steps):
             g_min, g_maj = (None, None) if noise is None else noise[t]
             obs, legal, am = N.observe_all(lowered, state)
@@ -70,10 +70,10 @@ def make_vs(lowered, cfg: PPOConfig, n_steps: int):
                                               generator=generator, legal=legal)
             side = team_masks(lowered, state)
             actions = torch.where(am & side, a_min, torch.where(am, a_maj, 0))
-            nxt, ended = engine_step(lowered, state, actions)
-            wins = wins + (ended & (nxt.winner == 1)).sum()
-            dones = dones + ended.sum()
-            state = reset_done(lowered, nxt)
+            nxt = step_and_reset(lowered, state, actions, out=spare)
+            wins = wins + (nxt.ended & (nxt.winner == 1)).sum()
+            dones = dones + nxt.ended.sum()
+            spare, state = (state if t else None), nxt.state
         return int(wins), int(dones)
 
     return run

@@ -21,13 +21,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from game_engine_tpu_torch.core.engine import bot_actions, engine_step
+from game_engine_tpu_torch.core.engine import bot_actions, step_and_reset
 from game_engine_tpu_torch.core.state import GameState
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, _Clock, gae,
-                                             make_apply_fn, make_update, reset_done,
-                                             team_masks, terminal_rewards)
+                                             make_apply_fn, make_update, team_masks)
 
 
 @dataclasses.dataclass
@@ -119,15 +118,15 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
     comes before the opponent's. ``noise[t]`` = (learner, opponent) noise
     (B, P, A) replaces the draws (the opponent's is unused when scripted).
     ``apply_fn`` defaults to ppo.make_apply_fn: K2 with cfg.fused_net. The
-    observation with its masks, the draws and the rewards are OB's and SA's
-    launches on the card, the engine step, the scripted opponent and the
-    reset ST's."""
+    observation with its masks and the draws are OB's and SA's launches on
+    the card, the scripted opponent ST's bots, and the step, its rewards and
+    the reset one ST step_reset launch."""
     if apply_fn is None:
         apply_fn = make_apply_fn(lowered, cfg)
 
     @torch.no_grad()
     def unroll(params, opp_params, state: GameState, generator=None, noise=None):
-        steps, won = [], []
+        steps, won, spare = [], [], None
         for t in range(cfg.horizon):
             g_learn, g_opp = (None, None) if noise is None else noise[t]
             obs, legal, am = N.observe_all(lowered, state)
@@ -142,12 +141,11 @@ def make_league_unroll(lowered: Lowered, cfg: PPOConfig, scripted_opponent: bool
                                                generator=generator, legal=legal)
             ctrl = learner_controls(lowered, state)
             actions = torch.where(am & ctrl, a, torch.where(am, oa, 0))
-            nxt, ended = engine_step(lowered, state, actions)
-            reward = terminal_rewards(lowered, nxt, ended)
+            nxt = step_and_reset(lowered, state, actions, rewards=True, out=spare)
             # the learner won: a learner-controlled seat got +1 at the end
-            won.append(ended & (ctrl & (reward > 0)).any(1))
-            state = reset_done(lowered, nxt)
-            steps.append(Rollout(obs, actions, logp, v, reward, ended, am & ctrl, legal))
+            won.append(nxt.ended & (ctrl & (nxt.reward > 0)).any(1))
+            spare, state = (state if t else None), nxt.state
+            steps.append(Rollout(obs, actions, logp, v, nxt.reward, nxt.ended, am & ctrl, legal))
         return state, Rollout(*(torch.stack(xs) for xs in zip(*steps))), torch.stack(won)
 
     return unroll

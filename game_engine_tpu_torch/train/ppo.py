@@ -7,11 +7,11 @@ whose action was relevant this step contribute to the policy loss;
 everyone contributes to the value loss.
 
 A train step unrolls T env steps with the learned policy (a Python loop
-over net.observe_all, net.sample_actions, engine.engine_step,
-terminal_rewards and engine.reset_done: on the card one launch each of OB,
-SA (csrc/observe.cu), ST (csrc/rollout.cu), OB's reward mode and ST, with
-the forward and torch.rand between, where the JAX unroll scans its jitted
-XLA body),
+over net.observe_all, net.sample_actions and engine.step_and_reset: on the
+card one launch each of OB, SA (csrc/observe.cu) and ST's step_reset
+(csrc/rollout.cu: the step, the terminal rewards and the reset), with the
+forward and torch.rand between, where the JAX unroll scans its jitted XLA
+body),
 computes GAE, then runs `epochs` full-batch clipped-PPO updates with
 torch.optim.Adam (optax.adam's defaults). With ``fused_net`` the
 deepsets/attn net runs through the policy-net kernels (policies/fused.py):
@@ -48,14 +48,17 @@ import dataclasses
 import time
 from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from game_engine_tpu_torch import device as D
-from game_engine_tpu_torch.gamespec.tables import LGameOver, Lowered
-from game_engine_tpu_torch.core.engine import engine_step, reset_done
-from game_engine_tpu_torch.core.state import GameState, tables
+from game_engine_tpu_torch.gamespec.tables import Lowered
+from game_engine_tpu_torch.core.engine import (  # noqa: F401  (re-exported)
+    reset_done,
+    step_and_reset,
+    terminal_rewards_plain,
+)
+from game_engine_tpu_torch.core.state import GameState
 from game_engine_tpu_torch.parallel.mesh import data_sums
 from game_engine_tpu_torch.policies import net as N
 # the actor mask is a predicate over the state (P2), kept beside the legal mask
@@ -84,10 +87,6 @@ class PPOConfig:
     net: N.NetConfig = dataclasses.field(default_factory=N.NetConfig)
 
 
-def _game_over_mech(lowered: Lowered) -> LGameOver | None:
-    return lowered.game_overs[0] if lowered.game_overs else None
-
-
 def _tensor_parallel(mesh) -> bool:
     return mesh is not None and mesh.model_size > 1
 
@@ -107,15 +106,6 @@ def make_apply_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     return lambda params, obs: N.apply_net(params, obs, cfg.net, lowered)
 
 
-def _team_codes(lowered: Lowered, go: LGameOver, device) -> torch.Tensor:
-    """The game-over mechanic's team codes on `device`, copied there once
-    and cached with the game's tables."""
-    tabs = tables(lowered, device)
-    if "team_codes" not in tabs:
-        tabs["team_codes"] = torch.as_tensor(np.asarray(go.team_codes, np.int32), device=device)
-    return tabs["team_codes"]
-
-
 def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
     """(B, P) float32 rewards paid on the step an episode ends: OB's reward
     mode on CUDA tensors (one launch), terminal_rewards_plain on the CPU."""
@@ -124,29 +114,6 @@ def terminal_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) ->
 
         return OK.kernel_rewards(lowered, state, ended)
     return terminal_rewards_plain(lowered, state, ended)
-
-
-def terminal_rewards_plain(lowered: Lowered, state: GameState,
-                           ended: torch.Tensor) -> torch.Tensor:
-    """terminal_rewards's plain torch body."""
-    go = _game_over_mech(lowered)
-    B, P = state.present.shape
-    dev = state.present.device
-    if go is None:
-        return torch.zeros((B, P), dtype=torch.float32, device=dev)
-    if go.mode == "team" and go.team_str_slot >= 0 and go.team_codes:
-        team = state.strs[..., go.team_str_slot].to(torch.int32)
-        codes = _team_codes(lowered, go, dev)
-        win_code = codes[(state.winner - 1).clamp(0, len(go.team_codes) - 1).long()]
-        r = torch.where(team == win_code[:, None], 1.0, -1.0)
-    elif go.mode == "score":
-        pidx = torch.arange(1, P + 1, dtype=torch.int32, device=dev)[None, :]
-        # zero-sum per room: losers split -1 across the room's actual seats
-        n = state.present.sum(1).to(torch.float32)[:, None]
-        r = torch.where(pidx == state.winner[:, None], 1.0, -1.0 / (n - 1).clamp_min(1))
-    else:
-        r = torch.zeros((B, P), dtype=torch.float32, device=dev)
-    return torch.where(ended[:, None] & state.present, r, 0.0).to(torch.float32)
 
 
 class Rollout(NamedTuple):
@@ -164,24 +131,26 @@ def make_unroll(lowered: Lowered, cfg: PPOConfig, mesh=None):
     """unroll(params, state, generator) -> (state, Rollout): cfg.horizon
     steps of the learned policy. On the card a step is OB (observation,
     legal and actor masks), the forward, torch.rand, SA (the draw and the
-    actor-masked actions), ST's step, OB's rewards (the team strings
-    before the reset) and ST's reset."""
+    actor-masked actions) and ST's step_reset (the step, the terminal
+    rewards of the stepped state, the restart of the rooms it ended, in one
+    launch). From the second step on, the state the step consumed receives
+    the next one (step_and_reset's `out`): only the caller's first state is
+    kept."""
     apply_fn = (make_apply_fn(lowered, cfg, mesh)
                 if cfg.fused_net or _tensor_parallel(mesh) else None)
 
     @torch.no_grad()
     def unroll(params, state: GameState, generator: torch.Generator):
         rows = None if mesh is None else mesh.room_rows(state.present.shape[0])
-        steps = []
-        for _ in range(cfg.horizon):
+        steps, spare = [], None
+        for t in range(cfg.horizon):
             obs, legal, mask = N.observe_all(lowered, state)
             actions, logp, v, _ = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
                                                    apply_fn=apply_fn, generator=generator,
                                                    rows=rows, legal=legal, actor=mask)
-            nxt, ended = engine_step(lowered, state, actions)
-            reward = terminal_rewards(lowered, nxt, ended)
-            state = reset_done(lowered, nxt)
-            steps.append(Rollout(obs, actions, logp, v, reward, ended, mask, legal))
+            nxt = step_and_reset(lowered, state, actions, rewards=True, out=spare)
+            spare, state = (state if t else None), nxt.state
+            steps.append(Rollout(obs, actions, logp, v, nxt.reward, nxt.ended, mask, legal))
         return state, Rollout(*(torch.stack(xs) for xs in zip(*steps)))
 
     return unroll

@@ -31,11 +31,11 @@ from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.gamespec.compile import compile_game
 from game_engine_tpu_torch.gamespec.parser import load_builtin
 from game_engine_tpu_torch.gamespec.tables import Lowered, lower
-from game_engine_tpu_torch.core.engine import bot_actions, engine_step
+from game_engine_tpu_torch.core.engine import bot_actions, step_and_reset
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.train.ppo import (PPOConfig, init_training, make_optimizer,
-                                             make_train_step, reset_done, team_masks)
+                                             make_train_step, team_masks)
 
 
 def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int = 256):
@@ -43,13 +43,15 @@ def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int
     for the other. Returns fn(params, state, generator) -> (wins_side,
     done_count) as host ints. On the card the observation with its masks
     and the draw are OB's and SA's launches (net.observe_all,
-    sample_actions), the engine step, the scripted side and the reset ST's
-    (engine.engine_step, bot_actions, reset_done)."""
+    sample_actions), the scripted side ST's bots (bot_actions), and the
+    step with its winner and the reset one ST step_reset launch
+    (engine.step_and_reset)."""
 
     @torch.no_grad()
     def run(params, state, generator):
         wins = dones = 0
-        for _ in range(n_steps):
+        spare = None
+        for t in range(n_steps):
             obs, legal, am = N.observe_all(lowered, state)
             la, _, _, _ = N.sample_actions(lowered, params, state, cfg.net, obs=obs,
                                            generator=generator, legal=legal)
@@ -57,10 +59,10 @@ def make_eval(lowered: Lowered, cfg: PPOConfig, learned_side: bool, n_steps: int
             side = team_masks(lowered, state)
             use_learned = side if learned_side else ~side
             actions = torch.where(am & use_learned, la, torch.where(am, sa, 0))
-            nxt, ended = engine_step(lowered, state, actions)
-            wins = wins + (ended & (nxt.winner == 1)).sum()  # minority team / side 1
-            dones = dones + ended.sum()
-            state = reset_done(lowered, nxt)
+            nxt = step_and_reset(lowered, state, actions, out=spare)
+            wins = wins + (nxt.ended & (nxt.winner == 1)).sum()  # minority team / side 1
+            dones = dones + nxt.ended.sum()
+            spare, state = (state if t else None), nxt.state
         return int(wins), int(dones)
 
     return run

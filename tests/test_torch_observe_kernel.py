@@ -21,6 +21,7 @@ from game_engine_tpu.core.state import init_state as jax_init_state
 from game_engine_tpu.policies import net as JN
 from game_engine_tpu.train import ppo as JP
 from game_engine_tpu_torch.core import engine as E
+from game_engine_tpu_torch.core.rollout_kernel import host_rollout
 from game_engine_tpu_torch.core.state import GameState, init_state
 from game_engine_tpu_torch.core.step import make_step
 from game_engine_tpu_torch.core.step_kernel import host_bot_actions, host_reset_done, host_step
@@ -163,6 +164,44 @@ def test_entries_past_the_old_bounds(case, n, steps):
     pair = {"werewolf-40": lambda: wide_pair(40), "werewolf-72": lambda: wide_pair(72),
             "long": long_pair}[case]()
     unroll_against_plain(pair.port, np.array(n), steps, seed=len(case))
+
+
+@pytest.fixture(scope="module")
+def spread_4097():
+    """4097 werewolf rooms of mixed sizes after 200 scripted steps with
+    auto-reset (K1's body built with g++), so that the rooms stand in the
+    game's phases as a long run leaves them."""
+    lw = lowered_game("werewolf").port
+    rng = np.random.default_rng(41)
+    B = 4097
+    st = init_state(lw, B, torch.as_tensor(room_sizes(lw, B, rng), dtype=torch.int32),
+                    np.arange(B, dtype=np.uint32) * 3 + 1, device="cpu")
+    return lw, host_rollout(lw, st, 200)[0]
+
+
+@pytest.mark.parametrize("rooms_per_block", [1, 3, 4, 8, 16])
+def test_block_boundary_batches(spread_4097, rooms_per_block):
+    """OB's block body bit for bit at batches around its block of R rooms
+    (1, R - 1, R + 1 and 4097 rooms: a last block part full, a block's
+    stretch of the observation starting and ending inside a 16-byte run),
+    for the R that ob_plan gives werewolf on an H100 (8 at 4096 rooms, 16
+    at 65,536; chip_smoke.py --profile prints it) and others, both views,
+    with each mask alone."""
+    lw, full = spread_4097
+    R = rooms_per_block
+    assert len(set(full.phase.tolist())) > 10
+    for B in sorted({1, max(R - 1, 1), R + 1, 4097}):
+        st = GameState(*(t[:B].contiguous() for t in full))
+        for masked in (True, False):
+            obs, legal, actor = host_observe(lw, st, masked, rooms_per_block=R)
+            assert_bitwise(obs, N.observe_plain(lw, st, masked), f"B={B} obs masked={masked}")
+            assert_bitwise(legal, N.legal_action_mask_plain(lw, st), f"B={B} legal")
+            assert_bitwise(actor, P.actor_mask_plain(lw, st), f"B={B} actor")
+        legal_only = host_observe(lw, st, obs=False, actor=False, rooms_per_block=R)
+        assert legal_only[0] is None and legal_only[2] is None
+        assert_bitwise(legal_only[1], N.legal_action_mask_plain(lw, st), f"B={B} legal alone")
+        actor_only = host_observe(lw, st, obs=False, legal=False, rooms_per_block=R)[2]
+        assert_bitwise(actor_only, P.actor_mask_plain(lw, st), f"B={B} actor alone")
 
 
 def test_out_of_range_codes_and_seats_past_present():
