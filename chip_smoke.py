@@ -3738,16 +3738,16 @@ def st_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) 
             "episodes_ended": int(ended_n), "done_rooms_stepped": int(done_n)}
 
 
-def st_state(lw, rooms: int, steps: int = 200):
-    """Werewolf rooms of 8 after `steps` steps of the scripted rollout with
-    auto-reset (K1): rooms spread over the game's phases, as a long run
-    leaves them (fresh rooms all wait in one phase)."""
+def st_state(lw, rooms: int, steps: int = 200, seats: int = 8):
+    """Werewolf rooms of `seats` players after `steps` steps of the scripted
+    rollout with auto-reset (K1): rooms spread over the game's phases, as a
+    long run leaves them (fresh rooms all wait in one phase)."""
     import numpy as np
 
     from game_engine_tpu_torch.core.engine import BatchedEngine
 
     eng = BatchedEngine(lw, "cuda")
-    return eng.rollout(eng.init(rooms, 8, np.arange(rooms, dtype=np.uint32)), steps)[0]
+    return eng.rollout(eng.init(rooms, seats, np.arange(rooms, dtype=np.uint32)), steps)[0]
 
 
 def st_timing(lw, rooms: int, int32_rate: float) -> dict:
@@ -4085,6 +4085,21 @@ OB_SIZES = (4096, 65536)   # werewolf rooms of 8 where OB and SA are timed
 OB_REPS = 5
 LOGP_TOL = 1e-6            # SA's logp against log_softmax's (float rounding of the sum)
 OB_ENTRIES = ("observe", "rewards", "sample")  # ob_observe, ob_rewards, ob_sample
+# SA's lane-group widths checked: choices a row on both sides of each group
+# width (1-32 lanes of 8 choices) and of a warp's passes of 256, multiples
+# of 4 (loads of 4, and unaligned) and not; rows no multiple of a warp's
+# groups
+SA_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 9, 16, 17, 31, 32, 33, 64, 65, 72, 73, 100, 128, 129, 256,
+             257, 300)
+SA_SWEEP_ROWS = 1031
+# werewolf (rooms, seats present) where SA is timed: 4 rooms (32 rows, one
+# block) as the floor, the paths' 4096-65,536 rooms of 8, and the train
+# unroll's 4096 rooms of 6
+SA_SIZES = ((4, 8), (4096, 8), (16384, 8), (65536, 8), (4096, 6))
+# SA's kernel by lanes a row and mode (0 uniform, 1 gumbel, 2 greedy): the
+# mangled names' template arguments
+SA_KERNELS = {f"G{g}_mode{m}": f"ob_sample_kernelILi{g}ELi{m}EE"
+              for g in (1, 2, 4, 8, 16, 32) for m in range(3)}
 # the paths that run a learned policy a turn at a time, each of which must
 # launch OB and SA
 OB_PATHS = ("learner", "train_narrow", "large_rooms", "serving", "league", "pipeline",
@@ -4154,6 +4169,145 @@ def sa_plain(logits, legal, u, actor, present):
     a, logp = N.draw_plain(logits, legal, noise)
     g = first_argmax(torch.where(legal, logits, -1e9)).to(torch.int32) + 1
     return a, torch.where(actor, a, 0), logp, torch.where(legal.any(-1) & present, g, 0), noise
+
+
+def sa_sweep_inputs(A: int, seed: int) -> tuple:
+    """(logits, legal, uniforms, actor) of SA_SWEEP_ROWS rows of A choices
+    from a seed on the card, with the edges forced: row 0 has no legal
+    choice and a zero uniform; rows 1 and 2 have every logit and uniform
+    equal (all legal, then some); rows 3 to 5 hold the same largest value
+    at two indices: lanes apart, in one lane's choices, and in two
+    passes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (SA_SWEEP_ROWS, A)
+    logits = torch.randn(shape, generator=gen, device="cuda")
+    legal = torch.rand(shape, generator=gen, device="cuda") < 0.6
+    u = torch.rand(shape, generator=gen, device="cuda")
+    actor = torch.rand(shape[:1], generator=gen, device="cuda") < 0.5
+    legal[0] = False
+    u[0, A // 2] = 0.0
+    legal[1] = True
+    logits[1:3] = 0.25
+    u[1:3] = u[1:3, :1]
+    for row, (i, j) in zip((3, 4, 5), ((A // 3, A - 1), (1, 3), (5, 261))):
+        if i < j < A:
+            legal[row, [i, j]] = True
+            logits[row, [i, j]] = 50.0
+            u[row, [i, j]] = 0.75
+    return logits, legal, u, actor
+
+
+def unaligned(t):
+    """A copy of `t` one element past an aligned start: SA reads it a choice
+    at a time, not in 16-byte loads."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def sa_sweep_check() -> dict:
+    """SA at every lane-group width (SA_WIDTHS choices a row) against its
+    plain version on the same inputs (sa_sweep_inputs): the "uniform" and
+    "gumbel" modes with the actor mask and without, against sa_plain; the
+    greedy mode with and without, against the first argmax of the masked
+    logits. Widths that are multiples of 4 run twice, the second time on
+    unaligned copies of the inputs. Actions exact, logp within LOGP_TOL;
+    counted on the card and read once."""
+    import torch
+
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+    from game_engine_tpu_torch.policies.serve import first_argmax
+
+    diff = torch.zeros((), dtype=torch.int64, device="cuda")
+    err = torch.zeros((), dtype=torch.float64, device="cuda")
+    logp_err = torch.zeros((), dtype=torch.float32, device="cuda")
+    dtypes_ok, nones, runs = True, 0, 0
+    cases = [(A, False) for A in SA_WIDTHS] + [(A, True) for A in SA_WIDTHS if A % 4 == 0]
+    for A, shift in cases:
+        logits, legal, u, actor = sa_sweep_inputs(A, 3000 + A)
+        ref_a, ref_acting, ref_logp, _, noise = sa_plain(logits, legal, u, actor, actor)
+        if shift:
+            logits, legal, u, noise = (unaligned(x) for x in (logits, legal, u, noise))
+        runs += 1
+        g = first_argmax(torch.where(legal, logits, -1e9)).to(torch.int32) + 1
+        got, ref = [], []
+        for mode, z in (("uniform", u), ("gumbel", noise)):
+            a, acting, logp = OK.kernel_sample(logits, legal, z, actor, mode=mode)
+            b, none, logp_b = OK.kernel_sample(logits, legal, z, mode=mode)
+            nones += none is None
+            got += [a, acting, b]
+            ref += [ref_a, ref_acting, ref_a]
+            for x in (logp, logp_b):
+                logp_err = torch.maximum(logp_err, (x - ref_logp).abs().max())
+        for who in (actor, None):
+            a, greedy, none = OK.kernel_sample(logits, legal, actor=who, mode="greedy")
+            keep = legal.any(-1) if who is None else legal.any(-1) & who
+            nones += none is None
+            got += [a, greedy]
+            ref += [g, torch.where(keep, g, 0)]
+        d, e, same_kind = ob_differences(got, ref)
+        diff, err, dtypes_ok = diff + d, torch.maximum(err, e), dtypes_ok and same_kind
+    return {"widths": list(SA_WIDTHS), "rows": SA_SWEEP_ROWS, "runs": runs,
+            "unaligned": [A for A, shift in cases if shift],
+            "differences": {"sample": int(diff)}, "max_abs_err": {"sample": float(err)},
+            "logp_max_abs_err": float(logp_err), "dtypes_ok": dtypes_ok and nones == 4 * runs}
+
+
+def entry_times(call) -> tuple:
+    """(the last output, a call's span from an idle queue in ms, its device
+    ms behind a sleep kernel, the wrapper's host us with no sync) of one
+    entry: a warm-up, then the medians of OB_REPS spans, OB_REPS prefilled
+    runs and 20 host times."""
+    import torch
+
+    call()  # warm-up
+    spans = []
+    for _ in range(OB_REPS):
+        out, ms = timed_ms(call)
+        spans.append(ms)
+    span = statistics.median(spans)
+    ms = statistics.median(prefilled_ms(call, span) for _ in range(OB_REPS))
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e6)
+    return out, span, ms, statistics.median(host)
+
+
+def sa_timing(lw, rooms: int, seats: int) -> dict:
+    """SA beside its plain version at `rooms` werewolf rooms of `seats`
+    players spread over the game's phases (st_state), on OB's legal and
+    actor masks and sa_inputs' logits and uniforms, timed as entry_times
+    times them. The timed calls' outputs are held against the plain ones.
+    The bound is the bytes SA must move (logits, legal, uniforms, actor
+    read once, the three outputs written once) over the memory rate: its
+    operations are a few a byte."""
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    state = st_state(lw, rooms, seats=seats)
+    _, legal, actor = OK.kernel_observe(lw, state)
+    logits, u = sa_inputs(legal, rooms + seats)
+    out = {"rooms": rooms, "seats": seats, "rows": int(actor.numel()),
+           "choices": int(legal.shape[-1]), "actors": int(actor.sum())}
+    got = {}
+    for name, call in (("", lambda: OK.kernel_sample(logits, legal, u, actor)),
+                       ("plain_", lambda: sa_plain(logits, legal, u, actor, state.present)[:3])):
+        got[name], out[name + "call_ms"], out[name + "ms"], out[name + "host_us"] = \
+            entry_times(call)
+    d, err, same_kind = ob_differences(got[""][:2], got["plain_"][:2])
+    out.update(differences={"sample": int(d)}, max_abs_err={"sample": float(err)},
+               dtypes_ok=same_kind,
+               logp_max_abs_err=float((got[""][2] - got["plain_"][2]).abs().max()))
+    out["bytes"] = nbytes(logits, legal, u, actor, *got[""])
+    out["bound_ms"] = out["bytes"] / PEAK_BYTES * 1e3
+    return out
 
 
 def ob_check_case(name: str, lw, rooms: int, steps: int, seed: int, state=None) -> dict:
@@ -4256,21 +4410,8 @@ def ob_timing(lw, rooms: int) -> dict:
            "rooms_per_block": OK.observe_plan(lw, rooms, state.present.device)[0]}
     got = {}
     for name, call in calls.items():
-        call()  # warm-up
-        spans = []
-        for _ in range(OB_REPS):
-            got[name], ms = timed_ms(call)
-            spans.append(ms)
-        span = statistics.median(spans)
-        out[name + "call_ms"] = span
-        out[name + "ms"] = statistics.median(prefilled_ms(call, span) for _ in range(OB_REPS))
-        host = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            host.append((time.perf_counter() - t0) * 1e6)
-        out[name + "host_us"] = statistics.median(host)
+        got[name], out[name + "call_ms"], out[name + "ms"], out[name + "host_us"] = \
+            entry_times(call)
     checks = {"observe": ob_differences(got["ob_"], got["plain_ob_"]),
               "rewards": ob_differences(got["rewards_"], got["plain_rewards_"]),
               "sample": ob_differences(got["sa_"][:2], got["plain_sa_"][:2])}
@@ -4354,8 +4495,10 @@ def observe_step_phase(gpu: str) -> dict:
     mixed sizes), born-done rooms, werewolf at 40 and 72 seats, the
     78-phase game, and werewolf at OB_CHECK_SIZES from rooms spread over
     its phases; then their times at OB_SIZES beside the plain versions and
-    their bounds, the timed calls' outputs held against the plain ones, and
-    the sync check. Returns the kernels line's numbers."""
+    their bounds, the timed calls' outputs held against the plain ones; SA
+    at every lane-group width (sa_sweep_check) and its times at SA_SIZES
+    (sa_timing, each beside the floor of one block), and the sync check.
+    Returns the kernels line's numbers."""
     from game_engine_tpu_torch.gamespec.compile import compile_game
     from game_engine_tpu_torch.gamespec.parser import games_dir, load_builtin
     from game_engine_tpu_torch.gamespec.tables import lower
@@ -4393,15 +4536,27 @@ def observe_step_phase(gpu: str) -> dict:
     for n, t in timing.items():
         if not ob_agrees(t):
             raise AssertionError(f"OB's or SA's timed calls at {n} rooms differ from plain: {t}")
+    sweep = sa_sweep_check()
+    if not ob_agrees(sweep):
+        raise AssertionError(f"SA differs from plain across its lane-group widths: {sweep}")
+    sa = {f"{n}x{p}": sa_timing(ww, n, p) for n, p in SA_SIZES}
+    floor = sa[f"{SA_SIZES[0][0]}x{SA_SIZES[0][1]}"]["ms"]
+    for key, t in sa.items():
+        if not ob_agrees(t):
+            raise AssertionError(f"SA's timed calls at {key} differ from plain: {t}")
+        t["floor_ms"], t["ms_less_floor"] = floor, t["ms"] - floor
+    emit({"phase": "sample_timing", "sweep": sweep, "by_rooms_and_seats": sa, "gpu": gpu})
     sync = ob_sync_check(ww)
     order = ob_plan_order_check()
     emit({"phase": "observe_step", "timing": {str(k): v for k, v in timing.items()},
           "sync_check": sync, "plan_order_check": order,
           "seconds": time.perf_counter() - t0, "gpu": gpu})
-    checked = results + list(timing.values())
-    return {"timing": timing, "cases": len(results),
-            "differences": {e: sum(r["differences"][e] for r in checked) for e in OB_ENTRIES},
-            "max_abs_err": {e: max(r["max_abs_err"][e] for r in checked) for e in OB_ENTRIES},
+    checked = results + list(timing.values()) + [sweep] + list(sa.values())
+    return {"timing": timing, "sa_timing": sa, "sa_sweep": sweep, "cases": len(results),
+            "differences": {e: sum(r["differences"].get(e, 0) for r in checked)
+                            for e in OB_ENTRIES},
+            "max_abs_err": {e: max(r["max_abs_err"].get(e, 0.0) for r in checked)
+                            for e in OB_ENTRIES},
             "logp_max_abs_err": max(r["logp_max_abs_err"] for r in checked)}
 
 
@@ -4742,10 +4897,12 @@ def main(argv=()) -> int:
     k1_ptxas = ptxas_by_kernel(lib, K1_KERNELS.values())
     st_ptxas = ptxas_by_kernel(lib, ST_KERNELS.values())
     ob_ptxas = ptxas_by_kernel(_build.observe_lib(), OB_KERNELS.values())
+    sa_ptxas = ptxas_by_kernel(_build.observe_lib(), SA_KERNELS.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(lib),
           **{k: k1_ptxas[v] for k, v in K1_KERNELS.items()},
           **{k: st_ptxas[v] for k, v in ST_KERNELS.items()},
           "search_kernels_wide": wide_ptxas, "observe_kernels": ob_ptxas,
+          "sample_kernels": {k: sa_ptxas[v] for k, v in SA_KERNELS.items()},
           "lossgrad_ptxas": ptxas_report(_build.lossgrad_lib()),
           "lossgrad_kernels": ptxas_by_kernel(_build.lossgrad_lib(), LG_KERNELS),
           "search_ptxas": ptxas_report(_build.search_lib()),
@@ -4985,6 +5142,7 @@ def main(argv=()) -> int:
         raise AssertionError(f"an unroll path launched the reset or the rewards apart, or no "
                              f"step_reset: {apart}, {st_by_entry}")
     ob_line = ob["timing"][OB_SIZES[0]]
+    sa_line = ob["sa_timing"][f"{ROOMS}x8"]
     ob_shape = {"game": "werewolf", "rooms": OB_SIZES[0], "seats": 8}
     emit({"kernels": [{
         "name": "rollout", "route": "cuda", "source": KERNEL_SOURCE,
@@ -5050,17 +5208,23 @@ def main(argv=()) -> int:
         "replaces_kind": "XLA's fusion of sample_actions' draw and log-softmax and the "
                          "unroll's actor-masked actions, no pallas_call site",
         "entries": ["ob_sample"],
+        "design": "a row a group of lanes of 8 contiguous choices each (one lane at 8 "
+                  "choices, 16 at 72 seats), every load issued first, shuffle butterflies "
+                  "and a ballot, one output buffer a call",
         "launches": sum(ob_by_path["sample"].values()),
         "launches_by_path": ob_by_path["sample"],
         "max_abs_err": ob["logp_max_abs_err"], "max_abs_err_of": "logp",
         "actions_max_abs_err": ob["max_abs_err"]["sample"],
         "differences": ob["differences"]["sample"], "cases_checked": ob["cases"],
-        "ms": ob_line["sa_ms"], "plain_ms": ob_line["plain_sa_ms"],
-        "call_ms": ob_line["sa_call_ms"], "plain_call_ms": ob_line["plain_sa_call_ms"],
-        "host_us": ob_line["sa_host_us"], "plain_host_us": ob_line["plain_sa_host_us"],
-        "bound_ms": ob_line["bound_ms"]["sa"], "bound_by": "bytes", "library_ms": None,
+        "widths_checked": ob["sa_sweep"]["widths"],
+        "ms": sa_line["ms"], "plain_ms": sa_line["plain_ms"], "floor_ms": sa_line["floor_ms"],
+        "ms_less_floor": sa_line["ms_less_floor"],
+        "call_ms": sa_line["call_ms"], "plain_call_ms": sa_line["plain_call_ms"],
+        "host_us": sa_line["host_us"], "plain_host_us": sa_line["plain_host_us"],
+        "bound_ms": sa_line["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "library_ms_none_because": "no PyTorch call draws a masked Gumbel-max with its logp",
-        "ptxas": ob_ptxas[OB_KERNELS["sample"]], "shape": ob_shape}] + [{
+        "by_rooms_and_seats": ob["sa_timing"],
+        "ptxas": {k: sa_ptxas[v] for k, v in SA_KERNELS.items()}, "shape": ob_shape}] + [{
         "name": k, "route": "cuda", "source": POLICY_SOURCE[k], "replaces": POLICY_REPLACES[k],
         "launches": launches[k], "launches_by_path": by_path[k],
         "ms": policy[k]["ms"], "plain_ms": policy[k]["plain_ms"],

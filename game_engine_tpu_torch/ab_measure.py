@@ -1,9 +1,9 @@
 """This checkout's kernels against another checkout's on the same NVIDIA
-GPU: K1 (rollout), S (search), K2-K4 (policy) or the paths that step rooms a
-turn at a time (steps), each checkout measured in its own process in the
-order other, this, this, other.
+GPU: K1 (rollout), S (search), K2-K4 (policy), SA (sample) or the paths
+that step rooms a turn at a time (steps), each checkout measured in its own
+process in the order other, this, this, other.
 
-    python -m game_engine_tpu_torch.ab_measure {rollout,search,policy,steps} [--other DIR]
+    python -m game_engine_tpu_torch.ab_measure {rollout,search,policy,sample,steps} [--other DIR]
 
 DIR is another checkout of the repository, such as `git archive` of the
 parent commit unpacked; without it only this checkout is measured. Each
@@ -27,6 +27,14 @@ GPU's name and power limit:
             checkpoint docs/checkpoints/attn_werewolf_u120.npz at hidden 256
             on 4096 werewolf rooms of 6 players in 8 seats, 4 steps of a
             scripted rollout
+  sample    SA (kernel_sample with the actor mask) on OB's masks of
+            werewolf rooms after 200 scripted steps (4 rooms of 8 as the
+            floor, 4096, 16,384 and 65,536 of 8, 4096 of 6), f32 logits and
+            uniforms from a seed: the device ms of one call queued behind a
+            sleep kernel (CUDA events, median of 5) in the "uniform" mode
+            and, on the same numbers taken as Gumbel noise, the "gumbel"
+            mode (no logf), and the wrapper's host us a call (median of 20,
+            no sync)
   steps     the paths that step rooms a turn at a time (ST, OB and SA
             move them): train steps at the learner's shape
             (make_train_step, 4096 werewolf rooms of 6, horizon 32, 4
@@ -54,12 +62,14 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if sys.path and sys.path[0] == os.path.dirname(os.path.abspath(__file__)):
     del sys.path[0]  # run as a file (--child): the package's modules are not top-level names
-KINDS = ("rollout", "search", "policy", "steps")
+KINDS = ("rollout", "search", "policy", "sample", "steps")
 K1_ROOMS, K1_STEPS = (4096, 65536), 1024
 S_SIZES, S_R, S_H = (1, 8, 64, 512, 4096), 32, 200
 CKPT = "docs/checkpoints/attn_werewolf_u120.npz"
 K2_ROOMS, K2_PLAYERS, K2_STEPS = 4096, 6, 4
 TRAIN_STEPS, LOOP_CALLS, MATCHUP_PAIRS = 8, 5, 6  # the steps kind's spreads
+SA_SIZES = ((4, 8), (4096, 8), (16384, 8), (65536, 8), (4096, 6))  # werewolf rooms, seats
+SLEEP_CYCLES = 1_980_000  # torch.cuda._sleep's cycles of 1 ms at the H100's top SM clock
 
 
 def emit(obj) -> None:
@@ -210,6 +220,48 @@ def policy(label: str) -> None:
                                                           pcfg.ent_coef))})
 
 
+def sample(label: str) -> None:
+    import time
+
+    import numpy as np
+    import torch
+
+    from game_engine_tpu_torch.core.engine import BatchedEngine
+    from game_engine_tpu_torch.policies import obs_kernel as OK
+
+    lw = werewolf()
+    eng = BatchedEngine(lw, "cuda")
+    for rooms, seats in SA_SIZES:
+        state = eng.rollout(eng.init(rooms, seats, np.arange(rooms, dtype=np.uint32)), 200)[0]
+        _, legal, actor = OK.kernel_observe(lw, state)
+        gen = torch.Generator(device="cuda").manual_seed(rooms + seats)
+        logits = torch.randn(legal.shape, generator=gen, device="cuda")
+        u = torch.rand(legal.shape, generator=gen, device="cuda")
+        device = {}
+        for mode in ("uniform", "gumbel"):
+            OK.kernel_sample(logits, legal, u, actor, mode)  # warm-up
+            device[mode] = []
+            for _ in range(5):  # one call behind a sleep kernel that outlasts its enqueue
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                start.record()
+                OK.kernel_sample(logits, legal, u, actor, mode)
+                end.record()
+                torch.cuda.synchronize()
+                device[mode].append(start.elapsed_time(end))
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            OK.kernel_sample(logits, legal, u, actor)
+            host.append((time.perf_counter() - t0) * 1e6)
+        emit({"line": "sample", "checkout": label, "rooms": rooms, "seats": seats,
+              "rows": int(actor.numel()), "ms": statistics.median(device["uniform"]),
+              "ms_all": device["uniform"], "gumbel_ms": statistics.median(device["gumbel"]),
+              "host_us": statistics.median(host)})
+
+
 def steps(label: str) -> None:
     import time
 
@@ -268,7 +320,7 @@ def main(argv: list) -> int:
         print("ab_measure: no CUDA device", file=sys.stderr)
         return 2
     if argv[0] == "--child":  # --child KIND LABEL, from the checkout being measured
-        {"rollout": rollout, "search": search, "policy": policy,
+        {"rollout": rollout, "search": search, "policy": policy, "sample": sample,
          "steps": steps}[argv[1]](argv[2])
         return 0
     from game_engine_tpu_torch.bench import gpu_line

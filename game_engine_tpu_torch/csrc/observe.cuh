@@ -38,16 +38,21 @@
 // phase's target predicate is room_step.cuh's pred_eval, as the engine
 // step's acceptance evaluates it.
 //
-// SA takes a row (room, seat) a thread: the legal-masked logits plus the
-// Gumbel noise -log(-log(max(u, FLT_MIN))) of the caller's uniforms (or the
+// SA draws a row (room, seat): the legal-masked logits plus the Gumbel
+// noise -log(-log(max(u, FLT_MIN))) of the caller's uniforms (or the
 // caller's noise as it is, or none), the first index of the maximum, and
-// the log-softmax of the masked logits at it. logf is the library's
-// correctly rounded one: the build passes no --use_fast_math.
+// the log-softmax of the masked logits at it. Latency, not its bytes,
+// sets its time: a row's loads go out together and its choices' steps
+// interleave (see "SA" below). logf and expf are the library's, not the
+// fast intrinsics: the build passes no --use_fast_math, which keeps the
+// Gumbel transform bit for bit torch's.
 #pragma once
 
 #include <float.h>
 #include <math.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "room_step.cuh"
 
@@ -547,44 +552,183 @@ GE_HD int count_present(const Table& x, const BatchState& s, int64_t i) {
 }
 
 // -- SA ------------------------------------------------------------------------
+//
+// A row (room, seat) of A choices is a group of G lanes of a warp, lane l
+// holding the SA_SPAN contiguous choices from SA_SPAN * l, G the smallest
+// power of two that covers the row, at most 32: one lane at werewolf's 8
+// choices, 16 at 72 seats; past 256 choices a warp takes a row in passes
+// of 256 (sa_widths). A lane issues all its loads before it uses one: two
+// 16-byte loads of each f32 input and two 4-byte loads of legal where the
+// row's inputs are aligned to them (sa_vec), else one a choice; each
+// choice is read once and its masked logit stays in a register. The lane
+// takes its own choices in order; a group then combines its lanes by
+// butterflies, offsets G/2 ... 1, each lane taking op(its own, the other
+// lane's): the max of the masked logits, the sum of expf(m - max), the
+// max of the draw's values; the draw is the first lane holding that max
+// (its choices precede the others'), and that lane's own first. Every op
+// is commutative, so every lane ends with the same result and lane 0
+// writes it. observe.cu's kernel exchanges by __shfl_xor_sync and
+// __ballot_sync; observe_host.cpp runs a group's lanes in a loop, the same
+// steps in the same order.
+
+constexpr int SA_SPAN = 8;           // contiguous choices a lane holds a pass
+constexpr int SA_NONE = 0x7fffffff;  // the index of a draw that holds no choice yet
 
 // -log(-log(max(u, FLT_MIN))): torch.rand's uniform as sample_actions turns it
 GE_HD float gumbel_of(float u) { return -logf(-logf(u > FLT_MIN ? u : FLT_MIN)); }
 
-// Row `row` of A choices: the first index of the largest masked logit plus
-// noise (none when greedy), its 1-based action, the actor-masked action
-// (greedy: also 0 where no choice is legal) and the log-softmax of the
-// masked logits at it.
-GE_HD void sample_row(const float* logits, const uint8_t* legal, const float* noise,
-                      const uint8_t* actor, int32_t* actions, int32_t* masked, float* logp,
-                      int64_t row, int A, int mode) {
-  const float* l = logits + row * A;
-  const uint8_t* ok = legal + row * A;
-  const float* z = noise ? noise + row * A : nullptr;
-  int best = 0;
-  float best_x = 0.0f, mx = 0.0f;
-  bool any_legal = false;
-  for (int c = 0; c < A; ++c) {
-    const float m = ok[c] ? l[c] : -1e9f;
-    any_legal |= ok[c] != 0;
-    float xv = m;
-    if (mode == SA_UNIFORM) xv = m + gumbel_of(z[c]);
-    else if (mode == SA_GUMBEL) xv = m + z[c];
-    if (c == 0 || xv > best_x) { best = c; best_x = xv; }  // NaN-free: first max kept
-    if (c == 0 || m > mx) mx = m;
+// A draw so far: the masked logit plus the noise, the masked logit, its
+// index and whether any choice met was legal.
+struct SaBest {
+  float x, m;
+  int i, any;
+};
+
+GE_HD SaBest sa_none() { return SaBest{-INFINITY, -INFINITY, SA_NONE, 0}; }
+
+// The draw keeps the larger value and, on a tie, the lower index: the
+// first maximum, as torch.argmax keeps it.
+GE_HD SaBest sa_pick(const SaBest& a, const SaBest& b) {
+  SaBest r = b.x > a.x || (b.x == a.x && b.i < a.i) ? b : a;
+  r.any = a.any | b.any;
+  return r;
+}
+
+struct SaMax {
+  GE_HD float operator()(float a, float b) const { return b > a ? b : a; }
+};
+struct SaAdd {
+  GE_HD float operator()(float a, float b) const { return a + b; }
+};
+
+// Calls f(G, MODE) for A choices a row in `mode`, each an
+// std::integral_constant: lanes a row and the mode, so that a build holds
+// neither as a branch.
+template <class F>
+void sa_widths(int A, int mode, F&& f) {
+  using std::integral_constant;
+  auto at = [&](auto g) {
+    if (mode == SA_UNIFORM) return f(g, integral_constant<int, SA_UNIFORM>());
+    if (mode == SA_GUMBEL) return f(g, integral_constant<int, SA_GUMBEL>());
+    return f(g, integral_constant<int, SA_GREEDY>());
+  };
+  if (A > 16 * SA_SPAN) return at(integral_constant<int, 32>());
+  if (A > 8 * SA_SPAN) return at(integral_constant<int, 16>());
+  if (A > 4 * SA_SPAN) return at(integral_constant<int, 8>());
+  if (A > 2 * SA_SPAN) return at(integral_constant<int, 4>());
+  if (A > SA_SPAN) return at(integral_constant<int, 2>());
+  return at(integral_constant<int, 1>());
+}
+
+// Whether a lane's choices come in aligned loads of 4: A a multiple of 4,
+// the f32 inputs 16-byte and legal 4-byte aligned.
+inline bool sa_vec(int A, const float* logits, const uint8_t* legal, const float* noise) {
+  return A % 4 == 0 && (uintptr_t)logits % 16 == 0 && (uintptr_t)legal % 4 == 0 &&
+         (uintptr_t)noise % 16 == 0;
+}
+
+// 4 contiguous inputs from p: one 16-byte (f32) or 4-byte (legal) load on
+// the card
+GE_HD void sa_read4(const float* __restrict__ p, float* v) {
+#ifdef __CUDA_ARCH__
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+#else
+  memcpy(v, p, 4 * sizeof *v);
+#endif
+}
+
+GE_HD void sa_read4(const uint8_t* __restrict__ p, uint8_t* v) {
+#ifdef __CUDA_ARCH__
+  const uint32_t q = *reinterpret_cast<const uint32_t*>(p);
+  v[0] = q & 0xff; v[1] = (q >> 8) & 0xff; v[2] = (q >> 16) & 0xff; v[3] = q >> 24;
+#else
+  memcpy(v, p, 4);
+#endif
+}
+
+// Lane `lane`'s pass from choice c0 in MODE: reads its choices
+// c0 + SA_SPAN * lane + j below A once, every load issued before any is
+// used (aligned loads of 4 where `vec`), keeps their masked logits in m
+// (-inf past A) and their max in mx, and returns its draw over them.
+template <int MODE>
+GE_HD SaBest sa_load(const float* __restrict__ l, const uint8_t* __restrict__ ok,
+                     const float* __restrict__ z, int A, int c0, int lane, bool vec,
+                     float (&m)[SA_SPAN], float& mx) {
+  const int c = c0 + SA_SPAN * lane;
+  float lv[SA_SPAN] = {}, zv[SA_SPAN] = {};
+  uint8_t okv[SA_SPAN] = {};
+  GE_UNROLL
+  for (int q = 0; q < SA_SPAN; q += 4) {
+    if (vec && c + q < A) {
+      sa_read4(l + c + q, lv + q);
+      sa_read4(ok + c + q, okv + q);
+      if (MODE != SA_GREEDY) sa_read4(z + c + q, zv + q);
+    } else {
+      GE_UNROLL
+      for (int j = q; j < q + 4; ++j)
+        if (c + j < A) {
+          lv[j] = l[c + j];
+          okv[j] = ok[c + j];
+          if (MODE != SA_GREEDY) zv[j] = z[c + j];
+        }
+    }
   }
-  if (logp) {
-    float sum = 0.0f;
-    for (int c = 0; c < A; ++c) sum += expf((ok[c] ? l[c] : -1e9f) - mx);
-    logp[row] = ((ok[best] ? l[best] : -1e9f) - mx) - logf(sum);
+  // every choice's step is straight-line code, a choice past A masked by
+  // selects (its inputs zero), so that the choices' logf chains interleave
+  SaBest best = sa_none();
+  mx = -INFINITY;
+  GE_UNROLL
+  for (int j = 0; j < SA_SPAN; ++j) {
+    const bool in = c + j < A;
+    const int legal = in && okv[j] != 0;
+    const float mj = legal ? lv[j] : -1e9f;
+    float xv = mj;
+    if (MODE == SA_UNIFORM) xv = mj + gumbel_of(zv[j]);
+    else if (MODE == SA_GUMBEL) xv = mj + zv[j];
+    const SaBest picked = sa_pick(best, SaBest{xv, mj, c + j, legal});
+    best = in ? picked : best;
+    mx = in ? SaMax()(mx, mj) : mx;
+    m[j] = in ? mj : -INFINITY;
   }
-  const int32_t a = best + 1;
+  return best;
+}
+
+// A lane's part of a pass's sum: expf(m - mx) over its choices in order
+// (those past A add expf(-inf), 0).
+GE_HD float sa_exp_sum(const float (&m)[SA_SPAN], float mx) {
+  float s = 0.0f;
+  GE_UNROLL
+  for (int j = 0; j < SA_SPAN; ++j) s += expf(m[j] - mx);
+  return s;
+}
+
+// The softmax's running max M and sum S of expf(m - M) after a pass of
+// max cm and sum cs: the pass's own after the first (every row of at most
+// 32 * SA_SPAN choices), else both rescaled to the larger max.
+GE_HD void sa_fold(float& M, float& S, float cm, float cs, bool first) {
+  if (first) {
+    M = cm;
+    S = cs;
+    return;
+  }
+  const float n = SaMax()(M, cm);
+  S = S * expf(M - n) + cs * expf(cm - n);
+  M = n;
+}
+
+// What lane 0 of row `row` writes: the 1-based action, the actor-masked
+// action (`acting`: the row's actor byte, read before the draw so that its
+// load is not the last in the chain; greedy: also 0 where no choice is
+// legal) and the log-softmax of the masked logits at it; each output may
+// be null.
+template <int MODE>
+GE_HD void sa_write(const SaBest& best, float M, float S, bool acting, int32_t* actions,
+                    int32_t* masked, float* logp, int64_t row) {
+  const int32_t a = best.i + 1;
   if (actions) actions[row] = a;
-  if (masked) {
-    bool keep = actor == nullptr || actor[row] != 0;
-    if (mode == SA_GREEDY) keep = keep && any_legal;
-    masked[row] = keep ? a : 0;
-  }
+  if (masked) masked[row] = acting && (MODE != SA_GREEDY || best.any) ? a : 0;
+  if (logp) logp[row] = (best.m - M) - logf(S);
 }
 
 }  // namespace ob

@@ -125,13 +125,13 @@ class Mesh:
     (under NCCL the NCCL kernels and the wait for the group's last rank),
     and to timing["collectives"] one."""
 
-    def __init__(self, devices, rank: int, device="cpu", backend: Optional[str] = None,
+    def __init__(self, devices, rank: int, device=D.DEFAULT, backend: Optional[str] = None,
                  row_groups=None, col_groups=None):
         self.devices = np.asarray(devices, dtype=np.int64).reshape(np.shape(devices))
         if self.devices.ndim != 2:
             raise ValueError(f"a mesh is a (data, model) grid, not {self.devices.shape}")
         self.rank = int(rank)
-        self.device = torch.device(device)
+        self.device = D.resolve(device)
         self.backend = backend
         self._rows = row_groups
         self._cols = col_groups

@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from game_engine_tpu_torch import device as D
 from game_engine_tpu_torch.core.engine import BatchedEngine
 from game_engine_tpu_torch.core.state import init_state
 from game_engine_tpu_torch.gamespec.compile import compile_game
@@ -51,7 +52,7 @@ def params_of(spec: dict, device) -> dict:
     return N.params_from_numpy(spec["params"], device=device)
 
 
-def start_of(spec: dict, device="cpu"):
+def start_of(spec: dict, device=D.DEFAULT):
     """All the rooms of the spec, on `device`."""
     lw = lowered_of(spec["game"])
     B = spec["rooms"]

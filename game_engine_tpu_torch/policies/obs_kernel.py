@@ -295,10 +295,11 @@ def _sample(kind: str, logits, legal, noise, actor, mode: str, run) -> tuple:
         noise = rooms_arg(noise, "noise", shape, torch.float32, dev)
     if actor is not None:
         actor = rooms_arg(actor, "actor", shape[:-1], torch.bool, dev)
-    actions = torch.empty(shape[:-1], dtype=torch.int32, device=dev)
-    masked = (torch.empty(shape[:-1], dtype=torch.int32, device=dev)
-              if actor is not None or greedy else None)
-    logp = None if greedy else torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+    # the three outputs are rows of one int32 buffer: one allocation a call
+    out = torch.empty((3,) + shape[:-1], dtype=torch.int32, device=dev)
+    actions = out[0]
+    masked = out[1] if actor is not None or greedy else None
+    logp = None if greedy else out[2].view(torch.float32)
     rows, A = actions.numel(), shape[-1]
     if rows:
         run(logits.data_ptr(), legal.data_ptr(), _ptr(noise), _ptr(actor), actions.data_ptr(),

@@ -249,10 +249,85 @@ def test_sample_matches_sample_actions_plain_on_the_same_uniforms():
         st = host_reset_done(lw, st)
 
 
+# choices a row on both sides of each lane-group width (1, 2, 4, 8, 16 and
+# 32 lanes of 8 choices) and of a warp's passes of 256, multiples of 4
+# (loads of 4) and not
+SAMPLE_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 9, 16, 17, 31, 32, 33, 64, 65, 72, 73, 100, 128, 129,
+                 256, 257, 300)
+
+
+def lane_group_inputs(A: int, seed: int) -> tuple:
+    """(logits, legal, uniforms, actor) over 37 rows of A choices from a
+    numpy seed (37: no multiple of a warp's 2, 4, 8, 16 or 32 rows), with
+    the edges forced: row 0 has no legal choice and a zero uniform; rows 1
+    and 2 have every logit and uniform equal (all legal, then some); rows 3
+    to 5 hold the same largest value at two indices: lanes apart, in one
+    lane's choices, and in two passes."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((37, A)).astype(np.float32)
+    legal = rng.random((37, A)) < 0.6
+    u = rng.random((37, A)).astype(np.float32)
+    legal[0] = False
+    u[0, A // 2] = 0.0
+    legal[1] = True
+    logits[1:3] = 0.25
+    u[1:3] = u[1:3, :1]
+    for row, (i, j) in zip((3, 4, 5), ((A // 3, A - 1), (1, 3), (5, 261))):
+        if i < j < A:
+            legal[row, [i, j]] = True
+            logits[row, [i, j]] = 50.0
+            u[row, [i, j]] = 0.75
+    actor = rng.random(37) < 0.5
+    return (torch.as_tensor(logits), torch.as_tensor(legal), torch.as_tensor(u),
+            torch.as_tensor(actor))
+
+
+@pytest.mark.parametrize("A", SAMPLE_WIDTHS)
+def test_sample_lane_groups(A):
+    """The kernel's body at every lane-group width (host_sample runs a row's
+    lanes through the kernel's butterflies) against the plain draw, in the
+    three modes, with the actor mask and without: actions and actor-masked
+    actions exact (ties to the first index), logp within 1e-6."""
+    logits, legal, u, actor = lane_group_inputs(A, A)
+    g = -torch.log(-torch.log(u.clamp_min(TINY)))
+    ra, rlogp = N.draw_plain(logits, legal, g)
+    for mode, noise in (("uniform", u), ("gumbel", g)):
+        for who in (actor, None):
+            a, acting, logp = host_sample(logits, legal, noise, who, mode=mode)
+            assert_bitwise(a, ra, f"{mode} actions")
+            if who is None:
+                assert acting is None
+            else:
+                assert_bitwise(acting, torch.where(who, ra, 0), f"{mode} actor-masked")
+            assert float((logp - rlogp).abs().max()) <= 1e-6, mode
+    ga = first_argmax(torch.where(legal, logits, -1e9)).to(torch.int32) + 1
+    for who in (actor, None):
+        a, greedy, logp = host_sample(logits, legal, actor=who, mode="greedy")
+        keep = legal.any(-1) if who is None else legal.any(-1) & who
+        assert_bitwise(a, ga, "greedy actions")
+        assert_bitwise(greedy, torch.where(keep, ga, 0), "greedy masked")
+        assert logp is None
+    assert int(ra[0]) >= 1 and int(greedy[0]) == 0  # no legal choice: the noise alone, no act
+    if A % 4 == 0:  # inputs one element past an aligned start: read a choice at a time
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+            flat[1:] = t.reshape(-1)
+            return flat[1:].view(t.shape)
+
+        got = host_sample(shifted(logits), shifted(legal), shifted(u), actor)
+        for x, y in zip(got, host_sample(logits, legal, u, actor)):
+            assert_bitwise(x, y, "unaligned")
+    for row, (i, j) in ((1, (0, 1)), (3, (A // 3, A - 1)), (4, (1, 3)), (5, (5, 261))):
+        if i < j < A:
+            assert int(ra[row]) == i + 1 and int(ga[row]) == i + 1, (row, A)
+
+
 def test_sample_modes_and_edges():
-    """Rows with no legal choice (all logits at -1e9: the draw of the noise
-    alone, logp -log(A)), given Gumbel noise, a width past 64 choices, the
-    greedy mode without an actor mask, and the checks on bad input."""
+    """Batches of (rooms, seats) rows with no legal choice (all logits at
+    -1e9: the draw of the noise alone, logp -log(A)) and a zero uniform,
+    against the plain draw and the greedy body, and the checks on bad
+    input. The "gumbel" mode and the greedy mode without an actor mask at
+    these widths are test_sample_lane_groups' cases."""
     rng = np.random.default_rng(11)
     for A in (1, 8, 73):
         legal = torch.as_tensor(rng.random((5, 4, A)) < 0.5)
@@ -262,14 +337,7 @@ def test_sample_modes_and_edges():
         u[1, 1] = 0.0  # clamped to the least normal float
         actor = torch.as_tensor(rng.random((5, 4)) < 0.5)
         hold_sample(logits, legal, u, actor, torch.ones(5, 4, dtype=torch.bool), f"A={A}")
-        g = -torch.log(-torch.log(u.clamp_min(TINY)))
-        a, none, logp = host_sample(logits, legal, g, mode="gumbel")
-        ra, rlogp = N.draw_plain(logits, legal, g)
-        assert none is None and torch.equal(a, ra)
-        assert float((logp - rlogp).abs().max()) <= 1e-6
-        greedy = host_sample(logits, legal, mode="greedy")[1]
-        ga = first_argmax(torch.where(legal, logits, -1e9)).to(torch.int32) + 1
-        assert torch.equal(greedy, torch.where(legal.any(-1), ga, 0))
+        assert float((host_sample(logits, legal, u)[2][0] + np.log(A)).abs().max()) <= 1e-6
     with pytest.raises(ValueError, match="legal must be"):
         host_sample(logits, legal[..., :1], u)
     with pytest.raises(ValueError, match="noise must be"):
@@ -278,6 +346,68 @@ def test_sample_modes_and_edges():
         host_sample(logits, legal, u, mode="greedy")
     with pytest.raises(ValueError, match="mode must be"):
         host_sample(logits, legal, u, mode="top_k")
+
+
+@pytest.mark.parametrize("mode", ["uniform", "gumbel", "greedy"])
+def test_sample_outputs_of_one_buffer(mode):
+    """The wrapper's three outputs are rows of one buffer: each has the
+    callers' shape and dtype, is contiguous, and writing one moves no
+    other; the ones a mode does not return are None, as before."""
+    rng = np.random.default_rng(5)
+    for batch in ((3, 4), (7,), ()):
+        logits = torch.as_tensor(rng.standard_normal(batch + (6,)).astype(np.float32))
+        legal = torch.as_tensor(rng.random(batch + (6,)) < 0.7)
+        noise = None if mode == "greedy" else torch.as_tensor(
+            rng.random(batch + (6,)).astype(np.float32))
+        actor = torch.ones(batch, dtype=torch.bool)
+        a, masked, logp = host_sample(logits, legal, noise, actor, mode=mode)
+        assert (logp is None) == (mode == "greedy")
+        outs = [x for x in (a, masked, logp) if x is not None]
+        for x, dtype in zip(outs, (torch.int32, torch.int32, torch.float32)):
+            assert x.shape == batch and x.dtype == dtype and x.is_contiguous()
+        before = [x.clone() for x in outs]
+        for k, x in enumerate(outs):
+            x.fill_(-7)
+            for y, was in zip(outs[k + 1:], before[k + 1:]):
+                assert torch.equal(y, was), (mode, batch, k)
+        if mode != "greedy":
+            assert host_sample(logits, legal, noise, mode=mode)[1] is None
+
+
+@pytest.mark.parametrize("seats", [8, 72])
+def test_sample_matches_jax_sample_actions_on_its_gumbel_noise(seats):
+    """host_sample in the "gumbel" mode fed the Gumbel noise that
+    jax.random.categorical draws from the key of the JAX package's
+    sample_actions, on logits from a numpy seed (every third room's all
+    equal) and the legal masks of JAX states along a scripted rollout:
+    actions exact, logp within 1e-6 of JAX's."""
+    pair = lowered_game("werewolf") if seats == 8 else wide_pair(seats)
+    lw, jlw = pair.port, pair.jax
+    A, B, rng = N.action_space(lw), 4, np.random.default_rng(seats)
+    assert A == seats
+    eng = JaxBatchedEngine(jlw)
+
+    @jax.jit
+    def draw(jst, key, logits):
+        got = JN.sample_actions(jlw, None, jst, key, None, obs=jnp.zeros(()),
+                                apply_fn=lambda p, o: (logits, logits[..., 0]))
+        return got, jax.random.gumbel(key, logits.shape, jnp.float32)
+
+    jst = jax_init_state(jlw, B, seats, rng.integers(0, 2 ** 32, B, dtype=np.uint64)
+                         .astype(np.uint32))
+    for t in range(4):
+        logits = rng.standard_normal((B, seats, A)).astype(np.float32)
+        logits[::3] = 0.5
+        (ja, jlogp, _, jlegal), noise = draw(jst, jax.random.PRNGKey(t), jnp.asarray(logits))
+        ja, jlegal, noise = np.array(ja), np.array(jlegal), np.array(noise)
+        # the noise is the one categorical drew: its first argmax is JAX's draw
+        np.testing.assert_array_equal(
+            np.argmax(np.where(jlegal, logits, np.float32(-1e9)) + noise, -1) + 1, ja)
+        a, _, logp = host_sample(torch.as_tensor(logits), torch.as_tensor(jlegal),
+                                 torch.as_tensor(noise), mode="gumbel")
+        np.testing.assert_array_equal(a.numpy(), ja)
+        assert float(np.abs(logp.numpy() - np.asarray(jlogp)).max()) <= 1e-6, t
+        jst = eng.step(jst, eng.bot_actions(jst))
 
 
 @pytest.mark.parametrize("name", ["werewolf", "cult-of-the-depths", "bounty-arena"])

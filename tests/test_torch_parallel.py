@@ -104,7 +104,7 @@ def _rank_of(jmesh, device) -> int:
 
 
 def _port_mesh(jmesh, rank: int) -> M.Mesh:
-    return M.Mesh(np.arange(jmesh.devices.size).reshape(jmesh.devices.shape), rank)
+    return M.Mesh(np.arange(jmesh.devices.size).reshape(jmesh.devices.shape), rank, device="cpu")
 
 
 @pytest.mark.parametrize("grid", [(4, 2), (8, 1)], ids=["4x2", "8x1"])
@@ -145,11 +145,12 @@ def test_state_sharding_equals_jax_shards(ww, grid):
 
 
 def test_sharding_refuses_an_uneven_split(pww):
-    mesh = M.Mesh(np.arange(4).reshape(4, 1), 1)
+    mesh = M.Mesh(np.arange(4).reshape(4, 1), 1, device="cpu")
     with pytest.raises(ValueError, match="does not split evenly"):
         M.state_sharding(mesh, init_state(pww, 6, 6, 0, device="cpu"))
     with pytest.raises(ValueError, match="does not split evenly"):
-        M.params_sharding(M.Mesh(np.arange(6).reshape(2, 3), 0), {"w0": torch.zeros(4, 8)})
+        M.params_sharding(M.Mesh(np.arange(6).reshape(2, 3), 0, device="cpu"),
+                          {"w0": torch.zeros(4, 8)})
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +161,7 @@ def test_sharding_refuses_an_uneven_split(pww):
 def test_engine_dp_equals_one_process(game, ranks):
     spec = {"game": game, "rooms": 16, "seats": 6, "steps": 60, "device": "cpu"}
     out = run_ranks(parity.engine_rollout, ranks, spec, device="cpu")
-    ref, ref_eps = make_rollout(parity.lowered_of(game), 60)(parity.start_of(spec))
+    ref, ref_eps = make_rollout(parity.lowered_of(game), 60)(parity.start_of(spec, "cpu"))
     assert [r["coords"] for r in out] == [(r, 0) for r in range(ranks)]
     assert int(ref_eps) > 0, "no episodes completed in the test window"
     for f, want in zip(GameState._fields, ref):
@@ -390,7 +391,7 @@ def test_dp1_through_the_mesh_is_todays_train_step(pww, world_of_one, fused):
     for m in (None, mesh):
         params = N.params_from_numpy(spec["params"], device="cpu")
         opt = P.make_optimizer(params, cfg)
-        state = parity.start_of(spec)
+        state = parity.start_of(spec, "cpu")
         gen = torch.Generator().manual_seed(spec["gen_seed"])
         step = P.make_train_step(pww, cfg, m)
         metrics = []

@@ -112,7 +112,8 @@ def _sharded(actors: int, learners: int, rounds: int = 2):
     cfg = parity.config_of(spec)
     out = run_ranks(parity.pipeline, actors + learners, spec, device="cpu")
     ref_params, ref_opt = _fresh(params, cfg)
-    ref_state, ref_metrics = run_pipelined(pw, cfg, ref_params, ref_opt, parity.start_of(spec),
+    ref_state, ref_metrics = run_pipelined(pw, cfg, ref_params, ref_opt,
+                                           parity.start_of(spec, "cpu"),
                                            torch.Generator().manual_seed(1), rounds,
                                            device="cpu")
     assert [r["role"] for r in out] == ["actor"] * actors + ["learner"] * learners

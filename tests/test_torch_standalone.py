@@ -99,6 +99,7 @@ ENTRY_POINTS = [
     (EX.run_exploit, "device"), (LM.init_params, "device"), (LM.params_from_numpy, "device"),
     (LM.load, "device"), (LM.make_lm_hook, "device"),
     (M.make_mesh, "device"), (M.mesh_over, "device"), (M.initialize_multihost, "device"),
+    (M.Mesh.__init__, "device"), (parity.start_of, "device"),
     (run_ranks, "device"), (submeshes, "device"), (G.entry, "device"),
     (G.dryrun_multichip, "device"), (G._scaling_curve, "device"),
 ]
@@ -177,6 +178,8 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: TLM.main(["--steps", "1"]),
         lambda: ECP.main(["--no-lm"]),
         lambda: M.make_mesh(),
+        lambda: M.Mesh(np.zeros((1, 1)), 0),
+        lambda: parity.start_of({"game": "werewolf", "rooms": 2, "seats": 6}),
         lambda: M.initialize_multihost("localhost:29500", 2, 0),
         lambda: run_ranks(parity.engine_rollout, 2, {}),
         lambda: G.entry(),
