@@ -12,6 +12,9 @@ edit to any source or header rebuilds.
 A failed build raises with the compiler's output. Builds are serialised
 within a process (threads of the HTTP server may ask for the same library
 at once) and written to a per-process temporary file across processes.
+``libs_ready`` records each library this process made ready, with when and
+how long it took and whether it was built or only found and loaded;
+``build_log`` gives a built library's compiler report.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -86,6 +90,22 @@ def lib_path(src: str, stem: str, cmd_prefix: list, csrc: str | None = None) -> 
 
 
 _BUILD_LOCK = threading.RLock()
+# each library this process made ready, once: {"stem", "built" (compiled
+# here, not found built), "spans" (perf_counter (start, end) of finding or
+# compiling it and of loading it; builds run at once overlap), "seconds"
+# (the sum of its spans)}
+libs_ready: list = []
+
+
+def _note(stem: str, t0: float, built: bool) -> None:
+    t1 = time.perf_counter()
+    rec = next((r for r in libs_ready if r["stem"] == stem), None)
+    if rec is None:
+        rec = {"stem": stem, "built": False, "spans": [], "seconds": 0.0}
+        libs_ready.append(rec)
+    rec["built"] = rec["built"] or built
+    rec["spans"].append((t0, t1))
+    rec["seconds"] += t1 - t0
 
 
 def _compile_all(jobs: list) -> list:
@@ -100,17 +120,19 @@ def _compile_locked(jobs: list) -> list:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, running = [], []
     for src, stem, cmd_prefix in jobs:
+        t0 = time.perf_counter()
         so = lib_path(src, stem, cmd_prefix)
         paths.append(so)
         if os.path.exists(so):
+            _note(stem, t0, False)
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = cmd_prefix + ["-I", _CSRC, src, "-o", tmp]
         err = tempfile.TemporaryFile(mode="w+")
-        running.append((so, tmp, cmd, err,
+        running.append((stem, t0, so, tmp, cmd, err,
                         subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err, text=True)))
     failures = []
-    for so, tmp, cmd, err, proc in running:
+    for stem, t0, so, tmp, cmd, err, proc in running:
         try:
             rc = proc.wait(timeout=600)
         except subprocess.TimeoutExpired:
@@ -129,9 +151,21 @@ def _compile_locked(jobs: list) -> list:
         with open(so[:-3] + ".log", "w") as f:
             f.write(log)
         os.replace(tmp, so)
+        _note(stem, t0, True)
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+def _load(job: tuple) -> ctypes.CDLL:
+    """The library of one (src, stem, cmd_prefix) job, found or built, then
+    loaded; both noted in libs_ready."""
+    with _BUILD_LOCK:
+        path = _compile_all([job])[0]
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(path)
+        _note(job[1], t0, False)
+        return lib
 
 
 def _nvcc_path() -> str:
@@ -178,7 +212,7 @@ def _rollout_lib(profile: bool) -> ctypes.CDLL:
     job = _cuda_jobs()[0]
     if profile:
         job = (job[0], "librollout_profile", job[2] + ["-DGE_PROFILE"])
-    lib = _rollout_common(ctypes.CDLL(_compile_all([job])[0]))
+    lib = _rollout_common(_load(job))
     lib.ge_plan.restype = _I
     lib.ge_plan.argtypes = [_P, _I, _I64, _I, _P]  # game on the host, game_len, B, threads, out
     lib.ge_error_string.restype = ctypes.c_char_p
@@ -216,8 +250,8 @@ def profile_lib() -> ctypes.CDLL:
 
 
 def _host_rollout_lib(stem: str, flags: list) -> ctypes.CDLL:
-    lib = _rollout_common(ctypes.CDLL(_compile_all([(
-        os.path.join(_CSRC, "rollout_host.cpp"), stem, _GXX_CMD + flags)])[0]))
+    lib = _rollout_common(_load((
+        os.path.join(_CSRC, "rollout_host.cpp"), stem, _GXX_CMD + flags)))
     lib.ge_rollout_host.restype = _I
     lib.ge_rollout_host.argtypes = [_P, _I] + _ROLLOUT_ARGS  # game, game_len, ...
     for name, args in _ST_ENTRIES:
@@ -267,7 +301,7 @@ def _lossgrad_common(lib: ctypes.CDLL, suffix: str, tail: list) -> ctypes.CDLL:
 def lossgrad_lib() -> ctypes.CDLL:
     """csrc/lossgrad.cu (the tensor-core pipelines of K2, K3 and K4) built
     with nvcc for sm_90a, loaded."""
-    lib = _lossgrad_common(ctypes.CDLL(_compile_all([_cuda_jobs()[1]])[0]), "", [_P])  # stream
+    lib = _lossgrad_common(_load(_cuda_jobs()[1]), "", [_P])  # stream
     lib.lg_error_string.restype = ctypes.c_char_p
     lib.lg_error_string.argtypes = [_I]
     return lib
@@ -277,16 +311,15 @@ def lossgrad_lib() -> ctypes.CDLL:
 def lossgrad_host_lib() -> ctypes.CDLL:
     """csrc/lossgrad_host.cpp (the pipelines with plain-loop products)
     built with g++."""
-    return _lossgrad_common(ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "lossgrad_host.cpp"),
-                                                       "liblossgrad_host", _GXX_CMD)])[0]),
-                            "_host", [])
+    return _lossgrad_common(_load((os.path.join(_CSRC, "lossgrad_host.cpp"),
+                                   "liblossgrad_host", _GXX_CMD)), "_host", [])
 
 
 def _search_cuda(profile: bool) -> ctypes.CDLL:
     job = _cuda_jobs()[2]
     if profile:
         job = (job[0], "libsearch_profile", job[2] + ["-DGE_PROFILE"])
-    lib = _rollout_common(ctypes.CDLL(_compile_all([job])[0]))
+    lib = _rollout_common(_load(job))
     # game on the host, len, N, threads, out
     lib.ge_search_plan.restype = _I
     lib.ge_search_plan.argtypes = [_P, _I, _I64, _I, _P]
@@ -319,8 +352,8 @@ def search_profile_lib() -> ctypes.CDLL:
 
 
 def _host_search_lib(stem: str, flags: list) -> ctypes.CDLL:
-    lib = _rollout_common(ctypes.CDLL(_compile_all([(
-        os.path.join(_CSRC, "search_host.cpp"), stem, _GXX_CMD + flags)])[0]))
+    lib = _rollout_common(_load((
+        os.path.join(_CSRC, "search_host.cpp"), stem, _GXX_CMD + flags)))
     lib.ge_search_host.restype = _I
     lib.ge_search_host.argtypes = [_P, _I] + _SEARCH_ARGS + [_P]  # game, game_len, ..., steps
     lib.ge_search_decide_host.restype = _I
@@ -359,7 +392,7 @@ def _chat_decode_cuda(profile: bool) -> ctypes.CDLL:
     job = _cuda_jobs()[3]
     if profile:
         job = (job[0], "libchat_decode_profile", job[2] + ["-DCD_PROFILE"])
-    lib = _chat_decode_common(ctypes.CDLL(_compile_all([job])[0]))
+    lib = _chat_decode_common(_load(job))
     if profile:
         lib.cd_profile_read.restype = _I
         lib.cd_profile_read.argtypes = [_P, _I]  # out, reset
@@ -392,8 +425,8 @@ def chat_decode_profile_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def chat_decode_host_lib() -> ctypes.CDLL:
     """csrc/chat_decode_host.cpp (the decode programs' twin) built with g++."""
-    lib = _chat_decode_common(ctypes.CDLL(_compile_all([(
-        os.path.join(_CSRC, "chat_decode_host.cpp"), "libchat_decode_host", _GXX_CMD)])[0]))
+    lib = _chat_decode_common(_load((
+        os.path.join(_CSRC, "chat_decode_host.cpp"), "libchat_decode_host", _GXX_CMD)))
     lib.cd_decode_host.restype = _I
     lib.cd_decode_host.argtypes = _CD_ARGS + [_P, _I, _P]  # rows, n_rows, scratch
     return lib
@@ -403,7 +436,7 @@ def _observe_cuda(profile: bool) -> ctypes.CDLL:
     job = _cuda_jobs()[4]
     if profile:
         job = (job[0], "libobserve_profile", job[2] + ["-DGE_PROFILE"])
-    lib = ctypes.CDLL(_compile_all([job])[0])
+    lib = _load(job)
     if profile:
         lib.ob_observe_sections.restype = None
         lib.ob_observe_sections.argtypes = [_P]  # prof on the device, or null
@@ -440,8 +473,7 @@ def observe_profile_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def observe_host_lib() -> ctypes.CDLL:
     """csrc/observe_host.cpp (OB's and SA's bodies) built with g++."""
-    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "observe_host.cpp"), "libobserve_host",
-                                     _GXX_CMD)])[0])
+    lib = _load((os.path.join(_CSRC, "observe_host.cpp"), "libobserve_host", _GXX_CMD))
     lib.ob_observe_host.restype = _I
     lib.ob_observe_host.argtypes = [_P, _P, _I] + _OB_ARGS + [_I]  # game, table, len, ..., R
     lib.ob_rewards_host.restype = _I
@@ -459,8 +491,7 @@ def gamesim_lib() -> ctypes.CDLL:
     """csrc/gamesim.cpp (the native per-room simulator, a copy of the JAX
     package's) built with g++ -O3 and loaded, its entries typed; raises with
     the compiler's output when the build fails."""
-    lib = ctypes.CDLL(_compile_all([(os.path.join(_CSRC, "gamesim.cpp"), "libgamesim",
-                                     GAMESIM_CMD)])[0])
+    lib = _load((os.path.join(_CSRC, "gamesim.cpp"), "libgamesim", GAMESIM_CMD))
     lib.gs_create.restype = _P
     lib.gs_create.argtypes = [_P, _I64]
     lib.gs_destroy.argtypes = [_P]

@@ -25,6 +25,7 @@ from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.native.pack import pack
 from game_engine_tpu_torch import _build
 from game_engine_tpu_torch.core.state import _DTYPES, M32, GameState, tables
+from game_engine_tpu_torch.utils.metrics import span
 
 _I32 = torch.int32
 _DIR_LEN = 16        # room_step.cuh DIR_LEN
@@ -217,19 +218,21 @@ def _launch(lib, lowered: Lowered, state: GameState, num_steps: int, auto_reset:
                          f"in [{MIN_THREADS}, 1024]")
     if num_steps <= 0 or state.batch == 0:
         raise ValueError(f"nothing to launch: {state.batch} rooms, {num_steps} steps")
-    check_state(lowered, state)
-    game, game_host = _game_arrays(lowered, device)
-    arrs = to_minor(state)
-    eps = torch.empty(state.batch, dtype=_I32, device=device)
-    args = [game.data_ptr(), game_host.ctypes.data, game.numel(),
-            *_args(game, arrs, eps, device), state.batch, num_steps, int(auto_reset),
-            threads_per_block]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if prof is None:
-            err = lib.ge_rollout(*args, stream)
-        else:
-            err = lib.ge_rollout_profile(*args, prof.data_ptr(), stream)
+    with span("ge.K1.to_minor"):
+        check_state(lowered, state)
+        game, game_host = _game_arrays(lowered, device)
+        arrs = to_minor(state)
+    with span("ge.K1.launch"):
+        eps = torch.empty(state.batch, dtype=_I32, device=device)
+        args = [game.data_ptr(), game_host.ctypes.data, game.numel(),
+                *_args(game, arrs, eps, device), state.batch, num_steps, int(auto_reset),
+                threads_per_block]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if prof is None:
+                err = lib.ge_rollout(*args, stream)
+            else:
+                err = lib.ge_rollout_profile(*args, prof.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("rollout kernel launch failed: "
                            + lib.ge_error_string(err).decode())
@@ -242,15 +245,20 @@ def kernel_rollout(lowered: Lowered, state: GameState, num_steps: int,
     rollout kernel -> (state, episodes). CUDA tensors only; raises on bad
     input or a refused launch. Bit-identical to engine.make_rollout. A game
     whose rooms do not fit a block of threads_per_block lanes in shared
-    memory gets the largest halving of it that fits."""
-    _require_cuda(state)
-    if num_steps >= 0 and (state.batch == 0 or num_steps == 0):
-        check_state(lowered, state)
-        return state, torch.zeros((), dtype=torch.int64, device=state.present.device)
-    arrs, eps = _launch(_build.cuda_lib(), lowered, state, num_steps, auto_reset,
-                        threads_per_block)
-    kernel_rollout.launches += 1
-    return from_minor(arrs), eps.sum(dtype=torch.int64)
+    memory gets the largest halving of it that fits. Spans: ge.entry.K1
+    over the call, and within it ge.K1.to_minor (the checks, the game's
+    arrays, the layout conversion), ge.K1.launch and ge.K1.from_minor (the
+    conversion back and the episode sum)."""
+    with span("ge.entry.K1"):
+        _require_cuda(state)
+        if num_steps >= 0 and (state.batch == 0 or num_steps == 0):
+            check_state(lowered, state)
+            return state, torch.zeros((), dtype=torch.int64, device=state.present.device)
+        arrs, eps = _launch(_build.cuda_lib(), lowered, state, num_steps, auto_reset,
+                            threads_per_block)
+        kernel_rollout.launches += 1
+        with span("ge.K1.from_minor"):
+            return from_minor(arrs), eps.sum(dtype=torch.int64)
 
 
 kernel_rollout.launches = 0

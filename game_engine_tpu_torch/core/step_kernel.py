@@ -16,15 +16,15 @@ around the launch.
 ``kernel_step``, ``kernel_reset_done``, ``kernel_bot_actions`` and
 ``kernel_step_reset`` take CUDA tensors, launch on torch's current stream
 (inside the tensors' card guard when another card is current), count their
-launches, and make no host-device synchronisation: the launch is sized by a
-plan that the card is asked for once per (game, batch, card) and that is
-cached with the game's tables, as is what each launch passes. ``host_*``
-run the same block body built with g++ on CPU tensors (the CPU tests' view
-of the kernel's logic); ``count_step`` counts one step's interpreter
-operations through the -DGE_COUNT build and ``profile_step`` times an
-entry's block sections through the -DGE_PROFILE build. Bad input, a device
-that is neither CUDA nor CPU and a refused launch raise; nothing falls back
-to the plain step.
+launches, run inside the span ge.entry.ST, and make no host-device
+synchronisation: the launch is sized by a plan that the card is asked for
+once per (game, batch, card) and that is cached with the game's tables, as
+is what each launch passes. ``host_*`` run the same block body built with
+g++ on CPU tensors (the CPU tests' view of the kernel's logic);
+``count_step`` counts one step's interpreter operations through the
+-DGE_COUNT build and ``profile_step`` times an entry's block sections
+through the -DGE_PROFILE build. Bad input, a device that is neither CUDA
+nor CPU and a refused launch raise; nothing falls back to the plain step.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from game_engine_tpu_torch.core.entry_args import (
 from game_engine_tpu_torch.core.rollout_kernel import COUNT_NAMES, COUNT_OPS, _game_arrays
 from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.gamespec.tables import Lowered
+from game_engine_tpu_torch.utils.metrics import span
 
 THREADS = 128  # lanes a block asked of the plan, as kernel_rollout asks
 # rooms a block of the g++ build (the card's: a block's lanes over a room's)
@@ -211,9 +212,10 @@ def kernel_step(lowered: Lowered, state: GameState, actions: torch.Tensor,
     the (B,) bool `keep` mask are copied through unchanged. Bit-identical
     to core/step.py make_step (and the seed, an int64, comes out as its
     uint32). CUDA tensors only."""
-    out = _step(_launch, "cuda", lowered, state, actions, keep)
-    kernel_step.launches += state.batch > 0
-    return out
+    with span("ge.entry.ST"):
+        out = _step(_launch, "cuda", lowered, state, actions, keep)
+        kernel_step.launches += state.batch > 0
+        return out
 
 
 def kernel_step_reset(lowered: Lowered, state: GameState, actions: torch.Tensor,
@@ -227,9 +229,10 @@ def kernel_step_reset(lowered: Lowered, state: GameState, actions: torch.Tensor,
     shares no field with `state`, receives the result in place of a new
     one (the unrolls pass the state they are done with). CUDA tensors
     only."""
-    res = _step_reset(_launch, "cuda", lowered, state, actions, rewards, out)
-    kernel_step_reset.launches += state.batch > 0
-    return res
+    with span("ge.entry.ST"):
+        res = _step_reset(_launch, "cuda", lowered, state, actions, rewards, out)
+        kernel_step_reset.launches += state.batch > 0
+        return res
 
 
 def kernel_reset_done(lowered: Lowered, state: GameState) -> GameState:
@@ -237,17 +240,19 @@ def kernel_reset_done(lowered: Lowered, state: GameState) -> GameState:
     seats, the seed splitmix32(seed ^ 0xDECAF000)), the rest unchanged, in
     one ST launch: a new GameState, bit-identical to
     engine.reset_where_done. CUDA tensors only."""
-    out = _reset_done(_launch, "cuda", lowered, state)
-    kernel_reset_done.launches += state.batch > 0
-    return out
+    with span("ge.entry.ST"):
+        out = _reset_done(_launch, "cuda", lowered, state)
+        kernel_reset_done.launches += state.batch > 0
+        return out
 
 
 def kernel_bot_actions(lowered: Lowered, state: GameState) -> torch.Tensor:
     """The scripted bots' (B, P) int32 actions in one ST launch,
     bit-identical to engine.scripted_actions. CUDA tensors only."""
-    out = _bot_actions(_launch, "cuda", lowered, state)
-    kernel_bot_actions.launches += state.batch > 0
-    return out
+    with span("ge.entry.ST"):
+        out = _bot_actions(_launch, "cuda", lowered, state)
+        kernel_bot_actions.launches += state.batch > 0
+        return out
 
 
 kernel_step.launches = 0

@@ -36,7 +36,9 @@ follows _fwd_body's cast points (K2), autograd through it is K3's, and
 or raises; ``host_forward``, ``host_grads`` and ``host_loss_grads`` run the
 kernels' own stages built with g++ on CPU tensors (plain-loop products,
 csrc/lossgrad_host.cpp). Each kernel wrapper counts its launches in
-``<wrapper>.launches``; ``kernel_plan`` reports their chunks and scratch.
+``<wrapper>.launches``, and K2's and K4's run inside the spans
+ge.entry.K2 and ge.entry.K4; ``kernel_plan`` reports their chunks and
+scratch.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch import _build
 from game_engine_tpu_torch.policies import net as N
 from game_engine_tpu_torch.policies.net import bf, gelu
+from game_engine_tpu_torch.utils.metrics import span
 
 _F32 = torch.float32
 MAX_PARAMS = 2 ** 31 - 1  # lossgrad.cuh addresses the flat parameters with int32 offsets
@@ -494,10 +497,11 @@ def _pipeline_grads(d: Dims, rows, rowin, params, ppo, chunk_rows: int, nsplit: 
 
 def kernel_forward(d: Dims, rows: torch.Tensor, params: dict):
     """K2 on CUDA rows (n, F) bf16 -> (logits (n, A), value (n,)) f32."""
-    _check_rows(d, rows, "cuda")
-    out = _pipeline_forward(d, rows, params, FWD_CHUNK_ROWS)
-    kernel_forward.launches += 1
-    return out
+    with span("ge.entry.K2"):
+        _check_rows(d, rows, "cuda")
+        out = _pipeline_forward(d, rows, params, FWD_CHUNK_ROWS)
+        kernel_forward.launches += 1
+        return out
 
 
 def kernel_grads(d: Dims, rows: torch.Tensor, dl: torch.Tensor, dv: torch.Tensor,
@@ -517,11 +521,13 @@ def kernel_loss_grads(d: Dims, rows: torch.Tensor, rowin: torch.Tensor, params: 
                       clip_eps: float, ent_coef: float):
     """K4 on CUDA rows and the pre-kernel rowin (see _loss_rows) ->
     (grads, stats [pg_loss, vf * v_loss, entropy, ratio_mean])."""
-    _check_rows(d, rows, "cuda")
-    _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
-    out = _pipeline_grads(d, rows, rowin, params, (clip_eps, ent_coef), CHUNK_ROWS, NSPLIT)
-    kernel_loss_grads.launches += 1
-    return out
+    with span("ge.entry.K4"):
+        _check_rows(d, rows, "cuda")
+        _check_f32(rowin, (rows.shape[0], 2 * d.A + 5), rows.device, "rowin")
+        out = _pipeline_grads(d, rows, rowin, params, (clip_eps, ent_coef), CHUNK_ROWS,
+                              NSPLIT)
+        kernel_loss_grads.launches += 1
+        return out
 
 
 for _fn in (kernel_forward, kernel_grads, kernel_loss_grads):

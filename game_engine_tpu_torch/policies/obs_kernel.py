@@ -13,7 +13,8 @@ rounding of log_softmax).
 
 ``kernel_observe``, ``kernel_rewards`` and ``kernel_sample`` take CUDA
 tensors, launch on torch's current stream inside the tensors' card guard,
-count their launches and make no host-device synchronisation: the game's
+count their launches, run inside the spans ge.entry.OB (the first two)
+and ge.entry.SA, and make no host-device synchronisation: the game's
 table (``ob_table``) is copied to each card once and cached with the
 game's tables. ``host_observe``, ``host_rewards`` and ``host_sample`` run
 the same bodies built with g++ (csrc/observe_host.cpp) on CPU tensors.
@@ -39,6 +40,7 @@ from game_engine_tpu_torch.core.state import GameState, tables
 from game_engine_tpu_torch.core.step_kernel import reward_rule
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
+from game_engine_tpu_torch.utils.metrics import span
 
 # csrc/observe.cuh's table layout
 HDR = 21
@@ -330,18 +332,20 @@ def kernel_observe(lowered: Lowered, state: GameState, masked: bool = True, obs:
     (the masked view, or the full room with masked=False),
     net.legal_action_mask_plain and net.actor_mask_plain, bit for bit. CUDA
     tensors only."""
-    out = _observe(_launch_observe, "cuda", lowered, state, masked, obs, legal, actor)
-    kernel_observe.launches += state.batch > 0 and (obs or legal or actor)
-    return out
+    with span("ge.entry.OB"):
+        out = _observe(_launch_observe, "cuda", lowered, state, masked, obs, legal, actor)
+        kernel_observe.launches += state.batch > 0 and (obs or legal or actor)
+        return out
 
 
 def kernel_rewards(lowered: Lowered, state: GameState, ended: torch.Tensor) -> torch.Tensor:
     """(B, P) f32 terminal rewards of the state after a step in OB's second
     mode (one launch): ppo.terminal_rewards_plain, bit for bit. CUDA
     tensors only."""
-    out = _rewards(_launch_rewards, "cuda", lowered, state, ended)
-    kernel_rewards.launches += state.batch > 0
-    return out
+    with span("ge.entry.OB"):
+        out = _rewards(_launch_rewards, "cuda", lowered, state, ended)
+        kernel_rewards.launches += state.batch > 0
+        return out
 
 
 def kernel_sample(logits: torch.Tensor, legal: torch.Tensor, noise: torch.Tensor | None = None,
@@ -355,9 +359,10 @@ def kernel_sample(logits: torch.Tensor, legal: torch.Tensor, noise: torch.Tensor
     "gumbel": the noise as it is; "greedy": no noise, no logp, and the
     masked actions are also 0 where no choice is legal (PolicyBots.greedy
     with actor = present). CUDA tensors only."""
-    out = _sample("cuda", logits, legal, noise, actor, mode, _launch_sample)
-    kernel_sample.launches += out[0].numel() > 0
-    return out
+    with span("ge.entry.SA"):
+        out = _sample("cuda", logits, legal, noise, actor, mode, _launch_sample)
+        kernel_sample.launches += out[0].numel() > 0
+        return out
 
 
 kernel_observe.launches = 0

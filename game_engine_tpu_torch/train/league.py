@@ -25,8 +25,9 @@ from game_engine_tpu_torch.core.engine import bot_actions, step_and_reset
 from game_engine_tpu_torch.core.state import GameState
 from game_engine_tpu_torch.gamespec.tables import Lowered
 from game_engine_tpu_torch.policies import net as N
-from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, _Clock, gae,
-                                             make_apply_fn, make_update, team_masks)
+from game_engine_tpu_torch.train.ppo import (PPOConfig, Rollout, gae, make_apply_fn,
+                                             make_update, team_masks)
+from game_engine_tpu_torch.utils.metrics import Clock
 
 
 @dataclasses.dataclass
@@ -171,7 +172,7 @@ def make_league_train_step(lowered: Lowered, cfg: PPOConfig, scripted_opponent: 
     def train_step(params, opp_params, opt: torch.optim.Optimizer, state: GameState,
                    generator=None, noise=None):
         dev = state.present.device
-        clock = _Clock(dev)
+        clock = Clock(dev)
         clock.mark()
         state, traj, won = unroll(params, opp_params, state, generator, noise)
         with torch.no_grad():

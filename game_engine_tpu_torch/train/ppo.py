@@ -45,7 +45,6 @@ A mesh of one rank runs the same arithmetic as no mesh, bit for bit.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import torch
@@ -63,6 +62,7 @@ from game_engine_tpu_torch.parallel.mesh import data_sums
 from game_engine_tpu_torch.policies import net as N
 # the actor mask is a predicate over the state (P2), kept beside the legal mask
 from game_engine_tpu_torch.policies.net import actor_mask, actor_mask_plain  # noqa: F401
+from game_engine_tpu_torch.utils.metrics import Clock, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,29 +255,6 @@ def make_loss_vg_fn(lowered: Lowered, cfg: PPOConfig, mesh=None):
     return loss_vg
 
 
-class _Clock:
-    """Milliseconds between marks: CUDA events on a GPU, the host clock on
-    the CPU."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans_ms(self) -> list:
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-
-
 def _sum_over_data(mesh, loss, metrics: dict, grads: list):
     """The rank's shares of the loss, metrics and gradients summed over the
     data group, in one collective."""
@@ -358,22 +335,25 @@ def make_train_step(lowered: Lowered, cfg: PPOConfig, mesh=None):
 
     def train_step(params, opt: torch.optim.Optimizer, state: GameState,
                    generator: torch.Generator):
-        clock = _Clock(state.present.device)
-        clock.mark()
-        state, traj = unroll(params, state, generator)
-        with torch.no_grad():
-            _, last_v = apply_fn(params, N.observe(lowered, state))
-        adv, ret = gae(traj, last_v, cfg)
-        clock.mark()
-        loss = torch.zeros((), device=state.present.device)  # epochs=0: rollout only
-        metrics = {}
-        for _ in range(cfg.epochs):
-            loss, metrics = update(params, opt, traj, adv, ret)
-        clock.mark()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        metrics.update(rollout_metrics(traj, mesh))
-        metrics["unroll_ms"], metrics["update_ms"] = clock.spans_ms()
+        with span("ge.train_step"):
+            clock = Clock(state.present.device)
+            clock.mark()
+            with span("ge.unroll"):
+                state, traj = unroll(params, state, generator)
+                with torch.no_grad():
+                    _, last_v = apply_fn(params, N.observe(lowered, state))
+                adv, ret = gae(traj, last_v, cfg)
+            clock.mark()
+            with span("ge.update"):
+                loss = torch.zeros((), device=state.present.device)  # epochs=0: rollout only
+                metrics = {}
+                for _ in range(cfg.epochs):
+                    loss, metrics = update(params, opt, traj, adv, ret)
+            clock.mark()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            metrics.update(rollout_metrics(traj, mesh))
+            metrics["unroll_ms"], metrics["update_ms"] = clock.spans_ms()
         return state, metrics
 
     return train_step

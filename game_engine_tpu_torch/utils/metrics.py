@@ -1,9 +1,10 @@
 """Metrics + tracing.
 
 Counterpart of game_engine_tpu/utils/metrics.py: on-device metric
-reductions over the rooms axis, a host-side throughput meter that waits
-for the card before it reads the clock, and a ``torch.profiler`` trace
-context for timeline profiling.
+reductions over the rooms axis; the program's spans (``span``: ranges in
+``torch.profiler``'s trace, free while no profiler records) and its
+train-step clock (``Clock``: CUDA events); and a ``torch.profiler`` trace
+context that writes the spans out with the card's timeline.
 """
 
 from __future__ import annotations
@@ -40,34 +41,41 @@ def room_metrics(lowered: Lowered, state: GameState) -> dict[str, torch.Tensor]:
     return out
 
 
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+_OFF = contextlib.nullcontext()  # span's one context while no profiler records
 
 
-class Throughput:
-    """Host-side steps/sec + episodes/sec meter. Where there is a card it
-    waits for the card's queued work before it reads the clock, so a report
-    counts the work, not its enqueueing."""
+def span(name: str):
+    """A range of the program's host code named `name` in torch.profiler's
+    trace, on the clock of the card's kernels there. While no profiler
+    records it returns one shared no-op context and makes no other call
+    into torch. The program's spans are named "ge.<layer>"; PERF.md lists
+    each with the metric that reads it."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
-    def __init__(self):
-        _sync()
-        self.t0 = time.perf_counter()
-        self.steps = 0
-        self.episodes = 0
 
-    def add(self, steps: int, episodes: int = 0) -> None:
-        self.steps += steps
-        self.episodes += episodes
+class Clock:
+    """Milliseconds between marks: CUDA events on a GPU, the host clock on
+    the CPU."""
 
-    def report(self) -> dict[str, float]:
-        _sync()
-        dt = max(time.perf_counter() - self.t0, 1e-9)
-        return {
-            "steps_per_sec": self.steps / dt,
-            "episodes_per_sec": self.episodes / dt,
-            "wall_s": dt,
-        }
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def spans_ms(self) -> list:
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
 @contextlib.contextmanager
